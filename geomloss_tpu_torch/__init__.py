@@ -1,0 +1,17 @@
+"""geomloss_tpu_torch — the PyTorch and CUDA port of geomloss_tpu.
+
+Same layout and module names as :mod:`geomloss_tpu`, PyTorch idiom
+inside: ``SamplesLoss`` is an ``nn.Module``, everything else is plain
+functions on tensors, gradients go through ``torch.autograd.Function``.
+The streaming pair-interaction kernels are hand-written CUDA for Hopper
+(``csrc/online_kernels.cu``), built with ``nvcc`` at first use.
+
+Ported so far: the Sinkhorn divergence on point clouds with the
+``tensorized`` and ``online`` backends. This package never imports JAX.
+"""
+
+__version__ = "0.3.1"
+
+from .models.samples_loss import SamplesLoss
+
+__all__ = ["SamplesLoss", "__version__"]

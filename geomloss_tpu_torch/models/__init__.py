@@ -1,0 +1,6 @@
+"""Front end and point-cloud Sinkhorn backends."""
+
+from .samples_loss import SamplesLoss
+from .sinkhorn_samples import sinkhorn_online, sinkhorn_tensorized
+
+__all__ = ["SamplesLoss", "sinkhorn_online", "sinkhorn_tensorized"]

@@ -1,0 +1,31 @@
+"""Costs, softmin operators and the online kernels."""
+
+from .costs import SQDIST_FLOOR, cost_routines, distances, halved_sqdist, squared_distances
+from .softmin import (
+    gibbs_apply,
+    gibbs_matvec,
+    lse_points,
+    lse_points_custom,
+    sinkhorn_step_points,
+    softmin_dense,
+    softmin_extrapolation,
+    softmin_extrapolation_sym,
+    softmin_points,
+)
+
+__all__ = [
+    "SQDIST_FLOOR",
+    "cost_routines",
+    "distances",
+    "halved_sqdist",
+    "squared_distances",
+    "gibbs_apply",
+    "gibbs_matvec",
+    "lse_points",
+    "lse_points_custom",
+    "sinkhorn_step_points",
+    "softmin_dense",
+    "softmin_extrapolation",
+    "softmin_extrapolation_sym",
+    "softmin_points",
+]

@@ -1,0 +1,243 @@
+r"""The symmetric Sinkhorn loop with epsilon-scaling — solver core.
+
+Counterpart of :mod:`geomloss_tpu.solvers.sinkhorn_loop`. The annealing
+schedule is a Python list; the iterations run as a Python loop under
+``torch.no_grad()`` (the envelope theorem: no autograd through the loop),
+followed by one differentiable last extrapolation with detached duals.
+
+Multiscale jumps and kernel truncation are not ported yet (ROADMAP,
+queue 1 item 7): passing them raises ``NotImplementedError``.
+"""
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from .annealing import dampening
+
+__all__ = [
+    "log_weights",
+    "unbalanced_weight",
+    "scal",
+    "sinkhorn_cost",
+    "sinkhorn_loop",
+]
+
+
+def log_weights(a):
+    """log(a) with zero/negative weights clamped to -100000."""
+    return torch.where(
+        a > 0, torch.log(torch.clamp(a, min=1e-30)), torch.full_like(a, -100000.0)
+    )
+
+
+def scal(a, f, batch=False):
+    """Weighted sum <a, f>."""
+    if batch:
+        B = a.shape[0]
+        return (a.reshape(B, -1) * f.reshape(B, -1)).sum(-1)
+    return torch.dot(a.reshape(-1), f.reshape(-1))
+
+
+class _ScaleFwBw(torch.autograd.Function):
+    """Multiply by ``fw`` in the forward pass and by ``bw`` in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, fw, bw):
+        ctx.bw = bw
+        return fw * x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bw * g, None, None
+
+
+def unbalanced_weight(x, *, eps, rho, mode="reference"):
+    r"""Scaling of exponentiated potentials in the unbalanced Sinkhorn cost.
+
+    ``mode="reference"`` (default) scales by ``rho + eps/2`` in both
+    directions, the reference's effective behaviour; ``mode="sejourne"``
+    scales by ``rho + eps/2`` forward and ``rho + eps`` backward
+    (Sejourne et al., arXiv:1910.12958, Prop. 12).
+    """
+    if mode == "reference":
+        return (rho + eps / 2) * x
+    if mode == "sejourne":
+        return _ScaleFwBw.apply(x, rho + eps / 2, rho + eps)
+    raise ValueError(f"Unknown unbalanced_weight mode: {mode!r}")
+
+
+def sinkhorn_cost(
+    eps,
+    rho,
+    a,
+    b,
+    f_aa,
+    g_bb,
+    g_ab,
+    f_ba,
+    batch=False,
+    debias=True,
+    potentials=False,
+    unbalanced_mode="reference",
+):
+    r"""Combine dual potentials into the Sinkhorn divergence value: the four
+    cases {debiased, biased} x {balanced, unbalanced}, plus the
+    ``potentials`` early exit."""
+    if potentials:
+        if debias:
+            return f_ba - f_aa, g_ab - g_bb
+        return f_ba, g_ab
+
+    def uw(v):
+        return unbalanced_weight(v, eps=eps, rho=rho, mode=unbalanced_mode)
+
+    if debias:
+        if rho is None:
+            return scal(a, f_ba - f_aa, batch=batch) + scal(
+                b, g_ab - g_bb, batch=batch
+            )
+        return scal(
+            a, uw(torch.exp(-f_aa / rho) - torch.exp(-f_ba / rho)), batch=batch
+        ) + scal(
+            b, uw(torch.exp(-g_bb / rho) - torch.exp(-g_ab / rho)), batch=batch
+        )
+    if rho is None:
+        return scal(a, f_ba, batch=batch) + scal(b, g_ab, batch=batch)
+    return scal(a, uw(1 - torch.exp(-f_ba / rho)), batch=batch) + scal(
+        b, uw(1 - torch.exp(-g_ab / rho)), batch=batch
+    )
+
+
+def _detach(C):
+    if isinstance(C, torch.Tensor):
+        return C.detach()
+    if isinstance(C, tuple):
+        return tuple(_detach(c) for c in C)
+    return C
+
+
+def sinkhorn_loop(
+    softmin: Callable,
+    a_log,
+    b_log,
+    C_xx,
+    C_yy,
+    C_xy,
+    C_yx,
+    eps_list: Sequence[float],
+    rho: Optional[float],
+    jumps: Sequence[int] = (),
+    kernel_truncation: Optional[Callable] = None,
+    debias: bool = True,
+    init_potentials=None,
+    fused_step: Optional[Callable] = None,
+    fused_last: Optional[Callable] = None,
+):
+    r"""Symmetric Sinkhorn loop with annealing (single scale).
+
+    Returns the four optimal dual potentials ``(f_aa, g_bb, g_ab, f_ba)``
+    (``None`` for the first two when ``debias=False``). Gradients only flow
+    through the final extrapolation.
+
+    ``softmin(eps, C, h)`` is the softmin of the backend. ``fused_step(eps,
+    C_ab, C_ba, a_log, b_log, f, g, sym=False)``, when given, replaces the
+    2 or 4 softmin calls of each iteration (and of the eps0 initialization)
+    by fused updates returning both raw softmin directions at once (one
+    direction, ``(S, None)``, when ``sym=True``). ``fused_last(eps,
+    damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log, f_ba, g_ab, f_aa, g_bb)``
+    replaces the differentiable last extrapolation.
+
+    ``init_potentials`` warm-starts the loop with a ``(f_ba, g_ab[, f_aa,
+    g_bb])`` tuple from a previous solve.
+    """
+    if list(jumps) or kernel_truncation is not None:
+        raise NotImplementedError(
+            "Multiscale jumps and kernel truncation are not ported yet "
+            "(ROADMAP.md, queue 1 item 7)."
+        )
+
+    with torch.no_grad():
+        a_log_d, b_log_d = a_log.detach(), b_log.detach()
+        C_xy_d, C_yx_d = _detach(C_xy), _detach(C_yx)
+        C_xx_d, C_yy_d = (_detach(C_xx), _detach(C_yy)) if debias else (None, None)
+
+        eps = eps_list[0]
+        damping = dampening(eps, rho)
+
+        # --- Initialization --------------------------------------------------
+        if init_potentials is not None:
+            init = [v.detach() for v in init_potentials]
+            f_ba, g_ab = init[0], init[1]
+            if debias:
+                f_aa, g_bb = init[2], init[3]
+        elif fused_step is not None:
+            # The eps0 initialization is the fused step at zero potentials:
+            zf, zg = torch.zeros_like(a_log_d), torch.zeros_like(b_log_d)
+            S_xy, S_yx = fused_step(eps, C_xy_d, C_yx_d, a_log_d, b_log_d, zf, zg)
+            f_ba, g_ab = damping * S_xy, damping * S_yx
+            if debias:
+                f_aa = damping * fused_step(
+                    eps, C_xx_d, C_xx_d, a_log_d, a_log_d, zf, zf, sym=True
+                )[0]
+                g_bb = damping * fused_step(
+                    eps, C_yy_d, C_yy_d, b_log_d, b_log_d, zg, zg, sym=True
+                )[0]
+        else:
+            g_ab = damping * softmin(eps, C_yx_d, a_log_d)
+            f_ba = damping * softmin(eps, C_xy_d, b_log_d)
+            if debias:
+                f_aa = damping * softmin(eps, C_xx_d, a_log_d)
+                g_bb = damping * softmin(eps, C_yy_d, b_log_d)
+        if not debias:
+            f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
+
+        # --- Main descent: Jacobi-style updates, then averaging --------------
+        for eps in eps_list:
+            damp = dampening(eps, rho)
+            if fused_step is not None:
+                S_xy, S_yx = fused_step(
+                    eps, C_xy_d, C_yx_d, a_log_d, b_log_d, f_ba, g_ab
+                )
+                ft_ba, gt_ab = damp * S_xy, damp * S_yx
+                if debias:
+                    ft_aa = damp * fused_step(
+                        eps, C_xx_d, C_xx_d, a_log_d, a_log_d, f_aa, f_aa, sym=True
+                    )[0]
+                    gt_bb = damp * fused_step(
+                        eps, C_yy_d, C_yy_d, b_log_d, b_log_d, g_bb, g_bb, sym=True
+                    )[0]
+            else:
+                ft_ba = damp * softmin(eps, C_xy_d, b_log_d + g_ab / eps)
+                gt_ab = damp * softmin(eps, C_yx_d, a_log_d + f_ba / eps)
+                if debias:
+                    ft_aa = damp * softmin(eps, C_xx_d, a_log_d + f_aa / eps)
+                    gt_bb = damp * softmin(eps, C_yy_d, b_log_d + g_bb / eps)
+            f_ba = 0.5 * (f_ba + ft_ba)
+            g_ab = 0.5 * (g_ab + gt_ab)
+            if debias:
+                f_aa = 0.5 * (f_aa + ft_aa)
+                g_bb = 0.5 * (g_bb + gt_bb)
+
+    # After the loop, the temperature is the final schedule value:
+    eps = eps_list[-1]
+    damping = dampening(eps, rho)
+
+    # --- Differentiable last extrapolation ----------------------------------
+    if fused_last is not None:
+        f_ba, g_ab, f_aa, g_bb = fused_last(
+            eps, damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log,
+            f_ba, g_ab, f_aa, g_bb,
+        )
+    else:
+        f_ba, g_ab = (
+            damping * softmin(eps, C_xy, (b_log + g_ab / eps).detach()),
+            damping * softmin(eps, C_yx, (a_log + f_ba / eps).detach()),
+        )
+        if debias:
+            f_aa = damping * softmin(eps, C_xx, (a_log + f_aa / eps).detach())
+            g_bb = damping * softmin(eps, C_yy, (b_log + g_bb / eps).detach())
+
+    if debias:
+        return f_aa, g_bb, g_ab, f_ba
+    return None, None, g_ab, f_ba

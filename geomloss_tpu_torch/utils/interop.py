@@ -1,0 +1,47 @@
+"""State carried between the JAX package and the port, through numpy.
+
+No model weights exist here: what a user carries from one solve to the
+next is the input clouds and weights, and the raw warm-start potentials
+``(f_ba, g_ab, f_aa, g_bb)`` returned by ``potentials="raw"``. Both
+packages hand these out as arrays that ``np.asarray`` accepts, so a
+tree of them crosses over as numpy.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["from_numpy", "to_numpy"]
+
+
+def from_numpy(tree, device="cpu", dtype=None):
+    """Map every array leaf of a (nested) tuple/list/dict to a tensor.
+
+    Args:
+        tree: arrays (anything ``np.asarray`` accepts), ``None`` leaves, or
+            tuples / lists / dicts of them.
+        device: target device of the tensors.
+        dtype: target floating dtype; ``None`` keeps the array's own.
+    """
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_numpy(v, device, dtype) for v in tree)
+    t = torch.from_numpy(np.array(tree, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def to_numpy(tree):
+    """Inverse of :func:`from_numpy`: tensors become detached host arrays."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

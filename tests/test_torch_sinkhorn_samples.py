@@ -1,0 +1,231 @@
+"""The port's Sinkhorn slice against the JAX package, in float64.
+
+``SamplesLoss("sinkhorn")`` with the tensorized and online backends, the
+same inputs (numpy, from a seed) through both packages: values within
+1e-10 relative, gradients within 1e-8 relative to the largest entry.
+Also: the routes not ported yet raise, the port imports no JAX, and
+state crosses between the packages through ``utils.interop``.
+"""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from geomloss_tpu import SamplesLoss as JaxLoss
+from geomloss_tpu.models.sinkhorn_samples import sinkhorn_online as jax_online
+from geomloss_tpu.solvers.sinkhorn_loop import unbalanced_weight as jax_uw
+from geomloss_tpu_torch import SamplesLoss
+from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
+from geomloss_tpu_torch.solvers.sinkhorn_loop import sinkhorn_loop, unbalanced_weight
+from geomloss_tpu_torch.utils import from_numpy, to_numpy
+
+VAL_RTOL = 1e-10
+GRAD_RTOL = 1e-8
+KW = dict(blur=0.1, diameter=2.0, scaling=0.7)
+
+
+def _clouds(N=230, M=310, seed=0, batch=None):
+    rng = np.random.RandomState(seed)
+    lead = () if batch is None else (batch,)
+    x = rng.rand(*lead, N, 3)
+    y = rng.rand(*lead, M, 3) + 0.2
+    a = rng.rand(*lead, N) + 0.2
+    b = rng.rand(*lead, M) + 0.2
+    return x, y, a / a.sum(-1, keepdims=True), b / b.sum(-1, keepdims=True)
+
+
+def _close(got, expected, rtol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    expected = np.asarray(expected)
+    np.testing.assert_allclose(got, expected, rtol=rtol, atol=rtol * np.abs(expected).max())
+
+
+def _leaf(a):
+    return torch.tensor(a, dtype=torch.float64, requires_grad=True)
+
+
+@pytest.mark.parametrize("reach", [None, 0.5])
+@pytest.mark.parametrize("debias", [True, False])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("backend", ["tensorized", "online"])
+def test_samples_loss_two_args(backend, p, debias, reach):
+    x, y, _, _ = _clouds(seed=p)
+    kw = dict(p=p, debias=debias, reach=reach, backend=backend, **KW)
+    jv, jg = jax.jit(jax.value_and_grad(lambda x: JaxLoss("sinkhorn", **kw)(x, jnp.asarray(y))))(jnp.asarray(x))
+    xt = _leaf(x)
+    tv = SamplesLoss("sinkhorn", **kw)(xt, torch.tensor(y))
+    tv.backward()
+    _close(tv, jv, VAL_RTOL)
+    _close(xt.grad, jg, GRAD_RTOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("backend", ["tensorized", "online"])
+def test_samples_loss_four_args_weights_grad(backend, p):
+    x, y, a, b = _clouds(seed=3 + p)
+    kw = dict(p=p, backend=backend, **KW)
+
+    def jf(a, x, b, y):
+        return JaxLoss("sinkhorn", **kw)(a, x, b, y)
+
+    jv, jg = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2, 3)))(*map(jnp.asarray, (a, x, b, y)))
+    leaves = [_leaf(v) for v in (a, x, b, y)]
+    tv = SamplesLoss("sinkhorn", **kw)(*leaves)
+    tv.backward()
+    _close(tv, jv, VAL_RTOL)
+    for t, j in zip(leaves, jg):
+        _close(t.grad, j, GRAD_RTOL)
+
+
+@pytest.mark.parametrize("debias", [True, False])
+@pytest.mark.parametrize("backend", ["tensorized", "online"])
+def test_samples_loss_potentials(backend, debias):
+    x, y, a, b = _clouds(N=200, M=260, seed=7)
+    kw = dict(p=2, backend=backend, debias=debias, potentials=True, reach=0.5, **KW)
+    jF, jG = jax.jit(JaxLoss("sinkhorn", **kw).__call__)(*map(jnp.asarray, (a, x, b, y)))
+    tF, tG = SamplesLoss("sinkhorn", **kw)(*map(torch.tensor, (a, x, b, y)))
+    assert tF.shape == jF.shape and tG.shape == jG.shape
+    _close(tF, jF, VAL_RTOL)
+    _close(tG, jG, VAL_RTOL)
+
+
+@pytest.mark.parametrize("backend", ["tensorized", "online"])
+def test_samples_loss_batched(backend):
+    x, y, a, b = _clouds(N=120, M=150, seed=8, batch=2)
+    kw = dict(p=2, backend=backend, **KW)
+    jv = jax.jit(JaxLoss("sinkhorn", **kw).__call__)(*map(jnp.asarray, (a, x, b, y)))
+    tv = SamplesLoss("sinkhorn", **kw)(*map(torch.tensor, (a, x, b, y)))
+    assert tuple(tv.shape) == (2,)
+    _close(tv, jv, VAL_RTOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_online_through_the_kernel_twins(p):
+    """The online solve through the plain twins of the CUDA kernels (the
+    absorbed, max-pass-free step) against JAX's max-shifted dense LSEs."""
+    x, y, a, b = _clouds(N=250, M=280, seed=9, batch=1)
+    kw = dict(p=p, **KW)
+
+    def jf(x):
+        return jax_online(jnp.asarray(a), x, jnp.asarray(b), jnp.asarray(y), impl="dense", **kw)[0]
+
+    jv, jg = jax.jit(jax.value_and_grad(jf))(jnp.asarray(x))
+    xt = _leaf(x)
+    tv = sinkhorn_online(torch.tensor(a), xt, torch.tensor(b), torch.tensor(y), impl="blocked", **kw)[0]
+    tv.backward()
+    _close(tv, jv, VAL_RTOL)
+    _close(xt.grad, jg, GRAD_RTOL)
+
+
+def test_warm_start_matches_jax():
+    """Raw potentials of a JAX solve, carried over through numpy, warm-start
+    both packages on a moved cloud: same value and gradient."""
+    x, y, a, b = _clouds(N=210, M=240, seed=11, batch=1)
+    kw = dict(p=2, **KW)
+    ja, jb, jy = jnp.asarray(a), jnp.asarray(b), jnp.asarray(y)
+    raw = jax.jit(lambda x: jax_online(ja, x, jb, jy, potentials="raw", **kw))(jnp.asarray(x))
+    x2 = x + 0.01
+
+    def jf(x):
+        return jax_online(ja, x, jb, jy, init_potentials=raw, warm_start_iters=3, **kw)[0]
+
+    jv, jg = jax.jit(jax.value_and_grad(jf))(jnp.asarray(x2))
+    t_raw = from_numpy(tuple(np.asarray(r) for r in raw), device="cpu", dtype=torch.float64)
+    xt = _leaf(x2)
+    tv = sinkhorn_online(
+        torch.tensor(a), xt, torch.tensor(b), torch.tensor(y),
+        init_potentials=t_raw, warm_start_iters=3, **kw,
+    )[0]
+    tv.backward()
+    _close(tv, jv, VAL_RTOL)
+    _close(xt.grad, jg, GRAD_RTOL)
+    # The port's own raw potentials match JAX's:
+    own = sinkhorn_online(*map(torch.tensor, (a, x, b, y)), potentials="raw", **kw)
+    for t, j in zip(to_numpy(own), raw):
+        _close(torch.from_numpy(t), j, VAL_RTOL)
+
+
+def test_unbalanced_weight_sejourne_grad():
+    v = np.random.RandomState(0).randn(6)
+    jg = jax.grad(lambda v: jax_uw(v, eps=0.1, rho=0.5, mode="sejourne").sum())(jnp.asarray(v))
+    vt = _leaf(v)
+    unbalanced_weight(vt, eps=0.1, rho=0.5, mode="sejourne").sum().backward()
+    _close(vt.grad, jg, VAL_RTOL)
+    _close(unbalanced_weight(vt, eps=0.1, rho=0.5, mode="sejourne"), 0.55 * v, VAL_RTOL)
+
+
+@pytest.mark.parametrize(
+    "loss,backend,shape",
+    [
+        ("sinkhorn", "multiscale", (50, 3)),
+        ("sinkhorn", "auto", (10_001, 3)),  # N * M > 10000^2, D <= 3: multiscale
+        ("energy", "online", (50, 3)),
+        ("gaussian", "tensorized", (50, 3)),
+        ("hausdorff", "online", (50, 3)),
+    ],
+)
+def test_routes_not_ported_raise(loss, backend, shape):
+    x = torch.zeros(shape, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SamplesLoss(loss, backend=backend)(x, x)
+
+
+def test_labels_and_jumps_not_ported_raise():
+    x = torch.rand(20, 3, dtype=torch.float64)
+    w = torch.full((20,), 1 / 20, dtype=torch.float64)
+    lab = torch.zeros(20, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        SamplesLoss("sinkhorn")(lab, w, x, lab, w, x)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sinkhorn_loop(None, w, w, None, None, None, None, [1.0], None, jumps=[0])
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        lambda: (np.ones(5) / 5, np.random.rand(5, 3), np.ones((1, 6)) / 6, np.random.rand(6, 3)),
+        lambda: (np.random.rand(5, 3), np.random.rand(6, 2)),
+        lambda: (np.ones(4) / 4, np.random.rand(5, 3), np.ones(6) / 6, np.random.rand(6, 3)),
+        lambda: (np.random.rand(5, 3),),
+    ],
+)
+def test_check_shapes_errors_match_jax(args):
+    arrays = args()
+    with pytest.raises(ValueError) as je:
+        JaxLoss("sinkhorn")(*map(jnp.asarray, arrays))
+    with pytest.raises(ValueError) as te:
+        SamplesLoss("sinkhorn")(*map(torch.tensor, arrays))
+    assert str(te.value) == str(je.value)
+
+
+def test_interop_round_trip():
+    tree = {"raw": (np.arange(3.0), None), "w": [np.ones((2, 2), np.float32)]}
+    t = from_numpy(tree, dtype=torch.float64)
+    assert t["raw"][0].dtype == torch.float64 and t["raw"][1] is None
+    back = to_numpy(t)
+    np.testing.assert_array_equal(back["raw"][0], tree["raw"][0])
+    np.testing.assert_array_equal(back["w"][0], tree["w"][0])
+
+
+def test_port_imports_no_jax():
+    code = textwrap.dedent(
+        """
+        import sys
+        import geomloss_tpu_torch
+        from geomloss_tpu_torch import models, ops, solvers, utils
+        from geomloss_tpu_torch.ops import cuda_kernels
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "geomloss_tpu.")) or m == "geomloss_tpu")
+        print(bad)
+        sys.exit(1 if bad else 0)
+        """
+    )
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -1,0 +1,98 @@
+"""Shared inputs and tolerances of the port's kernel tests.
+
+Imports no JAX, so that the card-only tests that use it run where JAX is
+not installed.
+"""
+
+import numpy as np
+import torch
+
+# Value tolerances of tests/test_pallas_kernels.py (LSE and step values):
+VAL_TOL = dict(rtol=2e-5, atol=2e-5)
+
+APPLY_KINDS = [
+    (2, "gibbs"),
+    (2, "gibbs_grad"),
+    (1, "gibbs"),
+    (1, "gibbs_grad"),
+    (1, "energy"),
+    (1, "inv_dist"),
+]
+
+
+def problem(N, M, D=3, seed=0):
+    """float32 clouds in the unit cube and a standard normal dual vector."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(N, D).astype(np.float32)
+    y = rng.rand(M, D).astype(np.float32)
+    h = rng.randn(M).astype(np.float32)
+    return x, y, h
+
+
+def potentials(N, M, seed):
+    """Small potentials and uniform log-weights for the absorbed steps."""
+    rng = np.random.RandomState(seed)
+    f = (0.05 * rng.randn(N)).astype(np.float32)
+    g = (0.05 * rng.randn(M)).astype(np.float32)
+    la = np.full(N, -np.log(N), np.float32)
+    lb = np.full(M, -np.log(M), np.float32)
+    return f, g, la, lb
+
+
+def tensors(*arrays, device="cpu"):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _apply_weights64(x, y, phi, psi, eps, p, kind):
+    """float64 weights of an apply, and the float32 error ``dW`` of the
+    expansion form ``|x|^2 + |y|^2 - 2<x,y>`` carried through them."""
+    xn, yn = x.astype(np.float64), y.astype(np.float64)
+    sq = ((xn[:, None, :] - yn[None, :, :]) ** 2).sum(-1)
+    d = np.sqrt(sq)
+    dsq = 4 * 2.0**-23 * ((xn**2).sum(-1)[:, None] + (yn**2).sum(-1)[None, :])
+    dd = np.maximum(d, 1e-3)
+    if kind == "energy":
+        return -d, dsq / (2 * dd)
+    if kind == "inv_dist":
+        W = np.where(sq > 1e-6, 1.0 / dd, 0.0)
+        return W, W * dsq / (2 * dd**2)
+    C = d if p == 1 else sq / 2
+    W = np.exp(phi.astype(np.float64)[:, None] + psi[None, :] - C / eps)
+    dW = W * (dsq / (2 * dd * eps) if p == 1 else dsq / (2 * eps))
+    if kind == "gibbs_grad" and p == 1:
+        W = np.where(sq > 1e-6, W / dd, 0.0)
+        dW = np.where(sq > 1e-6, dW / dd + W * dsq / (2 * dd**2), 0.0)
+    return W, dW
+
+
+def apply_exact(x, y, phi, psi, V, eps, p, kind):
+    """float64 ground truth of an apply, and the tolerance of
+    tests/test_pallas_kernels.py against it: the float32 error of a
+    cancelling sum depends on the summation order, so atol scales with
+    ``max_i sum_j |w_ij| |V_j|``."""
+    W, _ = _apply_weights64(x, y, phi, psi, eps, p, kind)
+    V64 = V.astype(np.float64)
+    scale = (np.abs(W) @ np.abs(V64)).max()
+    return W @ V64, dict(rtol=2e-3, atol=3e-5 * scale)
+
+
+def apply_tolerance(x, y, phi, psi, V, eps, p, kind):
+    """rtol and (per-entry) atol between two float32 applies.
+
+    The tolerance of :func:`apply_exact`, plus twice the float32 error of
+    the expansion form (a few ulps of ``|x|^2 + |y|^2``) carried through
+    each kind's weight: the Pallas kernels use that form for every kind,
+    the port for p=2 only. It matters where ``1/d`` amplifies it
+    (``inv_dist``, p=1 ``gibbs_grad``).
+    """
+    W, dW = _apply_weights64(x, y, phi, psi, eps, p, kind)
+    absV = np.abs(V.astype(np.float64))
+    scale = (np.abs(W) @ absV).max()
+    return dict(rtol=2e-3, atol=3e-5 * scale + 2 * (dW @ absV))
+
+
+def assert_apply_close(got, expected, rtol, atol):
+    got = got.detach().cpu().numpy().astype(np.float64)
+    expected = np.asarray(expected, np.float64)
+    excess = np.abs(got - expected) - (atol + rtol * np.abs(expected))
+    assert np.all(excess <= 0), f"max excess {excess.max()} at {np.argmax(excess)}"
