@@ -3,11 +3,13 @@
 Same layout and module names as :mod:`geomloss_tpu`, PyTorch idiom
 inside: ``SamplesLoss`` is an ``nn.Module``, everything else is plain
 functions on tensors, gradients go through ``torch.autograd.Function``.
-The streaming pair-interaction kernels are hand-written CUDA for Hopper
-(``csrc/online_kernels.cu``), built with ``nvcc`` at first use.
+The pair-interaction kernels are hand-written CUDA for Hopper
+(``csrc/online_kernels.cu``, ``csrc/block_sparse_kernels.cu``), built with
+``nvcc`` at first use.
 
 Ported so far: the Sinkhorn divergence on point clouds with the
-``tensorized`` and ``online`` backends. This package never imports JAX.
+``tensorized``, ``online`` and ``multiscale`` backends. This package never
+imports JAX.
 """
 
 __version__ = "0.3.1"

@@ -1,0 +1,487 @@
+r"""Multiscale (coarse-to-fine) Sinkhorn with block-sparse kernel truncation.
+
+Counterpart of :mod:`geomloss_tpu.models.multiscale`:
+
+1. points are spatially sorted (Hilbert keys, or a KD split below 4096
+   points) and grouped into fixed-size blocks, padded with zero-weight
+   copies of the last point;
+2. the coarse measure is the per-block weighted centroid with summed
+   weights; the coarse epsilon-descent runs on it (the online softmin)
+   until ``eps < cluster_scale**p``, the jump rule of the reference;
+3. the jump extrapolates the potentials onto the fine cloud;
+4. kernel truncation: the coarse potentials give per-tile keep scores
+   (``masks_from_coarse``), and the remaining fine iterations and the
+   differentiable last extrapolation visit only the kept tile pairs
+   (``ops/block_sparse.py``, two CUDA kernels). ``truncate=None`` runs an
+   exact fine phase through the online kernels instead.
+
+Gradient semantics match the reference: everything up to the final
+extrapolation runs under ``torch.no_grad()`` (envelope theorem).
+
+Not ported yet: the mid-scale path (more than ``N_FINE_OK`` points with
+truncation) and custom costs; both raise ``NotImplementedError``.
+"""
+
+import math
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..ops.block_sparse import (
+    masks_from_coarse,
+    retighten_counts,
+    sinkhorn_step_walk_banded,
+    sinkhorn_step_walk_banded_sym,
+    softmin_extrapolation_walk_banded,
+    softmin_extrapolation_walk_banded_sym,
+)
+from ..ops.softmin import (
+    sinkhorn_step_points,
+    softmin_extrapolation,
+    softmin_extrapolation_sym,
+    softmin_points,
+)
+from ..ops.spatial import hilbert_key
+from ..solvers.annealing import dampening, scaling_parameters
+from ..solvers.sinkhorn_loop import log_weights, sinkhorn_cost
+
+__all__ = [
+    "sinkhorn_multiscale",
+    "spatial_sort_blocks",
+    "default_cluster_scale",
+    "jump_index",
+]
+
+#: Kernel tile size of the block-sparse fine phase. Padded cloud sizes are
+#: multiples of this, and the cluster block size divides it.
+TILE = 512
+
+#: Largest point count the classic two-scale descent serves with
+#: truncation; beyond it the JAX package delays fine entry through a pooled
+#: intermediate scale (``mid_delay``), which is not ported yet.
+N_FINE_OK = 1 << 20
+
+
+def default_cluster_scale(diameter, D):
+    """The reference's default coarse resolution: ~2000 clusters."""
+    return diameter / (math.sqrt(D) * 2000 ** (1 / D))
+
+
+def jump_index(eps_list, cluster_scale, p):
+    """Index of the coarse-to-fine jump iteration: the first step (past the
+    two warm-up iterations) whose temperature resolves the cluster scale,
+    else the last iteration."""
+    jump = len(eps_list) - 1
+    for i, e in enumerate(eps_list[2:]):
+        if cluster_scale**p > e:
+            jump = i + 1
+            break
+    return jump
+
+
+def kd_sort_perm(x, leaf_size):
+    """Balanced KD ordering: recursively split (widest axis, median) until
+    segments reach ``leaf_size``. Input length must be ``leaf_size * 2^k``."""
+    N, D = x.shape
+    levels = 0
+    while leaf_size << (levels + 1) <= N:
+        levels += 1
+    if leaf_size << levels != N:
+        raise ValueError("kd_sort_perm: the length must be leaf_size * 2^k")
+    idx = torch.arange(N, device=x.device)
+    seg = 1
+    for _ in range(levels):
+        seg_len = N // seg
+        xs = x[idx].reshape(seg, seg_len, D)
+        ax = (xs.amax(dim=1) - xs.amin(dim=1)).argmax(dim=-1)  # widest axis
+        vals = xs.gather(2, ax[:, None, None].expand(seg, seg_len, 1))[..., 0]
+        order = torch.argsort(vals, dim=1, stable=True)
+        idx = idx.reshape(seg, seg_len).gather(1, order).reshape(-1)
+        seg *= 2
+    return idx
+
+
+def spatial_sort_blocks(a, x, cluster_scale, diameter, block_size, pad_multiple=TILE, labels=None):
+    """Sort a measure spatially and group it into fixed-size blocks.
+
+    Returns ``(w_coarse, a_sorted), (centroids, x_sorted), perm`` where the
+    sorted arrays are padded to ``pad_multiple * 2^k`` with zero-weight
+    copies of the last point (kept in the data range: out-of-range
+    sentinels would give float32 exponents that cancel into NaN) and
+    ``perm`` maps each sorted slot to its original index (pad slots point
+    past N).
+
+    With integer ``labels`` (user-supplied clusters), points are ordered
+    by (label, Hilbert index), so that blocks respect label boundaries up
+    to block granularity.
+    """
+    N, D = x.shape
+    x_d = x.detach()
+    Npad = pad_multiple
+    while Npad < N:
+        Npad *= 2
+    if Npad != N:
+        pad = x_d[-1:].expand(Npad - N, D)
+        x_full, x_full_d = torch.cat([x, pad]), torch.cat([x_d, pad])
+        a_full = torch.cat([a, a.new_zeros(Npad - N)])
+    else:
+        x_full, x_full_d, a_full = x, x_d, a
+
+    # ~16 points per Hilbert cell: cells stay far smaller than a block.
+    bits = max(4, min(10, math.ceil(math.log2(max(Npad, 2) / 16) / D)))
+    # The order is computed in float64, so that a float32 cloud and its
+    # float64 copy are cut into the same blocks and tiles.
+    x_key = x_full_d.double()
+    if labels is not None:
+        # Hilbert order within each label (two stable sorts):
+        lab = torch.cat([labels.reshape(-1).long(), labels.new_zeros(Npad - N).long()])
+        perm1 = torch.argsort(hilbert_key(x_key, bits=bits), stable=True)
+        order = perm1[torch.argsort(lab[perm1], stable=True)]
+    elif Npad > (1 << 12):
+        order = torch.argsort(hilbert_key(x_key, bits=bits), stable=True)
+    else:
+        order = kd_sort_perm(x_key, min(block_size, pad_multiple))
+    a_s = a_full[order]
+    x_s = x_full[order]
+
+    K = Npad // block_size
+    ab = a_s.detach().reshape(K, block_size)
+    xb = x_s.detach().reshape(K, block_size, D)
+    w = ab.sum(-1)
+    cent = (ab[..., None] * xb).sum(1) / torch.clamp(w, min=1e-30)[:, None]
+    return (w, a_s), (cent, x_s), order
+
+
+def auto_tile(n_max):
+    """Kernel-tile side for an ``n_max``-point problem: 512 up to 2^19
+    points, 1024 beyond (2048 past 2^23), as in the JAX package."""
+    npad = 1 << max(int(np.ceil(np.log2(max(n_max, 2)))), 0)
+    if npad <= (1 << 19):
+        return TILE
+    tile = 1024
+    while npad // tile > 8192:
+        tile *= 2
+    return tile
+
+
+def fine_cap_schedule(eps_fine, eps_j, cap0):
+    """Group consecutive fine temperatures sharing a table width ``ck``:
+    ``cap0 * eps / eps_jump`` rounded up to a multiple of 8, at least 24.
+
+    Returns:
+        List of ``(ck, [eps, ...])`` groups in descent order.
+    """
+
+    def cap_for(e):
+        raw = int(np.ceil(cap0 * (e / eps_j)))
+        return min(cap0, max(24, -(-raw // 8) * 8))
+
+    groups = []
+    for e in eps_fine:
+        ck = cap_for(e)
+        if groups and groups[-1][0] == ck:
+            groups[-1][1].append(e)
+        else:
+            groups.append((ck, [e]))
+    return groups
+
+
+def fine_warmup(cluster_scale, p, eps_target):
+    """Extra fine iterations at the entry temperature when the target blur
+    resolves far below the cluster scale (``eps_target = blur**p``)."""
+    return 2 if cluster_scale**p > 50 * eps_target else 0
+
+
+def mid_delay(n_max, eps_list, jump, scaling, p):
+    """Number of post-jump annealing steps the JAX package spends on a
+    pooled intermediate scale (0 = classic two-scale descent)."""
+    if n_max <= N_FINE_OK:
+        return 0
+    sp = float(scaling) ** p
+    n_delay = int(np.ceil(np.log(n_max / N_FINE_OK) / np.log(1.0 / sp)))
+    return min(n_delay, len(eps_list) - 1 - jump)
+
+
+def _iterate(step, carry, eps_seg, rho, debias):
+    """Symmetric averaged updates over ``eps_seg``: ``step(eps, f_ba, g_ab,
+    f_aa, g_bb)`` returns the four raw softmins (the last two ``None``
+    without debiasing)."""
+    f_ba, g_ab, f_aa, g_bb = carry
+    for eps in eps_seg:
+        damp = dampening(eps, rho)
+        S_xy, S_yx, S_xx, S_yy = step(eps, f_ba, g_ab, f_aa, g_bb)
+        f_ba = 0.5 * (f_ba + damp * S_xy)
+        g_ab = 0.5 * (g_ab + damp * S_yx)
+        if debias:
+            f_aa = 0.5 * (f_aa + damp * S_xx)
+            g_bb = 0.5 * (g_bb + damp * S_yy)
+    return f_ba, g_ab, f_aa, g_bb
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to geomloss_tpu_torch yet (ROADMAP.md, queue 1 item {item})."
+    )
+
+
+def sinkhorn_multiscale(
+    a,
+    x,
+    b,
+    y,
+    p=2,
+    blur=0.05,
+    reach=None,
+    diameter=None,
+    scaling=0.5,
+    truncate=5,
+    cost=None,
+    cluster_scale=None,
+    debias=True,
+    potentials=False,
+    labels_x=None,
+    labels_y=None,
+    verbose=False,
+    impl="auto",
+    block_size="auto",
+    cap=None,
+    target_clusters=2000,
+    tile="auto",
+    **kwargs,
+):
+    """Two-scale Sinkhorn divergence on unbatched clouds ``x (N,D)``, ``y (M,D)``.
+
+    ``truncate`` controls the block-sparse pruning margin (reference
+    default 5); ``truncate=None`` disables pruning (exact fine phase).
+    ``cap`` bounds the number of visited column tiles per row tile
+    (default: an eighth of the column tiles, between 32 and 128).
+    ``impl`` selects the streaming implementation of the coarse phase and
+    the exact fine phase (:mod:`..ops.softmin`), and, as ``"blocked"``, the
+    plain twins of the block-sparse kernels.
+    """
+    if cost is not None:
+        raise _not_ported('A custom cost under the "multiscale" backend', "7b")
+    N, D = x.shape
+    M = y.shape[0]
+
+    diameter, eps, eps_list, rho = scaling_parameters(x, y, p, blur, reach, diameter, scaling)
+    if cluster_scale is None:
+        cluster_scale = default_cluster_scale(diameter, D)
+    jump = jump_index(eps_list, cluster_scale, p)
+    last_is_jump = jump == len(eps_list) - 1
+    if truncate is not None and not last_is_jump:
+        if mid_delay(max(N, M), eps_list, jump, scaling, p) > 0:
+            raise _not_ported(
+                f"The multiscale mid-scale path (truncation above {N_FINE_OK} points)", "7a"
+            )
+
+    if tile == "auto":
+        tile = auto_tile(max(N, M))
+    if block_size == "auto":
+        # Largest power-of-two divisor of the tile that keeps >=
+        # target_clusters coarse blocks:
+        block_size = 1
+        while block_size * 2 <= tile and max(N, M) // (block_size * 2) >= target_clusters:
+            block_size *= 2
+
+    (aw_c, a_s), (x_c, x_s), perm_x = spatial_sort_blocks(
+        a, x, cluster_scale, diameter, block_size, pad_multiple=tile, labels=labels_x
+    )
+    (bw_c, b_s), (y_c, y_s), perm_y = spatial_sort_blocks(
+        b, y, cluster_scale, diameter, block_size, pad_multiple=tile, labels=labels_y
+    )
+
+    if verbose:
+        print(f"{x_c.shape[0]}x{y_c.shape[0]} cluster blocks, computed at scale = {cluster_scale:2.3f}")
+        print("Successive scales : ", ", ".join(f"{e ** (1 / p):.3f}" for e in eps_list))
+        print(f"Jump from coarse to fine after iteration {jump}.")
+
+    a_log_c, b_log_c = log_weights(aw_c), log_weights(bw_c)
+    a_log_f, b_log_f = log_weights(a_s.detach()), log_weights(b_s.detach())
+    sm = partial(softmin_points, p=p, impl=impl)
+    x_sd, y_sd = x_s.detach(), y_s.detach()
+
+    with torch.no_grad():
+        # --- Coarse phase -------------------------------------------------------
+        eps0 = eps_list[0]
+        damp0 = dampening(eps0, rho)
+        g_ab = damp0 * sm(eps0, (y_c, x_c), a_log_c)
+        f_ba = damp0 * sm(eps0, (x_c, y_c), b_log_c)
+        if debias:
+            f_aa = damp0 * sm(eps0, (x_c, x_c), a_log_c)
+            g_bb = damp0 * sm(eps0, (y_c, y_c), b_log_c)
+        else:
+            f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
+
+        def coarse_step(e, f_ba, g_ab, f_aa, g_bb):
+            S_xx = sm(e, (x_c, x_c), a_log_c + f_aa / e) if debias else None
+            S_yy = sm(e, (y_c, y_c), b_log_c + g_bb / e) if debias else None
+            return (
+                sm(e, (x_c, y_c), b_log_c + g_ab / e),
+                sm(e, (y_c, x_c), a_log_c + f_ba / e),
+                S_xx,
+                S_yy,
+            )
+
+        f_ba, g_ab, f_aa, g_bb = _iterate(
+            coarse_step, (f_ba, g_ab, f_aa, g_bb), eps_list[: jump + 1], rho, debias
+        )
+    eps_j = eps_list[jump]
+    damp_j = dampening(eps_j, rho)
+
+    # --- Extrapolation to the fine cloud ----------------------------------------
+    # The cross updates use the previous iterates in parallel. On a
+    # last-iteration jump, gradients flow through the fine points.
+    x_e = x_s if last_is_jump else x_sd
+    y_e = y_s if last_is_jump else y_sd
+    with torch.set_grad_enabled(last_is_jump and torch.is_grad_enabled()):
+        f_ba_f = damp_j * sm(eps_j, (x_e, y_c), b_log_c + g_ab / eps_j)
+        g_ab_f = damp_j * sm(eps_j, (y_e, x_c), a_log_c + f_ba / eps_j)
+        if debias:
+            f_aa_f = damp_j * sm(eps_j, (x_e, x_c), a_log_c + f_aa / eps_j)
+            g_bb_f = damp_j * sm(eps_j, (y_e, y_c), b_log_c + g_bb / eps_j)
+        else:
+            f_aa_f, g_bb_f = torch.zeros_like(f_ba_f), torch.zeros_like(g_ab_f)
+
+    if not last_is_jump:
+        eps_fine = list(eps_list[jump + 1 :])
+        # Tiny blurs resolve far below the cluster scale: extra iterations
+        # at the entry temperature wash out the coarse warm-start bias.
+        eps_fine = [eps_fine[0]] * fine_warmup(cluster_scale, p, eps) + eps_fine
+        if truncate is not None:
+            fine_step, fused_extrap = _truncated_fine_phase(
+                x_c, y_c, aw_c, bw_c, (f_ba, g_ab, f_aa, g_bb), x_s, y_s, a_log_f, b_log_f,
+                eps_j, eps_fine, p, truncate, tile, block_size, cap, debias, impl,
+            )
+        else:
+            fine_step, fused_extrap = _exact_fine_phase(
+                x_s, y_s, a_log_f, b_log_f, p, debias, impl
+            )
+
+        # --- Fine iterations (detached) -----------------------------------------
+        with torch.no_grad():
+            f_ba_f, g_ab_f, f_aa_f, g_bb_f = _iterate(
+                fine_step, (f_ba_f, g_ab_f, f_aa_f, g_bb_f), eps_fine, rho, debias
+            )
+
+        # --- Differentiable last extrapolation ----------------------------------
+        eps_last = eps_list[-1]
+        damp = dampening(eps_last, rho)
+        S_xy, S_yx, S_xx, S_yy = fused_extrap(eps_last, f_ba_f, g_ab_f, f_aa_f, g_bb_f)
+        f_ba_f, g_ab_f = damp * S_xy, damp * S_yx
+        if debias:
+            f_aa_f, g_bb_f = damp * S_xx, damp * S_yy
+
+    # Zero-mass (padding) slots can carry huge potentials (the -1e5
+    # log-weight clamp scaled by eps): harmless in the balanced dot
+    # products, but the unbalanced cost's exp(-f/rho) overflows and
+    # inf * 0 = NaN. Zero them out: their weight is exactly 0.
+    f_ba_f = torch.where(a_s > 0, f_ba_f, 0.0)
+    g_ab_f = torch.where(b_s > 0, g_ab_f, 0.0)
+    if debias:
+        f_aa_f = torch.where(a_s > 0, f_aa_f, 0.0)
+        g_bb_f = torch.where(b_s > 0, g_bb_f, 0.0)
+
+    out = sinkhorn_cost(
+        eps, rho, a_s, b_s, f_aa_f, g_bb_f, g_ab_f, f_ba_f,
+        batch=False, debias=debias, potentials=potentials,
+    )
+    if potentials:
+        # De-sort back to the user's point order; pad slots map past N.
+        F_x, G_y = out
+        return _desort(F_x, perm_x, N), _desort(G_y, perm_y, M)
+    return out
+
+
+def _desort(v, perm, n):
+    keep = perm < n
+    out = v.new_zeros(n)
+    out[perm[keep]] = v[keep]
+    return out
+
+
+def _truncated_fine_phase(
+    x_c, y_c, aw_c, bw_c, coarse, x_s, y_s, a_log_f, b_log_f,
+    eps_j, eps_fine, p, truncate, tile, block_size, cap, debias, impl,
+):
+    """Kernel truncation: tile tables from the coarse potentials and
+    centroids at jump time (the reference's ``kernel_truncation``), pooled
+    to kernel tiles. Returns ``(step, extrap)`` for the fine iterations and
+    the differentiable last extrapolation.
+
+    The keep-score order does not depend on the temperature (the score
+    moves by a uniform ``truncate * (eps' - eps_jump)``), so the same
+    tables serve every fine iteration with re-thresholded counts, sliced to
+    a per-temperature width ``ck`` (``fine_cap_schedule``).
+    """
+    f_ba, g_ab, f_aa, g_bb = coarse
+    x_sd, y_sd = x_s.detach(), y_s.detach()
+    with torch.no_grad():
+        bpt = tile // block_size
+        mask_xy = masks_from_coarse(x_c, y_c, f_ba, g_ab, aw_c, bw_c, eps_j, p, truncate, bpt, cap=cap)
+        if debias:
+            mask_xx = masks_from_coarse(
+                x_c, x_c, f_aa, f_aa, aw_c, aw_c, eps_j, p, truncate, bpt, cap=cap, sym=True
+            )
+            mask_yy = masks_from_coarse(
+                y_c, y_c, g_bb, g_bb, bw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, sym=True
+            )
+    ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_j, mask_xy.cols.shape[1]) for e in es}
+
+    def table(mask, e):
+        """The first ``ck`` columns of a table and its counts at ``e``."""
+        ck = ck_of[e]
+        cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_j)), max=ck)
+        return mask.cols[:, :ck].contiguous(), cnt
+
+    def step(e, f_ba, g_ab, f_aa, g_bb):
+        S_xy, S_yx = sinkhorn_step_walk_banded(
+            e, x_sd, y_sd, a_log_f, b_log_f, f_ba, g_ab, *table(mask_xy, e), p, tile, impl
+        )
+        if not debias:
+            return S_xy, S_yx, None, None
+        S_xx = sinkhorn_step_walk_banded_sym(e, x_sd, a_log_f, f_aa, *table(mask_xx, e), p, tile, impl)
+        S_yy = sinkhorn_step_walk_banded_sym(e, y_sd, b_log_f, g_bb, *table(mask_yy, e), p, tile, impl)
+        return S_xy, S_yx, S_xx, S_yy
+
+    def extrap(e_last, f_ba, g_ab, f_aa, g_bb):
+        # Tables at the last fine temperature, as in the JAX package.
+        e = eps_fine[-1]
+        S_xy, S_yx = softmin_extrapolation_walk_banded(
+            x_s, y_s, f_ba, g_ab, a_log_f, b_log_f, e_last, *table(mask_xy, e), p, tile, impl
+        )
+        if not debias:
+            return S_xy, S_yx, None, None
+        S_xx = softmin_extrapolation_walk_banded_sym(
+            x_s, f_aa, a_log_f, e_last, *table(mask_xx, e), p, tile, impl
+        )
+        S_yy = softmin_extrapolation_walk_banded_sym(
+            y_s, g_bb, b_log_f, e_last, *table(mask_yy, e), p, tile, impl
+        )
+        return S_xy, S_yx, S_xx, S_yy
+
+    return step, extrap
+
+
+def _exact_fine_phase(x_s, y_s, a_log_f, b_log_f, p, debias, impl):
+    """``truncate=None``: the fine phase through the online kernels."""
+    x_sd, y_sd = x_s.detach(), y_s.detach()
+
+    def step(e, f_ba, g_ab, f_aa, g_bb):
+        S_xy, S_yx = sinkhorn_step_points(e, x_sd, y_sd, a_log_f, b_log_f, f_ba, g_ab, p=p, impl=impl)
+        if not debias:
+            return S_xy, S_yx, None, None
+        S_xx = sinkhorn_step_points(e, x_sd, x_sd, a_log_f, a_log_f, f_aa, f_aa, p=p, impl=impl, sym=True)[0]
+        S_yy = sinkhorn_step_points(e, y_sd, y_sd, b_log_f, b_log_f, g_bb, g_bb, p=p, impl=impl, sym=True)[0]
+        return S_xy, S_yx, S_xx, S_yy
+
+    def extrap(e, f_ba, g_ab, f_aa, g_bb):
+        S_xy, S_yx = softmin_extrapolation(x_s, y_s, f_ba, g_ab, a_log_f, b_log_f, e, p, impl)
+        if not debias:
+            return S_xy, S_yx, None, None
+        S_xx = softmin_extrapolation_sym(x_s, f_aa, a_log_f, e, p, impl)
+        S_yy = softmin_extrapolation_sym(y_s, g_bb, b_log_f, e, p, impl)
+        return S_xy, S_yx, S_xx, S_yy
+
+    return step, extrap

@@ -4,16 +4,17 @@ Counterpart of :class:`geomloss_tpu.models.samples_loss.SamplesLoss`: the
 same constructor arguments, the same 2/4/6-argument call forms, the same
 shape checks and error strings, and the same ``auto`` backend heuristic.
 
-Ported routes: ``sinkhorn`` with the ``tensorized`` and ``online``
-backends. Every other route, ``auto`` included when it resolves to
-``multiscale``, raises ``NotImplementedError`` naming the ROADMAP item
-that will port it; nothing is re-routed silently.
+Ported routes: ``sinkhorn`` with the ``tensorized``, ``online`` and
+``multiscale`` backends (``auto`` included, and the 6-argument form with
+cluster labels). Every other route raises ``NotImplementedError`` naming
+the ROADMAP item that will port it; nothing is re-routed silently.
 """
 
 import warnings
 
 import torch
 
+from .multiscale import sinkhorn_multiscale
 from .sinkhorn_samples import sinkhorn_online, sinkhorn_tensorized
 
 
@@ -31,7 +32,7 @@ routines = {
     "sinkhorn": {
         "tensorized": sinkhorn_tensorized,
         "online": sinkhorn_online,
-        "multiscale": _not_ported('The "multiscale" Sinkhorn backend', 7),
+        "multiscale": sinkhorn_multiscale,
     },
     **{
         loss: {
@@ -48,8 +49,7 @@ class SamplesLoss(torch.nn.Module):
 
     * ``loss``: "sinkhorn" (ported); "hausdorff", "energy", "gaussian",
       "laplacian" (not yet).
-    * ``backend``: "auto", "tensorized", "online" (ported); "multiscale"
-      (not yet).
+    * ``backend``: "auto", "tensorized", "online", "multiscale".
     """
 
     def __init__(
@@ -144,6 +144,8 @@ class SamplesLoss(torch.nn.Module):
         if self.potentials:
             F, G = values
             return F.reshape(a.shape), G.reshape(b.shape)
+        if backend == "multiscale":
+            return values if B == 0 else values.reshape(-1)
         # tensorized/online return a batch vector:
         return values[0] if B == 0 else values
 

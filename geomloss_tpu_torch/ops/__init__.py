@@ -1,4 +1,4 @@
-"""Costs, softmin operators and the online kernels."""
+"""Costs, softmin operators, block-sparse truncation and their kernels."""
 
 from .costs import SQDIST_FLOOR, cost_routines, distances, halved_sqdist, squared_distances
 from .softmin import (

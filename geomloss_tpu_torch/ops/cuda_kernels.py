@@ -21,8 +21,15 @@ results in the input dtype.
 
 The library is compiled with ``nvcc`` at first use (a plain C interface,
 loaded with ``ctypes``) into ``build/kernels/`` at the repository root,
-keyed by a hash of the source. Each wrapper adds one to its entry of
-:data:`launch_counts` where it launches its kernel, and nowhere else.
+keyed by a hash of its sources (the ``.cu`` file and the shared headers).
+Each wrapper adds one to its entry of :data:`launch_counts` where it
+launches its kernel, and nowhere else.
+
+The two step kernels write per-block partial sums that the wrappers add
+up in a fixed order (deterministic, no atomics). Their scratch is bounded:
+row blocks are launched in chunks that keep it under
+:data:`STEP_SCRATCH_BYTES` plus ``O(N + M)`` (:func:`step_plan`,
+:func:`sym_step_plan`).
 """
 
 import ctypes
@@ -49,6 +56,10 @@ __all__ = [
     "build",
     "launch_counts",
     "reset_launch_counts",
+    "step_plan",
+    "sym_step_plan",
+    "step_scratch_bytes",
+    "sym_step_scratch_bytes",
 ]
 
 LOG2E = math.log2(math.e)
@@ -71,8 +82,20 @@ _KERNEL_DIMS = (1, 2, 3, 4, 8, 16)
 #: Channels per launch of the apply kernel; wider V loops over groups.
 _CHANNELS = 4
 
+#: Scratch budget of one step call: the per-block partial sums of a launch
+#: stay under it (plus O(N + M) when a single row block needs more).
+STEP_SCRATCH_BYTES = 128 << 20
+#: Blocks per launch the step kernels aim for, so that a chunk of few row
+#: blocks still fills the card (132 SMs, several blocks each); the
+#: symmetric step's blocks walk parts of a triangle, so it takes smaller
+#: slices to keep their work even.
+_STEP_BLOCKS = 1024
+_SYM_STEP_BLOCKS = 8192
+#: Largest gridDim.y of a launch.
+_MAX_GRID_Y = 65535
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "online_kernels.cu"
+CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
@@ -93,8 +116,6 @@ def reset_launch_counts():
 #  Build and launch
 # ==============================================================================
 
-_lib = None
-
 
 def _nvcc():
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -103,57 +124,90 @@ def _nvcc():
     return path
 
 
-def build():
-    """Compile (once per source version) and load the kernel library.
+class KernelLibrary:
+    """One ``csrc/<stem>.cu`` compiled into a shared library at first use.
 
-    The compiler's output, register and shared-memory counts included
-    (``-Xptxas -v``), is kept beside the library as ``*.log``.
+    The library is keyed by a hash of every source that goes into it (the
+    ``.cu`` file and the ``.cuh`` headers of ``csrc/``). The compiler's
+    output, register and shared-memory counts included (``-Xptxas -v``),
+    is kept beside the library as ``*.log``.
     """
-    global _lib
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libonline_kernels_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-            "-o", str(tmp), str(SOURCE),
-        ]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    signatures = {
+
+    def __init__(self, stem, signatures, counts):
+        self.source = CSRC / f"{stem}.cu"
+        self.stem = stem
+        self.signatures = signatures
+        self.counts = counts
+        self._lib = None
+
+    def build(self):
+        """Compile (once per source version) and load the library."""
+        if self._lib is not None:
+            return self._lib
+        h = hashlib.sha256()
+        for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(src.read_bytes())
+        so = BUILD_DIR / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            cmd = [
+                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+                "-o", str(tmp), str(self.source),
+            ]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            so.with_suffix(".log").write_text(res.stdout + res.stderr)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in self.signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib = lib
+        return lib
+
+    def launch(self, name, *args, count=None):
+        """Launch ``gl_<name>`` on the current stream; raise on a CUDA error.
+
+        ``count`` names the entry of the launch counts to add one to.
+        """
+        fn = getattr(self.build(), "gl_" + name)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {name!r} failed: cudaError {err}")
+        if count is not None:
+            self.counts[count] += 1
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LIB = KernelLibrary(
+    "online_kernels",
+    {
         # x, y, h2, out, N, M, D, p, c2, stream
-        "gl_lse": [P, P, P, P, I, I, I, I, F, P],
-        # x, y, phi, psi, rows, colpart, N, M, D, p, c2, stream
-        "gl_sinkhorn_step": [P, P, P, P, P, P, I, I, I, I, F, P],
-        # x, phi, it, jt, part, N, T, nb, D, p, c2, stream
-        "gl_sinkhorn_step_sym": [P, P, P, P, P, I, I, I, I, I, F, P],
+        "gl_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # x, y, phi, psi, rowpart, colpart, N, M, row_blk0, n_blk, n_slices,
+        # width, D, p, c2, stream
+        "gl_sinkhorn_step": [_P] * 6 + [_I] * 8 + [_F, _P],
+        # x, phi, rowpart, colpart, N, tile0, n_rows, n_slices, nb, D, p, c2,
+        # stream
+        "gl_sinkhorn_step_sym": [_P] * 4 + [_I] * 7 + [_F, _P],
         # x, y, phi, psi, vt, out, N, M, D, mode, c2, stream
-        "gl_gibbs_apply": [P, P, P, P, P, P, I, I, I, I, F, P],
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+        "gl_gibbs_apply": [_P] * 6 + [_I] * 4 + [_F, _P],
+    },
+    launch_counts,
+)
+
+
+def build():
+    """Compile (once per source version) and load the online kernels."""
+    return _LIB.build()
 
 
 def _launch(name, *args):
-    """Launch ``gl_<name>`` on the current stream; raise on a CUDA error."""
-    fn = getattr(build(), "gl_" + name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name!r} failed: cudaError {err}")
-    launch_counts[name] += 1
+    _LIB.launch(name, *args, count=name)
 
 
 def _cdiv(a, b):
@@ -167,23 +221,75 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: all tensors must lie on one CUDA device.")
 
 
-def _points(name, *clouds):
+def _points(name, *clouds, dims=_KERNEL_DIMS):
     """float32, contiguous, zero-padded to a compiled point dimension."""
     D = clouds[0].shape[-1]
     for c in clouds:
         if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0:
             raise ValueError(f"{name}: point clouds must be non-empty (N, D).")
-    Dk = next((k for k in _KERNEL_DIMS if D <= k), None)
+    Dk = next((k for k in dims if D <= k), None)
     if Dk is None:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels are compiled for D <= {_KERNEL_DIMS[-1]}"
-            f" (got D={D})."
+            f"{name}: the CUDA kernels are compiled for D <= {dims[-1]} (got D={D})."
         )
     out = [
         torch.nn.functional.pad(c.detach().float(), (0, Dk - D)).contiguous()
         for c in clouds
     ]
     return out, Dk
+
+
+# ==============================================================================
+#  Scratch plans of the step kernels
+# ==============================================================================
+
+
+def _even_chunks(n, most):
+    """Chunk size of at most ``max(most, 1)`` that cuts ``n`` into chunks
+    of equal size up to one."""
+    return _cdiv(n, _cdiv(n, max(1, min(n, most))))
+
+
+def step_plan(N, M):
+    """Chunking of :func:`sinkhorn_step`: ``(R, S, width)``.
+
+    Each launch takes ``R`` row blocks of 256 rows against all columns, cut
+    into ``S`` slices of ``width`` columns. Its scratch is ``R * M``
+    column partials and ``S * R * 256`` row partials (float32):
+    ``R * M * 4 <= STEP_SCRATCH_BYTES`` unless ``R = 1``, and
+    ``S * R <= _STEP_BLOCKS + R``.
+    """
+    nb = _cdiv(N, _CUDA_BLOCK)
+    R = _even_chunks(nb, STEP_SCRATCH_BYTES // (4 * M))
+    S = max(1, min(_cdiv(M, _CUDA_BLOCK), _cdiv(_STEP_BLOCKS, R), _MAX_GRID_Y))
+    width = _cdiv(_cdiv(M, S), _CUDA_BLOCK) * _CUDA_BLOCK
+    return R, _cdiv(M, width), width
+
+
+def sym_step_plan(N):
+    """Chunking of :func:`sinkhorn_step_sym`: ``(R, S)``.
+
+    Each launch takes ``R`` row tiles of 256 points against the column
+    tiles from the first of them on, cut into ``S`` slices. Its scratch is
+    ``R * nb * 256`` column partials, at most :data:`STEP_SCRATCH_BYTES`
+    unless ``R = 1``, and ``S * R * 256`` row partials, with
+    ``S * R <= _SYM_STEP_BLOCKS + R``.
+    """
+    nb = _cdiv(N, _CUDA_BLOCK)
+    R = _even_chunks(nb, STEP_SCRATCH_BYTES // (4 * _CUDA_BLOCK * nb))
+    return R, max(1, min(nb, _cdiv(_SYM_STEP_BLOCKS, R), _MAX_GRID_Y))
+
+
+def step_scratch_bytes(N, M):
+    """Largest scratch of one :func:`sinkhorn_step` call, from the plan."""
+    R, S, _ = step_plan(N, M)
+    return 4 * (R * M + S * R * _CUDA_BLOCK)
+
+
+def sym_step_scratch_bytes(N):
+    """Largest scratch of one :func:`sinkhorn_step_sym` call, from the plan."""
+    R, S = sym_step_plan(N)
+    return 4 * _CUDA_BLOCK * R * (_cdiv(N, _CUDA_BLOCK) + S)
 
 
 def _f32(t):
@@ -387,17 +493,29 @@ def sinkhorn_step(x, y, f, g, loga, logb, eps, p=2):
     N, M = xf.shape[0], yf.shape[0]
     phi = _bias2(xf, _f32(loga) + _f32(f) / eps, eps, p)
     psi = _bias2(yf, _f32(logb) + _f32(g) / eps, eps, p)
-    rows = torch.empty(N, dtype=torch.float32, device=x.device)
-    # Per-row-block column partials, summed below (deterministic):
-    colpart = torch.empty((_cdiv(N, _CUDA_BLOCK), M), dtype=torch.float32, device=x.device)
+    nb = _cdiv(N, _CUDA_BLOCK)
+    R, S, width = step_plan(N, M)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    rows = torch.empty(nb * _CUDA_BLOCK, **f32)
+    cols = torch.zeros(M, **f32)
+    # Per-block partials of one chunk of row blocks, summed in a fixed
+    # order before the next chunk (deterministic, bounded):
+    colpart = torch.empty(R * M, **f32)
+    rowpart = torch.empty(S * R * _CUDA_BLOCK, **f32)
     with torch.cuda.device(x.device):
-        _launch(
-            "sinkhorn_step", xf.data_ptr(), yf.data_ptr(), phi.data_ptr(),
-            psi.data_ptr(), rows.data_ptr(), colpart.data_ptr(), N, M, Dk, p,
-            LOG2E / eps,
-        )
-    S_xy = _absorbed_update(_f32(f), _f32(loga), eps, rows)
-    S_yx = _absorbed_update(_f32(g), _f32(logb), eps, colpart.sum(0))
+        for b0 in range(0, nb, R):
+            n = min(R, nb - b0)
+            _launch(
+                "sinkhorn_step", xf.data_ptr(), yf.data_ptr(), phi.data_ptr(),
+                psi.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(), N, M, b0,
+                n, S, width, Dk, p, LOG2E / eps,
+            )
+            rows[b0 * _CUDA_BLOCK : (b0 + n) * _CUDA_BLOCK] = (
+                rowpart[: S * n * _CUDA_BLOCK].view(S, -1).sum(0)
+            )
+            cols += colpart[: n * M].view(n, M).sum(0)
+    S_xy = _absorbed_update(_f32(f), _f32(loga), eps, rows[:N])
+    S_yx = _absorbed_update(_f32(g), _f32(logb), eps, cols)
     return S_xy.to(f.dtype), S_yx.to(g.dtype)
 
 
@@ -413,19 +531,24 @@ def sinkhorn_step_sym(x, f, loga, eps, p=2):
     N = xf.shape[0]
     phi = _bias2(xf, _f32(loga) + _f32(f) / eps, eps, p)
     nb = _cdiv(N, _CUDA_BLOCK)
-    it, jt = torch.triu_indices(nb, nb, device=x.device).to(torch.int32)
-    it, jt = it.contiguous(), jt.contiguous()
-    # part[I, J] holds the sums of tile pair (I, J) over the rows of tile I:
-    # row sums for J >= I, the mirrored column sums of (J, I) for J < I.
-    part = torch.empty((nb, nb, _CUDA_BLOCK), dtype=torch.float32, device=x.device)
+    R, S = sym_step_plan(N)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    r = torch.zeros((nb, _CUDA_BLOCK), **f32)
+    # Row sums of the pairs (I, J >= I) and their mirrored column sums, for
+    # one chunk of row tiles; summed in a fixed order before the next one.
+    rowpart = torch.empty(S * R * _CUDA_BLOCK, **f32)
+    colpart = torch.empty(R * nb * _CUDA_BLOCK, **f32)
     with torch.cuda.device(x.device):
-        _launch(
-            "sinkhorn_step_sym", xf.data_ptr(), phi.data_ptr(), it.data_ptr(),
-            jt.data_ptr(), part.data_ptr(), N, it.shape[0], nb, Dk, p,
-            LOG2E / eps,
-        )
-    r = part.sum(1).reshape(-1)[:N]
-    return _absorbed_update(_f32(f), _f32(loga), eps, r).to(f.dtype)
+        for t0 in range(0, nb, R):
+            n = min(R, nb - t0)
+            _launch(
+                "sinkhorn_step_sym", xf.data_ptr(), phi.data_ptr(),
+                rowpart.data_ptr(), colpart.data_ptr(), N, t0, n, S, nb, Dk, p,
+                LOG2E / eps,
+            )
+            r[t0 : t0 + n] += rowpart[: S * n * _CUDA_BLOCK].view(S, n, _CUDA_BLOCK).sum(0)
+            r[t0:] += colpart[: n * (nb - t0) * _CUDA_BLOCK].view(n, nb - t0, _CUDA_BLOCK).sum(0)
+    return _absorbed_update(_f32(f), _f32(loga), eps, r.view(-1)[:N]).to(f.dtype)
 
 
 _APPLY_MODES = {

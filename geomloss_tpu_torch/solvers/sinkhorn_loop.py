@@ -5,8 +5,10 @@ schedule is a Python list; the iterations run as a Python loop under
 ``torch.no_grad()`` (the envelope theorem: no autograd through the loop),
 followed by one differentiable last extrapolation with detached duals.
 
-Multiscale jumps and kernel truncation are not ported yet (ROADMAP,
-queue 1 item 7): passing them raises ``NotImplementedError``.
+Its multiscale jumps and kernel truncation serve the grid path and
+``ot.solve_sample``, which are not ported yet (ROADMAP, queue 1 items
+10-11): passing them raises ``NotImplementedError``. The multiscale
+backend of ``SamplesLoss`` runs its own loop (``models/multiscale.py``).
 """
 
 from typing import Callable, Optional, Sequence
@@ -153,8 +155,8 @@ def sinkhorn_loop(
     """
     if list(jumps) or kernel_truncation is not None:
         raise NotImplementedError(
-            "Multiscale jumps and kernel truncation are not ported yet "
-            "(ROADMAP.md, queue 1 item 7)."
+            "Multiscale jumps and kernel truncation of the single-scale loop "
+            "are not ported yet (ROADMAP.md, queue 1 items 10-11)."
         )
 
     with torch.no_grad():

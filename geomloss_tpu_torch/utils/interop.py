@@ -4,13 +4,14 @@ No model weights exist here: what a user carries from one solve to the
 next is the input clouds and weights, and the raw warm-start potentials
 ``(f_ba, g_ab, f_aa, g_bb)`` returned by ``potentials="raw"``. Both
 packages hand these out as arrays that ``np.asarray`` accepts, so a
-tree of them crosses over as numpy.
+tree of them crosses over as numpy. So do the multiscale truncation
+tables (:func:`tile_mask_from_numpy`).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["from_numpy", "to_numpy"]
+__all__ = ["from_numpy", "to_numpy", "tile_mask_from_numpy"]
 
 
 def from_numpy(tree, device="cpu", dtype=None):
@@ -45,3 +46,13 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def tile_mask_from_numpy(mask, device="cpu"):
+    """A truncation table of either package (fields ``cols, counts, colsT,
+    countsT, vals, valsT``, arrays or ``None``) as the port's
+    :class:`~geomloss_tpu_torch.ops.block_sparse.TileMask`: integer tables
+    keep their dtype, keep scores become float tensors of theirs."""
+    from ..ops.block_sparse import TileMask
+
+    return TileMask(*(from_numpy(getattr(mask, k), device) for k in TileMask._fields))

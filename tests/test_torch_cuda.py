@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
 from geomloss_tpu_torch.ops import cuda_kernels as ck
 from torch_parity_utils import (
     APPLY_KINDS,
@@ -16,6 +17,7 @@ from torch_parity_utils import (
     apply_exact,
     apply_tolerance,
     assert_apply_close,
+    kept_table,
     potentials,
     problem,
     tensors,
@@ -32,14 +34,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     ck.build()
+    cbs.build()
     return torch.device("cuda")
 
 
-def _counted(name, fn):
-    before = ck.launch_counts[name]
+def _counted(name, fn, counts=ck.launch_counts):
+    before = counts[name]
     out = fn()
     torch.cuda.synchronize()
-    assert ck.launch_counts[name] > before
+    assert counts[name] > before
     return out
 
 
@@ -94,3 +97,105 @@ def test_kernels_other_dims(cuda_device, D):
     """Point dimensions other than 3 (5 is zero-padded to the D=8 build)."""
     x, y, h = tensors(*problem(700, 300, D=D, seed=D), device=cuda_device)
     torch.testing.assert_close(ck.lse(x, y, h, 0.3, 2), ck.lse_blocked(x, y, h, 0.3, 2), **VAL_TOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_step_kernels_in_chunks_match_twin(cuda_device, p, monkeypatch):
+    """A small scratch budget: several launches of row blocks per call
+    (3 for the fused step, 6 for the symmetric one)."""
+    monkeypatch.setattr(ck, "STEP_SCRATCH_BYTES", 64 << 10)
+    N, M = 4099, 2053
+    x, y, _ = problem(N, M, seed=11 + p)
+    t = tensors(x, y, *potentials(N, M, seed=12), device=cuda_device)
+    for a, b in zip(ck.sinkhorn_step(*t, 0.21, p), ck.sinkhorn_step_blocked(*t, 0.21, p)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    xs, fs, las = t[0], t[2], t[4]
+    torch.testing.assert_close(
+        ck.sinkhorn_step_sym(xs, fs, las, 0.21, p), ck.sinkhorn_step_sym_blocked(xs, fs, las, 0.21, p), **VAL_TOL
+    )
+
+
+def test_step_kernels_bounded_scratch_and_deterministic(cuda_device):
+    """At N = M = 1e6 (p = 2) one call of either step kernel allocates less
+    than 256 MB beyond its inputs, and two calls are bitwise equal."""
+    N = 1_000_000
+    x, y, _ = problem(N, N, seed=1)
+    inputs = tensors(x, y, *potentials(N, N, seed=2), device=cuda_device)
+    in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+    x, y, f, g, la, lb = inputs
+    calls = {
+        "sinkhorn_step": lambda: ck.sinkhorn_step(x, y, f, g, la, lb, 0.01, 2),
+        "sinkhorn_step_sym": lambda: (ck.sinkhorn_step_sym(x, f, la, 0.01, 2),),
+    }
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        first = _counted(name, call)
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra < 256e6, (name, extra, in_bytes)
+        for a, b in zip(first, call()):
+            assert torch.equal(a, b), name
+
+
+TILE_CASES = [
+    # (tile, n_tiles, m_tiles, cap): one CTA row slice (128), two (512) and
+    # four (1024); ragged kept counts in every table.
+    (128, 5, 7, 5),
+    (512, 4, 6, 4),
+    (1024, 3, 3, 2),
+]
+
+
+def _tile_problem(tile, n_tiles, m_tiles, seed, tri):
+    N, M = n_tiles * tile, (n_tiles if tri else m_tiles) * tile
+    x, y, _ = problem(N, M, seed=seed)
+    f, g, la, lb = potentials(N, M, seed=seed + 1)
+    if tri:
+        y, g, lb = x, f, la
+    return x, y, f, g, la, lb
+
+
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_absorbed_sum_tiles_kernel_matches_twin(cuda_device, case, p, tri):
+    tile, n_tiles, m_tiles, cap = case
+    x, y, f, g, la, lb = _tile_problem(tile, n_tiles, m_tiles, seed=tile + p, tri=tri)
+    cols, counts = kept_table(n_tiles, n_tiles if tri else m_tiles, cap, seed=p, sym=tri)
+    eps = 0.05
+    phi, psi = la + f / eps, lb + g / eps
+    t = tensors(x, y, phi, psi, device=cuda_device)
+    table = tensors(cols, counts, device=cuda_device)
+    args = (*t, eps, *table, p, tile, tri)
+    got = _counted("absorbed_sum_tiles", lambda: cbs.absorbed_sum_tiles(*args), cbs.launch_counts)
+    ref = cbs.absorbed_sum_tiles_blocked(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    for a, b in zip(got, cbs.absorbed_sum_tiles(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("p,kind", [(2, "gibbs"), (1, "gibbs"), (1, "gibbs_grad")])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_gibbs_apply_tiles_kernel_matches_twin(cuda_device, case, p, kind, tri):
+    tile, n_tiles, m_tiles, cap = case
+    x, y, f, g, la, lb = _tile_problem(tile, n_tiles, m_tiles, seed=3 * tile + p, tri=tri)
+    cols, counts = kept_table(n_tiles, n_tiles if tri else m_tiles, cap, seed=p + 5, sym=tri)
+    eps = 0.05
+    phi, psi = la + f / eps, lb + g / eps
+    # C = 4, as in the extrapolation backward: [1, y] and [1, x].
+    Vy = np.concatenate([np.ones((y.shape[0], 1), np.float32), y], 1)
+    Vx = np.concatenate([np.ones((x.shape[0], 1), np.float32), x], 1)
+    t = tensors(x, y, phi, psi, Vy, Vx, device=cuda_device)
+    table = tensors(cols, counts, device=cuda_device)
+    args = (*t, eps, *table, p, kind, tile, tri)
+    got = _counted("gibbs_apply_tiles", lambda: cbs.gibbs_apply_tiles(*args), cbs.launch_counts)
+    ref = cbs.gibbs_apply_tiles_blocked(*args)
+    # The online applies' tolerance against their twins, taken over all
+    # pairs (an upper bound for the kept ones).
+    assert_apply_close(got[0], ref[0].cpu(), **apply_tolerance(x, y, phi, psi, Vy, eps, p, kind))
+    assert_apply_close(got[1], ref[1].cpu(), **apply_tolerance(y, x, psi, phi, Vx, eps, p, kind))
+    for a, b in zip(got, cbs.gibbs_apply_tiles(*args)):
+        assert torch.equal(a, b)

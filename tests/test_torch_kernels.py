@@ -138,3 +138,31 @@ def test_wrappers_on_cpu_count_no_launch():
     ck.sinkhorn_step_sym(x, f, la, 0.3)
     ck.gibbs_apply(x, y, f, g, y, 0.3)
     assert all(n == 0 for n in ck.launch_counts.values())
+
+
+_SIZES = [1, 2, 255, 256, 257, 4099, 100_000, 100_003, 1_000_000, 10**7, 10**8, 2**31 // 8]
+
+
+@pytest.mark.parametrize("N", _SIZES)
+def test_step_scratch_is_bounded_by_the_plan(N):
+    """The chunk plans of the two step kernels, from the shapes alone: every
+    launch's scratch stays under STEP_SCRATCH_BYTES plus O(N + M) (the
+    column partials of one row block when they exceed the budget, the row
+    partials of the launched row blocks) plus a constant (the row partials
+    of at most 1024, or 8192, blocks per launch), the slices cover the
+    columns, and the grids stay within CUDA's limits."""
+    budget = ck.STEP_SCRATCH_BYTES
+    rng = np.random.RandomState(N % 1000)
+    for M in _SIZES + [int(m) for m in rng.randint(1, 2**28, 5)]:
+        R, S, width = ck.step_plan(N, M)
+        nb = -(-N // 256)
+        assert 1 <= R <= nb and 1 <= S <= 65535
+        assert width % 256 == 0 and (S - 1) * width < M <= S * width
+        assert ck.step_scratch_bytes(N, M) <= budget + 4 * (N + M) + (1 << 20) + 1024
+    R, S = ck.sym_step_plan(N)
+    assert 1 <= R <= nb and 1 <= S <= min(nb, 65535)
+    assert ck.sym_step_scratch_bytes(N) <= budget + 8 * (N + 256) + (8 << 20) + 1024
+    # At N = M = 1e6, room for the wrappers' O(N + M) tensors under the
+    # 256 MB that tests/test_torch_cuda.py measures on the card:
+    assert ck.step_scratch_bytes(1_000_000, 1_000_000) <= 150e6
+    assert ck.sym_step_scratch_bytes(1_000_000) <= 150e6

@@ -1,0 +1,139 @@
+"""The port's multiscale Sinkhorn solve against the JAX package.
+
+``sinkhorn_multiscale`` of both packages on the same clouds (numpy, from a
+seed) at N = M = 2048, with 128-point tiles and 128 coarse clusters so that
+the truncation prunes: the port in float64 through the plain twins of its
+kernels, the JAX package as its own tests run it on the CPU (the banded
+walk kernels in interpret mode). Both solves visit the same kept tile
+pairs; the JAX kernels compute in float32, which sets the tolerances.
+
+The port-only checks hold the truncated solve against the exact fine
+phase (``truncate=None``) at the bounds of
+``tests/test_samples_loss_golden.py``, and exercise the unbalanced,
+``potentials=True``, labels and ``SamplesLoss`` routes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from geomloss_tpu.models.multiscale import sinkhorn_multiscale as jax_multiscale
+from geomloss_tpu_torch import SamplesLoss
+from geomloss_tpu_torch.models import samples_loss
+from geomloss_tpu_torch.models.multiscale import sinkhorn_multiscale
+
+N = 2048
+KW = dict(blur=0.05, diameter=2.0, scaling=0.5, tile=128, target_clusters=128)
+
+
+def _clouds(seed, n=N):
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, 3)
+    y = rng.rand(n, 3) + 0.1
+    a = rng.rand(n) + 0.5
+    b = rng.rand(n) + 0.5
+    return a / a.sum(), x, b / b.sum(), y
+
+
+def _port(a, x, b, y, **kw):
+    """Value and gradient in x of the port's solve, float64, plain twins."""
+    xt = torch.tensor(x, requires_grad=True)
+    v = sinkhorn_multiscale(torch.tensor(a), xt, torch.tensor(b), torch.tensor(y), impl="blocked", **kw)
+    v.backward()
+    return v.item(), xt.grad.numpy()
+
+
+@pytest.fixture(scope="module")
+def jax_solves():
+    """The two JAX solves of this file (each ~25 s in interpret mode)."""
+    out = {}
+    for p in (2, 1):
+        a, x, b, y = _clouds(seed=p)
+        aj, bj, yj = map(jnp.asarray, (a, b, y))
+        v, g = jax.value_and_grad(lambda x: jax_multiscale(aj, x, bj, yj, p=p, **KW))(jnp.asarray(x))
+        out[p] = float(v), np.asarray(g)
+    return out
+
+
+def _rel(got, ref):
+    return np.linalg.norm(np.asarray(got) - ref) / np.linalg.norm(ref)
+
+
+@pytest.mark.parametrize("p", [2, 1])
+def test_multiscale_matches_jax(jax_solves, p):
+    jv, jg = jax_solves[p]
+    v, g = _port(*_clouds(seed=p), p=p, **KW)
+    # The JAX fine phase and extrapolation run in float32 (its banded
+    # kernels cast): values within 1e-5 relative, gradients within 1e-4
+    # relative L2. For p=1 the JAX kernels' noise floor also sets the self
+    # pair's distance to 0 where the port takes sqrt(1e-8) = 1e-4 (see
+    # tests/test_torch_block_sparse.py): each debias potential moves by at
+    # most 1e-4, the value by at most 2e-4, and the gradient (measured
+    # 2.1e-4) gets a bound of 1e-3.
+    assert abs(v - jv) <= 1e-5 * abs(jv) + (2e-4 if p == 1 else 0.0)
+    assert _rel(g, jg) <= (1e-4 if p == 2 else 1e-3)
+
+
+@pytest.mark.parametrize("reach", [None, 0.5])
+def test_truncated_matches_exact_fine_phase(reach):
+    """Truncated against truncate=None at the bounds of
+    tests/test_samples_loss_golden.py: value rtol 1e-3, gradient rtol 1e-2
+    (here in relative L2: at N = 2048 the gradient's entries are ~1e-5,
+    where the golden test's atol of 1e-6 is not small), balanced and
+    unbalanced."""
+    clouds = _clouds(seed=3)
+    v, g = _port(*clouds, reach=reach, **KW)
+    v_x, g_x = _port(*clouds, reach=reach, truncate=None, **KW)
+    np.testing.assert_allclose(v, v_x, rtol=1e-3, atol=1e-7)
+    assert _rel(g, g_x) <= 1e-2
+
+
+def test_potentials_in_user_order():
+    """potentials=True de-sorts to the user's order (with padding: 2000
+    points in 2048 slots): <a, F> + <b, G> is the debiased value for
+    non-uniform weights, and F, G are within 5e-2 (relative L2) of the
+    tensorized solve's potentials, where a misplaced de-sort is off by
+    ~1.4 (the coarse warm start leaves ~2e-2)."""
+    a, x, b, y = _clouds(seed=4, n=2000)
+    T = lambda *v: [torch.tensor(u) for u in v]  # noqa: E731
+    F, G = sinkhorn_multiscale(*T(a, x, b, y), potentials=True, **KW)
+    value = sinkhorn_multiscale(*T(a, x, b, y), **KW)
+    assert F.shape == (2000,) and G.shape == (2000,)
+    np.testing.assert_allclose((torch.tensor(a) * F).sum() + (torch.tensor(b) * G).sum(), value, rtol=1e-10)
+    dense = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5, potentials=True, backend="tensorized")
+    Ft, Gt = dense(*T(a, x, b, y))
+    assert _rel(F, Ft.numpy()) <= 5e-2 and _rel(G, Gt.numpy()) <= 5e-2
+
+
+def test_labels_form():
+    """The 6-argument form with cluster labels runs the multiscale backend
+    with label-coherent blocks: close to the exact (truncate=None) solve."""
+    a, x, b, y = _clouds(seed=6)
+    lx = (x[:, 0] > 0.5).astype(np.int64)
+    ly = (y[:, 1] > 0.6).astype(np.int64)
+    loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)
+    T = torch.tensor
+    v = loss(T(lx), T(a), T(x), T(ly), T(b), T(y))
+    v_x = sinkhorn_multiscale(T(a), T(x), T(b), T(y), truncate=None, **KW)
+    assert torch.isfinite(v)
+    np.testing.assert_allclose(v.item(), v_x.item(), rtol=1e-3)
+
+
+@pytest.mark.parametrize("backend,n", [("multiscale", 50), ("auto", 10_001)])
+def test_samples_loss_routes_to_multiscale(monkeypatch, backend, n):
+    """backend="multiscale", and "auto" above 1e8 pairs (p = 2, D <= 3),
+    call sinkhorn_multiscale on the unbatched clouds."""
+    seen = {}
+
+    def solve(a, x, b, y, **kw):
+        seen.update(shapes=(a.shape, x.shape, b.shape, y.shape), p=kw["p"])
+        return sinkhorn_multiscale(a[:50], x[:50], b[:50], y[:50], **kw)
+
+    monkeypatch.setitem(samples_loss.routines["sinkhorn"], "multiscale", solve)
+    _, x, _, y = _clouds(seed=7, n=n)
+    v = SamplesLoss("sinkhorn", backend=backend, p=2, blur=0.05, diameter=2.0)(torch.tensor(x), torch.tensor(y))
+    assert seen == dict(shapes=((n,), (n, 3), (n,), (n, 3)), p=2)
+    assert v.ndim == 0 and torch.isfinite(v)

@@ -162,27 +162,34 @@ def test_unbalanced_weight_sejourne_grad():
 
 
 @pytest.mark.parametrize(
-    "loss,backend,shape",
+    "loss,backend,shape,kw",
     [
-        ("sinkhorn", "multiscale", (50, 3)),
-        ("sinkhorn", "auto", (10_001, 3)),  # N * M > 10000^2, D <= 3: multiscale
-        ("energy", "online", (50, 3)),
-        ("gaussian", "tensorized", (50, 3)),
-        ("hausdorff", "online", (50, 3)),
+        # the mid-scale path: more than 2^20 points with truncation
+        ("sinkhorn", "multiscale", (1_048_577, 3), dict(diameter=2.0)),
+        ("sinkhorn", "multiscale", (50, 3), dict(cost=lambda x, y: ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1))),
+        ("energy", "multiscale", (50, 3), {}),
+        ("energy", "online", (50, 3), {}),
+        ("gaussian", "tensorized", (50, 3), {}),
+        ("hausdorff", "online", (50, 3), {}),
     ],
 )
-def test_routes_not_ported_raise(loss, backend, shape):
+def test_routes_not_ported_raise(loss, backend, shape, kw):
     x = torch.zeros(shape, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SamplesLoss(loss, backend=backend)(x, x)
+        SamplesLoss(loss, backend=backend, **kw)(x, x)
 
 
 def test_labels_and_jumps_not_ported_raise():
+    """The labels form now runs the multiscale backend
+    (tests/test_torch_multiscale.py), but not with a custom cost; the
+    single-scale loop takes no jumps."""
     x = torch.rand(20, 3, dtype=torch.float64)
     w = torch.full((20,), 1 / 20, dtype=torch.float64)
     lab = torch.zeros(20, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SamplesLoss("sinkhorn")(lab, w, x, lab, w, x)
+        SamplesLoss("sinkhorn", cost=lambda x, y: ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1))(
+            lab, w, x, lab, w, x
+        )
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sinkhorn_loop(None, w, w, None, None, None, None, [1.0], None, jumps=[0])
 

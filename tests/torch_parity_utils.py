@@ -39,6 +39,21 @@ def potentials(N, M, seed):
     return f, g, la, lb
 
 
+def kept_table(n_tiles, m_tiles, cap, seed, sym=False):
+    """A kept-tile table ``(cols, counts)`` (numpy int32) from a random keep
+    score: ragged counts, every row and every column tile kept at least
+    once; symmetric scores for ``sym``."""
+    from geomloss_tpu_torch.ops.block_sparse import _cols_from_score
+
+    rng = np.random.RandomState(seed)
+    score = rng.rand(n_tiles, m_tiles) - 0.45
+    score[np.arange(m_tiles) % n_tiles, np.arange(m_tiles)] += 2
+    if sym:
+        score = score + score.T + 2 * np.eye(n_tiles)
+    cols, counts, _ = _cols_from_score(torch.tensor(score), cap)
+    return cols.numpy(), counts.numpy()
+
+
 def tensors(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
