@@ -1,6 +1,7 @@
 """GPU smoke run of geomloss_tpu_torch: builds the kernels, checks each
 against its plain PyTorch twin, drives the online and the multiscale
-Sinkhorn paths at N = M = 100,000, and times them.
+Sinkhorn paths at N = M = 100,000 and the multiscale mid path at
+N = M = 2,000,000, and times them.
 
     python3 chip_smoke.py
 
@@ -28,14 +29,28 @@ phase fails. Phases, one line each:
    value of phase 5 and against ``truncate=None``; the launch counts of
    that run;
 7. timing: loss + gradient of both paths, kernels and plain float32 twins;
-   each kernel against its twin; the device's idle share over one
-   multiscale call (``torch.profiler``).
+   each kernel against its twin and its bound (the larger of its bytes
+   over the memory rate and its exp2 count over the MUFU rate); the
+   device's idle share over one multiscale call (``torch.profiler``);
+8. mid path (bench.py's call at N = M = 2e6, ``backend="auto"``: the
+   pooled intermediate scale, kernel 7 on the four truncated
+   extrapolations, kernels 5 and 6 at tile 1024): the launch counts of that
+   run against the schedule, loss + gradient time, peak device memory and
+   the device's idle share over one call;
+   kernel 7 against its twin on the run's four extrapolation tables, and
+   kernels 5 and 6 on the first 64 row tiles of its first fine tables; for
+   information, how many rows JAX's walk budget would have clipped and the
+   value against ``truncate=None`` (the exact fine phase, kernels 2 and 3);
+9. the mid path forced at N = M = 1e5 (``N_FINE_OK`` lowered for the
+   call), p in {1, 2}, and one custom-cost multiscale solve at 1e5, each
+   against the same call through the float64 twins.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
 reports them; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import shutil
@@ -44,10 +59,12 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 N_POINTS = 100_000
 N_REPAIR = 1_000_000
+N_MID = 2_000_000
 RAGGED = (100_003, 99_991)
 BLUR, DIAMETER, SCALING = 0.05, 2.0, 0.5
 
@@ -61,6 +78,24 @@ APPLY_RTOL, APPLY_ATOL_SCALE = 2e-3, 3e-5
 PATH_TOL = 1e-3
 #: Extra device memory one step call may take beyond its inputs at 1e6.
 REPAIR_BYTES = 256e6
+#: Launches of the 2e6 mid path (bench.py's settings): one fine iteration
+#: (3 tables) and the last extrapolation's 3 forwards on kernel 5, the
+#: backward of its xy and xx parts on kernel 6, the four extrapolations
+#: onto the fine cloud on kernel 7.
+MID_LAUNCHES = {"lse_tiles": 4, "absorbed_sum_tiles": 6, "gibbs_apply_tiles": 2}
+#: N_FINE_OK for the mid path forced at 1e5: one mid iteration for p = 1
+#: and p = 2, on a mid cloud of 16,384 points (the truncated
+#: extrapolations' gate needs 64 source tiles of 128).
+N_FINE_FORCED = 1 << 16
+#: Row tiles of the kernel 5 and 6 parity checks on the 2e6 tables (the
+#: twin's time grows with them).
+MID_PARITY_TILES = 64
+
+# Least time of a kernel on this card: the larger of its bytes over the
+# memory rate and its exponentials over the MUFU rate (16 exp2 results per
+# clock per SM, 132 SMs, at the card's maximum SM clock), NVIDIA H100 SXM.
+HBM_BYTES_PER_S = 3.35e12
+MUFU_PER_CLOCK = 16 * 132
 
 # TPU kernel each CUDA kernel replaces (wrapper definition, file:line).
 REPLACES = {
@@ -70,6 +105,7 @@ REPLACES = {
     "gibbs_apply": "geomloss_tpu/ops/pallas_kernels.py:722",
     "absorbed_sum_tiles": "geomloss_tpu/ops/block_sparse.py:653",
     "gibbs_apply_tiles": "geomloss_tpu/ops/block_sparse.py:859",
+    "lse_tiles": "geomloss_tpu/ops/block_sparse.py:1072",
 }
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
@@ -79,6 +115,74 @@ SOURCES = {
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def sphere_cloud(n, seed):
+    """bench.py's clouds: n points on the unit sphere, float32."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(n, 3)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32)
+
+
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(exps, nbytes, clock_hz):
+    """``(bound_ms, bound_by)``: the larger of ``nbytes`` over the memory
+    rate and ``exps`` exponentials over the MUFU rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = exps / (MUFU_PER_CLOCK * clock_hz)
+    return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def recording(module, names):
+    """Record the arguments of every call to ``module.<name>`` (the calls
+    go through unchanged): yields ``{name: [(args, kwargs), ...]}``."""
+    rec = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            rec[name].append((args, kwargs))
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(module, name, wrap(name))
+    try:
+        yield rec
+    finally:
+        for name in names:
+            setattr(module, name, saved[name])
+
+
+def walk_budget_clips(cnt, cap, rows_per_chunk=1024):
+    """Rows and kept tiles JAX's ``walk_plan`` would drop from a kernel 7
+    table: a chunk of row tiles keeping more than ``rows x max(12, cap //
+    2)`` tiles clips every row of it that keeps more than one."""
+    c = cnt.cpu().long().clamp(max=cap)
+    rows = tiles = 0
+    T = max(12, cap // 2)
+    for i in range(0, c.shape[0], rows_per_chunk):
+        ch = c[i : i + rows_per_chunk]
+        tot, n = int(ch.sum()), ch.shape[0]
+        if tot > n * T:
+            scale = (n * T - n) / max(tot - n, 1)
+            clipped = 1 + ((ch - 1).double() * scale).long()
+            rows += int((clipped < ch).sum())
+            tiles += int((ch - clipped).sum())
+    return rows, tiles
 
 
 def card_line():
@@ -142,26 +246,16 @@ def capture_fine_state(ms, solve):
     """Arguments of the first fine step and the first symmetric fine step
     of one multiscale solve: the sorted clouds, potentials and truncation
     tables the block-sparse kernels get on that path."""
-    rec = {}
-    pair, sym = ms.sinkhorn_step_walk_banded, ms.sinkhorn_step_walk_banded_sym
+    with recording(ms, ("sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")) as rec, torch.no_grad():
+        solve()
+    return first_fine_steps(rec)
 
-    def pair_rec(*args):
-        rec.setdefault("xy", args)
-        return pair(*args)
 
-    def sym_rec(*args):
-        rec.setdefault("xx", args)
-        return sym(*args)
-
-    ms.sinkhorn_step_walk_banded, ms.sinkhorn_step_walk_banded_sym = pair_rec, sym_rec
-    try:
-        with torch.no_grad():
-            solve()
-    finally:
-        ms.sinkhorn_step_walk_banded, ms.sinkhorn_step_walk_banded_sym = pair, sym
-    if set(rec) != {"xy", "xx"}:
-        fail(f"the multiscale solve ran no truncated fine step ({sorted(rec)})")
-    return rec
+def first_fine_steps(rec):
+    steps = rec["sinkhorn_step_walk_banded"], rec["sinkhorn_step_walk_banded_sym"]
+    if not all(steps):
+        fail("the multiscale solve ran no truncated fine step")
+    return {"xy": steps[0][0][0], "xx": steps[1][0][0]}
 
 
 def main():
@@ -173,10 +267,10 @@ def main():
     card = card_line()
     print(f"[device] {kind} x{count}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    from bench import sphere_cloud
     from geomloss_tpu_torch import SamplesLoss
     from geomloss_tpu_torch.models import multiscale as ms
     from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
+    from geomloss_tpu_torch.ops import block_sparse as tbs
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
     from geomloss_tpu_torch.ops import cuda_kernels as ck
 
@@ -266,15 +360,16 @@ def main():
                     check_apply("gibbs_apply", f"{label} {kind_c} C={C}", ck.gibbs_apply(*args),
                                 ck.gibbs_apply_blocked(*args), scale)
 
-    # The block-sparse kernels on the tables of the multiscale path at 1e5.
-    kw = dict(blur=BLUR, diameter=DIAMETER, scaling=SCALING)
-    w = torch.full((N_POINTS,), 1.0 / N_POINTS, dtype=f32, device=dev)
-    fine = {}
-    for p in (1, 2):
-        fine[p] = capture_fine_state(ms, lambda: ms.sinkhorn_multiscale(w, x0, w, y0, p=p, **kw))
-        e, xs, ys, la, lb, f, g, cols, cnt, _, tile, _ = fine[p]["xy"]
-        _, _, _, f_aa, cols_xx, cnt_xx, _, _, _ = fine[p]["xx"]
-        label = (f"N=M={N_POINTS} p={p} tile={tile} ck={cols.shape[1]} "
+    def check_tile_kernels(state, label, rows=None):
+        """Kernels 5 and 6 against their twins on the tables of a fine
+        step, as the fine step and the extrapolation backward call them;
+        ``rows``: only the first ``rows`` row tiles keep their tiles."""
+        e, xs, ys, la, lb, f, g, cols, cnt, p, tile, _ = state["xy"]
+        _, _, _, f_aa, cols_xx, cnt_xx, _, _, _ = state["xx"]
+        if rows is not None:
+            cnt, cnt_xx = cnt.clone(), cnt_xx.clone()
+            cnt[rows:], cnt_xx[rows:] = 0, 0
+        label = (f"{label} p={p} tile={tile} ck={cols.shape[1]} "
                  f"kept {int(cnt.sum())}/{cols.numel()} (xx {int(cnt_xx.sum())})")
         phi, psi, phx = la + f / e, lb + g / e, la + f_aa / e
         for tri, args in (
@@ -310,6 +405,14 @@ def main():
             for d in range(2):
                 check_apply("gibbs_apply_tiles", f"{label}{' triangle' if tri else ''} "
                             f"{'rows' if d == 0 else 'cols'} C=4", got[d], ref[d], scales[d].abs().max().item())
+
+    # The block-sparse kernels on the tables of the multiscale path at 1e5.
+    kw = dict(blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    w = torch.full((N_POINTS,), 1.0 / N_POINTS, dtype=f32, device=dev)
+    fine = {}
+    for p in (1, 2):
+        fine[p] = capture_fine_state(ms, lambda: ms.sinkhorn_multiscale(w, x0, w, y0, p=p, **kw))
+        check_tile_kernels(fine[p], f"N=M={N_POINTS}")
 
     # --- 5. Online path ----------------------------------------------------------
     loss = SamplesLoss("sinkhorn", p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING, backend="online")
@@ -450,22 +553,173 @@ def main():
         "gibbs_apply_tiles": (lambda: cbs.gibbs_apply_tiles(*a_args),
                               lambda: cbs.gibbs_apply_tiles_blocked(*a_args)),
     }
+    # Work of each timed call: exponentials (one per pair it visits: a
+    # triangle for the symmetric step, the kept tile pairs for kernels 5
+    # and 6) and bytes (each input read once, each output written once).
+    NP, kept = N_POINTS, int(cnt.sum()) * tile * tile
+    work = {
+        "lse": (NP * NP, nbytes(x0, y0, la) + 4 * NP),
+        "sinkhorn_step": (NP * NP, nbytes(x0, y0, z, z, la, la) + 8 * NP),
+        "sinkhorn_step_sym": (NP * (NP + 1) // 2, nbytes(x0, z, la) + 4 * NP),
+        "gibbs_apply": (NP * NP, nbytes(x0, y0, lse_ref, la, V1) + 16 * NP),
+        "absorbed_sum_tiles": (kept, nbytes(*t_args[:4], cols, cnt) + 4 * (xs.shape[0] + ys.shape[0])),
+        "gibbs_apply_tiles": (kept, nbytes(*a_args[:6], cols, cnt) + 16 * (xs.shape[0] + ys.shape[0])),
+    }
+    clock = sm_clock_hz()
     src = {name: SOURCES["block_sparse_kernels" if name.endswith("_tiles") else "online_kernels"]
-           for name in cases}
+           for name in REPLACES}
     all_launches = {**launches, **{k: launches_ms[k] for k in cbs.launch_counts}}
     kernels = []
-    for name, (kern, twin) in cases.items():
+
+    def kernel_entry(name, where, kern, twin, twin_reps, launches_n):
         ms_k = event_ms(kern, 10)
-        plain_ms = event_ms(twin, 3)
-        where = (f"N=M={N_POINTS} p=2" if name in ck.launch_counts
-                 else f"first fine step's table, kept {int(cnt.sum())} tile pairs of {tile}")
-        print(f"[time] {name:18s} {where}: kernel {ms_k:.3f} ms, twin {plain_ms:.3f} ms "
+        plain_ms = event_ms(twin, twin_reps)
+        bound_ms, bound_by = bound(*work[name], clock)
+        print(f"[time] {name:18s} {where}: kernel {ms_k:.3f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}: {work[name][0]:.4g} exp2, {work[name][1]:.4g} bytes, SM clock {clock / 1e6:.0f} MHz) "
               f"(CUDA events); card {card}", flush=True)
+        # No single PyTorch call computes these functions: each needs the
+        # dense (N, M) matrix (40 GB at 1e5) or a gather of kept tiles.
         kernels.append({
             "name": name, "route": "cuda", "source": src[name], "replaces": REPLACES[name],
-            "launches": all_launches[name], "max_abs_err": max_err[name],
-            "ms": ms_k, "plain_ms": plain_ms,
+            "launches": launches_n, "max_abs_err": max_err[name],
+            "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+
+    for name, (kern, twin) in cases.items():
+        where = (f"N=M={N_POINTS} p=2" if name in ck.launch_counts
+                 else f"first fine step's table, kept {int(cnt.sum())} tile pairs of {tile}")
+        kernel_entry(name, where, kern, twin, 3, all_launches[name])
+    del fine, cases, t_args, a_args, lse_ref, V1, xs, ys, cols, cnt, f, g, la_f, lb_f, Vx, Vy
+
+    # --- 8. Mid path: bench.py's call at N = M = 2e6, backend "auto" -------------
+    t_mid = time.perf_counter()
+    xm = torch.from_numpy(sphere_cloud(N_MID, 0)).to(dev)
+    ym = torch.from_numpy(sphere_cloud(N_MID, 1)).to(dev)
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(cbs, ("lse_tiles",)) as rec7, recording(
+        ms, ("run_mid_phase", "sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")
+    ) as rec_ms:
+        v_2m, g_2m = value_and_grad(lambda x: auto(x, ym), xm)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches_mid = {**ck.launch_counts, **cbs.launch_counts}
+    print(f"[mid] N=M={N_MID} launches {json.dumps(launches_mid)} in {first_s:.2f} s (first call), "
+          f"peak device memory {peak_gb:.3f} GB; card {card}", flush=True)
+    if len(rec_ms["run_mid_phase"]) != 1:
+        fail(f"the mid phase ran {len(rec_ms['run_mid_phase'])} times at N=M={N_MID}, not once")
+    if any(launches_mid[k] != n for k, n in MID_LAUNCHES.items()):
+        fail(f"mid path launches {launches_mid} differ from the schedule {MID_LAUNCHES}")
+    if g_2m.shape != (N_MID, 3) or not (torch.isfinite(v_2m) and torch.isfinite(g_2m).all()):
+        fail("mid path: non-finite or misshapen output")
+    wall = []
+    for _ in range(3):  # the counted call above was the warm-up
+        t0 = time.perf_counter()
+        value_and_grad(lambda x: auto(x, ym), xm)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    print(f"[mid] loss {v_2m.item():.9e}; loss+grad N=M={N_MID}, host clock, 3 reps after the warm-up: "
+          f"{', '.join(f'{t:.3f}' for t in wall)} ms; card {card}", flush=True)
+    wall_p, busy, n_launch, top = profile_busy_ms(lambda: value_and_grad(lambda x: auto(x, ym), xm))
+    print(f"[time] mid path loss+grad N=M={N_MID} under torch.profiler: wall {wall_p:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {100 * (1 - busy / wall_p):.1f} %, {n_launch} kernel launches; card {card}",
+          flush=True)
+    for dev_ms, calls, key in top:
+        print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
+
+    # Kernel 7 on the four extrapolation tables of that run.
+    tables = [args for args, _ in rec7["lse_tiles"]]
+    if len(tables) != MID_LAUNCHES["lse_tiles"]:
+        fail(f"recorded {len(tables)} truncated extrapolations, not {MID_LAUNCHES['lse_tiles']}")
+    for k, args in enumerate(tables):
+        xr, src_pts, h7, e7, cols7, cnt7, bn, bm, p7 = args
+        kept7 = int(cnt7.clamp(max=cols7.shape[1]).sum())
+        rows_c, tiles_c = walk_budget_clips(cnt7, cols7.shape[1])
+        check_val("lse_tiles", f"N={xr.shape[0]} src={src_pts.shape[0]} tiles {bn}x{bm} ck={cols7.shape[1]} "
+                  f"kept {kept7}/{cols7.numel()} extrapolation {k}", cbs.lse_tiles(*args), cbs.lse_tiles_blocked(*args))
+        print(f"[mid] for information, extrapolation {k}: JAX's walk budget (max(12, ck // 2) per row) would "
+              f"clip {rows_c} of {cnt7.shape[0]} row tiles, dropping {tiles_c} of {kept7} kept tiles", flush=True)
+    args7 = tables[0]
+    work["lse_tiles"] = (
+        int(args7[5].clamp(max=args7[4].shape[1]).sum()) * args7[6] * args7[7],
+        nbytes(*args7[:3], args7[4], args7[5]) + 4 * args7[0].shape[0],
+    )
+    kernel_entry("lse_tiles", f"first extrapolation table at N=M={N_MID}",
+                 lambda: cbs.lse_tiles(*args7), lambda: cbs.lse_tiles_blocked(*args7), 1, launches_mid["lse_tiles"])
+
+    # Kernels 5 and 6 at tile 1024, on the first fine tables of that run.
+    state = first_fine_steps(rec_ms)
+    check_tile_kernels(state, f"N=M={N_MID} first {MID_PARITY_TILES} row tiles", rows=MID_PARITY_TILES)
+    e, xs, ys, la_f, lb_f, f, g, cols, cnt, _, tile, _ = state["xy"]
+    t_args = (xs, ys, la_f + f / e, lb_f + g / e, e, cols, cnt, 2, tile, False)
+    Vy = torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
+    Vx = torch.cat([torch.ones_like(xs[:, :1]), xs], 1)
+    a_args = (*t_args[:4], Vy, Vx, e, cols, cnt, 2, "gibbs", tile, False)
+    kept = int(cnt.sum()) * tile * tile
+    for name, call in (("absorbed_sum_tiles", lambda: cbs.absorbed_sum_tiles(*t_args)),
+                       ("gibbs_apply_tiles", lambda: cbs.gibbs_apply_tiles(*a_args))):
+        nb = (nbytes(*t_args[:4], cols, cnt) + 4 * (xs.shape[0] + ys.shape[0]) if name == "absorbed_sum_tiles"
+              else nbytes(*a_args[:6], cols, cnt) + 16 * (xs.shape[0] + ys.shape[0]))
+        b_ms, b_by = bound(kept, nb, clock)
+        print(f"[time] {name:18s} first fine step's table at N=M={N_MID}, kept {int(cnt.sum())} tile pairs of "
+              f"{tile}: kernel {event_ms(call, 3):.3f} ms, bound {b_ms:.3f} ms ({b_by}) (CUDA events); "
+              f"card {card}", flush=True)
+    del rec7, rec_ms, tables, args7, state, t_args, a_args, Vx, Vy, xs, ys, f, g, cols, cnt
+    torch.cuda.empty_cache()
+
+    # For information: the exact fine phase (kernels 2 and 3) at 2e6.
+    w2 = torch.full((N_MID,), 1.0 / N_MID, dtype=f32, device=dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        v_ex = ms.sinkhorn_multiscale(w2, xm, w2, ym, truncate=None, **kw2)
+        torch.cuda.synchronize()
+        ex_s = time.perf_counter() - t0
+    print(f"[mid] for information, against truncate=None at N=M={N_MID} (exact fine phase, {ex_s:.2f} s): "
+          f"loss {v_ex.item():.9e}, rel err {abs(v_2m.item() - v_ex.item()) / abs(v_ex.item()):.3e}", flush=True)
+    del xm, ym, w2, g_2m
+    torch.cuda.empty_cache()
+
+    # --- 9. Mid path forced at 1e5, and a custom cost --------------------------
+    saved = ms.N_FINE_OK
+    ms.N_FINE_OK = N_FINE_FORCED
+    try:
+        for p in (1, 2):
+            kwp = dict(p=p, **kw)
+            cbs.reset_launch_counts()
+            v_f, g_f = value_and_grad(lambda x: ms.sinkhorn_multiscale(w, x, w, y0, **kwp), x0)
+            torch.cuda.synchronize()
+            n7 = cbs.launch_counts["lse_tiles"]
+            if n7 != MID_LAUNCHES["lse_tiles"]:
+                fail(f"mid path forced at N=M={N_POINTS} p={p}: kernel 7 launched {n7} times")
+            v_fr, g_fr = value_and_grad(
+                lambda x: ms.sinkhorn_multiscale(w64, x, w64, y0.to(f64), impl="blocked", **kwp), x0.to(f64)
+            )
+            compare("mid", f"mid path forced (N_FINE_OK={N_FINE_FORCED}) N=M={N_POINTS} p={p}, "
+                    f"launches {json.dumps(cbs.launch_counts)}", v_f, g_f, v_fr, g_fr)
+    finally:
+        ms.N_FINE_OK = saved
+
+    def half_sqdist(X, Y):
+        return ((X[:, :, None, :] - Y[:, None, :, :]) ** 2).sum(-1) / 2
+
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    t0 = time.perf_counter()
+    v_c, g_c = value_and_grad(lambda x: ms.sinkhorn_multiscale(w, x, w, y0, cost=half_sqdist, **kw2), x0)
+    torch.cuda.synchronize()
+    custom_s = time.perf_counter() - t0
+    launches_c = {**ck.launch_counts, **cbs.launch_counts}
+    v_cr, g_cr = value_and_grad(
+        lambda x: ms.sinkhorn_multiscale(w64, x, w64, y0.to(f64), cost=half_sqdist, **kw2), x0.to(f64)
+    )
+    compare("custom", f"custom cost |x-y|^2/2 multiscale N=M={N_POINTS} ({custom_s:.2f} s, kernel launches "
+            f"{sum(launches_c.values())})", v_c, g_c, v_cr, g_cr)
+    print(f"[mid] phases 8 and 9 took {time.perf_counter() - t_mid:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -14,6 +14,10 @@
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM); a
 // kept pair reads nothing but the two tiles' coordinates and biases.
 //
+// Kernels 5 and 6 serve square tiles of a symmetric tiling; kernel 7 (the
+// mid path's extrapolations) reads its (cols, cnt) table directly, with
+// row tiles of block_n points and source tiles of block_m points.
+//
 // The TPU walked the kept pairs in order and carried the column sums in
 // VMEM from one grid step to the next, flushing them at band markers. CUDA
 // blocks run in no order, so here block (s, h) takes the 256 rows h of
@@ -184,6 +188,52 @@ tiles_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // -----------------------------------------------------------------------------
+// 7. Truncated LSE over kept source tiles. Replaces
+//    geomloss_tpu/ops/block_sparse.py::lse_walk (_lse_walk_kernel), the
+//    detached coarse/mid -> fine extrapolations of the mid path:
+//    out_i = log2 sum_j exp2(h2_j + arg_ij) in base-2 units over the
+//    source tiles cols[I, k], k < cnt[I], of row i's tile I; rows come in
+//    tiles of block_n points, sources in tiles of block_m points (any
+//    sizes: block_m < kTile stages a partial tile).
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: the online
+//    LSE of kernel 1 (lse_tile, pair_common.cuh) with a column-tile
+//    indirection. One block per (row tile, 256-row slice), one thread per
+//    row, running max and sum in registers; each kept source tile is
+//    staged in shared memory kTile points at a time. Each output row is
+//    written once: no scratch, no atomics, bitwise reproducible. The
+//    TPU's step-list packing (walk_plan) and its per-chunk budget, which
+//    clipped kept tiles, have no counterpart: every kept tile is visited.
+// -----------------------------------------------------------------------------
+template <int D, int P>
+__global__ void __launch_bounds__(kThreads)
+tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                 const float* __restrict__ h2, const int* __restrict__ cols,
+                 const int* __restrict__ cnt, float* __restrict__ out, int ck,
+                 int block_n, int block_m, float c2) {
+  __shared__ Tile<D> t;
+  const int I = blockIdx.x;
+  const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
+  const bool valid = threadIdx.x < rows;
+  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
+  const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
+  const int* row_cols = cols + (int64_t)I * ck;
+  const int n_kept = min(cnt[I], ck);
+  float m = -INFINITY;
+  float s = 0.f;
+  for (int k = 0; k < n_kept; ++k) {
+    const int64_t j0 = (int64_t)row_cols[k] * block_m;
+    for (int c0 = 0; c0 < block_m; c0 += kTile) {
+      const int n = min(kTile, block_m - c0);
+      __syncthreads();
+      load_tile<D>(t, y, h2, j0 + c0, n);
+      __syncthreads();
+      lse_tile<D, P>(r, t, n, c2, m, s);
+    }
+  }
+  if (valid) out[i] = m + log2f(s);
+}
+
+// -----------------------------------------------------------------------------
 // Second pass of kernels 5 and 6: out[g, l] = sum over the slots s of
 // segment g (order[offsets[g]] .. order[offsets[g + 1] - 1], in that order)
 // of sum_h parts[s, h, l], for l < L. One thread per (segment, lane); a
@@ -237,6 +287,20 @@ int gl_gibbs_apply_tiles(const float* x, const float* y, const float* phi,
       case 2: tiles_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, ck, tile, tri, c2); break;
       default: return (int)cudaErrorInvalidValue;
     })
+  return (int)cudaGetLastError();
+}
+
+// n_rows = N / block_n row tiles, ck the table width.
+int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* cols,
+                 const int* cnt, float* out, int n_rows, int ck, int block_n,
+                 int block_m, int D, int p, float c2, void* stream) {
+  if (n_rows == 0) return (int)cudaSuccess;
+  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  GL_DISPATCH_D8(D,
+    if (p == 2) tiles_lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2);
+    else tiles_lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2))
   return (int)cudaGetLastError();
 }
 

@@ -27,8 +27,9 @@ namespace {
 //    the wrapper converts to nats and adds the p=2 row term.
 //    Bound: one exp2 per pair. Design: per tile, a max pass that only
 //    recomputes scores (FFMAs), then one exp2-sum pass against the running
-//    max; the running sum is rescaled once per tile, not once per pair.
-//    The ragged edge is an explicit bound on the tile width, not padding.
+//    max (lse_tile, pair_common.cuh); the running sum is rescaled once per
+//    tile, not once per pair. The ragged edge is an explicit bound on the
+//    tile width, not padding.
 // -----------------------------------------------------------------------------
 template <int D, int P>
 __global__ void __launch_bounds__(kThreads)
@@ -46,14 +47,7 @@ lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
     __syncthreads();
     load_tile<D>(t, y, h2, j0, n);
     __syncthreads();
-    float tmax = -INFINITY;
-    for (int k = 0; k < n; ++k) tmax = fmaxf(tmax, pair_arg<D, P>(r, t, k, c2));
-    const float m_new = fmaxf(m, tmax);
-    if (m_new == -INFINITY) continue;  // every weight so far is exactly 0
-    float acc = s * exp2f(m - m_new);
-    for (int k = 0; k < n; ++k) acc += exp2f(pair_arg<D, P>(r, t, k, c2) - m_new);
-    s = acc;
-    m = m_new;
+    lse_tile<D, P>(r, t, n, c2, m, s);
   }
   if (valid) out[i] = m + log2f(s);
 }

@@ -120,6 +120,24 @@ __device__ __forceinline__ float apply_weight(const Row<D>& r, const Tile<D>& t,
   }
 }
 
+// One staged tile of n columns of an online LSE in base 2, against the
+// running max m and sum s (m = -inf, s = 0 before the first tile): a max
+// pass that only recomputes scores (FFMAs), then one exp2-sum pass against
+// the new running max; the running sum is rescaled once per tile, not
+// once per pair. A tile whose weights are all exactly 0 so far is skipped.
+template <int D, int P>
+__device__ __forceinline__ void lse_tile(const Row<D>& r, const Tile<D>& t, int n, float c2,
+                                         float& m, float& s) {
+  float tmax = -INFINITY;
+  for (int k = 0; k < n; ++k) tmax = fmaxf(tmax, pair_arg<D, P>(r, t, k, c2));
+  const float m_new = fmaxf(m, tmax);
+  if (m_new == -INFINITY) return;
+  float acc = s * exp2f(m - m_new);
+  for (int k = 0; k < n; ++k) acc += exp2f(pair_arg<D, P>(r, t, k, c2) - m_new);
+  s = acc;
+  m = m_new;
+}
+
 // One butterfly step of warp_transpose_sum: lanes whose OFF bit is set
 // keep the upper half of their values, the others the lower half.
 template <int OFF>

@@ -13,13 +13,20 @@ Counterpart of :mod:`geomloss_tpu.models.multiscale`:
    (``masks_from_coarse``), and the remaining fine iterations and the
    differentiable last extrapolation visit only the kept tile pairs
    (``ops/block_sparse.py``, two CUDA kernels). ``truncate=None`` runs an
-   exact fine phase through the online kernels instead.
+   exact fine phase through the online kernels instead;
+5. above ``N_FINE_OK`` points (with truncation), a pooled intermediate
+   scale delays fine entry by ``mid_delay`` annealing steps
+   (``run_mid_phase``): the jump is rebased onto the mid cloud, the four
+   extrapolations onto the fine cloud are truncated (kernel 7,
+   ``softmin_extrap_truncated``), and the fine tables are built from the
+   extrapolated fine potentials (``build_tile_masks``);
+6. a custom ``cost`` callable runs the coarse phase through the streaming
+   custom-cost softmin, keeps tiles by the cost between centroids, and
+   runs its fine phase through a gather-based truncated LSE with no kernel
+   (``lse_sparse_custom``); it never takes the mid phase.
 
 Gradient semantics match the reference: everything up to the final
 extrapolation runs under ``torch.no_grad()`` (envelope theorem).
-
-Not ported yet: the mid-scale path (more than ``N_FINE_OK`` points with
-truncation) and custom costs; both raise ``NotImplementedError``.
 """
 
 import math
@@ -29,8 +36,11 @@ import numpy as np
 import torch
 
 from ..ops.block_sparse import (
+    build_tile_masks,
+    lse_sparse_custom,
     masks_from_coarse,
     retighten_counts,
+    softmin_extrap_truncated,
     sinkhorn_step_walk_banded,
     sinkhorn_step_walk_banded_sym,
     softmin_extrapolation_walk_banded,
@@ -58,9 +68,26 @@ __all__ = [
 TILE = 512
 
 #: Largest point count the classic two-scale descent serves with
-#: truncation; beyond it the JAX package delays fine entry through a pooled
-#: intermediate scale (``mid_delay``), which is not ported yet.
+#: truncation; beyond it fine entry is delayed through a pooled
+#: intermediate scale (``mid_delay``). Read at call time, so that tests can
+#: lower it.
 N_FINE_OK = 1 << 20
+
+#: Source-tile side of the truncated coarse/mid -> fine extrapolations
+#: (``softmin_extrap_truncated``): small tiles track the keep radius on the
+#: source cloud, whose extent per tile is much larger than a fine tile's.
+EXTRAP_BM = 128
+
+#: Test hook: force the mid phase's pooling factor (``None``: from
+#: ``block_size``, ``scaling`` and ``n_delay``).
+_B_MID_OVERRIDE = None
+
+
+def mid_cap(n_pad, tile):
+    """Table width of the mid path's fine tables: the kept tiles per row
+    scale with the column tiles, so ``nJ / 16`` between 96 and 224."""
+    nJ = n_pad // tile
+    return min(224, max(96, nJ // 16))
 
 
 def default_cluster_scale(diameter, D):
@@ -219,10 +246,74 @@ def _iterate(step, carry, eps_seg, rho, debias):
     return f_ba, g_ab, f_aa, g_bb
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to geomloss_tpu_torch yet (ROADMAP.md, queue 1 item {item})."
+def _dense_step(sm, x, y, a_log, b_log, debias):
+    """The four softmin sweeps of one iteration on a whole (coarse or mid)
+    cloud, for :func:`_iterate`."""
+
+    def step(e, f_ba, g_ab, f_aa, g_bb):
+        S_xx = sm(e, (x, x), a_log + f_aa / e) if debias else None
+        S_yy = sm(e, (y, y), b_log + g_bb / e) if debias else None
+        return sm(e, (x, y), b_log + g_ab / e), sm(e, (y, x), a_log + f_ba / e), S_xx, S_yy
+
+    return step
+
+
+def _extrapolate(ext, eps, damp, x_e, y_e, src_x, src_y, a_log, b_log, carry, debias):
+    """The four extrapolations of a potential carry from a source cloud
+    ``(src_x, src_y)`` onto the points ``(x_e, y_e)``; the cross updates
+    use the previous iterates in parallel. ``ext(rows, src, h)`` is the
+    softmin."""
+    f_ba, g_ab, f_aa, g_bb = carry
+    f_new = damp * ext(x_e, src_y, b_log + g_ab / eps)
+    g_new = damp * ext(y_e, src_x, a_log + f_ba / eps)
+    if not debias:
+        return f_new, g_new, torch.zeros_like(f_new), torch.zeros_like(g_new)
+    return f_new, g_new, damp * ext(x_e, src_x, a_log + f_aa / eps), damp * ext(y_e, src_y, b_log + g_bb / eps)
+
+
+def run_mid_phase(sm, carry, x_c, y_c, a_log_c, b_log_c, a_s, b_s, x_sd, y_sd, eps_list, jump, n_delay,
+                  rho, debias, block_size, scaling, verbose=False):
+    """Pooled intermediate scale between the coarse and fine scales
+    (detached): the first ``n_delay`` post-jump temperatures run as dense
+    sweeps on a cloud of pooled mid blocks of ``b_mid`` sorted points.
+
+    Returns the potential carry on the mid cloud and the mid cloud
+    ``(x_m, y_m, a_log_m, b_log_m)`` that replaces the coarse state for the
+    fine extrapolation.
+    """
+    D = x_sd.shape[1]
+    eps_j = eps_list[jump]
+    # Pooled blocks whose extent tracks the entry temperature:
+    # b_mid <= block_size * scaling^(2 n_delay).
+    b_mid = 1 << max(0, int(np.floor(np.log2(block_size * float(scaling) ** (2 * n_delay)))))
+    if _B_MID_OVERRIDE is not None:
+        b_mid = _B_MID_OVERRIDE
+
+    def pool_mid(w, pts):
+        wb = w.reshape(-1, b_mid)
+        pb = pts.reshape(-1, b_mid, D)
+        wsum = wb.sum(1)
+        cent = (pb * wb[..., None]).sum(1) / torch.clamp(wsum, min=1e-30)[:, None]
+        # Zero-mass (padding) blocks: park at the plain mean.
+        return wsum, torch.where(wsum[:, None] > 0, cent, pb.mean(1))
+
+    aw_m, x_m = pool_mid(a_s.detach(), x_sd)
+    bw_m, y_m = pool_mid(b_s.detach(), y_sd)
+    a_log_m, b_log_m = log_weights(aw_m), log_weights(bw_m)
+    if verbose:
+        print(
+            f"Intermediate scale: {x_m.shape[0]}x{y_m.shape[0]} pooled blocks of {b_mid} "
+            f"for {n_delay} iteration(s) after the jump."
+        )
+    carry = _extrapolate(
+        lambda rows, src, h: sm(eps_j, (rows, src), h), eps_j, dampening(eps_j, rho),
+        x_m, y_m, x_c, y_c, a_log_c, b_log_c, carry, debias,
     )
+    carry = _iterate(
+        _dense_step(sm, x_m, y_m, a_log_m, b_log_m, debias), carry,
+        eps_list[jump + 1 : jump + n_delay + 1], rho, debias,
+    )
+    return carry, x_m, y_m, a_log_m, b_log_m
 
 
 def sinkhorn_multiscale(
@@ -255,13 +346,13 @@ def sinkhorn_multiscale(
     ``truncate`` controls the block-sparse pruning margin (reference
     default 5); ``truncate=None`` disables pruning (exact fine phase).
     ``cap`` bounds the number of visited column tiles per row tile
-    (default: an eighth of the column tiles, between 32 and 128).
+    (default: an eighth of the column tiles, between 32 and 128; on the
+    mid path, :func:`mid_cap`). ``cost``: a callable ``(B, N, D), (B, M,
+    D) -> (B, N, M)`` replacing the built-in ``|x-y|^p / p``.
     ``impl`` selects the streaming implementation of the coarse phase and
     the exact fine phase (:mod:`..ops.softmin`), and, as ``"blocked"``, the
     plain twins of the block-sparse kernels.
     """
-    if cost is not None:
-        raise _not_ported('A custom cost under the "multiscale" backend', "7b")
     N, D = x.shape
     M = y.shape[0]
 
@@ -270,11 +361,9 @@ def sinkhorn_multiscale(
         cluster_scale = default_cluster_scale(diameter, D)
     jump = jump_index(eps_list, cluster_scale, p)
     last_is_jump = jump == len(eps_list) - 1
-    if truncate is not None and not last_is_jump:
-        if mid_delay(max(N, M), eps_list, jump, scaling, p) > 0:
-            raise _not_ported(
-                f"The multiscale mid-scale path (truncation above {N_FINE_OK} points)", "7a"
-            )
+    n_delay = 0
+    if truncate is not None and not last_is_jump and cost is None:
+        n_delay = mid_delay(max(N, M), eps_list, jump, scaling, p)
 
     if tile == "auto":
         tile = auto_tile(max(N, M))
@@ -299,7 +388,7 @@ def sinkhorn_multiscale(
 
     a_log_c, b_log_c = log_weights(aw_c), log_weights(bw_c)
     a_log_f, b_log_f = log_weights(a_s.detach()), log_weights(b_s.detach())
-    sm = partial(softmin_points, p=p, impl=impl)
+    sm = partial(softmin_points, p=p, impl=impl, cost=cost)
     x_sd, y_sd = x_s.detach(), y_s.detach()
 
     with torch.no_grad():
@@ -313,46 +402,76 @@ def sinkhorn_multiscale(
             g_bb = damp0 * sm(eps0, (y_c, y_c), b_log_c)
         else:
             f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
-
-        def coarse_step(e, f_ba, g_ab, f_aa, g_bb):
-            S_xx = sm(e, (x_c, x_c), a_log_c + f_aa / e) if debias else None
-            S_yy = sm(e, (y_c, y_c), b_log_c + g_bb / e) if debias else None
-            return (
-                sm(e, (x_c, y_c), b_log_c + g_ab / e),
-                sm(e, (y_c, x_c), a_log_c + f_ba / e),
-                S_xx,
-                S_yy,
-            )
-
-        f_ba, g_ab, f_aa, g_bb = _iterate(
-            coarse_step, (f_ba, g_ab, f_aa, g_bb), eps_list[: jump + 1], rho, debias
+        coarse = _iterate(
+            _dense_step(sm, x_c, y_c, a_log_c, b_log_c, debias), (f_ba, g_ab, f_aa, g_bb),
+            eps_list[: jump + 1], rho, debias,
         )
+
+        # --- Intermediate scale -------------------------------------------------
+        src_x, src_y, src_la, src_lb = x_c, y_c, a_log_c, b_log_c
+        if n_delay > 0:
+            coarse, src_x, src_y, src_la, src_lb = run_mid_phase(
+                sm, coarse, x_c, y_c, a_log_c, b_log_c, a_s, b_s, x_sd, y_sd, eps_list, jump,
+                n_delay, rho, debias, block_size, scaling, verbose,
+            )
+            # Rebase the jump onto the mid scale: the fine extrapolation
+            # and the tables below read the mid-level state.
+            jump += n_delay
+            last_is_jump = jump == len(eps_list) - 1
     eps_j = eps_list[jump]
     damp_j = dampening(eps_j, rho)
 
     # --- Extrapolation to the fine cloud ----------------------------------------
-    # The cross updates use the previous iterates in parallel. On a
-    # last-iteration jump, gradients flow through the fine points.
+    # On a last-iteration jump, gradients flow through the fine points. On
+    # the mid path the four detached sweeps visit only the source tiles
+    # within the LSE keep margin of each fine row tile (kernel 7).
     x_e = x_s if last_is_jump else x_sd
     y_e = y_s if last_is_jump else y_sd
+
+    def extrap(rows, src, h):
+        ns = src.shape[0]
+        if (truncate is not None and not last_is_jump and n_delay > 0
+                and ns % EXTRAP_BM == 0 and ns // EXTRAP_BM >= 64):
+            cap_e = max(8, min(64, -(-(ns // EXTRAP_BM) // 4 // 8) * 8))
+            return softmin_extrap_truncated(
+                rows, src, h, eps_j, truncate, tile, p=p, block_m=EXTRAP_BM, cap=cap_e, impl=impl
+            )
+        return sm(eps_j, (rows, src), h)
+
     with torch.set_grad_enabled(last_is_jump and torch.is_grad_enabled()):
-        f_ba_f = damp_j * sm(eps_j, (x_e, y_c), b_log_c + g_ab / eps_j)
-        g_ab_f = damp_j * sm(eps_j, (y_e, x_c), a_log_c + f_ba / eps_j)
-        if debias:
-            f_aa_f = damp_j * sm(eps_j, (x_e, x_c), a_log_c + f_aa / eps_j)
-            g_bb_f = damp_j * sm(eps_j, (y_e, y_c), b_log_c + g_bb / eps_j)
-        else:
-            f_aa_f, g_bb_f = torch.zeros_like(f_ba_f), torch.zeros_like(g_ab_f)
+        fine = _extrapolate(
+            extrap, eps_j, damp_j, x_e, y_e, src_x, src_y, src_la, src_lb, coarse, debias
+        )
 
     if not last_is_jump:
         eps_fine = list(eps_list[jump + 1 :])
         # Tiny blurs resolve far below the cluster scale: extra iterations
         # at the entry temperature wash out the coarse warm-start bias.
         eps_fine = [eps_fine[0]] * fine_warmup(cluster_scale, p, eps) + eps_fine
-        if truncate is not None:
+        if cost is not None:
+            fine_step, fused_extrap = _custom_fine_phase(
+                x_c, y_c, aw_c, bw_c, coarse, x_s, y_s, a_log_f, b_log_f, eps_j, p, truncate,
+                tile, block_size, cap, debias, cost, sm,
+            )
+        elif truncate is not None:
+            with torch.no_grad():
+                if n_delay > 0:
+                    # Tables from the extrapolated fine potentials, built
+                    # at the first fine temperature (they serve only the
+                    # fine iterations).
+                    eps_m = eps_list[jump + 1]
+                    masks = _mid_tables(
+                        x_sd, y_sd, a_s.detach(), b_s.detach(), fine, eps_m, p, truncate, tile,
+                        cap if cap is not None else mid_cap(x_sd.shape[0], tile), debias, verbose,
+                    )
+                else:
+                    eps_m = eps_j
+                    masks = _coarse_tables(
+                        x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, tile // block_size, cap,
+                        debias,
+                    )
             fine_step, fused_extrap = _truncated_fine_phase(
-                x_c, y_c, aw_c, bw_c, (f_ba, g_ab, f_aa, g_bb), x_s, y_s, a_log_f, b_log_f,
-                eps_j, eps_fine, p, truncate, tile, block_size, cap, debias, impl,
+                masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate, tile, debias, impl,
             )
         else:
             fine_step, fused_extrap = _exact_fine_phase(
@@ -361,22 +480,19 @@ def sinkhorn_multiscale(
 
         # --- Fine iterations (detached) -----------------------------------------
         with torch.no_grad():
-            f_ba_f, g_ab_f, f_aa_f, g_bb_f = _iterate(
-                fine_step, (f_ba_f, g_ab_f, f_aa_f, g_bb_f), eps_fine, rho, debias
-            )
+            fine = _iterate(fine_step, fine, eps_fine, rho, debias)
 
         # --- Differentiable last extrapolation ----------------------------------
         eps_last = eps_list[-1]
         damp = dampening(eps_last, rho)
-        S_xy, S_yx, S_xx, S_yy = fused_extrap(eps_last, f_ba_f, g_ab_f, f_aa_f, g_bb_f)
-        f_ba_f, g_ab_f = damp * S_xy, damp * S_yx
-        if debias:
-            f_aa_f, g_bb_f = damp * S_xx, damp * S_yy
+        S_xy, S_yx, S_xx, S_yy = fused_extrap(eps_last, *fine)
+        fine = (damp * S_xy, damp * S_yx) + ((damp * S_xx, damp * S_yy) if debias else fine[2:])
 
     # Zero-mass (padding) slots can carry huge potentials (the -1e5
     # log-weight clamp scaled by eps): harmless in the balanced dot
     # products, but the unbalanced cost's exp(-f/rho) overflows and
     # inf * 0 = NaN. Zero them out: their weight is exactly 0.
+    f_ba_f, g_ab_f, f_aa_f, g_bb_f = fine
     f_ba_f = torch.where(a_s > 0, f_ba_f, 0.0)
     g_ab_f = torch.where(b_s > 0, g_ab_f, 0.0)
     if debias:
@@ -401,38 +517,65 @@ def _desort(v, perm, n):
     return out
 
 
-def _truncated_fine_phase(
-    x_c, y_c, aw_c, bw_c, coarse, x_s, y_s, a_log_f, b_log_f,
-    eps_j, eps_fine, p, truncate, tile, block_size, cap, debias, impl,
-):
-    """Kernel truncation: tile tables from the coarse potentials and
-    centroids at jump time (the reference's ``kernel_truncation``), pooled
-    to kernel tiles. Returns ``(step, extrap)`` for the fine iterations and
-    the differentiable last extrapolation.
+def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, debias, cost=None):
+    """Tables of the classic path: the reference's pointwise keep rule on
+    the coarse potentials and centroids at jump time
+    (``kernel_truncation``), pooled to kernel tiles. Returns ``(mask_xy,
+    mask_xx, mask_yy)``, the last two ``None`` without debiasing."""
+    f_ba, g_ab, f_aa, g_bb = coarse
+    mask_xy = masks_from_coarse(x_c, y_c, f_ba, g_ab, aw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, cost=cost)
+    if not debias:
+        return mask_xy, None, None
+    return (
+        mask_xy,
+        masks_from_coarse(x_c, x_c, f_aa, f_aa, aw_c, aw_c, eps_j, p, truncate, bpt, cap=cap, sym=True, cost=cost),
+        masks_from_coarse(y_c, y_c, g_bb, g_bb, bw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, sym=True, cost=cost),
+    )
+
+
+def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, debias, verbose):
+    """Tables of the mid path: the keep rule on tile-pooled fine potentials
+    (:func:`build_tile_masks`) at the first fine temperature ``eps_b``,
+    ``cap_m`` wide. Under ``verbose``, prints how many rows fill the
+    table (their overflow degrades to best-score top-k)."""
+    f_ba, g_ab, f_aa, g_bb = fine
+    mask_xy = build_tile_masks(x_sd, y_sd, f_ba, g_ab, eps_b, p, truncate, tile, cap=cap_m, w_x=a_w, w_y=b_w)
+    mask_xx = mask_yy = None
+    if debias:
+        mask_xx = build_tile_masks(
+            x_sd, x_sd, f_aa, f_aa, eps_b, p, truncate, tile, cap=cap_m, w_x=a_w, w_y=a_w, sym=True
+        )
+        mask_yy = build_tile_masks(
+            y_sd, y_sd, g_bb, g_bb, eps_b, p, truncate, tile, cap=cap_m, w_x=b_w, w_y=b_w, sym=True
+        )
+    if verbose:
+        ov = int((mask_xy.vals[:, -1] > 0).sum())
+        print(
+            f"Fine tables: cap={cap_m}, kept tiles/row mean {float(mask_xy.counts.float().mean()):.1f} "
+            f"/ max {int(mask_xy.counts.max())}; {ov} of {mask_xy.counts.shape[0]} rows at capacity"
+            + (" (top-k clipping active)." if ov else ".")
+        )
+    return mask_xy, mask_xx, mask_yy
+
+
+def _truncated_fine_phase(masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate, tile, debias, impl):
+    """Kernel truncation over the tables ``masks = (mask_xy, mask_xx,
+    mask_yy)`` built at temperature ``eps_m``. Returns ``(step, extrap)``
+    for the fine iterations and the differentiable last extrapolation.
 
     The keep-score order does not depend on the temperature (the score
-    moves by a uniform ``truncate * (eps' - eps_jump)``), so the same
-    tables serve every fine iteration with re-thresholded counts, sliced to
-    a per-temperature width ``ck`` (``fine_cap_schedule``).
+    moves by a uniform ``truncate * (eps' - eps_m)``), so the same tables
+    serve every fine iteration with re-thresholded counts, sliced to a
+    per-temperature width ``ck`` (``fine_cap_schedule``).
     """
-    f_ba, g_ab, f_aa, g_bb = coarse
+    mask_xy, mask_xx, mask_yy = masks
     x_sd, y_sd = x_s.detach(), y_s.detach()
-    with torch.no_grad():
-        bpt = tile // block_size
-        mask_xy = masks_from_coarse(x_c, y_c, f_ba, g_ab, aw_c, bw_c, eps_j, p, truncate, bpt, cap=cap)
-        if debias:
-            mask_xx = masks_from_coarse(
-                x_c, x_c, f_aa, f_aa, aw_c, aw_c, eps_j, p, truncate, bpt, cap=cap, sym=True
-            )
-            mask_yy = masks_from_coarse(
-                y_c, y_c, g_bb, g_bb, bw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, sym=True
-            )
-    ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_j, mask_xy.cols.shape[1]) for e in es}
+    ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_m, mask_xy.cols.shape[1]) for e in es}
 
     def table(mask, e):
         """The first ``ck`` columns of a table and its counts at ``e``."""
         ck = ck_of[e]
-        cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_j)), max=ck)
+        cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_m)), max=ck)
         return mask.cols[:, :ck].contiguous(), cnt
 
     def step(e, f_ba, g_ab, f_aa, g_bb):
@@ -462,6 +605,52 @@ def _truncated_fine_phase(
         return S_xy, S_yx, S_xx, S_yy
 
     return step, extrap
+
+
+def _custom_fine_phase(x_c, y_c, aw_c, bw_c, coarse, x_s, y_s, a_log_f, b_log_f, eps_j, p, truncate,
+                       tile, block_size, cap, debias, cost, sm):
+    """Fine phase of a custom cost (no kernel). With ``truncate``, the
+    coarse tables (the user cost between centroids) drive a gather-based
+    truncated LSE (:func:`lse_sparse_custom`) in each of the four
+    directions, re-thresholded at each temperature; with
+    ``truncate=None``, the streaming custom-cost softmin on whole clouds.
+    The last extrapolation differentiates through the user cost by plain
+    autograd, w.r.t. the row points only. Returns ``(step, extrap)``."""
+    x_sd, y_sd = x_s.detach(), y_s.detach()
+    if truncate is None:
+        t_xy = t_yx = t_xx = t_yy = None
+
+        def soft(e, rows, src, h, table):
+            return sm(e, (rows, src), h)
+    else:
+        with torch.no_grad():
+            mask_xy, mask_xx, mask_yy = _coarse_tables(
+                x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, tile // block_size, cap, debias, cost
+            )
+        t_xy, t_yx = (mask_xy.cols, mask_xy.vals), (mask_xy.colsT, mask_xy.valsT)
+        t_xx = (mask_xx.cols, mask_xx.vals) if debias else None
+        t_yy = (mask_yy.cols, mask_yy.vals) if debias else None
+
+        def soft(e, rows, src, h, table):
+            cols, vals = table
+            cnt = torch.clamp(retighten_counts(vals, truncate * (e - eps_j)), max=vals.shape[1])
+            return -e * lse_sparse_custom(rows, src, h, e, cols, cnt, cost, tile)
+
+    def sweeps(x_r, y_r):
+        """The four softmins onto the rows ``x_r``, ``y_r`` (the sources
+        stay detached)."""
+
+        def run(e, f_ba, g_ab, f_aa, g_bb):
+            S_xy = soft(e, x_r, y_sd, b_log_f + g_ab / e, t_xy)
+            S_yx = soft(e, y_r, x_sd, a_log_f + f_ba / e, t_yx)
+            if not debias:
+                return S_xy, S_yx, None, None
+            return (S_xy, S_yx, soft(e, x_r, x_sd, a_log_f + f_aa / e, t_xx),
+                    soft(e, y_r, y_sd, b_log_f + g_bb / e, t_yy))
+
+        return run
+
+    return sweeps(x_sd, y_sd), sweeps(x_s, y_s)
 
 
 def _exact_fine_phase(x_s, y_s, a_log_f, b_log_f, p, debias, impl):

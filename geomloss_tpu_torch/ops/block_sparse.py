@@ -1,10 +1,15 @@
 r"""Block-sparse kernel truncation of the multiscale fine phase.
 
-Counterpart of :mod:`geomloss_tpu.ops.block_sparse` for the classic
-multiscale path. Points are spatially sorted and cut into fixed kernel
-tiles; each row tile ``I`` keeps the column tiles of a top-k keep score
-(``masks_from_coarse``), and the fine Sinkhorn steps and the last
-extrapolation visit the kept tile pairs only.
+Counterpart of :mod:`geomloss_tpu.ops.block_sparse` for the multiscale
+paths. Points are spatially sorted and cut into fixed kernel tiles; each
+row tile ``I`` keeps the column tiles of a top-k keep score
+(``masks_from_coarse`` on the coarse state, ``build_tile_masks`` on the
+fine potentials of the mid path), and the fine Sinkhorn steps and the last
+extrapolation visit the kept tile pairs only. The mid path's detached
+extrapolations onto the fine cloud visit the source tiles that
+``extrap_cols`` keeps (kernel 7, ``softmin_extrap_truncated``); custom
+costs run a gather-based truncated LSE with no kernel
+(``lse_sparse_custom``).
 
 A table is a pair ``(cols, cnt)``: ``cols`` ``(nI, ck)`` int32 holds each
 row tile's column tiles in keep-score order and row tile ``I`` visits the
@@ -12,7 +17,10 @@ first ``cnt[I]`` of them. The JAX package packs the same tables into
 band-major step lists for the TPU's sequential grid (``walk_plan_banded``);
 the CUDA kernels (:mod:`.cuda_block_sparse`) walk the CSR lists directly,
 so that packing has no counterpart, and neither have the TPU's budget
-limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamp on ``cap``).
+limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamp on ``cap``)
+nor the per-chunk step budget of ``walk_plan``, which clips kept tiles
+when a chunk of rows keeps more than its mean budget: every kept tile is
+visited.
 The function names follow the JAX package's, ``walk_banded`` included, so
 that each counterpart can be found.
 """
@@ -20,6 +28,7 @@ that each counterpart can be found.
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import cuda_block_sparse as cbs
 from .cuda_kernels import SUM_FLOOR, _absorbed_update
@@ -30,6 +39,10 @@ __all__ = [
     "tile_stats",
     "retighten_counts",
     "masks_from_coarse",
+    "build_tile_masks",
+    "extrap_cols",
+    "softmin_extrap_truncated",
+    "lse_sparse_custom",
     "sinkhorn_step_walk_banded",
     "sinkhorn_step_walk_banded_sym",
     "softmin_extrapolation_walk_banded",
@@ -37,6 +50,15 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
+
+#: Bound on the sub-blocks of the tile-geometry statistics: keep scores are
+#: built at sub-block granularity (``(n_stat, n_stat)``) and max-pooled to
+#: kernel tiles.
+MAX_STAT_BLOCKS = 8192
+
+#: Elements of the packed cost block that one chunk of
+#: :func:`lse_sparse_custom` evaluates (row tiles x tile x kept columns).
+CUSTOM_CHUNK_ELEMS = 1 << 24
 
 
 class TileMask(NamedTuple):
@@ -93,14 +115,45 @@ def retighten_counts(vals, delta):
     return torch.clamp((vals + delta > 0).sum(dim=1), min=1).to(torch.int32)
 
 
+def _stat_block(npad, block):
+    """Sub-block size of the keep-score geometry: 64 points, doubled until
+    at most :data:`MAX_STAT_BLOCKS` sub-blocks, and never above the tile.
+
+    Sub-blocks are tight along the space-filling curve, where a few seam
+    tiles span two far-apart patches: a tile-level centroid bound would be
+    vacuous there and let the top-k keep an arbitrary tile set.
+    """
+    sb = 64
+    while npad // sb > MAX_STAT_BLOCKS:
+        sb *= 2
+    return min(sb, block)
+
+
+def _tile_maxpool(score, bpt):
+    """Max-pool an ``(nI bpt, nJ bpt)`` sub-block score to ``(nI, nJ)`` tiles."""
+    if bpt == 1:
+        return score
+    nI, nJ = score.shape[0] // bpt, score.shape[1] // bpt
+    return score.reshape(nI, bpt, nJ, bpt).amax(dim=(1, 3))
+
+
+def _sq_centroids(cx, cy):
+    """Squared distances between centroids, in the expansion form of the
+    JAX package (so that the keep scores are the same numbers)."""
+    return (cx**2).sum(-1)[:, None] + (cy**2).sum(-1)[None, :] - 2.0 * (cx @ cy.T)
+
+
 def masks_from_coarse(
-    cx, cy, f_c, g_c, w_x, w_y, eps, p, truncate, blocks_per_tile, cap=None, sym=False
+    cx, cy, f_c, g_c, w_x, w_y, eps, p, truncate, blocks_per_tile, cap=None, sym=False,
+    cost=None,
 ):
     """Tile masks from the reference's *pointwise* centroid keep rule.
 
     ``f_c[k] + g_c[l] > C(c_k, c_l) - truncate * eps`` on the cluster-block
     centroids, max-pooled onto kernel tiles of ``blocks_per_tile``
-    consecutive blocks.
+    consecutive blocks. A custom ``cost`` callable
+    (``(B, N, D), (B, M, D) -> (B, N, M)``) is evaluated between the
+    centroids, as the reference's custom-cost truncation does.
 
     Args:
         cx, cy: ``(K_x, D)`` / ``(K_y, D)`` block centroids (sorted order).
@@ -115,7 +168,7 @@ def masks_from_coarse(
     Returns:
         :class:`TileMask`.
     """
-    C = cost_routines[p](cx, cy)
+    C = cost_routines[p](cx, cy) if cost is None else cost(cx[None], cy[None])[0]
     score = f_c[:, None] + g_c[None, :] - C + truncate * eps
     valid = (w_x > 0)[:, None] & (w_y > 0)[None, :]
     score = torch.where(valid, score, torch.full_like(score, NEG_INF))
@@ -132,6 +185,159 @@ def masks_from_coarse(
     return TileMask(
         cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
     )
+
+
+def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_y=None, sym=False):
+    """Both traversal directions of the truncation pattern of the mid path,
+    from the fine potentials.
+
+    The keep score is the pointwise-centroid rule of
+    :func:`masks_from_coarse`, ``max f + max g - C(centroids) + truncate *
+    eps``, evaluated on sub-blocks (:func:`_stat_block`) and max-pooled to tiles of ``block`` points, the
+    same side for rows and columns. With point weights ``w_x`` / ``w_y``,
+    zero-weight (padding) points are left out of the potential maxima and
+    pure-padding tiles are never kept. ``sym``: the problem is symmetric
+    (``y is x``, ``g is f``), the transposed table is the same table.
+
+    The JAX package also clamps ``cap`` to its SMEM budget (at most 219
+    tiles per row at 1024-row chunks); the CSR tables of the CUDA kernels
+    have no such budget, so above 2^22 points at tile 1024 this keeps up
+    to ``mid_cap``'s 224 tiles where the JAX package keeps 219.
+    """
+    nJ = y.shape[0] // block
+    if cap is None:
+        cap = max(32, min(nJ // 8, 128))
+    sb = _stat_block(max(x.shape[0], y.shape[0]), block)
+    bpt = block // sb
+
+    def blk_stats(pts, v, w):
+        nt = pts.shape[0] // sb
+        pb = pts.reshape(nt, sb, -1)
+        if w is None:
+            return pb.mean(dim=1), v.reshape(nt, sb).amax(dim=1), torch.ones(nt, dtype=torch.bool, device=pts.device)
+        wt = torch.clamp(w.reshape(nt, sb), min=0.0)
+        wsum = wt.sum(dim=1)
+        cent = (pb * wt[..., None]).sum(dim=1) / torch.clamp(wsum, min=1e-30)[:, None]
+        # Pure-padding blocks: park at the plain mean (never kept anyway).
+        cent = torch.where(wsum[:, None] > 0, cent, pb.mean(dim=1))
+        vm = torch.where(wt > 0, v.reshape(nt, sb), NEG_INF).amax(dim=1)
+        return cent, vm, wsum > 0
+
+    cx, f_max, x_mass = blk_stats(x, f, w_x)
+    cy, g_max, y_mass = blk_stats(y, g, w_y)
+    sq = torch.clamp(_sq_centroids(cx, cy), min=0.0)
+    C_c = sq / 2 if p == 2 else torch.sqrt(torch.clamp(sq, min=1e-12))
+    score = f_max[:, None] + g_max[None, :] - C_c + truncate * eps
+    score = torch.where(x_mass[:, None] & y_mass[None, :], score, NEG_INF)
+    score = _tile_maxpool(score, bpt)
+
+    cols, counts, vals = _cols_from_score(score, cap)
+    if sym:
+        colsT, countsT, valsT = cols, counts, vals
+    else:
+        colsT, countsT, valsT = _cols_from_score(score.T, cap)
+    return TileMask(
+        cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
+    )
+
+
+def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap, p=2):
+    """Kept source tiles of a one-direction truncated softmin onto a fine
+    cloud: ``S_i = -eps log sum_j exp(h_j - C_ij/eps)`` over a small source
+    cloud (pooled mid blocks), for row tiles of ``block_n`` fine points and
+    source tiles of ``block_m`` points.
+
+    Keep rule: a source tile ``J`` survives for row tile ``I`` when its best
+    score upper bound ``h_max[J] - C(sub-block centroids)/eps`` lies within
+    ``truncate`` nats of a rigorous lower bound on the row's best score
+    (any sub-block's best ``h`` at the worst-case distance, centroid
+    distance plus both radii; the weakest sub-block of the tile).
+
+    Returns ``(cols, counts)``: ``(N / block_n, min(cap, M / block_m))``
+    int32 and ``(N / block_n,)`` int32, every count at least 1.
+    """
+    N, M = x_rows.shape[0], y_src.shape[0]
+    cap = min(cap, M // block_m)
+    sbx = _stat_block(N, block_n)
+    bpt = block_n // sbx
+    sby = min(32, block_m)
+    spt = block_m // sby
+    cx, rx = tile_stats(x_rows, sbx)
+    cy, ry = tile_stats(y_src, sby)
+    h_smax = h.reshape(M // sby, sby).amax(dim=1)
+
+    dist = torch.sqrt(torch.clamp(_sq_centroids(cx, cy), min=1e-12))
+    rr = rx[:, None] + ry[None, :]
+
+    def C_of(d):
+        return 0.5 * d**2 if p == 2 else d
+
+    U = h_smax[None, :] - C_of(dist) / eps
+    L = h_smax[None, :] - C_of(dist + rr) / eps
+    thr = L.amax(dim=1)
+    if spt > 1:
+        U = U.reshape(U.shape[0], -1, spt).amax(dim=2)
+    if bpt > 1:
+        U = U.reshape(-1, bpt, U.shape[1]).amax(dim=1)
+        # Valid for every row of the tile: the weakest sub-block.
+        thr = thr.reshape(-1, bpt).amin(dim=1)
+    score = U - thr[:, None] + truncate
+    cols, counts, _ = _cols_from_score(score, cap)
+    return cols, counts
+
+
+def softmin_extrap_truncated(rows_pts, src_pts, h, eps, truncate, block_n, p=2, block_m=128, cap=24,
+                             impl="auto"):
+    """Detached truncated one-direction softmin onto a fine cloud,
+    ``-eps lse`` over the source tiles :func:`extrap_cols` keeps for each
+    row tile (kernel 7, :func:`.cuda_block_sparse.lse_tiles`). ``impl``:
+    ``"blocked"`` runs the plain twin."""
+    cols, counts = extrap_cols(rows_pts, src_pts, h, eps, truncate, block_n, block_m, cap, p=p)
+    fn = cbs.lse_tiles_blocked if impl in ("blocked", "dense") else cbs.lse_tiles
+    return -eps * fn(rows_pts, src_pts, h, eps, cols, counts, block_n, block_m, p)
+
+
+def lse_sparse_custom(x, y, h, eps, cols, counts, cost, block):
+    """Truncated LSE with a user cost callable, ``log sum_j exp(h_j -
+    C(x_i, y_j)/eps)`` over the first ``counts[I]`` column tiles
+    ``cols[I, :]`` of each row tile (tiles of ``block`` points on both
+    sides). No kernel: the kept column tiles of a chunk of row tiles are
+    gathered into a packed block and ``cost((c, block, D), (c, cap *
+    block, D)) -> (c, block, cap * block)`` is evaluated on it, followed by
+    a masked ``logsumexp``. Plain autograd gives the gradient; each chunk
+    is recomputed in the backward pass (activation checkpointing), so
+    memory stays ``O(chunk x cap x block^2)`` with at most
+    :data:`CUSTOM_CHUNK_ELEMS` elements per chunk.
+    """
+    N, D = x.shape
+    M = y.shape[0]
+    nI, cap = cols.shape
+    yt = y.reshape(M // block, block, D)
+    ht = h.reshape(M // block, block)
+    xt = x.reshape(nI, block, D)
+    cols = cols.long()
+    per = block * cap * block
+    chunk = max(1, CUSTOM_CHUNK_ELEMS // per)
+    slot = torch.arange(cap, device=cols.device)
+
+    def tiles(xi, ci, ni):
+        c = xi.shape[0]
+        yg = yt[ci].reshape(c, cap * block, D)
+        hg = ht[ci].reshape(c, cap * block)
+        C = cost(xi, yg)
+        # Frozen entries past the kept count are masked out:
+        live = (slot[None, :] < ni[:, None]).repeat_interleave(block, dim=1)
+        scores = torch.where(live[:, None, :], hg[:, None, :] - C / eps, NEG_INF)
+        return torch.logsumexp(scores, dim=-1).to(h.dtype)
+
+    outs = []
+    for i0 in range(0, nI, chunk):
+        args = (xt[i0 : i0 + chunk], cols[i0 : i0 + chunk], counts[i0 : i0 + chunk])
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(tiles, *args, use_reentrant=False))
+        else:
+            outs.append(tiles(*args))
+    return torch.cat(outs).reshape(-1)
 
 
 # ==============================================================================

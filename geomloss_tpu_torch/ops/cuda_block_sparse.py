@@ -1,7 +1,7 @@
 r"""Hand-written Hopper kernels of the multiscale fine phase, and their twins.
 
-Two CUDA kernels (``csrc/block_sparse_kernels.cu``) replace the two banded
-walk kernels of :mod:`geomloss_tpu.ops.block_sparse`:
+Three CUDA kernels (``csrc/block_sparse_kernels.cu``) replace three walk
+kernels of :mod:`geomloss_tpu.ops.block_sparse`:
 
 ==========================  ==============================================
 wrapper                     TPU kernel it replaces
@@ -10,9 +10,13 @@ wrapper                     TPU kernel it replaces
                             ``_pair_walk_banded_kernel``
 :func:`gibbs_apply_tiles`   ``gibbs_apply_walk_banded`` /
                             ``_apply_walk_banded_kernel``
+:func:`lse_tiles`           ``lse_walk`` / ``_lse_walk_kernel``
 ==========================  ==============================================
 
-Both visit the kept tile pairs of a truncation table given as CSR lists:
+:func:`lse_tiles` is a one-direction LSE over the kept source tiles of a
+``(cols, cnt)`` table with row tiles of ``block_n`` and source tiles of
+``block_m`` points (the mid path's extrapolations onto the fine cloud).
+The other two visit the kept tile pairs of a truncation table given as CSR lists:
 row tile ``I`` (``tile`` consecutive sorted points) visits the column
 tiles ``cols[I, k]`` for ``k < cnt[I]`` (the TPU's band-major packing,
 ``walk_plan_banded``, has no counterpart). With ``tri=True`` the problem
@@ -32,6 +36,7 @@ import torch
 
 from . import cuda_kernels as ck
 from .cuda_kernels import (
+    LN2,
     LOG2E,
     _apply_weights_blk,
     _bias2,
@@ -48,6 +53,8 @@ __all__ = [
     "absorbed_sum_tiles_blocked",
     "gibbs_apply_tiles",
     "gibbs_apply_tiles_blocked",
+    "lse_tiles",
+    "lse_tiles_blocked",
     "kept_pairs",
     "build",
     "launch_counts",
@@ -60,7 +67,7 @@ _KERNEL_DIMS = (1, 2, 3, 4, 8)
 _ROWS = 256
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts = {"absorbed_sum_tiles": 0, "gibbs_apply_tiles": 0}
+launch_counts = {"absorbed_sum_tiles": 0, "gibbs_apply_tiles": 0, "lse_tiles": 0}
 
 
 def reset_launch_counts():
@@ -78,6 +85,9 @@ _LIB = ck.KernelLibrary(
         # x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, nslots, ck,
         # tile, D, mode, tri, c2, stream
         "gl_gibbs_apply_tiles": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
+        # stream
+        "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
         # parts, order, offsets, out, nseg, L, nsub, stream
         "gl_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
     },
@@ -211,6 +221,39 @@ def gibbs_apply_tiles_blocked(
     return Rr.view(-1, C).to(Vy.dtype), Rc.view(-1, C).to(Vx.dtype)
 
 
+def _check_lse_table(x, y, h, cols, cnt, block_n, block_m):
+    N, M = x.shape[0], y.shape[0]
+    if block_n < 1 or block_m < 1 or N % block_n or M % block_m:
+        raise ValueError(
+            f"lse_tiles: point counts ({N}, {M}) must be multiples of the tiles ({block_n}, {block_m})."
+        )
+    if cols.ndim != 2 or cols.shape[0] != N // block_n or tuple(cnt.shape) != (N // block_n,):
+        raise ValueError("lse_tiles: cols must be (N / block_n, ck) and cnt (N / block_n,).")
+    if tuple(h.shape) != (M,):
+        raise ValueError("lse_tiles: h must be (M,).")
+
+
+def lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
+    """Plain twin of :func:`lse_tiles`: a loop over row tiles, each a
+    ``logsumexp`` over its gathered kept source tiles, in the input dtype."""
+    _check_lse_table(x, y, h, cols, cnt, block_n, block_m)
+    dt = ck._acc(x, y, h)
+    x, y = x.to(dt), y.to(dt)
+    h = _fold_norms(y, h.to(dt), eps, p)
+    out = torch.empty(x.shape[0], dtype=dt, device=x.device)
+    zero = torch.zeros(block_n, dtype=dt, device=x.device)
+    cols_c, cnt_c = cols.cpu().long(), torch.clamp(cnt.cpu().long(), max=cols.shape[1])
+    lanes = torch.arange(block_m, device=x.device)
+    for I in range(cols.shape[0]):
+        rows = slice(I * block_n, (I + 1) * block_n)
+        J = cols_c[I, : cnt_c[I]].to(x.device)
+        idx = (J[:, None] * block_m + lanes).view(-1)
+        arg = _log_weights_blk(x[rows], zero, y[idx], h[idx], eps, p)
+        out[rows] = torch.logsumexp(arg, dim=1)
+    # p=2: the row term -|x|^2/(2 eps) comes out of the LSE.
+    return _fold_norms(x, out, eps, p)
+
+
 def _check_kind(kind):
     if kind not in ("gibbs", "gibbs_grad"):
         raise ValueError(f"Unknown gibbs_apply_tiles kind: {kind!r}")
@@ -323,3 +366,37 @@ def gibbs_apply_tiles(
     R_row = torch.cat(rows, dim=1)[:, :C]
     R_col = torch.cat(cols_out, dim=1)[:, :C]
     return R_row.to(Vy.dtype), R_col.to(Vx.dtype)
+
+
+def lse_tiles(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
+    """Truncated LSE over the kept source tiles of each row tile:
+
+    ``out_i = log sum_{j in kept tiles of I} exp(h_j - C_p(x_i, y_j)/eps)``
+    for row ``i`` of row tile ``I``, the kept tiles being
+    ``cols[I, k]``, ``k < cnt[I]`` (every count at least 1).
+
+    Args: x ``(N, D)`` rows in tiles of ``block_n`` points, y ``(M, D)``
+    sources in tiles of ``block_m`` points, h ``(M,)``; cols
+    ``(N / block_n, ck)`` and cnt ``(N / block_n,)`` the table.
+    Returns ``(N,)`` in x's dtype.
+    """
+    if not x.is_cuda:
+        return lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p)
+    _check_lse_table(x, y, h, cols, cnt, block_n, block_m)
+    _check_cuda("lse_tiles", x, y, h, cols, cnt)
+    eps = float(eps)
+    (xf, yf), Dk = _points("lse_tiles", x, y, dims=_KERNEL_DIMS)
+    h2 = _bias2(yf, h, eps, p)
+    cols_i = cols.to(torch.int32).contiguous()
+    cnt_i = cnt.to(torch.int32).contiguous()
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _LIB.launch(
+            "lse_tiles", xf.data_ptr(), yf.data_ptr(), h2.data_ptr(), cols_i.data_ptr(),
+            cnt_i.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1], block_n, block_m,
+            Dk, p, LOG2E / eps, count="lse_tiles",
+        )
+    out = out * LN2
+    if p == 2:
+        out = out - 0.5 * (xf * xf).sum(-1) / eps
+    return out.to(x.dtype)

@@ -14,17 +14,20 @@ import torch
 __all__ = ["from_numpy", "to_numpy", "tile_mask_from_numpy"]
 
 
-def from_numpy(tree, device="cpu", dtype=None):
+def from_numpy(tree, device=None, dtype=None):
     """Map every array leaf of a (nested) tuple/list/dict to a tensor.
 
     Args:
         tree: arrays (anything ``np.asarray`` accepts), ``None`` leaves, or
             tuples / lists / dicts of them.
-        device: target device of the tensors.
+        device: target device of the tensors; ``None`` means the card
+            (``torch.device("cuda")``), so a CPU caller passes ``"cpu"``.
         dtype: target floating dtype; ``None`` keeps the array's own.
     """
     if tree is None:
         return None
+    if device is None:
+        device = torch.device("cuda")
     if isinstance(tree, dict):
         return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -48,11 +51,12 @@ def to_numpy(tree):
     return np.asarray(tree)
 
 
-def tile_mask_from_numpy(mask, device="cpu"):
+def tile_mask_from_numpy(mask, device=None):
     """A truncation table of either package (fields ``cols, counts, colsT,
     countsT, vals, valsT``, arrays or ``None``) as the port's
     :class:`~geomloss_tpu_torch.ops.block_sparse.TileMask`: integer tables
-    keep their dtype, keep scores become float tensors of theirs."""
+    keep their dtype, keep scores become float tensors of theirs. The
+    device defaults to the card, as in :func:`from_numpy`."""
     from ..ops.block_sparse import TileMask
 
     return TileMask(*(from_numpy(getattr(mask, k), device) for k in TileMask._fields))

@@ -35,7 +35,7 @@ from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
 from geomloss_tpu_torch.ops import cuda_kernels as ck
 from geomloss_tpu_torch.ops.spatial import hilbert_key
 from geomloss_tpu_torch.utils import tile_mask_from_numpy
-from torch_parity_utils import VAL_TOL, apply_tolerance, assert_apply_close, kept_table
+from torch_parity_utils import P1_FLOOR_SHIFT, VAL_TOL, apply_tolerance, assert_apply_close, kept_table
 
 BLOCK = 128
 
@@ -53,6 +53,29 @@ def test_hilbert_key_matches_jax(D, bits):
     # A stable argsort is the permutation of the JAX package's radix sort:
     perm = np.asarray(radix_sort_perm(jnp.asarray(expected), total_bits=D * bits))
     np.testing.assert_array_equal(torch.argsort(torch.tensor(got), stable=True).numpy(), perm)
+
+
+def test_labels_sort_matches_jax_below_2_18():
+    """Labels in [0, 2^18): the port's sort by (label, Hilbert index) gives
+    the JAX package's permutation. Past that bound the JAX package's radix
+    sort reads 18 bits of each label (a property of the reference): labels
+    2^18 + k sort as k there, while the port sorts whole labels."""
+    N = 3000
+    rng = np.random.RandomState(18)
+    x = rng.rand(N, 3)
+    a = rng.rand(N) + 0.1
+    kw = dict(cluster_scale=0.1, diameter=2.0, block_size=32, pad_multiple=512)
+    lab = rng.choice([0, 1, 977, (1 << 18) - 1], N)
+    jp = jms.spatial_sort_blocks(jnp.asarray(a), jnp.asarray(x), labels=jnp.asarray(lab), **kw)[2]
+    tp = tms.spatial_sort_blocks(torch.tensor(a), torch.tensor(x), labels=torch.tensor(lab), **kw)[2]
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    wide = np.where(lab == 1, 1 << 18, lab)  # sorts as label 0 in the JAX package
+    jp = jms.spatial_sort_blocks(jnp.asarray(a), jnp.asarray(x), labels=jnp.asarray(wide), **kw)[2]
+    tp = tms.spatial_sort_blocks(torch.tensor(a), torch.tensor(x), labels=torch.tensor(wide), **kw)[2]
+    folded = np.where(lab == 1, 0, lab)
+    tf = tms.spatial_sort_blocks(torch.tensor(a), torch.tensor(x), labels=torch.tensor(folded), **kw)[2]
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jp))
+    assert not np.array_equal(tp.numpy(), np.asarray(jp))
 
 
 @pytest.mark.parametrize(
@@ -107,7 +130,7 @@ def test_masks_from_coarse_matches_jax(p, sym):
         np.testing.assert_array_equal(_np(getattr(tm, name)), np.asarray(getattr(jm, name)), err_msg=name)
     np.testing.assert_allclose(_np(tm.vals), np.asarray(jm.vals), rtol=1e-12, atol=1e-12)
     # The same tables carried over through numpy:
-    carried = tile_mask_from_numpy(jm)
+    carried = tile_mask_from_numpy(jm, device="cpu")
     np.testing.assert_array_equal(carried.cols.numpy(), tm.cols.numpy())
     # Later temperatures re-threshold the same tables identically:
     for delta in (0.0, -0.25 * truncate * eps, -0.9 * truncate * eps):
@@ -178,11 +201,9 @@ def test_absorbed_sum_twin_matches_jax_banded_triangle(p):
         torch.tensor(counts), p, BLOCK, "blocked",
     )
     # Mirrored column sums reassociate the summation (tests/test_walk_banded.py):
-    # rtol = atol = 3e-5. For p=1 the self pair of each row adds up to
-    # sqrt(SQDIST_FLOOR) = 1e-4: the JAX kernel's noise floor sets its
-    # distance to 0 where the port (and the JAX dense path) take
-    # sqrt(1e-8), which moves S_i by at most eps * (1e-4 / eps) w_ii / s_i.
-    atol = 3e-5 + (1e-4 if p == 1 else 0.0)
+    # rtol = atol = 3e-5. For p=1 the self pair of each row adds the JAX
+    # kernel's noise floor (torch_parity_utils.P1_FLOOR_SHIFT).
+    atol = 3e-5 + (P1_FLOOR_SHIFT if p == 1 else 0.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(j), rtol=3e-5, atol=atol)
 
 

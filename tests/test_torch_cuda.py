@@ -199,3 +199,33 @@ def test_gibbs_apply_tiles_kernel_matches_twin(cuda_device, case, p, kind, tri):
     assert_apply_close(got[1], ref[1].cpu(), **apply_tolerance(y, x, psi, phi, Vx, eps, p, kind))
     for a, b in zip(got, cbs.gibbs_apply_tiles(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("block_n,block_m", [(256, 128), (256, 512), (1024, 128), (1024, 512)])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_lse_tiles_kernel_matches_twin(cuda_device, D, p, block_n, block_m):
+    """Kernel 7: 3 row tiles against 7 source tiles, ragged kept counts
+    (block_m < 256 stages part of a shared-memory tile)."""
+    n_tiles, m_tiles, cap = 3, 7, 5
+    x, y, h = problem(n_tiles * block_n, m_tiles * block_m, D=D, seed=D + 10 * p + block_m)
+    cols, counts = kept_table(n_tiles, m_tiles, cap, seed=D + p)
+    assert counts.min() < counts.max()
+    x, y, h, cols, counts = tensors(x, y, h, cols, counts, device=cuda_device)
+    args = (x, y, h, 0.05 if p == 2 else 0.2, cols, counts, block_n, block_m, p)
+    got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(*args), **VAL_TOL)
+    assert torch.equal(got, cbs.lse_tiles(*args))
+
+
+def test_lse_tiles_wrapper_raises_on_what_it_cannot_launch(cuda_device):
+    x, y, h = tensors(*problem(512, 256, seed=1), device=cuda_device)
+    cols = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    cnt = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        cbs.lse_tiles(x, y, h, 0.1, cols.cpu(), cnt, 256, 128)
+    with pytest.raises(ValueError):
+        cbs.lse_tiles(x, y, h, 0.1, cols, cnt, 300, 128)
+    with pytest.raises(NotImplementedError):
+        cbs.lse_tiles(torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device), h,
+                      0.1, cols, cnt, 256, 128)

@@ -24,7 +24,8 @@ from geomloss_tpu.solvers.sinkhorn_loop import unbalanced_weight as jax_uw
 from geomloss_tpu_torch import SamplesLoss
 from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
 from geomloss_tpu_torch.solvers.sinkhorn_loop import sinkhorn_loop, unbalanced_weight
-from geomloss_tpu_torch.utils import from_numpy, to_numpy
+from geomloss_tpu_torch.ops.block_sparse import TileMask
+from geomloss_tpu_torch.utils import from_numpy, tile_mask_from_numpy, to_numpy
 
 VAL_RTOL = 1e-10
 GRAD_RTOL = 1e-8
@@ -161,12 +162,13 @@ def test_unbalanced_weight_sejourne_grad():
     _close(unbalanced_weight(vt, eps=0.1, rho=0.5, mode="sejourne"), 0.55 * v, VAL_RTOL)
 
 
+def _half_sqdist(x, y):
+    return ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1) / 2
+
+
 @pytest.mark.parametrize(
     "loss,backend,shape,kw",
     [
-        # the mid-scale path: more than 2^20 points with truncation
-        ("sinkhorn", "multiscale", (1_048_577, 3), dict(diameter=2.0)),
-        ("sinkhorn", "multiscale", (50, 3), dict(cost=lambda x, y: ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1))),
         ("energy", "multiscale", (50, 3), {}),
         ("energy", "online", (50, 3), {}),
         ("gaussian", "tensorized", (50, 3), {}),
@@ -179,17 +181,40 @@ def test_routes_not_ported_raise(loss, backend, shape, kw):
         SamplesLoss(loss, backend=backend, **kw)(x, x)
 
 
+@pytest.mark.parametrize("route", ["mid_phase", "custom_cost"])
+def test_multiscale_routes_run(monkeypatch, route):
+    """The two multiscale routes that used to raise now run: the mid phase
+    above ``N_FINE_OK`` points (lowered here, as the JAX tests do) and a
+    custom cost, both through ``SamplesLoss``; finite value and gradient."""
+    from geomloss_tpu_torch.models import multiscale
+
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.rand(2048, 3), requires_grad=True)
+    y = torch.tensor(rng.rand(2048, 3) + 0.1)
+    kw = dict(diameter=2.0)
+    mid_runs = []
+    run_mid_phase = multiscale.run_mid_phase
+    monkeypatch.setattr(multiscale, "run_mid_phase", lambda *a, **k: mid_runs.append(1) or run_mid_phase(*a, **k))
+    if route == "mid_phase":
+        monkeypatch.setattr(multiscale, "N_FINE_OK", 512)
+    else:
+        kw["cost"] = _half_sqdist
+    v = SamplesLoss("sinkhorn", backend="multiscale", **kw)(x, y)
+    (g,) = torch.autograd.grad(v, x)
+    assert torch.isfinite(v) and torch.isfinite(g).all()
+    assert len(mid_runs) == (route == "mid_phase")
+
+
 def test_labels_and_jumps_not_ported_raise():
-    """The labels form now runs the multiscale backend
-    (tests/test_torch_multiscale.py), but not with a custom cost; the
-    single-scale loop takes no jumps."""
+    """The labels form runs the multiscale backend, with a custom cost too
+    (``|x-y|^2 / 2`` gives the built-in p = 2 value); the single-scale loop
+    takes no jumps."""
     x = torch.rand(20, 3, dtype=torch.float64)
     w = torch.full((20,), 1 / 20, dtype=torch.float64)
     lab = torch.zeros(20, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SamplesLoss("sinkhorn", cost=lambda x, y: ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1))(
-            lab, w, x, lab, w, x
-        )
+    custom = SamplesLoss("sinkhorn", cost=_half_sqdist)(lab, w, x, lab, w, x.flip(0) + 0.1)
+    builtin = SamplesLoss("sinkhorn")(lab, w, x, lab, w, x.flip(0) + 0.1)
+    _close(custom, builtin.detach().numpy(), VAL_RTOL)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sinkhorn_loop(None, w, w, None, None, None, None, [1.0], None, jumps=[0])
 
@@ -214,11 +239,25 @@ def test_check_shapes_errors_match_jax(args):
 
 def test_interop_round_trip():
     tree = {"raw": (np.arange(3.0), None), "w": [np.ones((2, 2), np.float32)]}
-    t = from_numpy(tree, dtype=torch.float64)
+    t = from_numpy(tree, device="cpu", dtype=torch.float64)
     assert t["raw"][0].dtype == torch.float64 and t["raw"][1] is None
     back = to_numpy(t)
     np.testing.assert_array_equal(back["raw"][0], tree["raw"][0])
     np.testing.assert_array_equal(back["w"][0], tree["w"][0])
+
+
+def test_interop_defaults_to_the_card():
+    """State carried across lands on the card unless the caller asks for the
+    CPU: without a card the default raises torch's own error rather than
+    quietly returning CPU tensors."""
+    tree = (np.arange(3.0), None)
+    if torch.cuda.is_available():
+        assert from_numpy(tree)[0].is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        from_numpy(tree)
+    with pytest.raises((AssertionError, RuntimeError)):
+        tile_mask_from_numpy(TileMask(np.zeros((2, 1), np.int32), np.ones(2, np.int32), None, None))
 
 
 def test_port_imports_no_jax():

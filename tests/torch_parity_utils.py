@@ -10,6 +10,17 @@ import torch
 # Value tolerances of tests/test_pallas_kernels.py (LSE and step values):
 VAL_TOL = dict(rtol=2e-5, atol=2e-5)
 
+#: The p = 1 noise floor, a property of the JAX package's Pallas kernels:
+#: they set a pair's distance to 0 where its squared distance, computed in
+#: the expansion form, lies below 2e-6 (|x|^2 + |y|^2). The port computes
+#: distances from coordinate differences and takes sqrt(max(sq, 1e-8)), as
+#: the JAX dense path does, so a self pair has distance sqrt(1e-8) = 1e-4
+#: where the Pallas kernels have 0. A softmin value S_i = -eps log sum_j
+#: w_ij then moves by at most eps * (1e-4 / eps) = 1e-4, for any eps: the
+#: bound every p = 1 comparison of a symmetric (debias) problem with the
+#: Pallas kernels adds to its tolerance.
+P1_FLOOR_SHIFT = 1e-4
+
 APPLY_KINDS = [
     (2, "gibbs"),
     (2, "gibbs_grad"),
