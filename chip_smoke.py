@@ -1,7 +1,8 @@
 """GPU smoke run of geomloss_tpu_torch: builds the kernels, checks each
 against its plain PyTorch twin, drives the online and the multiscale
-Sinkhorn paths at N = M = 100,000 and the multiscale mid path at
-N = M = 2,000,000, and times them.
+Sinkhorn paths at N = M = 100,000, the multiscale mid path at
+N = M = 2,000,000 and 4,000,000, and the kernel (MMD) losses at 100,000
+and 1,000,000 points, and times them.
 
     python3 chip_smoke.py
 
@@ -35,15 +36,31 @@ phase fails. Phases, one line each:
 8. mid path (bench.py's call at N = M = 2e6, ``backend="auto"``: the
    pooled intermediate scale, kernel 7 on the four truncated
    extrapolations, kernels 5 and 6 at tile 1024): the launch counts of that
-   run against the schedule, loss + gradient time, peak device memory and
-   the device's idle share over one call;
+   run against the schedule (calls; kernels 5 and 6 launch their live
+   slots in chunks), loss + gradient time, peak device memory and the
+   device's idle share over one call; the extra memory of one kernel 5
+   and one kernel 6 call against their scratch budget;
    kernel 7 against its twin on the run's four extrapolation tables, and
    kernels 5 and 6 on the first 64 row tiles of its first fine tables; for
    information, how many rows JAX's walk budget would have clipped and the
    value against ``truncate=None`` (the exact fine phase, kernels 2 and 3);
 9. the mid path forced at N = M = 1e5 (``N_FINE_OK`` lowered for the
    call), p in {1, 2}, and one custom-cost multiscale solve at 1e5, each
-   against the same call through the float64 twins.
+   against the same call through the float64 twins;
+10. MMD (``[mmd]``): kernel 8 (``gibbs_apply_sparse``) against its twin on
+    the tables of the gaussian multiscale route (``truncate=3``, blur
+    0.1) at 1e5 and on the first 64 row tiles at 1e6, modes 0-4, C in
+    {1, 4}, each with its time and bound; ``softmin_sparse`` at 1e5, p in
+    {1, 2} (kernel 7's CUDA kernel forward as ``lse_sparse``, kernel 8
+    backward); kernel 4's energy and inv_dist modes timed at 1e5; the
+    gaussian (online, multiscale), energy and laplacian (multiscale)
+    losses at 1e5 through ``SamplesLoss``, value and gradient against the
+    float64 plain versions to bounds scaled by the MMD's terms, with
+    their times, launches and peak memory; a user gaussian callable
+    against the named route; the gaussian multiscale route at 1e6 (kernel
+    8 parity, time, idle share);
+11. the auto route at N = M = 4e6 (``[4m]``): loss, loss + gradient time,
+    peak memory, launches and the fine tables' kept tiles per row.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -78,11 +95,36 @@ APPLY_RTOL, APPLY_ATOL_SCALE = 2e-3, 3e-5
 PATH_TOL = 1e-3
 #: Extra device memory one step call may take beyond its inputs at 1e6.
 REPAIR_BYTES = 256e6
-#: Launches of the 2e6 mid path (bench.py's settings): one fine iteration
+#: Calls of the 2e6 mid path (bench.py's settings): one fine iteration
 #: (3 tables) and the last extrapolation's 3 forwards on kernel 5, the
 #: backward of its xy and xx parts on kernel 6, the four extrapolations
-#: onto the fine cloud on kernel 7.
-MID_LAUNCHES = {"lse_tiles": 4, "absorbed_sum_tiles": 6, "gibbs_apply_tiles": 2}
+#: onto the fine cloud on kernel 7 (one launch each; kernels 5 and 6
+#: launch their live slots in chunks, one launch per chunk).
+MID_CALLS = {"lse_tiles": 4, "absorbed_sum_tiles": 6, "gibbs_apply_tiles": 2}
+#: The auto route at bench_suite.py's largest size (pads to 2^22 points).
+N_4M = 4_000_000
+#: The MMD configurations (bench_suite.py's MMD rows): blur 0.1, the
+#: multiscale routes at truncate 3; the gaussian multiscale route also at
+#: 1e6.
+MMD_BLUR, MMD_TRUNCATE = 0.1, 3
+N_MMD_LARGE = 1_000_000
+#: MMD values: the loss is the small difference of three terms that nearly
+#: cancel (each ~5e-3 for two samples of one sphere at blur 0.1, the loss
+#: ~2e-3 of that), so a relative error of the loss measures the
+#: cancellation. The float32 kernels are held to bounds scaled by the
+#: terms and the gradient's parts of the float64 run:
+#: |loss - ref| <= MMD_LOSS_TOL (|1/2 <a,Kxx a>| + |1/2 <b,Kyy b>| + |<a,Kxy b>|)
+#: and |grad - ref|_2 <= MMD_GRAD_TOL max(|grad of 1/2 <a,Kxx a>|_2,
+#: |grad of <a,Kxy b>|_2). The p = 1 noise floor of the JAX package's
+#: Pallas kernels does not enter: both sides here are the port's, with
+#: the same distances (sqrt(max(sq, 1e-8)) from coordinate differences).
+#: A user kernel callable is held to the named route by the same loss
+#: bound.
+MMD_LOSS_TOL = 1e-5
+MMD_GRAD_TOL = 1e-3
+#: The JAX package's SMEM bound on the width of a masks_from_geometry table
+#: at 1024 row tiles (400_000 // (4 * 1024)); the port keeps up to 128.
+JAX_GEOMETRY_CAP = 97
 #: N_FINE_OK for the mid path forced at 1e5: one mid iteration for p = 1
 #: and p = 2, on a mid cloud of 16,384 points (the truncated
 #: extrapolations' gate needs 64 source tiles of 128).
@@ -106,6 +148,8 @@ REPLACES = {
     "absorbed_sum_tiles": "geomloss_tpu/ops/block_sparse.py:653",
     "gibbs_apply_tiles": "geomloss_tpu/ops/block_sparse.py:859",
     "lse_tiles": "geomloss_tpu/ops/block_sparse.py:1072",
+    "gibbs_apply_sparse": "geomloss_tpu/ops/block_sparse.py:1797",
+    "lse_sparse": "geomloss_tpu/ops/block_sparse.py:1669",
 }
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
@@ -143,6 +187,24 @@ def bound(exps, nbytes, clock_hz):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def capturing(module, name):
+    """Record what every call to ``module.<name>`` returns."""
+    out = []
+    saved = getattr(module, name)
+
+    def call(*args, **kwargs):
+        r = saved(*args, **kwargs)
+        out.append(r)
+        return r
+
+    setattr(module, name, call)
+    try:
+        yield out
+    finally:
+        setattr(module, name, saved)
 
 
 @contextlib.contextmanager
@@ -242,6 +304,46 @@ def profile_busy_ms(fn):
     return wall, sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:8]
 
 
+#: Largest error of each kernel against its twin over the parity checks.
+MAX_ERR = {}
+
+
+def check_val(name, label, got, ref):
+    err = (got - ref).abs()
+    excess = (err - (VAL_ATOL + VAL_RTOL * ref.abs())).max().item()
+    MAX_ERR[name] = max(MAX_ERR.get(name, 0.0), err.max().item())
+    print(f"[parity] {name:18s} {label}: max_abs_err {err.max().item():.3e} "
+          f"(tol {VAL_ATOL:g} + {VAL_RTOL:g}|ref|)", flush=True)
+    if not excess <= 0:
+        fail(f"{name} {label} misses its tolerance by {excess:.3e}")
+
+
+def check_apply(name, label, got, ref, scale):
+    """An apply against its twin: ``|got - ref| <= APPLY_ATOL_SCALE * scale
+    + APPLY_RTOL |ref|``, ``scale = max_i sum_j |w_ij| |V_j|``; prints the
+    largest excess over that tolerance (negative when it holds)."""
+    err = (got - ref).abs()
+    excess = (err - (APPLY_ATOL_SCALE * scale + APPLY_RTOL * ref.abs())).max().item()
+    MAX_ERR[name] = max(MAX_ERR.get(name, 0.0), err.max().item())
+    print(f"[parity] {name:18s} {label}: max_abs_err {err.max().item():.3e} "
+          f"(tol {APPLY_ATOL_SCALE:g}*{scale:.3g} + {APPLY_RTOL:g}|ref|, max excess {excess:.3e})", flush=True)
+    if not excess <= 0:
+        fail(f"{name} {label} misses its tolerance by {excess:.3e}")
+
+
+def value_and_grad(fn, x):
+    x = x.detach().clone().requires_grad_(True)
+    v = fn(x)
+    (g,) = torch.autograd.grad(v, x)
+    return v.detach(), g
+
+
+def rel_errs(v, g, v_ref, g_ref):
+    rel_v = abs(v.item() - v_ref.item()) / abs(v_ref.item())
+    rel_g = ((g.to(g_ref.dtype) - g_ref).norm() / g_ref.norm()).item()
+    return rel_v, rel_g
+
+
 def capture_fine_state(ms, solve):
     """Arguments of the first fine step and the first symmetric fine step
     of one multiscale solve: the sorted clouds, potentials and truncation
@@ -256,6 +358,396 @@ def first_fine_steps(rec):
     if not all(steps):
         fail("the multiscale solve ran no truncated fine step")
     return {"xy": steps[0][0][0], "xx": steps[1][0][0]}
+
+
+# ------------------------------------------------------------------------------
+#  10. The MMD losses (kernel 8, kernel 9 on kernel 7's CUDA kernel)
+# ------------------------------------------------------------------------------
+
+#: Weight kinds of kernel 8, modes 0-4 (pair_common.cuh::apply_weight), and
+#: the MUFU operations one pair takes in each: an exp2 (modes 0-2), a sqrt
+#: (mode 3), a sqrt and a reciprocal (mode 4).
+SPARSE_MODES = [(2, "gibbs", 1), (1, "gibbs", 1), (1, "gibbs_grad", 1), (1, "energy", 1), (1, "inv_dist", 2)]
+
+
+def table_stats(cols, cnt):
+    """Kept tiles per row of a table: ``(kept, mean, max, rows at cap)``."""
+    c = cnt.clamp(max=cols.shape[1]).double()
+    return int(c.sum()), c.mean().item(), int(c.max()), int((c >= cols.shape[1]).sum())
+
+
+def mmd_reference(fn, x):
+    """One MMD call through the float64 plain versions: value, gradient in
+    x, the three terms (1/2 <a,Kxx a>, 1/2 <b,Kyy b>, <a,Kxy b>) and the
+    larger L2 norm of the gradient's two parts (of the xx and xy terms)."""
+    from geomloss_tpu_torch.models import kernel_samples as ks
+
+    x = x.detach().clone().requires_grad_(True)
+    with capturing(ks, "scal") as out:
+        v = fn(x)
+    t_xx, t_yy, t_xy = (t.sum() for t in out)
+    (g_self,) = torch.autograd.grad(0.5 * t_xx, x, retain_graph=True)
+    (g_cross,) = torch.autograd.grad(t_xy, x)
+    terms = (0.5 * t_xx.item(), 0.5 * t_yy.item(), t_xy.item())
+    return v.detach(), g_self - g_cross, terms, max(g_self.norm().item(), g_cross.norm().item())
+
+
+def mmd_tolerance(terms):
+    return MMD_LOSS_TOL * sum(abs(t) for t in terms)
+
+
+def compare_mmd(label, v, g, ref):
+    """The float32 kernels against the float64 run, to the term-scaled
+    bounds; the plain relative errors too."""
+    v_ref, g_ref, terms, g_part = ref
+    if g.shape != g_ref.shape or not (torch.isfinite(v) and torch.isfinite(g).all()):
+        fail(f"{label}: non-finite or misshapen output")
+    err_v = abs(v.item() - v_ref.item())
+    err_g = (g.to(g_ref.dtype) - g_ref).norm().item()
+    tol_v, tol_g = mmd_tolerance(terms), MMD_GRAD_TOL * g_part
+    rel_v, rel_g = rel_errs(v, g, v_ref, g_ref)
+    print(f"[mmd] {label}: loss {v.item():.9e} (float64 {v_ref.item():.9e}; terms {terms[0]:.6e}, "
+          f"{terms[1]:.6e}, {terms[2]:.6e}): loss err {err_v:.3e} (tol {tol_v:.3e}), grad L2 err {err_g:.3e} "
+          f"(tol {tol_g:.3e}); plain relative errors: loss {rel_v:.3e}, grad {rel_g:.3e}", flush=True)
+    if not (err_v <= tol_v and err_g <= tol_g):
+        fail(f"{label} misses its tolerance")
+
+
+def check_sparse_apply(label, args, clock, card, time_it=True):
+    """Kernel 8 against its twin on one call's arguments; its time beside
+    its bound (MUFU operations per kept pair of its mode)."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+
+    x, y, phi, psi, V, eps, cols, cnt, p, kind, bn, bm = args
+    # No autograd graph: the arguments may be a backward pass's leaves.
+    with torch.no_grad():
+        got = cbs.gibbs_apply_sparse(*args)
+        ref = cbs.gibbs_apply_sparse_blocked(*args)
+        scale = cbs.gibbs_apply_sparse_blocked(x, y, phi, psi, V.abs(), *args[5:]).abs().max().item()
+    check_apply("gibbs_apply_sparse", label, got, ref, scale)
+    if not time_it:
+        return
+    ops = next(m for pp, k, m in SPARSE_MODES if k == kind and (pp == p or k in ("energy", "inv_dist")))
+    kept = table_stats(cols, cnt)[0] * bn * bm
+    b_ms, b_by = bound(ops * kept, nbytes(x, y, phi, psi, V, cols, cnt) + 4 * V.numel() * x.shape[0] // y.shape[0],
+                       clock)
+    print(f"[time] gibbs_apply_sparse {label}: kernel {event_ms(lambda: cbs.gibbs_apply_sparse(*args), 3):.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) x {kept:.4g} kept pairs) (CUDA events); card {card}",
+          flush=True)
+
+
+def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_rows=MID_PARITY_TILES,
+              profile=True):
+    """Kernel 8 on the real tables, ``softmin_sparse``, and the MMD
+    configurations through ``SamplesLoss``. Returns the ``kernels`` entries
+    of kernels 8 and 9."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import kernel_samples as ks
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+    from geomloss_tpu_torch.solvers.sinkhorn_loop import log_weights
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    x0 = torch.from_numpy(sphere_cloud(n_small, 0)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n_small, 1)).to(dev)
+    w = torch.full((n_small,), 1.0 / n_small, dtype=f32, device=dev)
+    w64, y64 = w.to(f64), y0.to(f64)
+    kw = dict(blur=MMD_BLUR)
+    ms_kw = dict(kw, truncate=MMD_TRUNCATE)
+
+    def reset():
+        ck.reset_launch_counts()
+        cbs.reset_launch_counts()
+
+    def counts():
+        return {k: n for k, n in {**ck.launch_counts, **cbs.launch_counts}.items() if n}
+
+    def tables(fn, x, y):
+        """The three kernel_matvec_sparse calls of one multiscale MMD
+        solve: ``{"xx": ..., "yy": ..., "xy": ...}`` as ``(x_s, y_s, v,
+        mask, tile)``."""
+        with recording(ks, ("kernel_matvec_sparse",)) as rec, torch.no_grad():
+            fn(x, y)
+        out = {}
+        for key, (args, kwargs) in zip(("xx", "yy", "xy"), rec["kernel_matvec_sparse"]):
+            out[key] = (args[0].detach(), args[1].detach(), args[2].detach(), args[4], kwargs["block"])
+        return out
+
+    def print_table(label, mask):
+        kept, mean, most, at_cap = table_stats(mask.cols, mask.counts)
+        print(f"[mmd] {label}: {mask.cols.shape[0]} row tiles, width {mask.cols.shape[1]}, {kept} kept tile "
+              f"pairs, kept tiles per row mean {mean:.2f} max {most}, {at_cap} rows at the width", flush=True)
+        return most
+
+    # --- Kernel 8 on the real tables of the gaussian multiscale route -----------
+    gauss_ms = SamplesLoss("gaussian", backend="multiscale", **ms_kw)
+    tab = tables(gauss_ms, x0, y0)
+    for key in ("xy", "xx"):
+        xs, ys, v, mask, tile = tab[key]
+        print_table(f"gaussian multiscale N=M={n_small} mask_{key}", mask)
+        zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
+        for p, kind, _ in SPARSE_MODES:
+            for C in (1, 4):
+                V = v[:, None] if C == 1 else v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
+                args = (xs, ys, zx, zy, V, MMD_BLUR**p, mask.cols, mask.counts, p, kind, tile, tile)
+                check_sparse_apply(f"N=M={n_small} mask_{key} p={p} {kind} C={C}", args, clock, card)
+
+    # --- softmin_sparse: kernel 7 forward (lse_sparse), kernel 8 backward ---------
+    # Its backward reads the transposed table; a table whose width holds
+    # every positive score keeps the same pairs both ways (a capped one may
+    # keep (J, I) and not (I, J): the backward would then meet pairs the
+    # forward LSE left out, with weights above 1).
+    xs, ys, v, _, tile = tab["xy"]
+    aw = tab["xx"][2]
+    mask = tbs.masks_from_geometry(xs, ys, MMD_TRUNCATE * MMD_BLUR, tile, cap=ys.shape[0] // tile, w_x=aw, w_y=v)
+    print_table(f"softmin_sparse N=M={n_small} (geometry, radius {MMD_TRUNCATE * MMD_BLUR:g}, uncapped)", mask)
+    h = log_weights(v)
+    sm_entry = {}
+    for p in (2, 1):
+        eps = MMD_BLUR**p
+        lse_args = (xs, ys, h, eps, mask.cols, mask.counts, p, tile, tile)
+        check_val("lse_sparse", f"softmin_sparse forward N=M={n_small} p={p}", cbs.lse_sparse(*lse_args),
+                  cbs.lse_tiles_blocked(xs, ys, h, eps, mask.cols, mask.counts, tile, tile, p))
+        grads = {}
+        for impl, dt in (("auto", f32), ("blocked", f32), ("blocked", f64)):
+            leaves = [t.detach().to(dt).requires_grad_(True) for t in (xs, ys, h)]
+            reset()
+            with recording(cbs, ("gibbs_apply_sparse",)) as rec:
+                S = tbs.softmin_sparse(eps, (leaves[0], leaves[1], mask), leaves[2], p=p, block=tile, impl=impl)
+                grads[impl, dt] = torch.autograd.grad((S * S.detach().sin()).sum(), leaves)
+            torch.cuda.synchronize()
+            if impl == "auto":
+                launches = counts()
+                print(f"[mmd] softmin_sparse N=M={n_small} p={p} value and gradients: launches "
+                      f"{json.dumps(launches)}", flush=True)
+                if not (launches.get("lse_sparse") and launches.get("gibbs_apply_sparse")):
+                    fail(f"softmin_sparse p={p} did not run kernels 7 and 8: {launches}")
+                if p == 2:
+                    sm_entry["launches"] = launches.get("lse_sparse", 0)
+                for k, (args, _) in enumerate(rec["gibbs_apply_sparse"]):
+                    check_sparse_apply(f"softmin_sparse backward N=M={n_small} p={p} apply {k}", args, clock, card,
+                                       time_it=False)
+        # The gradients against the float64 plain backward: the kernels no
+        # worse than PATH_TOL or twice the float32 plain backward (the
+        # ones-channel form cancels in float32 whoever sums it).
+        for d, name in enumerate("xyh"):
+            ref = grads["blocked", f64][d]
+            err_k, err_t = (((grads[key, f32][d].to(f64) - ref).norm() / ref.norm()).item() for key in ("auto", "blocked"))
+            print(f"[mmd] softmin_sparse p={p} gradient in {name}: rel L2 err against the float64 plain backward: "
+                  f"kernels {err_k:.3e}, float32 plain backward {err_t:.3e} (tol max({PATH_TOL:g}, 2 x plain))",
+                  flush=True)
+            if not err_k <= max(PATH_TOL, 2 * err_t):
+                fail(f"softmin_sparse p={p} gradient in {name} misses its tolerance")
+    lse_args = (xs, ys, h, MMD_BLUR**2, mask.cols, mask.counts, 2, tile, tile)
+    kept = table_stats(mask.cols, mask.counts)[0] * tile * tile
+    sm_entry.update(
+        ms=event_ms(lambda: cbs.lse_sparse(*lse_args), 10),
+        plain_ms=event_ms(lambda: cbs.lse_tiles_blocked(*lse_args[:6], tile, tile, 2), 1),
+        bound=bound(kept, nbytes(xs, ys, h, mask.cols, mask.counts) + 4 * xs.shape[0], clock),
+    )
+    print(f"[time] lse_sparse softmin_sparse forward N=M={n_small} p=2 mask_xy: kernel {sm_entry['ms']:.3f} ms, "
+          f"twin {sm_entry['plain_ms']:.3f} ms, bound {sm_entry['bound'][0]:.3f} ms ({sm_entry['bound'][1]}) "
+          f"(CUDA events); card {card}", flush=True)
+
+    # Kernel 4's energy and inv_dist modes (the energy route) at n_small.
+    z = torch.zeros(n_small, dtype=f32, device=dev)
+    V4 = torch.cat([torch.ones_like(y0[:, :1]), y0], 1)
+    for kind, V, ops in (("energy", w[:, None], 1), ("inv_dist", V4, 2)):
+        b_ms, b_by = bound(ops * n_small * n_small, nbytes(x0, y0, z, z, V) + 4 * V.numel(), clock)
+        t = event_ms(lambda: ck.gibbs_apply(x0, y0, z, z, V, 1.0, 1, kind), 3)
+        print(f"[time] gibbs_apply        N=M={n_small} {kind} C={V.shape[1]}: kernel {t:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) per pair) (CUDA events); card {card}", flush=True)
+
+    # --- The configurations through SamplesLoss ----------------------------------
+    configs = {
+        "gaussian online": (dict(loss="gaussian", backend="online", **kw), "online", "gaussian"),
+        "gaussian multiscale": (dict(loss="gaussian", backend="multiscale", **ms_kw), "multiscale", "gaussian"),
+        "energy": (dict(loss="energy", **kw), "online", "energy"),
+        "laplacian multiscale": (dict(loss="laplacian", backend="multiscale", **ms_kw), "multiscale", "laplacian"),
+    }
+    values, refs, k8_launches = {}, {}, 0
+    for label, (loss_kw, route, name) in configs.items():
+        loss = SamplesLoss(**loss_kw)
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        v, g = value_and_grad(lambda x: loss(x, y0), x0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = counts()
+        if label == "gaussian multiscale":
+            k8_launches = launches.get("gibbs_apply_sparse", 0)
+        want = "gibbs_apply_sparse" if route == "multiscale" else "gibbs_apply"
+        if not launches.get(want):
+            fail(f"{label}: {want} was never launched ({launches})")
+        times = [sync_ms(lambda: value_and_grad(lambda x: loss(x, y0), x0), 1) for _ in range(3)]
+        print(f"[mmd] {label} N=M={n_small}: launches {json.dumps(launches)}, first call {first_s:.2f} s, "
+              f"loss+grad host clock after the warm-up {', '.join(f'{t:.3f}' for t in times)} ms, peak extra "
+              f"device memory {peak / 1e6:.1f} MB; card {card}", flush=True)
+        if route == "online":
+            fn64 = lambda x: ks.kernel_online(w64[None], x[None], w64[None], y64[None], name=name, impl="blocked",  # noqa: E731
+                                              **kw)[0]
+        else:
+            fn64 = lambda x: ks.kernel_multiscale(w64, x, w64, y64, name=name, impl="blocked", **ms_kw)  # noqa: E731
+        refs[label] = mmd_reference(fn64, x0.to(f64))
+        compare_mmd(f"{label} N=M={n_small} against the float64 plain versions", v, g, refs[label])
+        values[label] = v
+    rel = abs(values["gaussian multiscale"].item() - refs["gaussian online"][0].item()) / abs(
+        refs["gaussian online"][0].item())
+    print(f"[mmd] for information, gaussian multiscale (truncate={MMD_TRUNCATE}) against the online float64 value "
+          f"at N=M={n_small}: loss rel err {rel:.3e} (the truncation's error, not the kernels')", flush=True)
+
+    # A user kernel over the same kept tiles, against the named route.
+    def gauss(X, Y, blur=0.05):
+        return torch.exp(-((X[..., :, None, :] - Y[..., None, :, :]) ** 2).sum(-1) / (2 * blur**2))
+
+    custom = SamplesLoss("gaussian", backend="multiscale", kernel=gauss, **ms_kw)
+    reset()
+    t0 = time.perf_counter()
+    v_c, _ = value_and_grad(lambda x: custom(x, y0), x0)
+    torch.cuda.synchronize()
+    err = abs(v_c.item() - values["gaussian multiscale"].item())
+    tol = mmd_tolerance(refs["gaussian multiscale"][2])
+    print(f"[mmd] custom gaussian callable, multiscale N=M={n_small} ({time.perf_counter() - t0:.2f} s, kernel "
+          f"launches {sum(counts().values())}): loss {v_c.item():.9e} against the named route "
+          f"{values['gaussian multiscale'].item():.9e}: err {err:.3e} (tol {tol:.3e}), relative "
+          f"{err / abs(values['gaussian multiscale'].item()):.3e}", flush=True)
+    if not err <= tol:
+        fail("the custom gaussian callable misses the named route")
+
+    # --- The gaussian multiscale route at n_large: kernel 8 parity only ------------
+    xl = torch.from_numpy(sphere_cloud(n_large, 0)).to(dev)
+    yl = torch.from_numpy(sphere_cloud(n_large, 1)).to(dev)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recording(ks, ("kernel_matvec_sparse",)) as rec:
+        v_l, g_l = value_and_grad(lambda x: gauss_ms(x, yl), xl)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = counts()
+    if g_l.shape != (n_large, 3) or not (torch.isfinite(v_l) and torch.isfinite(g_l).all()):
+        fail(f"gaussian multiscale N=M={n_large}: non-finite or misshapen output")
+    times = [sync_ms(lambda: value_and_grad(lambda x: gauss_ms(x, yl), xl), 1) for _ in range(3)]
+    print(f"[mmd] gaussian multiscale N=M={n_large}: loss {v_l.item():.9e}, launches {json.dumps(launches)}, "
+          f"loss+grad host clock after the warm-up {', '.join(f'{t:.3f}' for t in times)} ms, peak extra device "
+          f"memory {peak / 1e6:.1f} MB; card {card}", flush=True)
+    if profile:
+        wall, busy, n_launch, top = profile_busy_ms(lambda: value_and_grad(lambda x: gauss_ms(x, yl), xl))
+        print(f"[time] gaussian multiscale loss+grad N=M={n_large} under torch.profiler: wall {wall:.3f} ms, device "
+              f"busy {busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches; "
+              f"card {card}", flush=True)
+        for dev_ms, calls, key in top:
+            print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
+    for key, (args, kwargs) in zip(("xx", "yy", "xy"), rec["kernel_matvec_sparse"]):
+        if key == "yy":
+            continue
+        xs, ys, v, mask, tile = args[0].detach(), args[1].detach(), args[2].detach(), args[4], kwargs["block"]
+        most = print_table(f"gaussian multiscale N=M={n_large} mask_{key}", mask)
+        print(f"[mmd] for information, mask_{key} at N=M={n_large}: max kept tiles per row {most} "
+              f"{'<=' if most <= JAX_GEOMETRY_CAP else '>'} {JAX_GEOMETRY_CAP}, the JAX package's SMEM bound at "
+              f"{mask.cols.shape[0]} row tiles: {'its tables are these' if most <= JAX_GEOMETRY_CAP else 'it keeps fewer'}",
+              flush=True)
+        cnt = mask.counts.clone()
+        cnt[large_rows:] = 0
+        zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
+        for p, kind, _ in SPARSE_MODES:
+            for C in (1, 4):
+                V = v[:, None] if C == 1 else v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
+                args8 = (xs, ys, zx, zy, V, MMD_BLUR**p, mask.cols, cnt, p, kind, tile, tile)
+                check_sparse_apply(f"N=M={n_large} mask_{key} first {large_rows} row tiles p={p} {kind} C={C}",
+                                   args8, clock, card, time_it=False)
+        if key == "xy":
+            full = (xs, ys, zx, zy, v[:, None], MMD_BLUR**2, mask.cols, mask.counts, 2, "gibbs", tile, tile)
+            kept = table_stats(mask.cols, mask.counts)[0] * tile * tile
+            b_ms, b_by = bound(kept, nbytes(*full[:5], mask.cols, mask.counts) + 4 * xs.shape[0], clock)
+            print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy full table p=2 gibbs C=1: kernel "
+                  f"{event_ms(lambda: cbs.gibbs_apply_sparse(*full), 3):.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
+                  f"(CUDA events); card {card}", flush=True)
+    del xl, yl, g_l, rec
+    torch.cuda.empty_cache()
+
+    # --- The kernels line: kernel 8 at the forward apply of the 1e5 route ----------
+    xs, ys, v, mask, tile = tab["xy"]
+    zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
+    fwd = (xs, ys, zx, zy, v[:, None], MMD_BLUR**2, mask.cols, mask.counts, 2, "gibbs", tile, tile)
+    kept = table_stats(mask.cols, mask.counts)[0] * tile * tile
+    k8_bound = bound(kept, nbytes(*fwd[:5], mask.cols, mask.counts) + 4 * xs.shape[0], clock)
+    k8 = dict(ms=event_ms(lambda: cbs.gibbs_apply_sparse(*fwd), 10),
+              plain_ms=event_ms(lambda: cbs.gibbs_apply_sparse_blocked(*fwd), 1))
+    print(f"[time] gibbs_apply_sparse gaussian multiscale forward N=M={n_small} mask_xy C=1: kernel {k8['ms']:.3f} ms, "
+          f"twin {k8['plain_ms']:.3f} ms, bound {k8_bound[0]:.3f} ms ({k8_bound[1]}) (CUDA events); card {card}",
+          flush=True)
+    src = "geomloss_tpu_torch/csrc/block_sparse_kernels.cu"
+    entries = [
+        {"name": "gibbs_apply_sparse", "route": "cuda", "source": src, "replaces": REPLACES["gibbs_apply_sparse"],
+         "launches": k8_launches, "max_abs_err": MAX_ERR["gibbs_apply_sparse"], "ms": k8["ms"],
+         "plain_ms": k8["plain_ms"], "bound_ms": k8_bound[0], "bound_by": k8_bound[1], "library_ms": None},
+        {"name": "lse_sparse", "route": "cuda", "source": src, "replaces": REPLACES["lse_sparse"],
+         "launches": sm_entry["launches"], "max_abs_err": MAX_ERR["lse_sparse"], "ms": sm_entry["ms"],
+         "plain_ms": sm_entry["plain_ms"], "bound_ms": sm_entry["bound"][0], "bound_by": sm_entry["bound"][1],
+         "library_ms": None},
+    ]
+    print(f"[mmd] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
+
+
+# ------------------------------------------------------------------------------
+#  11. The auto route at N = M = 4e6
+# ------------------------------------------------------------------------------
+
+
+def auto_4m_phase(dev, card, n=N_4M, reps=2):
+    """bench.py's call at bench_suite.py's largest size: the mid path with
+    kernels 5 and 6 in bounded chunks."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    auto = SamplesLoss("sinkhorn", p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    x = torch.from_numpy(sphere_cloud(n, 0)).to(dev)
+    y = torch.from_numpy(sphere_cloud(n, 1)).to(dev)
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(cbs, tuple(MID_CALLS)) as rec, recording(ms, ("sinkhorn_step_walk_banded",)) as rec_ms:
+        v, g = value_and_grad(lambda x: auto(x, y), x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: n_ for k, n_ in {**ck.launch_counts, **cbs.launch_counts}.items() if n_}
+    calls = {k: len(r) for k, r in rec.items()}
+    if g.shape != (n, 3) or not (torch.isfinite(v) and torch.isfinite(g).all()):
+        fail(f"auto route N=M={n}: non-finite or misshapen output")
+    if not all(calls.values()):
+        fail(f"auto route N=M={n} did not take the mid path's kernels: {calls}")
+    wall = []
+    for _ in range(reps):  # the counted call above was the warm-up
+        t0 = time.perf_counter()
+        value_and_grad(lambda x: auto(x, y), x)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    cols, cnt = rec_ms["sinkhorn_step_walk_banded"][0][0][7:9]
+    kept, mean, most, at_cap = table_stats(cols, cnt)
+    print(f"[4m] auto route N=M={n} (padded to {cols.shape[0] * rec_ms['sinkhorn_step_walk_banded'][0][0][10]}): "
+          f"loss {v.item():.9e}, finite gradient; launches {json.dumps(launches)}, calls {json.dumps(calls)}; "
+          f"first call {first_s:.2f} s; loss+grad host clock, {reps} reps after the warm-up: "
+          f"{', '.join(f'{t:.3f}' for t in wall)} ms; peak device memory {peak_gb:.3f} GB; first fine table "
+          f"{cols.shape[0]} row tiles x width {cols.shape[1]}, {kept} kept, per row mean {mean:.2f} max {most}, "
+          f"{at_cap} rows at the width; card {card}", flush=True)
+    del x, y, g, rec, rec_ms
+    torch.cuda.empty_cache()
+    print(f"[4m] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main():
@@ -284,7 +776,7 @@ def main():
           flush=True)
 
     f32, f64 = torch.float32, torch.float64
-    max_err = {name: 0.0 for name in REPLACES}
+    MAX_ERR.update({name: 0.0 for name in REPLACES})
 
     # --- 3. Repair: bounded, deterministic step kernels at 1e6 --------------------
     xr = torch.from_numpy(sphere_cloud(N_REPAIR, 2)).to(dev)
@@ -315,24 +807,6 @@ def main():
     # --- 4. Kernel parity on the card --------------------------------------------
     x0 = torch.from_numpy(sphere_cloud(N_POINTS, 0)).to(dev)
     y0 = torch.from_numpy(sphere_cloud(N_POINTS, 1)).to(dev)
-
-    def check_val(name, label, got, ref):
-        err = (got - ref).abs()
-        excess = (err - (VAL_ATOL + VAL_RTOL * ref.abs())).max().item()
-        max_err[name] = max(max_err[name], err.max().item())
-        print(f"[parity] {name:18s} {label}: max_abs_err {err.max().item():.3e} "
-              f"(tol {VAL_ATOL:g} + {VAL_RTOL:g}|ref|)", flush=True)
-        if not excess <= 0:
-            fail(f"{name} {label} misses its tolerance by {excess:.3e}")
-
-    def check_apply(name, label, got, ref, scale):
-        err = (got - ref).abs()
-        excess = (err - (APPLY_ATOL_SCALE * scale + APPLY_RTOL * ref.abs())).max().item()
-        max_err[name] = max(max_err[name], err.max().item())
-        print(f"[parity] {name:18s} {label}: max_abs_err {err.max().item():.3e} "
-              f"(tol {APPLY_ATOL_SCALE:g}*{scale:.3g} + {APPLY_RTOL:g}|ref|)", flush=True)
-        if not excess <= 0:
-            fail(f"{name} {label} misses its tolerance by {excess:.3e}")
 
     for N, M in [(N_POINTS, N_POINTS), RAGGED]:
         x = torch.from_numpy(sphere_cloud(N, 0)).to(dev)
@@ -419,12 +893,6 @@ def main():
     kw2 = dict(p=2, **kw)
     wb = w[None]
 
-    def value_and_grad(fn, x):
-        x = x.detach().clone().requires_grad_(True)
-        v = fn(x)
-        (g,) = torch.autograd.grad(v, x)
-        return v.detach(), g
-
     ck.reset_launch_counts()
     cbs.reset_launch_counts()
     t0 = time.perf_counter()
@@ -454,11 +922,6 @@ def main():
                                   warm_start_iters=3, impl="blocked", **kw2)[0],
         x1.to(f64),
     )
-
-    def rel_errs(v, g, v_ref, g_ref):
-        rel_v = abs(v.item() - v_ref.item()) / abs(v_ref.item())
-        rel_g = ((g.to(f64) - g_ref.to(f64)).norm() / g_ref.to(f64).norm()).item()
-        return rel_v, rel_g
 
     def compare(tag, label, v, g, v_ref, g_ref):
         if g.shape != (N_POINTS, 3) or not (torch.isfinite(v) and torch.isfinite(g).all()):
@@ -582,7 +1045,7 @@ def main():
         # dense (N, M) matrix (40 GB at 1e5) or a gather of kept tiles.
         kernels.append({
             "name": name, "route": "cuda", "source": src[name], "replaces": REPLACES[name],
-            "launches": launches_n, "max_abs_err": max_err[name],
+            "launches": launches_n, "max_abs_err": MAX_ERR[name],
             "ms": ms_k, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
@@ -601,7 +1064,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording(cbs, ("lse_tiles",)) as rec7, recording(
+    with recording(cbs, tuple(MID_CALLS)) as rec_cbs, recording(
         ms, ("run_mid_phase", "sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")
     ) as rec_ms:
         v_2m, g_2m = value_and_grad(lambda x: auto(x, ym), xm)
@@ -609,12 +1072,13 @@ def main():
     first_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches_mid = {**ck.launch_counts, **cbs.launch_counts}
-    print(f"[mid] N=M={N_MID} launches {json.dumps(launches_mid)} in {first_s:.2f} s (first call), "
-          f"peak device memory {peak_gb:.3f} GB; card {card}", flush=True)
+    calls_mid = {k: len(v) for k, v in rec_cbs.items()}
+    print(f"[mid] N=M={N_MID} launches {json.dumps(launches_mid)}, calls {json.dumps(calls_mid)} in "
+          f"{first_s:.2f} s (first call), peak device memory {peak_gb:.3f} GB; card {card}", flush=True)
     if len(rec_ms["run_mid_phase"]) != 1:
         fail(f"the mid phase ran {len(rec_ms['run_mid_phase'])} times at N=M={N_MID}, not once")
-    if any(launches_mid[k] != n for k, n in MID_LAUNCHES.items()):
-        fail(f"mid path launches {launches_mid} differ from the schedule {MID_LAUNCHES}")
+    if calls_mid != MID_CALLS or any(launches_mid[k] < n for k, n in MID_CALLS.items()):
+        fail(f"mid path calls {calls_mid} differ from the schedule {MID_CALLS}, or launches {launches_mid}")
     if g_2m.shape != (N_MID, 3) or not (torch.isfinite(v_2m) and torch.isfinite(g_2m).all()):
         fail("mid path: non-finite or misshapen output")
     wall = []
@@ -633,9 +1097,7 @@ def main():
         print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
 
     # Kernel 7 on the four extrapolation tables of that run.
-    tables = [args for args, _ in rec7["lse_tiles"]]
-    if len(tables) != MID_LAUNCHES["lse_tiles"]:
-        fail(f"recorded {len(tables)} truncated extrapolations, not {MID_LAUNCHES['lse_tiles']}")
+    tables = [args for args, _ in rec_cbs["lse_tiles"]]
     for k, args in enumerate(tables):
         xr, src_pts, h7, e7, cols7, cnt7, bn, bm, p7 = args
         kept7 = int(cnt7.clamp(max=cols7.shape[1]).sum())
@@ -666,10 +1128,24 @@ def main():
         nb = (nbytes(*t_args[:4], cols, cnt) + 4 * (xs.shape[0] + ys.shape[0]) if name == "absorbed_sum_tiles"
               else nbytes(*a_args[:6], cols, cnt) + 16 * (xs.shape[0] + ys.shape[0]))
         b_ms, b_by = bound(kept, nb, clock)
+        # Extra device memory of one call: the chunk's partial sums (under
+        # the budget), plus O(N + M) outputs and copies and O(table) indices.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n0 = cbs.launch_counts[name]
+        call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        limit = cbs.TILES_SCRATCH_BYTES + 160 * (xs.shape[0] + ys.shape[0]) + 64 * cols.numel()
         print(f"[time] {name:18s} first fine step's table at N=M={N_MID}, kept {int(cnt.sum())} tile pairs of "
               f"{tile}: kernel {event_ms(call, 3):.3f} ms, bound {b_ms:.3f} ms ({b_by}) (CUDA events); "
+              f"{cbs.launch_counts[name] - n0} launches per call, peak extra memory {extra / 1e6:.1f} MB (limit "
+              f"{limit / 1e6:.1f} MB: scratch budget {cbs.TILES_SCRATCH_BYTES / 1e6:.1f} MB + O(N + M) + O(table)); "
               f"card {card}", flush=True)
-    del rec7, rec_ms, tables, args7, state, t_args, a_args, Vx, Vy, xs, ys, f, g, cols, cnt
+        if extra > limit:
+            fail(f"{name} at N=M={N_MID}: {extra} bytes of extra memory, over {limit}")
+    del rec_cbs, rec_ms, tables, args7, state, t_args, a_args, Vx, Vy, xs, ys, f, g, cols, cnt
     torch.cuda.empty_cache()
 
     # For information: the exact fine phase (kernels 2 and 3) at 2e6.
@@ -694,7 +1170,7 @@ def main():
             v_f, g_f = value_and_grad(lambda x: ms.sinkhorn_multiscale(w, x, w, y0, **kwp), x0)
             torch.cuda.synchronize()
             n7 = cbs.launch_counts["lse_tiles"]
-            if n7 != MID_LAUNCHES["lse_tiles"]:
+            if n7 != MID_CALLS["lse_tiles"]:
                 fail(f"mid path forced at N=M={N_POINTS} p={p}: kernel 7 launched {n7} times")
             v_fr, g_fr = value_and_grad(
                 lambda x: ms.sinkhorn_multiscale(w64, x, w64, y0.to(f64), impl="blocked", **kwp), x0.to(f64)
@@ -720,6 +1196,12 @@ def main():
     compare("custom", f"custom cost |x-y|^2/2 multiscale N=M={N_POINTS} ({custom_s:.2f} s, kernel launches "
             f"{sum(launches_c.values())})", v_c, g_c, v_cr, g_cr)
     print(f"[mid] phases 8 and 9 took {time.perf_counter() - t_mid:.1f} s", flush=True)
+    del x0, y0, w, w64
+    torch.cuda.empty_cache()
+
+    # --- 10. MMD losses, 11. the auto route at 4e6 -----------------------------------
+    kernels += mmd_phase(dev, card, clock)
+    auto_4m_phase(dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -7,9 +7,11 @@ The pair-interaction kernels are hand-written CUDA for Hopper
 (``csrc/online_kernels.cu``, ``csrc/block_sparse_kernels.cu``), built with
 ``nvcc`` at first use.
 
-Ported so far: the Sinkhorn divergence on point clouds with the
-``tensorized``, ``online`` and ``multiscale`` backends. This package never
-imports JAX.
+Ported so far: ``SamplesLoss`` on point clouds, every loss
+(``sinkhorn``, ``gaussian``, ``laplacian``, ``energy``, ``hausdorff``) with
+the ``tensorized``, ``online`` and ``multiscale`` backends, and the
+block-sparse operators of :mod:`.ops` (``softmin_sparse``,
+``gibbs_apply_sparse``, ``lse_sparse``). This package never imports JAX.
 """
 
 __version__ = "0.3.1"

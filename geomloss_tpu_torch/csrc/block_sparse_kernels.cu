@@ -6,29 +6,34 @@
 //
 // The truncation tables are CSR lists of kept tiles: row tile I (`tile`
 // consecutive sorted points) visits the column tiles cols[I, k] for
-// k < cnt[I]. The wrapper flattens them into slots s = I * ck + k with
-// slot_j[s] the column tile, or -1 for a dead slot (k >= cnt[I], or below
-// the diagonal of a triangle table).
+// k < cnt[I]. For kernels 5 and 6 the wrapper compacts them on the device
+// into the live slots (the kept pairs (I, J), in row-major table order,
+// with the entries below the diagonal of a triangle table left out)
+// followed by the dead ones (J = -1), and launches that list in chunks
+// whose partial sums stay under a fixed scratch budget
+// (TILES_SCRATCH_BYTES in ops/cuda_block_sparse.py): the blocks of a dead
+// slot return at once and write nothing, and the host never waits for the
+// live count.
 //
 // What bounds these kernels on an H100: the exponential, as for the online
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM); a
 // kept pair reads nothing but the two tiles' coordinates and biases.
 //
-// Kernels 5 and 6 serve square tiles of a symmetric tiling; kernel 7 (the
-// mid path's extrapolations) reads its (cols, cnt) table directly, with
-// row tiles of block_n points and source tiles of block_m points.
+// Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7 and
+// 8 read a (cols, cnt) table directly, with row tiles of block_n points
+// and source tiles of block_m points.
 //
 // The TPU walked the kept pairs in order and carried the column sums in
 // VMEM from one grid step to the next, flushing them at band markers. CUDA
-// blocks run in no order, so here block (s, h) takes the 256 rows h of
-// slot s's row tile against all columns of its column tile, keeps the row
-// direction in registers, and writes both directions' partial sums to the
-// slot's own scratch: rowpart[k, I] (the tile's rows) and colpart[s, h]
-// (the tile's columns). Every scratch entry is written exactly once, dead
-// slots and the column direction of a triangle table's diagonal tiles as
-// zeros. The wrapper sums the row partials over k, and segment_sum_kernel sums
-// each column tile's partials in slot order through an index built with a
-// stable argsort: deterministic, no atomics, O(kept pairs x tile) scratch.
+// blocks run in no order, so here block (q, h) takes the 256 rows h of
+// live slot q's row tile against all columns of its column tile, keeps the
+// row direction in registers, and writes both directions' partial sums to
+// the slot's own scratch: rowpart[q] (the tile's rows) and colpart[q, h]
+// (the tile's columns). Every scratch entry of a launch is written exactly
+// once, the column direction of a triangle table's diagonal tiles as
+// zeros. segment_sum_kernel then adds the row partials of each row tile
+// and the column partials of each column tile, in slot order, into the
+// outputs: deterministic, no atomics, scratch bounded by the chunk.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -42,31 +47,27 @@ namespace {
 //    (_pair_walk_banded_kernel): r_i = sum_j W_ij and c_j = sum_i W_ij over
 //    the kept pairs, W_ij = exp2(phi_i + psi_j + arg_ij), no max pass.
 //    Bound: one exp2 per kept pair gives both directions. Design: one block
-//    per (slot, 256-row slice of the tile), column tiles staged 256 columns
-//    at a time, column sums by the transposed warp reduction.
+//    per (live slot, 256-row slice of the tile), column tiles staged 256
+//    columns at a time, column sums by the transposed warp reduction.
 // -----------------------------------------------------------------------------
 template <int D, int P>
 __global__ void __launch_bounds__(kThreads)
 tiles_step_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   const float* __restrict__ phi, const float* __restrict__ psi,
-                  const int* __restrict__ slot_j, float* __restrict__ rowpart,
-                  float* __restrict__ colpart, int ck, int tile, int tri, float c2) {
+                  const int* __restrict__ slot_i, const int* __restrict__ slot_j,
+                  float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
+                  int tri, float c2) {
   __shared__ Tile<D> t;
   __shared__ float wsum[kWarps][kTile];
-  const int64_t s = blockIdx.x;
+  const int64_t q = blockIdx.x;
   const int h = blockIdx.y;
-  const int I = (int)(s / ck);
-  const int64_t pos = s - (int64_t)I * ck;  // k of slot s
-  const int J = slot_j[s];
+  const int I = slot_i[q];
+  const int J = slot_j[q];
+  if (J < 0) return;  // a dead slot: left out of the sums
   const int rows = min(kThreads, tile - h * kThreads);
   const bool valid = threadIdx.x < rows;
-  float* rp = rowpart + (pos * (gridDim.x / ck) + I) * tile + h * kThreads;
-  float* cp = colpart + (s * gridDim.y + h) * tile;
-  if (J < 0) {
-    if (valid) rp[threadIdx.x] = 0.f;
-    for (int k = threadIdx.x; k < tile; k += kThreads) cp[k] = 0.f;
-    return;
-  }
+  float* rp = rowpart + q * tile + h * kThreads;
+  float* cp = colpart + (q * gridDim.y + h) * tile;
   const bool cols = !(tri && I == J);
   const Row<D> r = load_row<D>(x, phi, (int64_t)I * tile + h * kThreads + threadIdx.x,
                                valid, P == 2 ? c2 : 1.f);
@@ -99,39 +100,31 @@ tiles_step_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    the columns. Design: as kernel 5, with Vy's column tile staged beside
 //    y's and each row's Vx in registers; the column direction runs one
 //    transposed warp reduction per channel. Row partials go to
-//    rowpart[k, I, i, c] (4 channels interleaved), column partials to
-//    colpart[s, h, c, j].
+//    rowpart[q, i, c] (4 channels interleaved), column partials to
+//    colpart[q, h, c, j].
 // -----------------------------------------------------------------------------
 template <int D, int MODE>
 __global__ void __launch_bounds__(kThreads)
 tiles_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
                    const float* __restrict__ phi, const float* __restrict__ psi,
                    const float* __restrict__ vyt, const float* __restrict__ vx,
-                   const int* __restrict__ slot_j, float* __restrict__ rowpart,
-                   float* __restrict__ colpart, int M, int ck, int tile, int tri,
-                   float c2) {
+                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
+                   float* __restrict__ rowpart, float* __restrict__ colpart, int M,
+                   int tile, int tri, float c2) {
   __shared__ Tile<D> t;
   __shared__ float v[4][kTile];
   __shared__ float wsum[4][kWarps][kTile];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t s = blockIdx.x;
+  const int64_t q = blockIdx.x;
   const int h = blockIdx.y;
-  const int I = (int)(s / ck);
-  const int64_t pos = s - (int64_t)I * ck;  // k of slot s
-  const int J = slot_j[s];
+  const int I = slot_i[q];
+  const int J = slot_j[q];
+  if (J < 0) return;  // a dead slot: left out of the sums
   const int rows = min(kThreads, tile - h * kThreads);
   const bool valid = threadIdx.x < rows;
-  float* rp = rowpart + ((pos * (gridDim.x / ck) + I) * tile + h * kThreads + threadIdx.x) * 4;
-  float* cp = colpart + (s * gridDim.y + h) * 4 * tile;
-  if (J < 0) {
-    if (valid) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) rp[c] = 0.f;
-    }
-    for (int k = threadIdx.x; k < 4 * tile; k += kThreads) cp[k] = 0.f;
-    return;
-  }
+  float* rp = rowpart + (q * tile + h * kThreads + threadIdx.x) * 4;
+  float* cp = colpart + (q * gridDim.y + h) * 4 * tile;
   const bool cols = !(tri && I == J);
   const int64_t i = (int64_t)I * tile + h * kThreads + threadIdx.x;
   const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
@@ -234,10 +227,77 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 }
 
 // -----------------------------------------------------------------------------
-// Second pass of kernels 5 and 6: out[g, l] = sum over the slots s of
+// 8. Truncated apply over kept source tiles. Replaces
+//    geomloss_tpu/ops/block_sparse.py::gibbs_apply_sparse
+//    (_apply_sparse_kernel), the truncated MMD matvecs and the backward of
+//    the truncated softmin: O_i = sum_j w_ij V_j over the source tiles
+//    cols[I, k], k < cnt[I], of row i's tile I, four channels (the wrapper
+//    pads V and loops over channel groups), with the weights of
+//    apply_weight's modes 0-4 (pair_common.cuh). Rows come in tiles of
+//    block_n points, sources in tiles of block_m points.
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
+//    a division; energy and inv_dist take a sqrt and a reciprocal, no
+//    exp2), then four FFMAs into float32 accumulators. Design: kernel 7's
+//    CSR indirection (one block per (row tile, 256-row slice), one thread
+//    per row, each kept source tile staged in shared memory kTile points at
+//    a time) around kernel 4's per-pair body, V's four channels staged
+//    beside y. Each output row is written once: no scratch, no atomics,
+//    bitwise reproducible. The TPU's bf16 split of wide V (the mxu path,
+//    C >= 9) has no counterpart: every channel is an exact float32 FFMA.
+// -----------------------------------------------------------------------------
+template <int D, int MODE>
+__global__ void __launch_bounds__(kThreads)
+sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    const float* __restrict__ phi, const float* __restrict__ psi,
+                    const float* __restrict__ vt, const int* __restrict__ cols,
+                    const int* __restrict__ cnt, float* __restrict__ out, int M, int ck,
+                    int block_n, int block_m, float c2) {
+  __shared__ Tile<D> t;
+  __shared__ float v[4][kTile];
+  const int I = blockIdx.x;
+  const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
+  const bool valid = threadIdx.x < rows;
+  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
+  const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
+  const int* row_cols = cols + (int64_t)I * ck;
+  const int n_kept = min(cnt[I], ck);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < n_kept; ++k) {
+    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+    for (int c0 = 0; c0 < block_m; c0 += kTile) {
+      const int n = min(kTile, block_m - c0);
+      const int64_t j0 = j_tile + c0;
+      __syncthreads();
+      load_tile<D>(t, y, psi, j0, n);
+      for (int kk = threadIdx.x; kk < n; kk += kThreads) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[c][kk] = vt[(int64_t)c * M + j0 + kk];
+      }
+      __syncthreads();
+      // One partial sum per staged tile, added once: the rounding error
+      // grows with the tiles of a row, not its kept points.
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int kk = 0; kk < n; ++kk) {
+        const float w = apply_weight<D, MODE>(r, t, kk, c2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][kk], part[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += part[c];
+    }
+  }
+  if (valid) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[i * 4 + c] = acc[c];
+  }
+}
+
+// -----------------------------------------------------------------------------
+// Second pass of kernels 5 and 6: out[g, l] += sum over the slots s of
 // segment g (order[offsets[g]] .. order[offsets[g + 1] - 1], in that order)
-// of sum_h parts[s, h, l], for l < L. One thread per (segment, lane); a
-// fixed summation order, so the result is deterministic.
+// of sum_h parts[s, h, l], for l < L; an empty segment leaves out[g]
+// untouched. One thread per (segment, lane); a fixed summation order, and
+// the chunks of a call are added in order, so the result is deterministic.
 // Bound: reading the partials once.
 // -----------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
@@ -246,45 +306,49 @@ segment_sum_kernel(const float* __restrict__ parts, const int* __restrict__ orde
                    int nsub) {
   const int g = blockIdx.y;
   const int l = blockIdx.x * kThreads + threadIdx.x;
-  if (l >= L) return;
+  const int q0 = offsets[g], q1 = offsets[g + 1];
+  if (l >= L || q0 == q1) return;
   float acc = 0.f;
-  for (int q = offsets[g]; q < offsets[g + 1]; ++q) {
+  for (int q = q0; q < q1; ++q) {
     const float* row = parts + (int64_t)order[q] * nsub * L + l;
     for (int h = 0; h < nsub; ++h) acc += row[(int64_t)h * L];
   }
-  out[(int64_t)g * L + l] = acc;
+  out[(int64_t)g * L + l] += acc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// nslots = nI * ck slots, nsub = ceil(tile / 256) row slices per slot.
+// nslots slots (slot_i, slot_j: their row and column tiles, slot_j = -1
+// for a dead slot), nsub = ceil(tile / 256) row slices per slot.
 int gl_absorbed_sum_tiles(const float* x, const float* y, const float* phi,
-                          const float* psi, const int* slot_j, float* rowpart,
-                          float* colpart, int nslots, int ck, int tile, int D, int p,
-                          int tri, float c2, void* stream) {
+                          const float* psi, const int* slot_i, const int* slot_j,
+                          float* rowpart, float* colpart, int nslots, int tile, int D,
+                          int p, int tri, float c2, void* stream) {
+  if (nslots == 0) return (int)cudaSuccess;
   const dim3 grid(nslots, cdiv(tile, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
   GL_DISPATCH_D8(D,
-    if (p == 2) tiles_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_j, rowpart, colpart, ck, tile, tri, c2);
-    else tiles_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_j, rowpart, colpart, ck, tile, tri, c2))
+    if (p == 2) tiles_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_i, slot_j, rowpart, colpart, tile, tri, c2);
+    else tiles_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_i, slot_j, rowpart, colpart, tile, tri, c2))
   return (int)cudaGetLastError();
 }
 
 int gl_gibbs_apply_tiles(const float* x, const float* y, const float* phi,
                          const float* psi, const float* vyt, const float* vx,
-                         const int* slot_j, float* rowpart, float* colpart, int M,
-                         int nslots, int ck, int tile, int D, int mode, int tri,
-                         float c2, void* stream) {
+                         const int* slot_i, const int* slot_j, float* rowpart,
+                         float* colpart, int M, int nslots, int tile, int D, int mode,
+                         int tri, float c2, void* stream) {
+  if (nslots == 0) return (int)cudaSuccess;
   const dim3 grid(nslots, cdiv(tile, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   GL_DISPATCH_D8(D,
     switch (mode) {
-      case 0: tiles_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, ck, tile, tri, c2); break;
-      case 1: tiles_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, ck, tile, tri, c2); break;
-      case 2: tiles_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, ck, tile, tri, c2); break;
+      case 0: tiles_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
+      case 1: tiles_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
+      case 2: tiles_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
       default: return (int)cudaErrorInvalidValue;
     })
   return (int)cudaGetLastError();
@@ -301,6 +365,28 @@ int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* col
   GL_DISPATCH_D8(D,
     if (p == 2) tiles_lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2);
     else tiles_lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2))
+  return (int)cudaGetLastError();
+}
+
+// n_rows = N / block_n row tiles, ck the table width, vt (4, M) with row
+// stride M.
+int gl_gibbs_apply_sparse(const float* x, const float* y, const float* phi,
+                          const float* psi, const float* vt, const int* cols,
+                          const int* cnt, float* out, int M, int n_rows, int ck,
+                          int block_n, int block_m, int D, int mode, float c2,
+                          void* stream) {
+  if (n_rows == 0) return (int)cudaSuccess;
+  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  GL_DISPATCH_D8(D,
+    switch (mode) {
+      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      default: return (int)cudaErrorInvalidValue;
+    })
   return (int)cudaGetLastError();
 }
 

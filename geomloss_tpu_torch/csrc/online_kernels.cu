@@ -178,11 +178,16 @@ apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
       for (int c = 0; c < 4; ++c) v[c][k] = vt[(int64_t)c * M + j0 + k];
     }
     __syncthreads();
+    // One partial sum per staged tile, added once: the rounding error
+    // grows with the tiles, not the columns.
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
     for (int k = 0; k < n; ++k) {
       const float w = apply_weight<D, MODE>(r, t, k, c2);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] = fmaf(w, v[c][k], acc[c]);
+      for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][k], part[c]);
     }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[c] += part[c];
   }
   if (valid) {
 #pragma unroll

@@ -125,6 +125,10 @@ __device__ __forceinline__ float apply_weight(const Row<D>& r, const Tile<D>& t,
 // pass that only recomputes scores (FFMAs), then one exp2-sum pass against
 // the new running max; the running sum is rescaled once per tile, not
 // once per pair. A tile whose weights are all exactly 0 so far is skipped.
+// The tile's terms go into four partial sums, added to the running sum once
+// per tile: a row of many kept tiles (91k terms of a heavy p = 1 tail)
+// then carries a float32 rounding error that grows with its tiles, not
+// its terms.
 template <int D, int P>
 __device__ __forceinline__ void lse_tile(const Row<D>& r, const Tile<D>& t, int n, float c2,
                                          float& m, float& s) {
@@ -132,9 +136,14 @@ __device__ __forceinline__ void lse_tile(const Row<D>& r, const Tile<D>& t, int 
   for (int k = 0; k < n; ++k) tmax = fmaxf(tmax, pair_arg<D, P>(r, t, k, c2));
   const float m_new = fmaxf(m, tmax);
   if (m_new == -INFINITY) return;
-  float acc = s * exp2f(m - m_new);
-  for (int k = 0; k < n; ++k) acc += exp2f(pair_arg<D, P>(r, t, k, c2) - m_new);
-  s = acc;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += exp2f(pair_arg<D, P>(r, t, k + q, c2) - m_new);
+  }
+  for (; k < n; ++k) acc[0] += exp2f(pair_arg<D, P>(r, t, k, c2) - m_new);
+  s = s * exp2f(m - m_new) + ((acc[0] + acc[1]) + (acc[2] + acc[3]));
   m = m_new;
 }
 

@@ -4,29 +4,21 @@ Counterpart of :class:`geomloss_tpu.models.samples_loss.SamplesLoss`: the
 same constructor arguments, the same 2/4/6-argument call forms, the same
 shape checks and error strings, and the same ``auto`` backend heuristic.
 
-Ported routes: ``sinkhorn`` with the ``tensorized``, ``online`` and
-``multiscale`` backends (``auto`` included, and the 6-argument form with
-cluster labels). Every other route raises ``NotImplementedError`` naming
-the ROADMAP item that will port it; nothing is re-routed silently.
+Every route of the JAX package is ported: ``sinkhorn`` with the
+``tensorized``, ``online`` and ``multiscale`` backends (``auto`` included,
+and the 6-argument form with cluster labels), and the kernel (MMD) losses
+``gaussian``, ``laplacian`` and ``energy``, and ``hausdorff`` (an alias of
+the kernel routines that needs ``kernel=``), with the same three backends.
 """
 
 import warnings
+from functools import partial
 
 import torch
 
+from .kernel_samples import kernel_multiscale, kernel_online, kernel_tensorized
 from .multiscale import sinkhorn_multiscale
 from .sinkhorn_samples import sinkhorn_online, sinkhorn_tensorized
-
-
-def _not_ported(what, item):
-    def route(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what} is not ported to geomloss_tpu_torch yet "
-            f"(ROADMAP.md, queue 1 item {item})."
-        )
-
-    return route
-
 
 routines = {
     "sinkhorn": {
@@ -34,12 +26,19 @@ routines = {
         "online": sinkhorn_online,
         "multiscale": sinkhorn_multiscale,
     },
+    "hausdorff": {
+        # Aliased to the kernel routines, as in the JAX package.
+        "tensorized": kernel_tensorized,
+        "online": kernel_online,
+        "multiscale": kernel_multiscale,
+    },
     **{
-        loss: {
-            backend: _not_ported(f'The "{loss}" loss ({backend})', 9)
-            for backend in ("tensorized", "online", "multiscale")
+        name: {
+            "tensorized": partial(kernel_tensorized, name=name),
+            "online": partial(kernel_online, name=name),
+            "multiscale": partial(kernel_multiscale, name=name),
         }
-        for loss in ("hausdorff", "energy", "gaussian", "laplacian")
+        for name in ("energy", "gaussian", "laplacian")
     },
 }
 
@@ -47,8 +46,7 @@ routines = {
 class SamplesLoss(torch.nn.Module):
     """Geometric loss between sampled measures.
 
-    * ``loss``: "sinkhorn" (ported); "hausdorff", "energy", "gaussian",
-      "laplacian" (not yet).
+    * ``loss``: "sinkhorn", "hausdorff", "energy", "gaussian", "laplacian".
     * ``backend``: "auto", "tensorized", "online", "multiscale".
     """
 

@@ -1,5 +1,12 @@
 """Costs, softmin operators, block-sparse truncation and their kernels."""
 
+from .block_sparse import (
+    TileMask,
+    build_tile_masks,
+    gibbs_apply_sparse,
+    lse_sparse,
+    softmin_sparse,
+)
 from .costs import SQDIST_FLOOR, cost_routines, distances, halved_sqdist, squared_distances
 from .softmin import (
     gibbs_apply,
@@ -28,4 +35,9 @@ __all__ = [
     "softmin_extrapolation",
     "softmin_extrapolation_sym",
     "softmin_points",
+    "TileMask",
+    "build_tile_masks",
+    "gibbs_apply_sparse",
+    "lse_sparse",
+    "softmin_sparse",
 ]

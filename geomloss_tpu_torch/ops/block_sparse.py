@@ -9,7 +9,11 @@ extrapolation visit the kept tile pairs only. The mid path's detached
 extrapolations onto the fine cloud visit the source tiles that
 ``extrap_cols`` keeps (kernel 7, ``softmin_extrap_truncated``); custom
 costs run a gather-based truncated LSE with no kernel
-(``lse_sparse_custom``).
+(``lse_sparse_custom``). The truncated MMD losses keep tile pairs by a
+pure distance rule (``masks_from_geometry``) and apply their kernel over
+the kept pairs (``kernel_matvec_sparse``, kernel 8); ``softmin_sparse`` is
+the differentiable truncated softmin over the same kind of table (kernel 7
+forward, kernel 8 backward).
 
 A table is a pair ``(cols, cnt)``: ``cols`` ``(nI, ck)`` int32 holds each
 row tile's column tiles in keep-score order and row tile ``I`` visits the
@@ -17,8 +21,8 @@ first ``cnt[I]`` of them. The JAX package packs the same tables into
 band-major step lists for the TPU's sequential grid (``walk_plan_banded``);
 the CUDA kernels (:mod:`.cuda_block_sparse`) walk the CSR lists directly,
 so that packing has no counterpart, and neither have the TPU's budget
-limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamp on ``cap``)
-nor the per-chunk step budget of ``walk_plan``, which clips kept tiles
+limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamps on ``cap`` of
+``build_tile_masks`` and ``masks_from_geometry``) nor the per-chunk step budget of ``walk_plan``, which clips kept tiles
 when a chunk of rows keeps more than its mean budget: every kept tile is
 visited.
 The function names follow the JAX package's, ``walk_banded`` included, so
@@ -37,6 +41,11 @@ from .costs import cost_routines
 __all__ = [
     "TileMask",
     "tile_stats",
+    "masks_from_geometry",
+    "lse_sparse",
+    "gibbs_apply_sparse",
+    "softmin_sparse",
+    "kernel_matvec_sparse",
     "retighten_counts",
     "masks_from_coarse",
     "build_tile_masks",
@@ -76,6 +85,13 @@ class TileMask(NamedTuple):
     countsT: torch.Tensor  # (M/bm,) int32
     vals: torch.Tensor = None  # (N/bn, cap) keep scores (sorted desc)
     valsT: torch.Tensor = None  # (M/bm, capT)
+
+    def transpose(self):
+        """The same pattern for the (y-rows, x-cols) direction."""
+        return TileMask(
+            cols=self.colsT, counts=self.countsT, colsT=self.cols, countsT=self.counts,
+            vals=self.valsT, valsT=self.vals,
+        )
 
 
 def tile_stats(x, block):
@@ -141,6 +157,13 @@ def _sq_centroids(cx, cy):
     """Squared distances between centroids, in the expansion form of the
     JAX package (so that the keep scores are the same numbers)."""
     return (cx**2).sum(-1)[:, None] + (cy**2).sum(-1)[None, :] - 2.0 * (cx @ cy.T)
+
+
+def _pair_dist_lb(cx, rx, cy, ry):
+    """Lower bound on the pointwise distances between two block partitions:
+    centroid distance minus the two radii, clipped at 0."""
+    dist = torch.sqrt(torch.clamp(_sq_centroids(cx, cy), min=1e-12))
+    return torch.clamp(dist - rx[:, None] - ry[None, :], min=0.0)
 
 
 def masks_from_coarse(
@@ -464,3 +487,162 @@ def softmin_extrapolation_walk_banded_sym(x, f, loga, eps, cols, cnt, p, tile, i
     """Symmetric-problem (debias) variant of
     :func:`softmin_extrapolation_walk_banded` over a triangle table."""
     return _SoftminExtrapolationWalkBandedSym.apply(x, f, loga, eps, cols, cnt, p, tile, impl)
+
+
+# ==============================================================================
+#  Truncated softmin and MMD matvec over (cols, counts) tables
+# ==============================================================================
+#
+# Row tiles of ``block`` points visit the first ``counts[I]`` column tiles
+# ``cols[I, :]`` (tiles of ``block`` points too); the transposed direction
+# reads ``colsT/countsT``. Forward passes run kernel 7's CUDA kernel
+# (``lse_sparse``) or kernel 8 (``gibbs_apply_sparse``); backward passes
+# are kernel 8 applies, only those whose gradients autograd asks for.
+# ``impl``: ``"blocked"`` (or ``"dense"``) runs the plain twins.
+
+gibbs_apply_sparse = cbs.gibbs_apply_sparse
+
+
+def _sparse_apply(impl):
+    return cbs.gibbs_apply_sparse_blocked if impl in ("blocked", "dense") else cbs.gibbs_apply_sparse
+
+
+def lse_sparse(x, y, h, eps, cols, counts, p=2, block_n=256, block_m=512, impl="auto"):
+    """Truncated ``log sum_j exp(h_j - C_p(x_i, y_j)/eps)`` over the column
+    tiles in ``cols`` (:func:`.cuda_block_sparse.lse_sparse`)."""
+    if impl in ("blocked", "dense"):
+        return cbs.lse_tiles_blocked(x, y, h, eps, cols, counts, block_n, block_m, p)
+    return cbs.lse_sparse(x, y, h, eps, cols, counts, p, block_n, block_m)
+
+
+def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=False, stat_block=None):
+    """Tile masks from a pure distance rule: keep the tile pairs whose
+    smallest possible pointwise distance (centroid distance minus both
+    radii, on sub-blocks of :func:`_stat_block` points, max-pooled to tiles
+    of ``block``) lies below ``radius``. Zero-weight (padding) sub-blocks
+    are never kept; ``sym``: ``y`` is ``x``, the transposed table is the
+    same table. ``cap`` bounds the kept tiles per row (default an eighth of
+    the column tiles, between 8 and 128).
+
+    The JAX package also clamps ``cap`` to its SMEM budget,
+    ``400_000 // (4 min(max(nI, nJ), 1024))``: it binds from 1024 row
+    tiles on (97 instead of 128); the CSR tables of the CUDA kernels have
+    no such budget.
+    """
+    nJ = y.shape[0] // block
+    if cap is None:
+        cap = max(8, min(nJ // 8, 128))
+    sb = stat_block if stat_block is not None else _stat_block(max(x.shape[0], y.shape[0]), block)
+    cx, rx = tile_stats(x, sb)
+    cy, ry = tile_stats(y, sb)
+    score = radius - _pair_dist_lb(cx, rx, cy, ry)  # > 0 <=> kept
+
+    def blk_mass(w, pts):
+        nt = pts.shape[0] // sb
+        if w is None:
+            return torch.ones(nt, dtype=torch.bool, device=pts.device)
+        return (w.reshape(nt, sb) > 0).any(dim=1)
+
+    valid = blk_mass(w_x, x)[:, None] & blk_mass(w_y, y)[None, :]
+    score = _tile_maxpool(torch.where(valid, score, NEG_INF), block // sb)
+    cols, counts, vals = _cols_from_score(score, cap)
+    if sym:
+        colsT, countsT, valsT = cols, counts, vals
+    else:
+        colsT, countsT, valsT = _cols_from_score(score.T, cap)
+    return TileMask(
+        cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
+    )
+
+
+class _LseSparseDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, h, eps, cols, counts, colsT, countsT, p, block, impl):
+        out = lse_sparse(x, y, h, eps, cols, counts, p, block, block, impl)
+        ctx.save_for_backward(x, y, h, cols, counts, colsT, countsT, out)
+        ctx.eps, ctx.p, ctx.block, ctx.impl = eps, p, block, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, u):
+        # The analytic backward of ops/softmin.py::_LsePoints, restricted to
+        # the kept tiles: w_ij = exp(h_j - C_ij/eps - out_i).
+        x, y, h, cols, counts, colsT, countsT, out = ctx.saved_tensors
+        eps, p, b = ctx.eps, ctx.p, ctx.block
+        need_x, need_y, need_h = ctx.needs_input_grad[:3]
+        apply = _sparse_apply(ctx.impl)
+        phi, psi = -out, h
+        kind = "gibbs" if p == 2 else "gibbs_grad"
+        dx = dy = dh = None
+        if need_x:
+            R = apply(x, y, phi, psi, _ones(y), eps, cols, counts, p, kind, b, b)
+            dx = (-(u / eps)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
+        if need_y or (need_h and p == 2):
+            Tq = apply(y, x, psi, phi, u[:, None] * _ones(x), eps, colsT, countsT, p, kind, b, b)
+            if need_y:
+                dy = (-(1.0 / eps) * (y * Tq[:, :1] - Tq[:, 1:])).to(y.dtype)
+            if need_h:
+                dh = Tq[:, 0].to(h.dtype)
+        if need_h and p == 1:
+            dh = apply(y, x, psi, phi, u[:, None], eps, colsT, countsT, p, "gibbs", b, b)[:, 0].to(h.dtype)
+        return (dx, dy, dh) + (None,) * 8
+
+
+def softmin_sparse(eps, C_xy, h, p=2, block=256, impl="auto"):
+    """Truncated softmin ``-eps log sum_j exp(h_j - C_p(x_i, y_j)/eps)``
+    over the kept tiles of ``C_xy = (x, y, mask)``, ``mask`` a
+    :class:`TileMask` of the (x-rows, y-cols) direction (tiles of
+    ``block`` points on both sides); differentiable in ``x``, ``y`` and
+    ``h``, the backward passes reading ``mask.colsT/countsT`` for the
+    transposed direction."""
+    x, y, mask = C_xy
+    out = _LseSparseDiff.apply(
+        x, y, h, eps, mask.cols, mask.counts, mask.colsT, mask.countsT, p, block, impl
+    )
+    return -eps * out
+
+
+class _KernelMatvecSparse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, v, eps, cols, counts, colsT, countsT, p, block, impl):
+        ctx.save_for_backward(x, y, v, cols, counts, colsT, countsT)
+        ctx.eps, ctx.p, ctx.block, ctx.impl = eps, p, block, impl
+        zx, zy = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
+        return _sparse_apply(impl)(x, y, zx, zy, v[:, None], eps, cols, counts, p, "gibbs", block, block)[:, 0]
+
+    @staticmethod
+    def backward(ctx, u):
+        # O_i = sum_j w_ij v_j with w_ij = exp(-C_p(x_i, y_j)/eps):
+        #   dv_j = sum_i w_ij u_i                            (transposed apply)
+        #   dx_i = -(u_i / eps) sum_j w'_ij v_j (x_i - y_j)
+        #   dy_j = -(1 / eps) sum_i w'_ij u_i (y_j - x_i)
+        # where w' = w for p=2 and w/d for p=1, in the ones-channel form
+        # x R_0 - R_1: (the JAX package's form too).
+        x, y, v, cols, counts, colsT, countsT = ctx.saved_tensors
+        eps, p, b = ctx.eps, ctx.p, ctx.block
+        need_x, need_y, need_v = ctx.needs_input_grad[:3]
+        apply = _sparse_apply(ctx.impl)
+        zx, zy = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
+        kind = "gibbs" if p == 2 else "gibbs_grad"
+        dx = dy = dv = None
+        if need_x:
+            R = apply(x, y, zx, zy, v[:, None] * _ones(y), eps, cols, counts, p, kind, b, b)
+            dx = (-(u / eps)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
+        if need_y or (need_v and p == 2):
+            T = apply(y, x, zy, zx, u[:, None] * _ones(x), eps, colsT, countsT, p, kind, b, b)
+            if need_y:
+                dy = (-(v / eps)[:, None] * (y * T[:, :1] - T[:, 1:])).to(y.dtype)
+            if need_v:
+                dv = T[:, 0].to(v.dtype)
+        if need_v and p == 1:
+            dv = apply(y, x, zy, zx, u[:, None], eps, colsT, countsT, p, "gibbs", b, b)[:, 0].to(v.dtype)
+        return (dx, dy, dv) + (None,) * 8
+
+
+def kernel_matvec_sparse(x, y, v, eps, mask, p=2, block=512, impl="auto"):
+    """Differentiable truncated Gibbs-kernel matvec
+    ``O_i = sum_j exp(-C_p(x_i, y_j)/eps) v_j`` over the kept tiles of
+    ``mask`` (gaussian: p=2, eps=blur^2; laplacian: p=1, eps=blur)."""
+    return _KernelMatvecSparse.apply(
+        x, y, v, eps, mask.cols, mask.counts, mask.colsT, mask.countsT, p, block, impl
+    )

@@ -1,28 +1,39 @@
-r"""Hand-written Hopper kernels of the multiscale fine phase, and their twins.
+r"""Hand-written Hopper kernels of the block-sparse paths, and their twins.
 
-Three CUDA kernels (``csrc/block_sparse_kernels.cu``) replace three walk
-kernels of :mod:`geomloss_tpu.ops.block_sparse`:
+Four CUDA kernels (``csrc/block_sparse_kernels.cu``) replace five kernels
+of :mod:`geomloss_tpu.ops.block_sparse`:
 
-==========================  ==============================================
-wrapper                     TPU kernel it replaces
-==========================  ==============================================
-:func:`absorbed_sum_tiles`  ``_absorbed_sum_walk_banded`` /
-                            ``_pair_walk_banded_kernel``
-:func:`gibbs_apply_tiles`   ``gibbs_apply_walk_banded`` /
-                            ``_apply_walk_banded_kernel``
-:func:`lse_tiles`           ``lse_walk`` / ``_lse_walk_kernel``
-==========================  ==============================================
+===========================  ==============================================
+wrapper                      TPU kernel it replaces
+===========================  ==============================================
+:func:`absorbed_sum_tiles`   ``_absorbed_sum_walk_banded`` /
+                             ``_pair_walk_banded_kernel``
+:func:`gibbs_apply_tiles`    ``gibbs_apply_walk_banded`` /
+                             ``_apply_walk_banded_kernel``
+:func:`lse_tiles`            ``lse_walk`` / ``_lse_walk_kernel``
+:func:`lse_sparse`           ``lse_sparse`` / ``_lse_sparse_kernel``, on
+                             kernel 7's CUDA kernel (the same function
+                             over the same table)
+:func:`gibbs_apply_sparse`   ``gibbs_apply_sparse`` /
+                             ``_apply_sparse_kernel``
+===========================  ==============================================
 
-:func:`lse_tiles` is a one-direction LSE over the kept source tiles of a
-``(cols, cnt)`` table with row tiles of ``block_n`` and source tiles of
-``block_m`` points (the mid path's extrapolations onto the fine cloud).
-The other two visit the kept tile pairs of a truncation table given as CSR lists:
-row tile ``I`` (``tile`` consecutive sorted points) visits the column
-tiles ``cols[I, k]`` for ``k < cnt[I]`` (the TPU's band-major packing,
-``walk_plan_banded``, has no counterpart). With ``tri=True`` the problem
-is symmetric and only the kept entries with ``cols[I, k] >= I`` are
-visited: the column direction then supplies the mirrored lower triangle,
-and a diagonal tile contributes to the row direction only.
+:func:`lse_tiles`, :func:`lse_sparse` and :func:`gibbs_apply_sparse` are
+one-direction reductions over the kept source tiles of a ``(cols, cnt)``
+table, with row tiles of ``block_n`` and source tiles of ``block_m``
+points (the mid path's extrapolations onto the fine cloud, the truncated
+softmin and the truncated MMD matvecs).
+
+The other two visit the kept tile pairs of a truncation table given as
+CSR lists: row tile ``I`` (``tile`` consecutive sorted points) visits the
+column tiles ``cols[I, k]`` for ``k < cnt[I]`` (the TPU's band-major
+packing, ``walk_plan_banded``, has no counterpart). With ``tri=True`` the
+problem is symmetric and only the kept entries with ``cols[I, k] >= I``
+are visited: the column direction then supplies the mirrored lower
+triangle, and a diagonal tile contributes to the row direction only. They
+launch the table's slots compacted on the device, the live ones first, in
+chunks whose partial sums stay under :data:`TILES_SCRATCH_BYTES`
+(:func:`_chunks`).
 
 Each wrapper takes its plain PyTorch twin (``*_blocked``, same signature, a
 loop over row tiles in the input dtype) only for tensors that lie on the
@@ -42,6 +53,7 @@ from .cuda_kernels import (
     _bias2,
     _cdiv,
     _check_cuda,
+    _even_chunks,
     _f32,
     _fold_norms,
     _log_weights_blk,
@@ -55,7 +67,11 @@ __all__ = [
     "gibbs_apply_tiles_blocked",
     "lse_tiles",
     "lse_tiles_blocked",
+    "lse_sparse",
+    "gibbs_apply_sparse",
+    "gibbs_apply_sparse_blocked",
     "kept_pairs",
+    "TILES_SCRATCH_BYTES",
     "build",
     "launch_counts",
     "reset_launch_counts",
@@ -66,8 +82,20 @@ _KERNEL_DIMS = (1, 2, 3, 4, 8)
 #: Rows per CUDA block.
 _ROWS = 256
 
+#: Scratch budget of one chunk of :func:`absorbed_sum_tiles` or
+#: :func:`gibbs_apply_tiles`: the row and column partial sums of the live
+#: slots one launch takes stay under it (one slot's are taken whatever
+#: their size).
+TILES_SCRATCH_BYTES = 256 << 20
+
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts = {"absorbed_sum_tiles": 0, "gibbs_apply_tiles": 0, "lse_tiles": 0}
+launch_counts = {
+    "absorbed_sum_tiles": 0,
+    "gibbs_apply_tiles": 0,
+    "lse_tiles": 0,
+    "lse_sparse": 0,
+    "gibbs_apply_sparse": 0,
+}
 
 
 def reset_launch_counts():
@@ -79,15 +107,18 @@ _P, _I, _F = ck._P, ck._I, ck._F
 _LIB = ck.KernelLibrary(
     "block_sparse_kernels",
     {
-        # x, y, phi, psi, slot_j, rowpart, colpart, nslots, ck, tile, D, p,
-        # tri, c2, stream
-        "gl_absorbed_sum_tiles": [_P] * 7 + [_I] * 6 + [_F, _P],
-        # x, y, phi, psi, vyt, vx, slot_j, rowpart, colpart, M, nslots, ck,
-        # tile, D, mode, tri, c2, stream
-        "gl_gibbs_apply_tiles": [_P] * 9 + [_I] * 7 + [_F, _P],
+        # x, y, phi, psi, slot_i, slot_j, rowpart, colpart, nslots, tile, D,
+        # p, tri, c2, stream
+        "gl_absorbed_sum_tiles": [_P] * 8 + [_I] * 5 + [_F, _P],
+        # x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M,
+        # nslots, tile, D, mode, tri, c2, stream
+        "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 6 + [_F, _P],
         # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
         # stream
         "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # x, y, phi, psi, vt, cols, cnt, out, M, n_rows, ck, block_n,
+        # block_m, D, mode, c2, stream
+        "gl_gibbs_apply_sparse": [_P] * 8 + [_I] * 7 + [_F, _P],
         # parts, order, offsets, out, nseg, L, nsub, stream
         "gl_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
     },
@@ -101,7 +132,7 @@ def build():
 
 
 # ==============================================================================
-#  Kept pairs
+#  Kept pairs and the chunks of kernels 5 and 6
 # ==============================================================================
 
 
@@ -129,34 +160,78 @@ def kept_pairs(cols, cnt, tri=False):
     return torch.where(live, cols, -1).to(torch.int32).reshape(-1).contiguous()
 
 
-def _column_index(slot_j, ck_, nJ, tri):
-    """Slots grouped by column tile, in slot order: ``(order, offsets)``.
+#: Row tile of the slots past the live ones in :func:`_live_slots` (after
+#: every real row tile, so the row offsets leave them out).
+_DEAD_ROW = torch.iinfo(torch.int32).max
 
-    Column tile ``J`` sums the partials of ``order[offsets[J]:offsets[J+1]]``;
-    dead slots and (``tri``) diagonal slots are left out.
-    """
-    key = slot_j.long()
-    rows = torch.arange(key.shape[0], device=key.device) // ck_
-    out = key < 0
+
+def _live_slots(cols, cnt, tri):
+    """The table's slots with the live ones first, in table (row-major)
+    order: their row and column tiles, two ``(nI * ck,)`` int32 tensors,
+    the dead slots behind them as row ``_DEAD_ROW`` and column ``-1``.
+    Compacted on the device (a stable sort), so that the host never waits
+    for the live count."""
+    slot_j = kept_pairs(cols, cnt, tri)
+    order = torch.sort((slot_j < 0).to(torch.uint8), stable=True).indices
+    sj = slot_j[order]
+    si = torch.where(sj >= 0, order // cols.shape[1], _DEAD_ROW)
+    return si.to(torch.int32).contiguous(), sj.contiguous()
+
+
+def _offsets(keys, n):
+    """Start of each key ``0 .. n`` in sorted ``keys``: ``(n + 1,)`` int32,
+    by binary search (no device-to-host sync)."""
+    return torch.searchsorted(keys, torch.arange(n + 1, device=keys.device, dtype=keys.dtype)).to(torch.int32)
+
+
+def _column_index(si, sj, nJ, tri):
+    """Slots of a chunk grouped by column tile, in slot order: ``(order,
+    offsets)``. Column tile ``J`` sums the partials of
+    ``order[offsets[J]:offsets[J+1]]``; dead and (``tri``) diagonal slots
+    are left out."""
+    out = sj < 0
     if tri:
-        out |= key == rows
-    key = torch.where(out, nJ, key)
+        out |= sj == si
+    key = torch.where(out, nJ, sj.long())
     key, order = torch.sort(key, stable=True)
-    # Segment starts by binary search: no device-to-host sync.
-    offsets = torch.searchsorted(key, torch.arange(nJ + 1, device=key.device))
-    return order.to(torch.int32).contiguous(), offsets.to(torch.int32).contiguous()
+    return order.to(torch.int32).contiguous(), _offsets(key, nJ).contiguous()
 
 
-def _segment_sum(parts, index, nJ, L, nsub):
-    """``(nJ, L)`` column sums of ``parts`` (``(nslots, nsub, L)`` float32)
-    through ``index = _column_index(...)``."""
+def _segment_sum(parts, index, out, L, nsub):
+    """``out[g] += `` the sums of ``parts`` (``(n, nsub, L)`` float32) over
+    the segments of ``index = (order, offsets)``."""
     order, offsets = index
-    out = torch.empty((nJ, L), dtype=torch.float32, device=parts.device)
     _LIB.launch(
         "segment_sum", parts.data_ptr(), order.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), nJ, L, nsub,
+        out.data_ptr(), out.shape[0], L, nsub,
     )
-    return out
+
+
+def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes):
+    """The launches of kernel 5 or 6 over the slots of :func:`_live_slots`:
+    ``(R, chunks)``, ``R`` slots of scratch and, for each chunk, ``(q0, n,
+    row index, column index)``. The row index sums a chunk's row partials
+    into its row tiles (live slots are in row-major order), the column
+    index its column partials into its column tiles; both leave the dead
+    slots out.
+
+    A table whose slots all fit :data:`TILES_SCRATCH_BYTES` is one launch
+    over every slot, the dead ones returning at once: the host never waits
+    (the sizes where the host sets the pace). A larger table reads its live
+    count once and launches the live slots only, in chunks under the
+    budget: there the device sets the pace, and dead slots cost no launch.
+    """
+    n = slot_i.shape[0]
+    if n * slot_bytes > TILES_SCRATCH_BYTES:
+        n = int((slot_j >= 0).sum())
+    # Chunks of equal size up to one, at least one slot each:
+    R = _even_chunks(max(n, 1), TILES_SCRATCH_BYTES // slot_bytes)
+    ident = torch.arange(R, dtype=torch.int32, device=slot_i.device)
+    out = []
+    for q0 in range(0, n, R):
+        si, sj = slot_i[q0 : min(q0 + R, n)], slot_j[q0 : min(q0 + R, n)]
+        out.append((q0, si.shape[0], (ident, _offsets(si, nI)), _column_index(si, sj, nJ, tri)))
+    return R, out
 
 
 # ==============================================================================
@@ -221,42 +296,73 @@ def gibbs_apply_tiles_blocked(
     return Rr.view(-1, C).to(Vy.dtype), Rc.view(-1, C).to(Vx.dtype)
 
 
-def _check_lse_table(x, y, h, cols, cnt, block_n, block_m):
+def _check_sparse_table(name, x, y, cols, cnt, block_n, block_m):
     N, M = x.shape[0], y.shape[0]
     if block_n < 1 or block_m < 1 or N % block_n or M % block_m:
         raise ValueError(
-            f"lse_tiles: point counts ({N}, {M}) must be multiples of the tiles ({block_n}, {block_m})."
+            f"{name}: point counts ({N}, {M}) must be multiples of the tiles ({block_n}, {block_m})."
         )
     if cols.ndim != 2 or cols.shape[0] != N // block_n or tuple(cnt.shape) != (N // block_n,):
-        raise ValueError("lse_tiles: cols must be (N / block_n, ck) and cnt (N / block_n,).")
-    if tuple(h.shape) != (M,):
-        raise ValueError("lse_tiles: h must be (M,).")
+        raise ValueError(f"{name}: cols must be (N / block_n, ck) and cnt (N / block_n,).")
+
+
+def _sparse_rows(cols, cnt, block_m, device):
+    """``(I, idx)`` for each row tile of a ``(cols, cnt)`` table: ``idx``
+    the source points of its kept tiles, in table order."""
+    cols_c, cnt_c = cols.cpu().long(), torch.clamp(cnt.cpu().long(), max=cols.shape[1])
+    lanes = torch.arange(block_m, device=device)
+    for I in range(cols.shape[0]):
+        J = cols_c[I, : cnt_c[I]].to(device)
+        yield I, (J[:, None] * block_m + lanes).view(-1)
 
 
 def lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
     """Plain twin of :func:`lse_tiles`: a loop over row tiles, each a
     ``logsumexp`` over its gathered kept source tiles, in the input dtype."""
-    _check_lse_table(x, y, h, cols, cnt, block_n, block_m)
+    _check_sparse_table("lse_tiles", x, y, cols, cnt, block_n, block_m)
+    if tuple(h.shape) != (y.shape[0],):
+        raise ValueError("lse_tiles: h must be (M,).")
     dt = ck._acc(x, y, h)
     x, y = x.to(dt), y.to(dt)
     h = _fold_norms(y, h.to(dt), eps, p)
     out = torch.empty(x.shape[0], dtype=dt, device=x.device)
     zero = torch.zeros(block_n, dtype=dt, device=x.device)
-    cols_c, cnt_c = cols.cpu().long(), torch.clamp(cnt.cpu().long(), max=cols.shape[1])
-    lanes = torch.arange(block_m, device=x.device)
-    for I in range(cols.shape[0]):
+    for I, idx in _sparse_rows(cols, cnt, block_m, x.device):
         rows = slice(I * block_n, (I + 1) * block_n)
-        J = cols_c[I, : cnt_c[I]].to(x.device)
-        idx = (J[:, None] * block_m + lanes).view(-1)
         arg = _log_weights_blk(x[rows], zero, y[idx], h[idx], eps, p)
         out[rows] = torch.logsumexp(arg, dim=1)
     # p=2: the row term -|x|^2/(2 eps) comes out of the LSE.
     return _fold_norms(x, out, eps, p)
 
 
+def gibbs_apply_sparse_blocked(
+    x, y, phi, psi, V, eps, cols, counts, p=2, kind="gibbs", block_n=256, block_m=512
+):
+    """Plain twin of :func:`gibbs_apply_sparse`: a loop over row tiles, each
+    an apply of its gathered kept source tiles, in the input dtype."""
+    _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind)
+    dt = ck._acc(x, y, phi, psi, V)
+    x, y, phi, psi, Va = (t.to(dt) for t in (x, y, phi, psi, V))
+    if p == 2 and kind in ("gibbs", "gibbs_grad"):
+        phi, psi = _fold_norms(x, phi, eps, 2), _fold_norms(y, psi, eps, 2)
+    out = torch.zeros((x.shape[0], V.shape[1]), dtype=dt, device=x.device)
+    for I, idx in _sparse_rows(cols, counts, block_m, x.device):
+        rows = slice(I * block_n, (I + 1) * block_n)
+        out[rows] = _apply_weights_blk(x[rows], phi[rows], y[idx], psi[idx], eps, p, kind) @ Va[idx]
+    return out.to(V.dtype)
+
+
 def _check_kind(kind):
     if kind not in ("gibbs", "gibbs_grad"):
         raise ValueError(f"Unknown gibbs_apply_tiles kind: {kind!r}")
+
+
+def _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind):
+    _check_sparse_table("gibbs_apply_sparse", x, y, cols, counts, block_n, block_m)
+    ck._check_kind(kind)
+    N, M = x.shape[0], y.shape[0]
+    if tuple(phi.shape) != (N,) or tuple(psi.shape) != (M,) or V.ndim != 2 or V.shape[0] != M:
+        raise ValueError("gibbs_apply_sparse: phi must be (N,), psi (M,) and V (M, C).")
 
 
 # ==============================================================================
@@ -265,13 +371,13 @@ def _check_kind(kind):
 
 
 def _tables(name, x, y, cols, cnt, tile, tri):
-    """Checks, and the launch geometry: ``(slot_j, ck, nI, nJ, nsub)``."""
+    """Checks, and the launch geometry: ``(slot_i, slot_j, nI, nJ, nsub)``."""
     _check_table(name, x, y, cols, cnt, tile, tri)
     if tile % 128:
         raise NotImplementedError(f"{name}: the tile must be a multiple of 128 (got {tile}).")
     _check_cuda(name, x, y, cols, cnt)
-    nI, ck_ = cols.shape
-    return kept_pairs(cols, cnt, tri), ck_, nI, y.shape[0] // tile, _cdiv(tile, _ROWS)
+    slot_i, slot_j = _live_slots(cols, cnt, tri)
+    return slot_i, slot_j, cols.shape[0], y.shape[0] // tile, _cdiv(tile, _ROWS)
 
 
 def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False):
@@ -288,25 +394,30 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False)
     """
     if not x.is_cuda:
         return absorbed_sum_tiles_blocked(x, y, phi, psi, eps, cols, cnt, p, tile, tri)
-    slot_j, ck_, nI, nJ, nsub = _tables("absorbed_sum_tiles", x, y, cols, cnt, tile, tri)
+    slot_i, slot_j, nI, nJ, nsub = _tables("absorbed_sum_tiles", x, y, cols, cnt, tile, tri)
     _check_cuda("absorbed_sum_tiles", x, phi, psi)
     eps = float(eps)
     (xf, yf), Dk = _points("absorbed_sum_tiles", x, y, dims=_KERNEL_DIMS)
     phi2, psi2 = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
     f32 = dict(dtype=torch.float32, device=x.device)
-    nslots = nI * ck_
-    rowpart = torch.empty((ck_, nI, tile), **f32)
-    colpart = torch.empty((nslots, nsub, tile), **f32)
+    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub))
+    # Partials of one chunk of live slots, added into r and c in slot order
+    # before the next chunk (deterministic, bounded):
+    rowpart = torch.empty((R, 1, tile), **f32)
+    colpart = torch.empty((R, nsub, tile), **f32)
+    r = torch.zeros((nI, tile), **f32)
+    c = torch.zeros((nJ, tile), **f32)
     with torch.cuda.device(x.device):
-        _LIB.launch(
-            "absorbed_sum_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-            psi2.data_ptr(), slot_j.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(),
-            nslots, ck_, tile, Dk, p, int(tri), LOG2E / eps, count="absorbed_sum_tiles",
-        )
-        r = rowpart.sum(0).view(-1)
-        index = _column_index(slot_j, ck_, nJ, tri)
-        c = _segment_sum(colpart, index, nJ, tile, nsub).view(-1)
-    return r.to(phi.dtype), c.to(psi.dtype)
+        for q0, n, rows, cols_ix in chunks:
+            _LIB.launch(
+                "absorbed_sum_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
+                psi2.data_ptr(), slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(),
+                rowpart.data_ptr(), colpart.data_ptr(), n, tile, Dk, p, int(tri), LOG2E / eps,
+                count="absorbed_sum_tiles",
+            )
+            _segment_sum(rowpart, rows, r, tile, 1)
+            _segment_sum(colpart, cols_ix, c, tile, nsub)
+    return r.view(-1).to(phi.dtype), c.view(-1).to(psi.dtype)
 
 
 _APPLY_MODES = {("gibbs", 2): 0, ("gibbs_grad", 2): 0, ("gibbs", 1): 1, ("gibbs_grad", 1): 2}
@@ -330,7 +441,7 @@ def gibbs_apply_tiles(
     _check_kind(kind)
     if not x.is_cuda:
         return gibbs_apply_tiles_blocked(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri)
-    slot_j, ck_, nI, nJ, nsub = _tables("gibbs_apply_tiles", x, y, cols, cnt, tile, tri)
+    slot_i, slot_j, nI, nJ, nsub = _tables("gibbs_apply_tiles", x, y, cols, cnt, tile, tri)
     _check_cuda("gibbs_apply_tiles", x, phi, psi, Vy, Vx)
     C = Vy.shape[1]
     if Vx.shape != (x.shape[0], C) or Vy.shape[0] != y.shape[0]:
@@ -345,27 +456,53 @@ def gibbs_apply_tiles(
     Vyt = torch.nn.functional.pad(_f32(Vy).T, (0, 0, 0, Cp - C)).contiguous()
     Vxp = torch.nn.functional.pad(_f32(Vx), (0, Cp - C))
     f32 = dict(dtype=torch.float32, device=x.device)
-    nslots = nI * ck_
-    rowpart = torch.empty((ck_, nI, tile, G), **f32)
-    colpart = torch.empty((nslots, nsub, G, tile), **f32)
-    rows, cols_out = [], []
+    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub))
+    rowpart = torch.empty((R, 1, tile * G), **f32)
+    colpart = torch.empty((R, nsub, G * tile), **f32)
+    rows_out, cols_out = [], []
     with torch.cuda.device(x.device):
-        index = _column_index(slot_j, ck_, nJ, tri)
         for c0 in range(0, Cp, G):
             vx = Vxp[:, c0 : c0 + G].contiguous()
-            _LIB.launch(
-                "gibbs_apply_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                psi2.data_ptr(), Vyt[c0 : c0 + G].data_ptr(), vx.data_ptr(),
-                slot_j.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(), y.shape[0],
-                nslots, ck_, tile, Dk, mode, int(tri), LOG2E / eps,
-                count="gibbs_apply_tiles",
-            )
-            rows.append(rowpart.sum(0).view(-1, G))
-            out = _segment_sum(colpart, index, nJ, G * tile, nsub)
-            cols_out.append(out.view(nJ, G, tile).transpose(1, 2).reshape(-1, G))
-    R_row = torch.cat(rows, dim=1)[:, :C]
+            r = torch.zeros((nI, tile * G), **f32)
+            c = torch.zeros((nJ, G * tile), **f32)
+            for q0, n, rows, cols_ix in chunks:
+                _LIB.launch(
+                    "gibbs_apply_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
+                    psi2.data_ptr(), Vyt[c0 : c0 + G].data_ptr(), vx.data_ptr(),
+                    slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(), rowpart.data_ptr(),
+                    colpart.data_ptr(), y.shape[0], n, tile, Dk, mode, int(tri), LOG2E / eps,
+                    count="gibbs_apply_tiles",
+                )
+                _segment_sum(rowpart, rows, r, tile * G, 1)
+                _segment_sum(colpart, cols_ix, c, G * tile, nsub)
+            rows_out.append(r.view(-1, G))
+            cols_out.append(c.view(nJ, G, tile).transpose(1, 2).reshape(-1, G))
+    R_row = torch.cat(rows_out, dim=1)[:, :C]
     R_col = torch.cat(cols_out, dim=1)[:, :C]
     return R_row.to(Vy.dtype), R_col.to(Vx.dtype)
+
+
+def _lse_launch(x, y, h, eps, cols, cnt, block_n, block_m, p, count):
+    _check_sparse_table(count, x, y, cols, cnt, block_n, block_m)
+    if tuple(h.shape) != (y.shape[0],):
+        raise ValueError(f"{count}: h must be (M,).")
+    _check_cuda(count, x, y, h, cols, cnt)
+    eps = float(eps)
+    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
+    h2 = _bias2(yf, h, eps, p)
+    cols_i = cols.to(torch.int32).contiguous()
+    cnt_i = cnt.to(torch.int32).contiguous()
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _LIB.launch(
+            "lse_tiles", xf.data_ptr(), yf.data_ptr(), h2.data_ptr(), cols_i.data_ptr(),
+            cnt_i.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1], block_n, block_m,
+            Dk, p, LOG2E / eps, count=count,
+        )
+    out = out * LN2
+    if p == 2:
+        out = out - 0.5 * (xf * xf).sum(-1) / eps
+    return out.to(x.dtype)
 
 
 def lse_tiles(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
@@ -382,21 +519,59 @@ def lse_tiles(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
     """
     if not x.is_cuda:
         return lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p)
-    _check_lse_table(x, y, h, cols, cnt, block_n, block_m)
-    _check_cuda("lse_tiles", x, y, h, cols, cnt)
+    return _lse_launch(x, y, h, eps, cols, cnt, block_n, block_m, p, "lse_tiles")
+
+
+def lse_sparse(x, y, h, eps, cols, counts, p=2, block_n=256, block_m=512):
+    """The truncated LSE of the JAX package's ``lse_sparse`` (argument
+    order and defaults included): :func:`lse_tiles`'s function over the
+    same table, launched on the same CUDA kernel and counted under
+    ``"lse_sparse"``."""
+    if not x.is_cuda:
+        return lse_tiles_blocked(x, y, h, eps, cols, counts, block_n, block_m, p)
+    return _lse_launch(x, y, h, eps, cols, counts, block_n, block_m, p, "lse_sparse")
+
+
+def gibbs_apply_sparse(
+    x, y, phi, psi, V, eps, cols, counts, p=2, kind="gibbs", block_n=256, block_m=512
+):
+    """Truncated ``O_i = sum_j w_ij V_j`` over the kept source tiles of each
+    row tile, ``cols[I, k]`` for ``k < counts[I]``, with the weight kinds
+    of :func:`geomloss_tpu_torch.ops.softmin.gibbs_apply`: ``gibbs``,
+    ``gibbs_grad`` (p in {1, 2}), ``energy`` and ``inv_dist``.
+
+    Args: x ``(N, D)`` rows in tiles of ``block_n`` points, y ``(M, D)``
+    sources in tiles of ``block_m`` points, phi ``(N,)``, psi ``(M,)``,
+    V ``(M, C)``; cols ``(N / block_n, ck)`` and counts ``(N / block_n,)``
+    the table. Channels go through the kernel in groups of four.
+    Returns ``(N, C)`` in V's dtype.
+    """
+    if not x.is_cuda:
+        return gibbs_apply_sparse_blocked(x, y, phi, psi, V, eps, cols, counts, p, kind, block_n, block_m)
+    _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind)
+    _check_cuda("gibbs_apply_sparse", x, y, phi, psi, V, cols, counts)
+    mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
-    (xf, yf), Dk = _points("lse_tiles", x, y, dims=_KERNEL_DIMS)
-    h2 = _bias2(yf, h, eps, p)
+    (xf, yf), Dk = _points("gibbs_apply_sparse", x, y, dims=_KERNEL_DIMS)
+    N, M = xf.shape[0], yf.shape[0]
+    p_bias = 2 if mode == 0 else 1
+    phi2, psi2 = _bias2(xf, phi, eps, p_bias), _bias2(yf, psi, eps, p_bias)
+    C = V.shape[1]
+    G = ck._CHANNELS
+    Cp = _cdiv(C, G) * G
+    Vt = torch.nn.functional.pad(_f32(V).T, (0, 0, 0, Cp - C)).contiguous()
     cols_i = cols.to(torch.int32).contiguous()
-    cnt_i = cnt.to(torch.int32).contiguous()
-    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    cnt_i = counts.to(torch.int32).contiguous()
+    c2 = LOG2E / eps if mode <= 2 else 0.0
+    outs = []
     with torch.cuda.device(x.device):
-        _LIB.launch(
-            "lse_tiles", xf.data_ptr(), yf.data_ptr(), h2.data_ptr(), cols_i.data_ptr(),
-            cnt_i.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1], block_n, block_m,
-            Dk, p, LOG2E / eps, count="lse_tiles",
-        )
-    out = out * LN2
-    if p == 2:
-        out = out - 0.5 * (xf * xf).sum(-1) / eps
-    return out.to(x.dtype)
+        for c0 in range(0, Cp, G):
+            out = torch.empty((N, G), dtype=torch.float32, device=x.device)
+            _LIB.launch(
+                "gibbs_apply_sparse", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
+                psi2.data_ptr(), Vt[c0 : c0 + G].data_ptr(), cols_i.data_ptr(), cnt_i.data_ptr(),
+                out.data_ptr(), M, cols.shape[0], cols.shape[1], block_n, block_m, Dk, mode, c2,
+                count="gibbs_apply_sparse",
+            )
+            outs.append(out)
+    return torch.cat(outs, dim=1)[:, :C].to(V.dtype)

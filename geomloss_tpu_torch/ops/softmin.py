@@ -380,31 +380,37 @@ class _GibbsMatvec(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, u):
+        # Only the applies whose gradients autograd asks for: the MMD self
+        # terms detach y and v, so they take one apply, not three.
         x, y, v = ctx.saved_tensors
         eps, p, kind, impl = ctx.eps, ctx.p, ctx.kind, ctx.impl
+        need_x, need_y, need_v = ctx.needs_input_grad[:3]
         z_n, z_m = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
-        Vy = v[:, None] * torch.cat([torch.ones_like(y[:, :1]), y], -1)
-        Ux = u[:, None] * torch.cat([torch.ones_like(x[:, :1]), x], -1)
         if kind == "gibbs":
-            wk = "gibbs" if p == 2 else "gibbs_grad"
-            R = gibbs_apply(x, y, z_n, z_m, Vy, eps, p, kind=wk, impl=impl)
-            dx = -(u / eps)[:, None] * (x * R[:, :1] - R[:, 1:])
-            T = gibbs_apply(y, x, z_m, z_n, Ux, eps, p, kind=wk, impl=impl)
-            dy = -(v / eps)[:, None] * (y * T[:, :1] - T[:, 1:])
-            if p == 1:
-                dv = gibbs_apply(y, x, z_m, z_n, u[:, None], eps, p, kind="gibbs", impl=impl)[:, 0]
-            else:
-                dv = T[:, 0]
+            # dO/dx_i = -(1/eps) sum_j w'_ij v_j (x_i - y_j), w' = w (p=2) or w/d (p=1).
+            wk, pp, scale, dvk = ("gibbs" if p == 2 else "gibbs_grad"), p, 1.0 / eps, "gibbs"
         elif kind == "energy":
             # O = -sum_j d_ij v_j: dO/dx_i = -sum_j v_j (x_i - y_j)/d_ij.
-            R = gibbs_apply(x, y, z_n, z_m, Vy, eps, 1, kind="inv_dist", impl=impl)
-            dx = -u[:, None] * (x * R[:, :1] - R[:, 1:])
-            T = gibbs_apply(y, x, z_m, z_n, Ux, eps, 1, kind="inv_dist", impl=impl)
-            dy = -v[:, None] * (y * T[:, :1] - T[:, 1:])
-            dv = gibbs_apply(y, x, z_m, z_n, u[:, None], eps, 1, kind="energy", impl=impl)[:, 0]
+            wk, pp, scale, dvk = "inv_dist", 1, 1.0, "energy"
         else:
             raise NotImplementedError(kind)
-        return dx.to(x.dtype), dy.to(y.dtype), dv.to(v.dtype), None, None, None, None
+        dx = dy = dv = None
+        if need_x:
+            Vy = v[:, None] * torch.cat([torch.ones_like(y[:, :1]), y], -1)
+            R = gibbs_apply(x, y, z_n, z_m, Vy, eps, pp, kind=wk, impl=impl)
+            dx = (-(u * scale)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
+        # For p=2 Gibbs weights, dv is the ones channel of the column apply.
+        dv_from_T = kind == "gibbs" and p == 2
+        if need_y or (need_v and dv_from_T):
+            Ux = u[:, None] * torch.cat([torch.ones_like(x[:, :1]), x], -1)
+            T = gibbs_apply(y, x, z_m, z_n, Ux, eps, pp, kind=wk, impl=impl)
+            if need_y:
+                dy = (-(v * scale)[:, None] * (y * T[:, :1] - T[:, 1:])).to(y.dtype)
+            if need_v and dv_from_T:
+                dv = T[:, 0].to(v.dtype)
+        if need_v and not dv_from_T:
+            dv = gibbs_apply(y, x, z_m, z_n, u[:, None], eps, pp, kind=dvk, impl=impl)[:, 0].to(v.dtype)
+        return dx, dy, dv, None, None, None, None
 
 
 def gibbs_matvec(x, y, v, eps, p, kind, impl):

@@ -266,13 +266,21 @@ def test_kept_pairs_are_the_table_prefix():
 def test_column_index_groups_live_slots_in_slot_order(tri):
     """The second pass of the kernels sums column tile J over
     order[offsets[J]:offsets[J+1]]: the live slots of column J in slot
-    order, the diagonal left out of a triangle table."""
+    order, the diagonal left out of a triangle table. The slots come
+    compacted: the table's kept pairs in row-major order, then the dead
+    slots (column -1), which every sum leaves out."""
     cols, counts = kept_table(6, 6, 4, seed=3, sym=tri)
     slot_j = cbs.kept_pairs(torch.tensor(cols), torch.tensor(counts), tri)
-    order, offsets = cbs._column_index(slot_j, 4, 6, tri)
+    si, sj = cbs._live_slots(torch.tensor(cols), torch.tensor(counts), tri)
+    live = [s for s in range(24) if slot_j[s] >= 0]
+    n = len(live)
+    assert si[:n].tolist() == [s // 4 for s in live] and sj[:n].tolist() == [int(slot_j[s]) for s in live]
+    assert sj[n:].eq(-1).all() and si[n:].eq(cbs._DEAD_ROW).all()
+    np.testing.assert_array_equal(cbs._offsets(si, 6).numpy(), np.searchsorted([s // 4 for s in live], range(7)))
+    order, offsets = cbs._column_index(si, sj, 6, tri)
     for J in range(6):
         got = order[offsets[J] : offsets[J + 1]].tolist()
-        want = [s for s in range(24) if slot_j[s] == J and not (tri and s // 4 == J)]
+        want = [q for q, s in enumerate(live) if slot_j[s] == J and not (tri and s // 4 == J)]
         assert got == want
     assert offsets[6] == sum(len(order[offsets[J] : offsets[J + 1]]) for J in range(6))
 

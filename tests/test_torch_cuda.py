@@ -229,3 +229,93 @@ def test_lse_tiles_wrapper_raises_on_what_it_cannot_launch(cuda_device):
     with pytest.raises(NotImplementedError):
         cbs.lse_tiles(torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device), h,
                       0.1, cols, cnt, 256, 128)
+
+
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_kernels_in_chunks_match_one_launch(cuda_device, case, tri, monkeypatch):
+    """Kernels 5 and 6 with a scratch budget of two slots: many launches
+    per call, the same sums as one launch within float32
+    tolerance, and bitwise the same from one call to the next."""
+    tile, n_tiles, m_tiles, cap = case
+    x, y, f, g, la, lb = _tile_problem(tile, n_tiles, m_tiles, seed=5 * tile, tri=tri)
+    cols, counts = kept_table(n_tiles, n_tiles if tri else m_tiles, cap, seed=9, sym=tri)
+    eps = 0.05
+    phi, psi = la + f / eps, lb + g / eps
+    Vy = np.concatenate([np.ones((y.shape[0], 1), np.float32), y], 1)
+    Vx = np.concatenate([np.ones((x.shape[0], 1), np.float32), x], 1)
+    t = tensors(x, y, phi, psi, device=cuda_device)
+    V = tensors(Vy, Vx, device=cuda_device)
+    table = tensors(cols, counts, device=cuda_device)
+    calls = {
+        "absorbed_sum_tiles": lambda: cbs.absorbed_sum_tiles(*t, eps, *table, 2, tile, tri),
+        "gibbs_apply_tiles": lambda: cbs.gibbs_apply_tiles(*t, *V, eps, *table, 2, "gibbs", tile, tri),
+    }
+    nsub = -(-tile // 256)
+    for name, call in calls.items():
+        one = call()
+        G = 4 if name == "gibbs_apply_tiles" else 1
+        monkeypatch.setattr(cbs, "TILES_SCRATCH_BYTES", 2 * 4 * G * tile * (1 + nsub))
+        before = cbs.launch_counts[name]
+        chunked = call()
+        torch.cuda.synchronize()
+        # The table is over the budget: chunks of two live slots.
+        n_live = int(cbs.kept_pairs(table[0], table[1], tri).ge(0).sum())
+        assert cbs.launch_counts[name] - before == -(-n_live // 2)
+        for a, b in zip(chunked, one):
+            torch.testing.assert_close(a, b, **VAL_TOL)
+        for a, b in zip(chunked, call()):
+            assert torch.equal(a, b)
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("C", [1, 4, 5])
+@pytest.mark.parametrize("block_n,block_m", [(128, 128), (256, 512), (512, 128), (1024, 256)])
+@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+def test_gibbs_apply_sparse_kernel_matches_twin(cuda_device, p, kind, block_n, block_m, C):
+    """Kernel 8: 3 row tiles against 5 source tiles, ragged kept counts,
+    every weight kind (modes 0-4), channel groups of four."""
+    n_tiles, m_tiles = 3, 5
+    N, M = n_tiles * block_n, m_tiles * block_m
+    x, y, psi = problem(N, M, seed=block_n + block_m + C)
+    rng = np.random.RandomState(C)
+    phi = (-np.abs(rng.randn(N))).astype(np.float32)
+    V = rng.randn(M, C).astype(np.float32)
+    cols, counts = kept_table(n_tiles, m_tiles, 4, seed=p + C)
+    assert counts.min() < counts.max()
+    eps = 0.5
+    tol = apply_tolerance(x, y, phi, psi, V, eps, p, kind)
+    args = (*tensors(x, y, phi, psi, V, device=cuda_device), eps, *tensors(cols, counts, device=cuda_device),
+            p, kind, block_n, block_m)
+    got = _counted("gibbs_apply_sparse", lambda: cbs.gibbs_apply_sparse(*args), cbs.launch_counts)
+    assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*args).cpu(), **tol)
+    assert torch.equal(got, cbs.gibbs_apply_sparse(*args))
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_lse_sparse_runs_kernel_7(cuda_device, p):
+    """``lse_sparse`` is ``lse_tiles``'s function on its CUDA kernel, with
+    the JAX package's argument order, counted under its own name."""
+    x, y, h = problem(3 * 256, 5 * 512, seed=p)
+    cols, counts = kept_table(3, 5, 4, seed=p)
+    x, y, h, cols, counts = tensors(x, y, h, cols, counts, device=cuda_device)
+    before = dict(cbs.launch_counts)
+    got = _counted("lse_sparse", lambda: cbs.lse_sparse(x, y, h, 0.1, cols, counts, p, 256, 512), cbs.launch_counts)
+    assert cbs.launch_counts["lse_tiles"] == before["lse_tiles"]
+    assert torch.equal(got, cbs.lse_tiles(x, y, h, 0.1, cols, counts, 256, 512, p))
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(x, y, h, 0.1, cols, counts, 256, 512, p), **VAL_TOL)
+
+
+def test_gibbs_apply_sparse_wrapper_raises_on_what_it_cannot_launch(cuda_device):
+    x, y, _ = tensors(*problem(512, 256, seed=1), device=cuda_device)
+    z_n, z_m = torch.zeros(512, device=cuda_device), torch.zeros(256, device=cuda_device)
+    V = torch.ones(256, 2, device=cuda_device)
+    cols = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    cnt = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        cbs.gibbs_apply_sparse(x, y, z_n, z_m, V, 0.1, cols.cpu(), cnt, 2, "gibbs", 256, 128)
+    with pytest.raises(ValueError):
+        cbs.gibbs_apply_sparse(x, y, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 300, 128)
+    x9, y9 = torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        cbs.gibbs_apply_sparse(x9, y9, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 256, 128)

@@ -3,8 +3,10 @@
 ``SamplesLoss("sinkhorn")`` with the tensorized and online backends, the
 same inputs (numpy, from a seed) through both packages: values within
 1e-10 relative, gradients within 1e-8 relative to the largest entry.
-Also: the routes not ported yet raise, the port imports no JAX, and
-state crosses between the packages through ``utils.interop``.
+Also: a few kernel (MMD) routes of the same front end against the JAX
+package (the whole MMD slice is in ``test_torch_kernel_samples.py``), the
+port imports no JAX, and state crosses between the packages through
+``utils.interop``.
 """
 
 import subprocess
@@ -166,19 +168,40 @@ def _half_sqdist(x, y):
     return ((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1) / 2
 
 
+def _gauss(x, y, blur=0.05):
+    return torch.exp(-((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1) / (2 * blur**2))
+
+
+def _jgauss(x, y, blur=0.05):
+    return jnp.exp(-((x[..., :, None, :] - y[..., None, :, :]) ** 2).sum(-1) / (2 * blur**2))
+
+
 @pytest.mark.parametrize(
-    "loss,backend,shape,kw",
+    "loss,backend,custom",
     [
-        ("energy", "multiscale", (50, 3), {}),
-        ("energy", "online", (50, 3), {}),
-        ("gaussian", "tensorized", (50, 3), {}),
-        ("hausdorff", "online", (50, 3), {}),
+        ("energy", "multiscale", False),
+        ("energy", "online", False),
+        ("gaussian", "tensorized", False),
+        ("hausdorff", "online", True),
     ],
 )
-def test_routes_not_ported_raise(loss, backend, shape, kw):
-    x = torch.zeros(shape, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SamplesLoss(loss, backend=backend, **kw)(x, x)
+def test_kernel_routes_match_jax(loss, backend, custom):
+    """Four MMD routes through the front end, value and gradient in x
+    (hausdorff with a user kernel; the energy kernel's multiscale route is
+    its streaming fallback)."""
+    x, y, a, b = _clouds(N=50, M=60, seed=len(loss))
+    kw = dict(blur=0.1, backend=backend)
+    jl = JaxLoss(loss, kernel=_jgauss if custom else None, **kw)
+    tl = SamplesLoss(loss, kernel=_gauss if custom else None, **kw)
+    # Under jax.jit: one compilation instead of one per operation.
+    jv, jg = jax.jit(jax.value_and_grad(lambda x: jl(jnp.asarray(a), x, jnp.asarray(b), jnp.asarray(y))))(
+        jnp.asarray(x)
+    )
+    xt = _leaf(x)
+    tv = tl(torch.tensor(a), xt, torch.tensor(b), torch.tensor(y))
+    (tg,) = torch.autograd.grad(tv, xt)
+    _close(tv, jv, VAL_RTOL)
+    _close(tg, jg, GRAD_RTOL)
 
 
 @pytest.mark.parametrize("route", ["mid_phase", "custom_cost"])

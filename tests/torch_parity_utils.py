@@ -122,3 +122,27 @@ def assert_apply_close(got, expected, rtol, atol):
     expected = np.asarray(expected, np.float64)
     excess = np.abs(got - expected) - (atol + rtol * np.abs(expected))
     assert np.all(excess <= 0), f"max excess {excess.max()} at {np.argmax(excess)}"
+
+
+def p1_floor_bound(x, y, phi, psi, V, eps, kind):
+    """Per-row bound ``(N, 1)`` on what the Pallas p = 1 noise floor
+    (:data:`P1_FLOOR_SHIFT`) changes in an apply ``sum_j w_ij V_j``.
+
+    Where the Pallas kernels take a pair's distance as 0, the port takes
+    ``d = max(|x_i - y_j|, 1e-4)``: a weight ``exp(phi_i + psi_j - d/eps)``
+    then falls short of the Pallas one by at most ``exp(phi_i + psi_j) (1 -
+    exp(-d/eps))``, which for a kernel value ``exp(-d/blur)`` and a self
+    pair is ``1 - exp(-1e-4/blur)``, about ``1e-4/blur``. The pairs taken
+    are those within twice the Pallas threshold, ``|x_i - y_j|^2 <= 4e-6
+    (|x_i|^2 + |y_j|^2)``, a margin for the float32 error of its expansion
+    form; ``gibbs_grad`` divides by the distance above its cut.
+    """
+    xn, yn = x.astype(np.float64), y.astype(np.float64)
+    sq = ((xn[:, None, :] - yn[None, :, :]) ** 2).sum(-1)
+    near = sq <= 4e-6 * ((xn**2).sum(-1)[:, None] + (yn**2).sum(-1)[None, :])
+    d = np.maximum(np.sqrt(sq), 1e-4)
+    W0 = np.exp(phi.astype(np.float64)[:, None] + psi.astype(np.float64)[None, :])
+    dW = np.where(near, W0 * -np.expm1(-d / eps), 0.0)
+    if kind == "gibbs_grad":
+        dW = np.where(sq > 1e-6, dW / d, 0.0)
+    return dW @ np.abs(V.astype(np.float64))
