@@ -1,8 +1,9 @@
 """GPU smoke run of geomloss_tpu_torch: builds the kernels, checks each
 against its plain PyTorch twin, drives the online and the multiscale
 Sinkhorn paths at N = M = 100,000, the multiscale mid path at
-N = M = 2,000,000 and 4,000,000, and the kernel (MMD) losses at 100,000
-and 1,000,000 points, and times them.
+N = M = 2,000,000 and 4,000,000, the kernel (MMD) losses at 100,000
+and 1,000,000 points, and the public sparse and walk Sinkhorn ops on the
+multiscale path's tables, and times them.
 
     python3 chip_smoke.py
 
@@ -60,7 +61,20 @@ phase fails. Phases, one line each:
     against the named route; the gaussian multiscale route at 1e6 (kernel
     8 parity, time, idle share);
 11. the auto route at N = M = 4e6 (``[4m]``): loss, loss + gradient time,
-    peak memory, launches and the fine tables' kept tiles per row.
+    peak memory, launches and the fine tables' kept tiles per row;
+12. the public sparse and walk Sinkhorn ops (``[sparse]``, run before
+    ``[4m]``), on the first fine tables of the multiscale solve at 1e5
+    (p in {1, 2}): kernels 12 (``absorbed_sum_sparse``), 10
+    (``absorbed_sum_walk``) and 11 (``gibbs_apply_walk``, modes 0-4, C in
+    {1, 4}) and kernel 8 through its row-start form against their twins,
+    over walk tables at two budgets (no row clipped; half the mean kept
+    count), the CUDA decode of each walk table against the CPU one; two
+    fine iterations and the extrapolation through ``sinkhorn_step_sparse``
+    / ``softmin_extrapolation_sparse`` (+ ``_sym``) and their walk twins,
+    their launches counted from zero, against the float64 twins, and walk
+    against sparse; kernel 5's banded step beside the sparse step; the
+    kernels' times beside their bound and twin at 1e5, then at 2e6 on the
+    mid path's first fine table (parity on its first 64 row tiles).
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -150,6 +164,9 @@ REPLACES = {
     "lse_tiles": "geomloss_tpu/ops/block_sparse.py:1072",
     "gibbs_apply_sparse": "geomloss_tpu/ops/block_sparse.py:1797",
     "lse_sparse": "geomloss_tpu/ops/block_sparse.py:1669",
+    "absorbed_sum_walk": "geomloss_tpu/ops/block_sparse.py:326",
+    "gibbs_apply_walk": "geomloss_tpu/ops/block_sparse.py:1185",
+    "absorbed_sum_sparse": "geomloss_tpu/ops/block_sparse.py:1944",
 }
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
@@ -699,6 +716,274 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
 
 
 # ------------------------------------------------------------------------------
+#  12. The public sparse and walk Sinkhorn ops (kernels 10-12)
+# ------------------------------------------------------------------------------
+
+#: What one multiscale solve is recorded at: the fine phase's tables and its
+#: first fine steps.
+FINE_CALLS = ("_truncated_fine_phase", "sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")
+
+
+def first_step_state(rec):
+    """The public ops' inputs at the first fine step of a recorded solve:
+    the sorted clouds, log-weights, potentials and eps of that step, and
+    its tables as ``TileMask``s, both directions of the xy table (the
+    transposed one re-thresholded at that step as the fine phase does the
+    other) and the full xx table."""
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    args = rec["_truncated_fine_phase"][0][0]
+    masks, eps_m, truncate = args[0], args[1], args[8]
+    e, xs, ys, la, lb, f, g, cols, cnt, p, tile, _ = rec["sinkhorn_step_walk_banded"][0][0]
+    f_aa, cols_xx, cnt_xx = rec["sinkhorn_step_walk_banded_sym"][0][0][3:6]
+    width = cols.shape[1]
+
+    def at_step(vals):
+        return torch.clamp(tbs.retighten_counts(vals, truncate * (e - eps_m)), max=width)
+
+    if not torch.equal(at_step(masks[0].vals), cnt):
+        fail("the recorded fine step's counts are not its table's at that temperature")
+    xy = tbs.TileMask(cols, cnt, masks[0].colsT[:, :width].contiguous(), at_step(masks[0].valsT))
+    xx = tbs.TileMask(cols_xx, cnt_xx, cols_xx, cnt_xx)
+    return dict(e=e, xs=xs, ys=ys, la=la, lb=lb, f=f, g=g, f_aa=f_aa, xy=xy, xx=xx, p=p, tile=tile)
+
+
+def public_path(st, walk, impl, dt):
+    """Two fine iterations (xy, then xx) and the differentiable
+    extrapolation through the public ops, over the sparse tables or, with
+    ``walk = (tbl, tblT, tbl_xx)``, over walk tables: the outputs
+    ``(S_xy, S_yx, S_xx)`` and the gradient in x of the sum of their means."""
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    e, p, tile, xy, xx = st["e"], st["p"], st["tile"], st["xy"], st["xx"]
+    xs, ys, la, lb, f, g, f_aa = (st[k].to(dt) for k in ("xs", "ys", "la", "lb", "f", "g", "f_aa"))
+    with torch.no_grad():
+        for _ in range(2):
+            if walk is None:
+                f, g = tbs.sinkhorn_step_sparse(e, xs, ys, la, lb, f, g, xy, p, tile, impl=impl)
+                f_aa = tbs.sinkhorn_step_sparse(e, xs, xs, la, la, f_aa, f_aa, xx, p, tile, sym=True, impl=impl)[0]
+            else:
+                f, g = tbs.sinkhorn_step_walk(e, xs, ys, la, lb, f, g, walk[0], walk[1], p, tile, impl=impl)
+                f_aa = tbs.sinkhorn_step_walk(e, xs, xs, la, la, f_aa, f_aa, walk[2], None, p, tile, sym=True,
+                                              impl=impl)[0]
+    x = xs.clone().requires_grad_(True)
+    if walk is None:
+        S_xy, S_yx = tbs.softmin_extrapolation_sparse(x, ys, f, g, la, lb, e, *xy[:4], p, tile, impl)
+        S_xx = tbs.softmin_extrapolation_sparse_sym(x, f_aa, la, e, xx.cols, xx.counts, p, tile, impl)
+    else:
+        S_xy, S_yx = tbs.softmin_extrapolation_walk(x, ys, f, g, la, lb, e, walk[0], walk[1], p, tile, impl)
+        S_xx = tbs.softmin_extrapolation_walk_sym(x, f_aa, la, e, walk[2], p, tile, impl)
+    (grad,) = torch.autograd.grad(S_xy.mean() + S_yx.mean() + S_xx.mean(), x)
+    return (S_xy.detach(), S_yx.detach(), S_xx.detach()), grad
+
+
+def path_errs(out, grad, ref, st):
+    """Relative L2 errors of the outputs (weighted rows only: padding rows
+    carry log-weights of -1e5) and of the gradient against a reference."""
+    keep = (st["la"] > -1e4, st["lb"] > -1e4, st["la"] > -1e4)
+    num = sum(((a.double() - b.double())[k] ** 2).sum() for a, b, k in zip(out, ref[0], keep))
+    den = sum((b.double()[k] ** 2).sum() for b, k in zip(ref[0], keep))
+    rel_g = ((grad.double() - ref[1].double()).norm() / ref[1].double().norm()).item()
+    return (num / den).sqrt().item(), rel_g
+
+
+def sparse_phase(dev, card, clock, n_small=N_POINTS, n_mid=N_MID, mid_rows=MID_PARITY_TILES):
+    """Kernels 10-12 against their twins on the multiscale path's first
+    fine tables, the public sparse and walk ops against their float64
+    twins, and the kernels' times. Returns their ``kernels`` entries."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    kw = dict(blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    x0 = torch.from_numpy(sphere_cloud(n_small, 0)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n_small, 1)).to(dev)
+    w = torch.full((n_small,), 1.0 / n_small, dtype=f32, device=dev)
+    entries = {}
+
+    def walk_tables(st, t_mean):
+        xy, xx = st["xy"], st["xx"]
+        return (tbs.walk_plan(xy.cols, xy.counts, t_mean), tbs.walk_plan(xy.colsT, xy.countsT, t_mean),
+                tbs.walk_plan(xx.cols, xx.counts, t_mean))
+
+    def sums_check(name, label, got, ref, pot, lw, e):
+        # As the Sinkhorn step reads them: S = f + eps (loga - log sums).
+        check_val(name, label, ck._absorbed_update(pot, lw, e, got), ck._absorbed_update(pot, lw, e, ref))
+
+    def apply_check(name, label, fn, twin, args):
+        with torch.no_grad():
+            got, ref = fn(*args), twin(*args)
+            scale = twin(*args[:4], args[4].abs(), *args[5:]).abs().max().item()
+        check_apply(name, label, got, ref, scale)
+
+    def kernel_parity(st, label, rows=None):
+        """Kernels 12, 10, 11 and 8 (dense row-start form) against their
+        twins; ``rows``: the sub-problem of the first ``rows`` row tiles."""
+        e, p, tile, xy, xx = st["e"], st["p"], st["tile"], st["xy"], st["xx"]
+        xs, ys = st["xs"], st["ys"]
+        phi, psi, phx = st["la"] + st["f"] / e, st["lb"] + st["g"] / e, st["la"] + st["f_aa"] / e
+        dirs = {"xy": (xs, ys, phi, psi, xy.cols, xy.counts, st["f"], st["la"]),
+                "yx": (ys, xs, psi, phi, xy.colsT, xy.countsT, st["g"], st["lb"]),
+                "xx": (xs, xs, phx, phx, xx.cols, xx.counts, st["f_aa"], st["la"])}
+        width = xy.cols.shape[1]
+        mean_kept = table_stats(xy.cols, xy.counts)[1]
+        for d, (a, b, pa, pb, cols, cnt, pot, lw) in dirs.items():
+            if rows is not None:
+                n = rows * tile
+                a, pa, pot, lw, cols, cnt = a[:n], pa[:n], pot[:n], lw[:n], cols[:rows], cnt[:rows]
+            lab = f"{label} p={p} tile={tile} mask_{d} kept {int(cnt.sum())}/{cols.numel()}"
+            args = (a, b, pa, pb, e, cols, cnt, p, tile)
+            sums_check("absorbed_sum_sparse", lab, cbs.absorbed_sum_sparse(*args),
+                       cbs.absorbed_sum_sparse_blocked(*args), pot, lw, e)
+            for t_mean in (width, max(1, int(mean_kept // 2))):
+                tbl = tbs.walk_plan(cols, cnt, t_mean)
+                nI = cols.shape[0]
+                on_card, on_host = cbs._walk_rows(tbl, nI), cbs._walk_rows(tbl.cpu(), nI)
+                if not all(torch.equal(u.cpu(), v) for u, v in zip(on_card, on_host)):
+                    fail(f"{lab}: the CUDA decode of a walk table differs from the CPU decode")
+                clipped = int((on_card[2] < torch.clamp(cnt, max=width)).sum())
+                wlab = f"{lab} walk t_mean={t_mean} ({clipped} rows clipped)"
+                wargs = (a, b, pa, pb, e, tbl, p, tile)
+                sums_check("absorbed_sum_walk", wlab, cbs.absorbed_sum_walk(*wargs),
+                           cbs.absorbed_sum_walk_blocked(*wargs), pot, lw, e)
+                if d != "xy":
+                    continue
+                for pp, kind, _ in SPARSE_MODES:
+                    if pp != p and kind in ("gibbs", "gibbs_grad"):
+                        continue  # the other p's weights: that solve's state checks them
+                    for C in (1, 4):
+                        V = torch.ones_like(b[:, :1]) if C == 1 else torch.cat([torch.ones_like(b[:, :1]), b], 1)
+                        apply_check("gibbs_apply_walk", f"{wlab} {kind} C={C}", cbs.gibbs_apply_walk,
+                                    cbs.gibbs_apply_walk_blocked, (a, b, pa, pb, V, e, tbl, p, kind, tile, tile))
+                        if t_mean == width:
+                            apply_check("gibbs_apply_sparse", f"{lab} row-start form {kind} C={C}",
+                                        cbs.gibbs_apply_sparse, cbs.gibbs_apply_sparse_blocked,
+                                        (a, b, pa, pb, V, e, cols, cnt, p, kind, tile, tile))
+
+    def timings(st, where, twin_reps):
+        """Kernels 12, 10 and 11 on the xy table (unclipped walk), with
+        their bound: one exp2 per kept pair."""
+        e, p, tile, xy = st["e"], st["p"], st["tile"], st["xy"]
+        xs, ys = st["xs"], st["ys"]
+        phi, psi = st["la"] + st["f"] / e, st["lb"] + st["g"] / e
+        tbl = tbs.walk_plan(xy.cols, xy.counts, xy.cols.shape[1])
+        V = torch.cat([torch.ones_like(ys[:, :1]), ys], 1)  # the backward's [1, y]
+        kept = table_stats(xy.cols, xy.counts)[0] * tile * tile
+        out_n = 4 * xs.shape[0]
+        calls = {
+            "absorbed_sum_sparse": ((xs, ys, phi, psi, e, xy.cols, xy.counts, p, tile), cbs.absorbed_sum_sparse,
+                                    cbs.absorbed_sum_sparse_blocked, nbytes(xs, ys, phi, psi, xy.cols, xy.counts) + out_n),
+            "absorbed_sum_walk": ((xs, ys, phi, psi, e, tbl, p, tile), cbs.absorbed_sum_walk,
+                                  cbs.absorbed_sum_walk_blocked, nbytes(xs, ys, phi, psi, tbl) + out_n),
+            "gibbs_apply_walk": ((xs, ys, phi, psi, V, e, tbl, p, "gibbs", tile, tile), cbs.gibbs_apply_walk,
+                                 cbs.gibbs_apply_walk_blocked, nbytes(xs, ys, phi, psi, V, tbl) + 4 * out_n),
+        }
+        out = {}
+        for name, (args, fn, twin, nb) in calls.items():
+            k_ms = event_ms(lambda: fn(*args), 5)
+            t_ms = event_ms(lambda: twin(*args), 1) if twin_reps else None
+            b_ms, b_by = bound(kept, nb, clock)
+            out[name] = dict(ms=k_ms, plain_ms=t_ms, bound_ms=b_ms, bound_by=b_by)
+            twin_txt = f"twin {t_ms:.3f} ms, " if t_ms is not None else ""
+            print(f"[time] {name:19s} {where} p={p} mask_xy, kept {kept:.4g} pairs of tile {tile}: kernel {k_ms:.3f} ms, "
+                  f"{twin_txt}bound {b_ms:.3f} ms ({b_by}: {kept:.4g} exp2, {nb:.4g} bytes) (CUDA events); card {card}",
+                  flush=True)
+        return out
+
+    for p in (2, 1):
+        with recording(ms, FINE_CALLS) as rec, torch.no_grad():
+            ms.sinkhorn_multiscale(w, x0, w, y0, p=p, **kw)
+        st = first_step_state(rec)
+        del rec
+        xy = st["xy"]
+        for key, mask in (("xy rows", (xy.cols, xy.counts)), ("xy cols", (xy.colsT, xy.countsT)),
+                          ("xx", (st["xx"].cols, st["xx"].counts))):
+            kept, mean, most, at_cap = table_stats(*mask)
+            print(f"[sparse] N=M={n_small} p={p} first fine table {key}: {mask[0].shape[0]} row tiles x width "
+                  f"{mask[0].shape[1]}, {kept} kept, per row mean {mean:.2f} max {most}, {at_cap} rows at the width",
+                  flush=True)
+        kernel_parity(st, f"N=M={n_small}")
+
+        # The public path, its kernels counted from zero, against the float64 twins.
+        tables = walk_tables(st, xy.cols.shape[1])
+        ck.reset_launch_counts()
+        cbs.reset_launch_counts()
+        out_s = public_path(st, None, "auto", f32)
+        out_w = public_path(st, tables, "auto", f32)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in cbs.launch_counts.items() if n}
+        print(f"[sparse] public sparse and walk ops N=M={n_small} p={p}: launches {json.dumps(launches)}", flush=True)
+        for name in ("absorbed_sum_sparse", "absorbed_sum_walk", "gibbs_apply_walk", "gibbs_apply_sparse"):
+            if not launches.get(name):
+                fail(f"the public ops at p={p} did not launch {name}: {launches}")
+        if p == 2:
+            path_launches = launches
+        ref = public_path(st, None, "blocked", f64)
+        for label, out in (("sparse", out_s), ("walk", out_w)):
+            rel_v, rel_g = path_errs(*out, ref, st)
+            print(f"[sparse] {label} ops N=M={n_small} p={p} (2 iterations + extrapolation) against the float64 twins: "
+                  f"outputs rel L2 err {rel_v:.3e}, grad rel L2 err {rel_g:.3e} (tol {PATH_TOL:g})", flush=True)
+            if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
+                fail(f"the public {label} ops at p={p} miss their tolerance")
+        same = all(torch.equal(a, b) for a, b in zip(out_s[0] + (out_s[1],), out_w[0] + (out_w[1],)))
+        rel_v, rel_g = path_errs(*out_w, out_s, st)
+        print(f"[sparse] walk ops against sparse ops N=M={n_small} p={p}: bitwise equal {same}, outputs rel L2 "
+              f"{rel_v:.3e}, grad rel L2 {rel_g:.3e} (tol 1e-6)", flush=True)
+        if not (rel_v <= 1e-6 and rel_g <= 1e-6):
+            fail(f"the walk ops at p={p} differ from the sparse ops beyond float32 noise")
+
+        # For information: kernel 5's banded step on the same tables.
+        e = st["e"]
+        capped = any(bool((c >= m.shape[1]).any()) for m, c in
+                     ((xy.cols, xy.counts), (xy.colsT, xy.countsT), (st["xx"].cols, st["xx"].counts)))
+        args = (e, st["xs"], st["ys"], st["la"], st["lb"], st["f"], st["g"])
+        banded = tbs.sinkhorn_step_walk_banded(*args, xy.cols, xy.counts, p, st["tile"])
+        sparse = tbs.sinkhorn_step_sparse(*args, xy, p, st["tile"])
+        banded_xx = tbs.sinkhorn_step_walk_banded_sym(e, st["xs"], st["la"], st["f_aa"], st["xx"].cols,
+                                                      st["xx"].counts, p, st["tile"])
+        sparse_xx = tbs.sinkhorn_step_sparse(e, st["xs"], st["xs"], st["la"], st["la"], st["f_aa"], st["f_aa"],
+                                             st["xx"], p, st["tile"], sym=True)[0]
+        diffs = [(a - b).abs().max().item() for a, b in zip(banded + (banded_xx,), sparse + (sparse_xx,))]
+        print(f"[sparse] for information, kernel 5's banded step against the sparse step on the same tables, "
+              f"N=M={n_small} p={p}: max abs diff xy {diffs[0]:.3e}, yx {diffs[1]:.3e}, xx {diffs[2]:.3e}; "
+              f"{'a row of a table sits at its width: the two may visit different pairs' if capped else 'no row at its width: the same pairs, asserted to VAL_TOL'}",
+              flush=True)
+        if not capped and not all(torch.allclose(b, a, rtol=VAL_RTOL, atol=VAL_ATOL) for a, b in
+                                  zip(banded + (banded_xx,), sparse + (sparse_xx,))):
+            fail(f"the sparse step misses kernel 5's on tables with no row at its width, p={p}")
+        if p == 2:
+            entries.update(timings(st, f"N=M={n_small}", True))
+        del st, tables, out_s, out_w, ref
+    del x0, y0, w
+    torch.cuda.empty_cache()
+
+    # The first fine table of bench.py's call at n_mid (the mid path).
+    xm = torch.from_numpy(sphere_cloud(n_mid, 0)).to(dev)
+    ym = torch.from_numpy(sphere_cloud(n_mid, 1)).to(dev)
+    auto = SamplesLoss("sinkhorn", p=2, **kw)
+    with recording(ms, FINE_CALLS) as rec, torch.no_grad():
+        auto(xm, ym)
+    st = first_step_state(rec)
+    del rec, xm, ym
+    kernel_parity(st, f"N=M={n_mid} first {mid_rows} row tiles", rows=mid_rows)
+    timings(st, f"N=M={n_mid} full table", False)
+    del st
+    torch.cuda.empty_cache()
+
+    src = SOURCES["block_sparse_kernels"]
+    print(f"[sparse] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [
+        {"name": name, "route": "cuda", "source": src, "replaces": REPLACES[name], "launches": path_launches.get(name, 0),
+         "max_abs_err": MAX_ERR[name], **entries[name], "library_ms": None}
+        for name in ("gibbs_apply_walk", "absorbed_sum_walk", "absorbed_sum_sparse")
+    ]
+
+
+# ------------------------------------------------------------------------------
 #  11. The auto route at N = M = 4e6
 # ------------------------------------------------------------------------------
 
@@ -1199,8 +1484,9 @@ def main():
     del x0, y0, w, w64
     torch.cuda.empty_cache()
 
-    # --- 10. MMD losses, 11. the auto route at 4e6 -----------------------------------
+    # --- 10. MMD losses, 12. the public sparse and walk ops, 11. the auto route at 4e6 --
     kernels += mmd_phase(dev, card, clock)
+    kernels += sparse_phase(dev, card, clock)
     auto_4m_phase(dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)

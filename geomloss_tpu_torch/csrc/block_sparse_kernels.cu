@@ -19,9 +19,13 @@
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM); a
 // kept pair reads nothing but the two tiles' coordinates and biases.
 //
-// Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7 and
-// 8 read a (cols, cnt) table directly, with row tiles of block_n points
-// and source tiles of block_m points.
+// Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7, 8
+// and 12 read a (cols, cnt) table directly, with row tiles of block_n
+// points and source tiles of block_m points. Kernels 8 and 12 read it in
+// CSR form, row tile I visiting cols[row_start[I] + k] for k < cnt[I]:
+// the wrapper passes row_start = I * ck for a dense (nI, ck) table (with
+// cnt clamped at ck), or the row starts of a walk table it decoded on the
+// device (kernels 10 and 11 of the JAX package run on these two).
 //
 // The TPU walked the kept pairs in order and carried the column sums in
 // VMEM from one grid step to the next, flushing them at band markers. CUDA
@@ -193,9 +197,10 @@ tiles_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    indirection. One block per (row tile, 256-row slice), one thread per
 //    row, running max and sum in registers; each kept source tile is
 //    staged in shared memory kTile points at a time. Each output row is
-//    written once: no scratch, no atomics, bitwise reproducible. The
-//    TPU's step-list packing (walk_plan) and its per-chunk budget, which
-//    clipped kept tiles, have no counterpart: every kept tile is visited.
+//    written once: no scratch, no atomics, bitwise reproducible. The mid
+//    path reads its (cols, cnt) tables directly, not packed into walk_plan
+//    step lists, so their per-chunk budget, which clipped kept tiles, does
+//    not apply: every kept tile is visited.
 // -----------------------------------------------------------------------------
 template <int D, int P>
 __global__ void __launch_bounds__(kThreads)
@@ -234,7 +239,10 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    cols[I, k], k < cnt[I], of row i's tile I, four channels (the wrapper
 //    pads V and loops over channel groups), with the weights of
 //    apply_weight's modes 0-4 (pair_common.cuh). Rows come in tiles of
-//    block_n points, sources in tiles of block_m points.
+//    block_n points, sources in tiles of block_m points. Also serves
+//    block_sparse.py::gibbs_apply_walk (_apply_walk_kernel), the same
+//    function over a walk table: the walk is only the TPU's traversal
+//    order, and the wrapper decodes it into row starts and counts.
 //    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
 //    a division; energy and inv_dist take a sqrt and a reciprocal, no
 //    exp2), then four FFMAs into float32 accumulators. Design: kernel 7's
@@ -250,8 +258,8 @@ __global__ void __launch_bounds__(kThreads)
 sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ phi, const float* __restrict__ psi,
                     const float* __restrict__ vt, const int* __restrict__ cols,
-                    const int* __restrict__ cnt, float* __restrict__ out, int M, int ck,
-                    int block_n, int block_m, float c2) {
+                    const int* __restrict__ row_start, const int* __restrict__ cnt,
+                    float* __restrict__ out, int M, int block_n, int block_m, float c2) {
   __shared__ Tile<D> t;
   __shared__ float v[4][kTile];
   const int I = blockIdx.x;
@@ -259,8 +267,8 @@ sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const bool valid = threadIdx.x < rows;
   const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
   const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
-  const int* row_cols = cols + (int64_t)I * ck;
-  const int n_kept = min(cnt[I], ck);
+  const int* row_cols = cols + row_start[I];
+  const int n_kept = cnt[I];
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k = 0; k < n_kept; ++k) {
     const int64_t j_tile = (int64_t)row_cols[k] * block_m;
@@ -290,6 +298,51 @@ sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[i * 4 + c] = acc[c];
   }
+}
+
+// -----------------------------------------------------------------------------
+// 12. Absorbed row sums over kept source tiles. Replaces
+//    geomloss_tpu/ops/block_sparse.py::_absorbed_sum (_row_sum_sparse_kernel)
+//    and, over a decoded walk table, ::_absorbed_sum_walk
+//    (_row_sum_walk_kernel): r_i = sum_j exp2(phi_i + psi_j + arg_ij) over
+//    the source tiles cols[row_start[I] + k], k < cnt[I], of row i's tile
+//    I, the raw sums of the public sparse and walk Sinkhorn steps (the
+//    wrapper floors them and takes the log). No max pass: the annealing
+//    bounds the absorbed weights (block_sparse.py, "Single-pass absorbed
+//    sparse softmin"), and phi_i stays inside the exponent.
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 8's
+//    CSR indirection and staging with kernel 5's absorbed weight
+//    (absorbed_tile, pair_common.cuh), no V: one float32 accumulator per
+//    row taking one partial per staged tile. Each output row is written
+//    once: no scratch, no atomics, bitwise reproducible.
+// -----------------------------------------------------------------------------
+template <int D, int P>
+__global__ void __launch_bounds__(kThreads)
+sparse_sum_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ phi, const float* __restrict__ psi,
+                  const int* __restrict__ cols, const int* __restrict__ row_start,
+                  const int* __restrict__ cnt, float* __restrict__ out, int block_n,
+                  int block_m, float c2) {
+  __shared__ Tile<D> t;
+  const int I = blockIdx.x;
+  const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
+  const bool valid = threadIdx.x < rows;
+  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
+  const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
+  const int* row_cols = cols + row_start[I];
+  const int n_kept = cnt[I];
+  float acc = 0.f;
+  for (int k = 0; k < n_kept; ++k) {
+    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+    for (int c0 = 0; c0 < block_m; c0 += kTile) {
+      const int n = min(kTile, block_m - c0);
+      __syncthreads();
+      load_tile<D>(t, y, psi, j_tile + c0, n);
+      __syncthreads();
+      acc += absorbed_tile<D, P, false>(r, t, n, valid, c2, nullptr);
+    }
+  }
+  if (valid) out[i] = acc;
 }
 
 // -----------------------------------------------------------------------------
@@ -368,25 +421,40 @@ int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* col
   return (int)cudaGetLastError();
 }
 
-// n_rows = N / block_n row tiles, ck the table width, vt (4, M) with row
-// stride M.
+// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt),
+// vt (4, M) with row stride M.
 int gl_gibbs_apply_sparse(const float* x, const float* y, const float* phi,
                           const float* psi, const float* vt, const int* cols,
-                          const int* cnt, float* out, int M, int n_rows, int ck,
-                          int block_n, int block_m, int D, int mode, float c2,
+                          const int* row_start, const int* cnt, float* out, int M,
+                          int n_rows, int block_n, int block_m, int D, int mode, float c2,
                           void* stream) {
   if (n_rows == 0) return (int)cudaSuccess;
   const dim3 grid(n_rows, cdiv(block_n, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   GL_DISPATCH_D8(D,
     switch (mode) {
-      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
-      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
-      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
-      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
-      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, cnt, out, M, ck, block_n, block_m, c2); break;
+      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
+      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
+      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
+      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
+      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
       default: return (int)cudaErrorInvalidValue;
     })
+  return (int)cudaGetLastError();
+}
+
+// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt).
+int gl_absorbed_sum_sparse(const float* x, const float* y, const float* phi,
+                           const float* psi, const int* cols, const int* row_start,
+                           const int* cnt, float* out, int n_rows, int block_n, int block_m,
+                           int D, int p, float c2, void* stream) {
+  if (n_rows == 0) return (int)cudaSuccess;
+  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  GL_DISPATCH_D8(D,
+    if (p == 2) sparse_sum_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, c2);
+    else sparse_sum_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, c2))
   return (int)cudaGetLastError();
 }
 

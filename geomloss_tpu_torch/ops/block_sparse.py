@@ -22,9 +22,17 @@ band-major step lists for the TPU's sequential grid (``walk_plan_banded``);
 the CUDA kernels (:mod:`.cuda_block_sparse`) walk the CSR lists directly,
 so that packing has no counterpart, and neither have the TPU's budget
 limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamps on ``cap`` of
-``build_tile_masks`` and ``masks_from_geometry``) nor the per-chunk step budget of ``walk_plan``, which clips kept tiles
-when a chunk of rows keeps more than its mean budget: every kept tile is
-visited.
+``build_tile_masks`` and ``masks_from_geometry``). On the multiscale
+paths every kept tile is visited: the per-chunk step budget of
+``walk_plan``, which clips kept tiles when a chunk of rows keeps more than
+its mean budget, has no counterpart there.
+
+The public block-sparse Sinkhorn ops of the JAX package have their
+counterparts too (kernels 10-12): ``sinkhorn_step_sparse`` and the
+``softmin_extrapolation_sparse`` family over ``(cols, counts)`` tables,
+``sinkhorn_step_walk`` and the ``softmin_extrapolation_walk`` family over
+:func:`walk_plan` tables. A walk table is the JAX package's table format,
+built bit for bit as there, budget included: the walk ops honour its clip.
 The function names follow the JAX package's, ``walk_banded`` included, so
 that each counterpart can be found.
 """
@@ -56,6 +64,9 @@ __all__ = [
     "sinkhorn_step_walk_banded_sym",
     "softmin_extrapolation_walk_banded",
     "softmin_extrapolation_walk_banded_sym",
+    "sinkhorn_step_sparse",
+    "softmin_extrapolation_sparse",
+    "softmin_extrapolation_sparse_sym",
 ]
 
 NEG_INF = -1e30
@@ -646,3 +657,151 @@ def kernel_matvec_sparse(x, y, v, eps, mask, p=2, block=512, impl="auto"):
     return _KernelMatvecSparse.apply(
         x, y, v, eps, mask.cols, mask.counts, mask.colsT, mask.countsT, p, block, impl
     )
+
+
+# ==============================================================================
+#  Public sparse and walk Sinkhorn ops (kernels 10-12)
+# ==============================================================================
+#
+# One-direction absorbed softmins over a ``(cols, counts)`` table (kernel
+# 12, ``_absorbed_sum``) or a :func:`walk_plan` table (kernel 10,
+# ``_absorbed_sum_walk``), tiles of ``block`` points on both sides; the
+# transposed direction reads ``mask.colsT/countsT`` or ``tblT``. Their
+# backward passes apply the raw weights with the ones channel (kernel 8 or
+# kernel 11) and divide by the forward pass's sums, as the banded
+# extrapolation above (``_dx``), where the JAX package takes ``u (x - R)``
+# with row-normalised weights for p = 2. ``impl``: ``"blocked"`` (or
+# ``"dense"``) runs the plain twins.
+
+walk_plan = cbs.walk_plan
+
+
+def _absorbed_sum(x, y, phi, psi, eps, cols, counts, p, block, impl="auto"):
+    """``r_i = sum_j exp(phi_i + psi_j - C_ij/eps)`` over the kept tiles of
+    ``(cols, counts)``, floored at 1e-37 (kernel 12)."""
+    fn = cbs.absorbed_sum_sparse_blocked if impl in ("blocked", "dense") else cbs.absorbed_sum_sparse
+    return torch.clamp(fn(x, y, phi, psi, eps, cols, counts, p, block), min=SUM_FLOOR)
+
+
+def _absorbed_sum_walk(x, y, phi, psi, eps, tbl, p, block, impl="auto"):
+    """:func:`_absorbed_sum` over a :func:`walk_plan` table (kernel 10)."""
+    fn = cbs.absorbed_sum_walk_blocked if impl in ("blocked", "dense") else cbs.absorbed_sum_walk
+    return torch.clamp(fn(x, y, phi, psi, eps, tbl, p, block), min=SUM_FLOOR)
+
+
+def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512, block_m=512, impl="auto"):
+    """:func:`gibbs_apply_sparse` over a :func:`walk_plan` table (kernel 11,
+    :func:`.cuda_block_sparse.gibbs_apply_walk`)."""
+    fn = cbs.gibbs_apply_walk_blocked if impl in ("blocked", "dense") else cbs.gibbs_apply_walk
+    return fn(x, y, phi, psi, V, eps, tbl, p, kind, block_n, block_m)
+
+
+def sinkhorn_step_sparse(eps, x, y, a_log, b_log, f, g, mask, p=2, block=512, sym=False, impl="auto"):
+    """Both raw softmin values of one truncated Sinkhorn iteration over the
+    kept tiles of ``mask`` (a :class:`TileMask`): ``S_xy = f + eps (a_log -
+    log r)`` from ``mask.cols/counts``, ``S_yx = g + eps (b_log - log c)``
+    from ``mask.colsT/countsT``; ``sym`` returns ``(S_xy, None)``."""
+    phi = a_log + f / eps
+    psi = b_log + g / eps
+    S_xy = _absorbed_update(f, a_log, eps, _absorbed_sum(x, y, phi, psi, eps, mask.cols, mask.counts, p, block, impl))
+    if sym:
+        return S_xy, None
+    c = _absorbed_sum(y, x, psi, phi, eps, mask.colsT, mask.countsT, p, block, impl)
+    return S_xy, _absorbed_update(g, b_log, eps, c)
+
+
+def sinkhorn_step_walk(eps, x, y, a_log, b_log, f, g, tbl, tblT, p=2, block=512, sym=False, impl="auto"):
+    """:func:`sinkhorn_step_sparse` over the :func:`walk_plan` tables
+    ``tbl`` (rows of x) and ``tblT`` (rows of y)."""
+    phi = a_log + f / eps
+    psi = b_log + g / eps
+    S_xy = _absorbed_update(f, a_log, eps, _absorbed_sum_walk(x, y, phi, psi, eps, tbl, p, block, impl))
+    if sym:
+        return S_xy, None
+    c = _absorbed_sum_walk(y, x, psi, phi, eps, tblT, p, block, impl)
+    return S_xy, _absorbed_update(g, b_log, eps, c)
+
+
+def _table_ops(table, eps, p, block, impl):
+    """The row sums and the apply of one direction over ``table``: a
+    ``(cols, counts)`` pair or a :func:`walk_plan` table."""
+    if isinstance(table, torch.Tensor):
+        def sums(x, y, phi, psi):
+            return _absorbed_sum_walk(x, y, phi, psi, eps, table, p, block, impl)
+
+        def apply(x, y, phi, psi, V, kind):
+            return gibbs_apply_walk(x, y, phi, psi, V, eps, table, p, kind, block, block, impl)
+    else:
+        cols, counts = table
+
+        def sums(x, y, phi, psi):
+            return _absorbed_sum(x, y, phi, psi, eps, cols, counts, p, block, impl)
+
+        def apply(x, y, phi, psi, V, kind):
+            return _sparse_apply(impl)(x, y, phi, psi, V, eps, cols, counts, p, kind, block, block)
+    return sums, apply
+
+
+class _AbsorbedSoftminRows(torch.autograd.Function):
+    """``S = f + eps (loga - log r)`` with ``r`` the absorbed row sums over
+    a table; differentiable in x only (y gets zeros where asked)."""
+
+    @staticmethod
+    def forward(ctx, x, y, f, g, loga, logb, eps, ops, p):
+        sums, apply = ops
+        S = _absorbed_update(f, loga, eps, sums(x, y, loga + f / eps, logb + g / eps))
+        ctx.save_for_backward(x, y, f, g, loga, logb, S)
+        ctx.eps, ctx.p, ctx.apply_rows = eps, p, apply
+        return S
+
+    @staticmethod
+    def backward(ctx, u):
+        x, y, f, g, loga, logb, S = ctx.saved_tensors
+        eps = ctx.eps
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            kind = "gibbs" if ctx.p == 2 else "gibbs_grad"
+            R = ctx.apply_rows(x, y, loga + f / eps, logb + g / eps, _ones(y), kind)
+            dx = _dx(x, R, _forward_sums(f, loga, eps, S), u).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dy = torch.zeros_like(y)
+        return (dx, dy) + (None,) * 7
+
+
+def _softmin_rows(x, y, f, g, loga, logb, eps, table, p, block, impl):
+    return _AbsorbedSoftminRows.apply(x, y, f, g, loga, logb, eps, _table_ops(table, eps, p, block, impl), p)
+
+
+def softmin_extrapolation_sparse(x, y, f, g, loga, logb, eps, cols, counts, colsT, countsT, p, block, impl="auto"):
+    r"""Raw softmin pair ``(S_xy, S_yx)`` of the truncated differentiable
+    last extrapolation (:func:`sinkhorn_step_sparse`'s values): ``S_xy``
+    differentiates w.r.t. x only, ``S_yx`` w.r.t. y only; potentials,
+    weights and eps are constants."""
+    S_xy = _softmin_rows(x, y.detach(), f, g, loga, logb, eps, (cols, counts), p, block, impl)
+    S_yx = _softmin_rows(y, x.detach(), g, f, logb, loga, eps, (colsT, countsT), p, block, impl)
+    return S_xy, S_yx
+
+
+def softmin_extrapolation_sparse_sym(x, f, loga, eps, cols, counts, p, block, impl="auto"):
+    """Symmetric-problem (debias) truncated extrapolation over a full
+    (not triangle) table: one direction, the second cloud detached."""
+    return _softmin_rows(x, x.detach(), f, f, loga, loga, eps, (cols, counts), p, block, impl)
+
+
+def softmin_extrapolation_sparse_dir(x, y, f, g, loga, logb, eps, cols, counts, p, block, impl="auto"):
+    """One direction of the truncated differentiable extrapolation, over
+    the rows of x: gradient to x only (y gets zeros)."""
+    return _softmin_rows(x, y, f, g, loga, logb, eps, (cols, counts), p, block, impl)
+
+
+def softmin_extrapolation_walk(x, y, f, g, loga, logb, eps, tbl, tblT, p, block, impl="auto"):
+    """:func:`softmin_extrapolation_sparse` over :func:`walk_plan` tables."""
+    S_xy = _softmin_rows(x, y.detach(), f, g, loga, logb, eps, tbl, p, block, impl)
+    S_yx = _softmin_rows(y, x.detach(), g, f, logb, loga, eps, tblT, p, block, impl)
+    return S_xy, S_yx
+
+
+def softmin_extrapolation_walk_sym(x, f, loga, eps, tbl, p, block, impl="auto"):
+    """:func:`softmin_extrapolation_sparse_sym` over a :func:`walk_plan`
+    table."""
+    return _softmin_rows(x, x.detach(), f, f, loga, loga, eps, tbl, p, block, impl)

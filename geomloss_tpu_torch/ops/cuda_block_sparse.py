@@ -1,28 +1,42 @@
 r"""Hand-written Hopper kernels of the block-sparse paths, and their twins.
 
-Four CUDA kernels (``csrc/block_sparse_kernels.cu``) replace five kernels
-of :mod:`geomloss_tpu.ops.block_sparse`:
+Five CUDA kernels (``csrc/block_sparse_kernels.cu``, besides the segment
+sum of kernels 5 and 6) replace the eight kernels of
+:mod:`geomloss_tpu.ops.block_sparse`:
 
-===========================  ==============================================
-wrapper                      TPU kernel it replaces
-===========================  ==============================================
-:func:`absorbed_sum_tiles`   ``_absorbed_sum_walk_banded`` /
-                             ``_pair_walk_banded_kernel``
-:func:`gibbs_apply_tiles`    ``gibbs_apply_walk_banded`` /
-                             ``_apply_walk_banded_kernel``
-:func:`lse_tiles`            ``lse_walk`` / ``_lse_walk_kernel``
-:func:`lse_sparse`           ``lse_sparse`` / ``_lse_sparse_kernel``, on
-                             kernel 7's CUDA kernel (the same function
-                             over the same table)
-:func:`gibbs_apply_sparse`   ``gibbs_apply_sparse`` /
-                             ``_apply_sparse_kernel``
-===========================  ==============================================
+============================  =============================================
+wrapper                       TPU kernel it replaces
+============================  =============================================
+:func:`absorbed_sum_tiles`    ``_absorbed_sum_walk_banded`` /
+                              ``_pair_walk_banded_kernel``
+:func:`gibbs_apply_tiles`     ``gibbs_apply_walk_banded`` /
+                              ``_apply_walk_banded_kernel``
+:func:`lse_tiles`             ``lse_walk`` / ``_lse_walk_kernel``
+:func:`lse_sparse`            ``lse_sparse`` / ``_lse_sparse_kernel``, on
+                              kernel 7's CUDA kernel (the same function
+                              over the same table)
+:func:`gibbs_apply_sparse`    ``gibbs_apply_sparse`` /
+                              ``_apply_sparse_kernel``
+:func:`gibbs_apply_walk`      ``gibbs_apply_walk`` / ``_apply_walk_kernel``,
+                              on kernel 8's CUDA kernel over the decoded
+                              walk table
+:func:`absorbed_sum_sparse`   ``_absorbed_sum`` / ``_row_sum_sparse_kernel``
+:func:`absorbed_sum_walk`     ``_absorbed_sum_walk`` /
+                              ``_row_sum_walk_kernel``, on kernel 12's CUDA
+                              kernel over the decoded walk table
+============================  =============================================
 
-:func:`lse_tiles`, :func:`lse_sparse` and :func:`gibbs_apply_sparse` are
-one-direction reductions over the kept source tiles of a ``(cols, cnt)``
-table, with row tiles of ``block_n`` and source tiles of ``block_m``
-points (the mid path's extrapolations onto the fine cloud, the truncated
-softmin and the truncated MMD matvecs).
+:func:`lse_tiles`, :func:`lse_sparse`, :func:`gibbs_apply_sparse` and
+:func:`absorbed_sum_sparse` are one-direction reductions over the kept
+source tiles of a ``(cols, cnt)`` table, with row tiles of ``block_n``
+and source tiles of ``block_m`` points (the mid path's extrapolations
+onto the fine cloud, the truncated softmin and the truncated MMD
+matvecs, the public sparse Sinkhorn steps). :func:`gibbs_apply_walk` and
+:func:`absorbed_sum_walk` compute the same functions over a
+:func:`walk_plan` table, the JAX package's packed step lists: the wrapper
+decodes it on the device into the same CSR form (:func:`_walk_rows`), so
+a walk differs from a ``(cols, cnt)`` table only by the tiles its
+per-chunk budget clipped.
 
 The other two visit the kept tile pairs of a truncation table given as
 CSR lists: row tile ``I`` (``tile`` consecutive sorted points) visits the
@@ -70,6 +84,14 @@ __all__ = [
     "lse_sparse",
     "gibbs_apply_sparse",
     "gibbs_apply_sparse_blocked",
+    "gibbs_apply_walk",
+    "gibbs_apply_walk_blocked",
+    "absorbed_sum_sparse",
+    "absorbed_sum_sparse_blocked",
+    "absorbed_sum_walk",
+    "absorbed_sum_walk_blocked",
+    "walk_plan",
+    "MAX_WALK_ROWS",
     "kept_pairs",
     "TILES_SCRATCH_BYTES",
     "build",
@@ -95,6 +117,9 @@ launch_counts = {
     "lse_tiles": 0,
     "lse_sparse": 0,
     "gibbs_apply_sparse": 0,
+    "gibbs_apply_walk": 0,
+    "absorbed_sum_sparse": 0,
+    "absorbed_sum_walk": 0,
 }
 
 
@@ -116,9 +141,12 @@ _LIB = ck.KernelLibrary(
         # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
         # stream
         "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
-        # x, y, phi, psi, vt, cols, cnt, out, M, n_rows, ck, block_n,
+        # x, y, phi, psi, vt, cols, row_start, cnt, out, M, n_rows, block_n,
         # block_m, D, mode, c2, stream
-        "gl_gibbs_apply_sparse": [_P] * 8 + [_I] * 7 + [_F, _P],
+        "gl_gibbs_apply_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
+        # x, y, phi, psi, cols, row_start, cnt, out, n_rows, block_n,
+        # block_m, D, p, c2, stream
+        "gl_absorbed_sum_sparse": [_P] * 8 + [_I] * 5 + [_F, _P],
         # parts, order, offsets, out, nseg, L, nsub, stream
         "gl_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
     },
@@ -235,6 +263,100 @@ def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes):
 
 
 # ==============================================================================
+#  CSR tables of kernels 8 and 12; walk tables
+# ==============================================================================
+#
+# Kernels 8 and 12 read a table as ``rows = (cols, row_start, cnt)``, three
+# int32 tensors: row tile I visits ``cols[row_start[I] + k]`` for ``k <
+# cnt[I]``. A ``(cols, counts)`` table is that with ``row_start = I * ck``
+# (:func:`_dense_rows`); a walk table decodes into it (:func:`_walk_rows`).
+
+#: Row tiles per walk chunk (the JAX package's ``MAX_WALK_ROWS``, its SMEM
+#: budget of one launch); the tables of :func:`walk_plan` carry it.
+MAX_WALK_ROWS = 1024
+
+#: Fields of a packed walk step: ``fl << 26 | row << 13 | jt``.
+_WALK_BITS = 13
+_WALK_MASK = (1 << _WALK_BITS) - 1
+
+
+def _dense_rows(cols, cnt):
+    """CSR form of a ``(cols, cnt)`` table, counts clamped at its width."""
+    nI, width = cols.shape
+    start = torch.arange(nI, dtype=torch.int32, device=cols.device) * width
+    cnt = torch.clamp(cnt.to(device=cols.device, dtype=torch.int32), max=width)
+    return cols.to(torch.int32).reshape(-1).contiguous(), start, cnt.contiguous()
+
+
+def walk_plan(cols, counts, t_mean):
+    """Pack a ``(cols, counts)`` table into the JAX package's per-chunk
+    step lists, bit for bit: ``(nc, T_c)`` int32 with ``T_c = rows_c *
+    t_mean`` and ``rows_c = min(nI, MAX_WALK_ROWS)``.
+
+    Each step packs ``fl << 26 | row << 13 | jt``: ``fl`` 1 for the first
+    step of a row, 0 for a continuation, 2 for dead padding (which repeats
+    the chunk's last real step); ``row`` the row tile within its chunk;
+    ``jt`` the column tile. A chunk keeping more than ``T_c`` tiles clips
+    every row proportionally (each keeps at least its first tile); padded
+    rows of the last chunk keep column tile 0. Raises ``ValueError`` where
+    a row or column tile does not fit in 13 bits.
+    """
+    nI, cap = cols.shape
+    rows_c = min(nI, MAX_WALK_ROWS)
+    nc = _cdiv(nI, rows_c)
+    nIp = nc * rows_c
+    cols, counts = cols.to(torch.int32), counts.to(torch.int32)
+    if rows_c > 1 << _WALK_BITS or int(cols.max()) > _WALK_MASK:
+        raise ValueError(f"walk_plan: row and column tiles must fit in {_WALK_BITS} bits.")
+    if nIp != nI:
+        cols = torch.nn.functional.pad(cols, (0, 0, 0, nIp - nI))
+        counts = torch.nn.functional.pad(counts, (0, nIp - nI), value=1)
+    T_c = rows_c * t_mean
+    dev = cols.device
+
+    cnt = counts.reshape(nc, rows_c)
+    colc = cols.reshape(nc, rows_c * cap)
+    tot = cnt.sum(dim=1)
+    # The proportional clip, in float32 as in the JAX package:
+    scale = (T_c - rows_c) / torch.clamp(tot - rows_c, min=1).to(torch.float32)
+    clipped = 1 + ((cnt - 1).to(torch.float32) * torch.clamp(scale, max=1.0)[:, None]).to(torch.int32)
+    cnt = torch.clamp(torch.where(tot[:, None] > T_c, clipped, cnt), max=cap).long()
+
+    offs = torch.cumsum(cnt, dim=1) - cnt
+    # Run starts; a start past the chunk's steps is dropped (an extra slot):
+    ind = torch.zeros((nc, T_c + 1), dtype=torch.long, device=dev)
+    ind.scatter_add_(1, torch.clamp(offs, max=T_c), torch.ones_like(offs))
+    row = torch.cumsum(ind[:, :T_c], dim=1) - 1  # clamps at the chunk's end
+    k = torch.arange(T_c, device=dev)[None, :] - offs.gather(1, row)
+    cnt_r = cnt.gather(1, row)
+    dead = k >= cnt_r
+    jt = colc.gather(1, row * cap + torch.minimum(k, cnt_r - 1)).long()
+    fl = torch.where(dead, 2, (k == 0).long())
+    return ((fl << 26) | (row << _WALK_BITS) | jt).to(torch.int32)
+
+
+def _walk_rows(tbl, nI):
+    """CSR form of a :func:`walk_plan` table of ``nI`` row tiles, on the
+    table's device and without a device-to-host read: the flat column
+    tiles, each row's first step (``fl == 1``) and its live steps (``fl !=
+    2``), whose steps must be consecutive, as :func:`walk_plan` lays them
+    out. The padded rows of the last chunk are left out; a row with no
+    step keeps nothing."""
+    nc, T_c = tbl.shape
+    rows_c = min(nI, MAX_WALK_ROWS)
+    w = tbl.reshape(-1).to(torch.int32)
+    fl = (w >> 26) & 3
+    step = torch.arange(w.numel(), device=w.device)
+    row = (step // max(T_c, 1)) * rows_c + ((w >> _WALK_BITS) & _WALK_MASK).long()
+    live = (fl != 2) & (row < nI)
+    cnt = torch.zeros(nI + 1, dtype=torch.int32, device=w.device)
+    cnt.scatter_add_(0, torch.where(live, row, nI), live.to(torch.int32))
+    start = torch.zeros(nI + 1, dtype=torch.long, device=w.device)
+    start.scatter_(0, torch.where(live & (fl == 1), row, nI), step)
+    return (w & _WALK_MASK).contiguous(), start[:nI].to(torch.int32).contiguous(), cnt[:nI].contiguous()
+
+
+# ==============================================================================
 #  Plain twins: a loop over row tiles, in the input dtype
 # ==============================================================================
 
@@ -306,13 +428,14 @@ def _check_sparse_table(name, x, y, cols, cnt, block_n, block_m):
         raise ValueError(f"{name}: cols must be (N / block_n, ck) and cnt (N / block_n,).")
 
 
-def _sparse_rows(cols, cnt, block_m, device):
-    """``(I, idx)`` for each row tile of a ``(cols, cnt)`` table: ``idx``
-    the source points of its kept tiles, in table order."""
-    cols_c, cnt_c = cols.cpu().long(), torch.clamp(cnt.cpu().long(), max=cols.shape[1])
+def _csr_rows(rows, block_m, device):
+    """``(I, idx)`` for each row tile of a CSR table ``rows = (cols,
+    row_start, cnt)``: ``idx`` the source points of its kept tiles, in
+    table order."""
+    cols, start, cnt = (t.cpu().long() for t in rows)
     lanes = torch.arange(block_m, device=device)
-    for I in range(cols.shape[0]):
-        J = cols_c[I, : cnt_c[I]].to(device)
+    for I in range(cnt.shape[0]):
+        J = cols[start[I] : start[I] + cnt[I]].to(device)
         yield I, (J[:, None] * block_m + lanes).view(-1)
 
 
@@ -327,7 +450,7 @@ def lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
     h = _fold_norms(y, h.to(dt), eps, p)
     out = torch.empty(x.shape[0], dtype=dt, device=x.device)
     zero = torch.zeros(block_n, dtype=dt, device=x.device)
-    for I, idx in _sparse_rows(cols, cnt, block_m, x.device):
+    for I, idx in _csr_rows(_dense_rows(cols, cnt), block_m, x.device):
         rows = slice(I * block_n, (I + 1) * block_n)
         arg = _log_weights_blk(x[rows], zero, y[idx], h[idx], eps, p)
         out[rows] = torch.logsumexp(arg, dim=1)
@@ -335,21 +458,62 @@ def lse_tiles_blocked(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
     return _fold_norms(x, out, eps, p)
 
 
-def gibbs_apply_sparse_blocked(
-    x, y, phi, psi, V, eps, cols, counts, p=2, kind="gibbs", block_n=256, block_m=512
-):
-    """Plain twin of :func:`gibbs_apply_sparse`: a loop over row tiles, each
+def _apply_rows_blocked(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m):
+    """Plain twin of kernel 8 over a CSR table: a loop over row tiles, each
     an apply of its gathered kept source tiles, in the input dtype."""
-    _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind)
     dt = ck._acc(x, y, phi, psi, V)
     x, y, phi, psi, Va = (t.to(dt) for t in (x, y, phi, psi, V))
     if p == 2 and kind in ("gibbs", "gibbs_grad"):
         phi, psi = _fold_norms(x, phi, eps, 2), _fold_norms(y, psi, eps, 2)
     out = torch.zeros((x.shape[0], V.shape[1]), dtype=dt, device=x.device)
-    for I, idx in _sparse_rows(cols, counts, block_m, x.device):
-        rows = slice(I * block_n, (I + 1) * block_n)
-        out[rows] = _apply_weights_blk(x[rows], phi[rows], y[idx], psi[idx], eps, p, kind) @ Va[idx]
+    for I, idx in _csr_rows(rows, block_m, x.device):
+        sl = slice(I * block_n, (I + 1) * block_n)
+        out[sl] = _apply_weights_blk(x[sl], phi[sl], y[idx], psi[idx], eps, p, kind) @ Va[idx]
     return out.to(V.dtype)
+
+
+def _sum_rows_blocked(x, y, phi, psi, eps, rows, p, block_n, block_m):
+    """Plain twin of kernel 12 over a CSR table: raw absorbed row sums, a
+    loop over row tiles in the input dtype."""
+    dt = ck._acc(x, y, phi, psi)
+    x, y = x.to(dt), y.to(dt)
+    phi = _fold_norms(x, phi.to(dt), eps, p)
+    psi = _fold_norms(y, psi.to(dt), eps, p)
+    out = torch.zeros(x.shape[0], dtype=dt, device=x.device)
+    for I, idx in _csr_rows(rows, block_m, x.device):
+        sl = slice(I * block_n, (I + 1) * block_n)
+        out[sl] = torch.exp(_log_weights_blk(x[sl], phi[sl], y[idx], psi[idx], eps, p)).sum(1)
+    return out.to(phi.dtype)
+
+
+def gibbs_apply_sparse_blocked(
+    x, y, phi, psi, V, eps, cols, counts, p=2, kind="gibbs", block_n=256, block_m=512
+):
+    """Plain twin of :func:`gibbs_apply_sparse`."""
+    _check_apply("gibbs_apply_sparse", x, y, phi, psi, V, kind)
+    _check_sparse_table("gibbs_apply_sparse", x, y, cols, counts, block_n, block_m)
+    return _apply_rows_blocked(x, y, phi, psi, V, eps, _dense_rows(cols, counts), p, kind, block_n, block_m)
+
+
+def gibbs_apply_walk_blocked(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512, block_m=512):
+    """Plain twin of :func:`gibbs_apply_walk`."""
+    _check_apply("gibbs_apply_walk", x, y, phi, psi, V, kind)
+    rows = _walk_rows(tbl, _check_walk("gibbs_apply_walk", x, y, tbl, block_n, block_m))
+    return _apply_rows_blocked(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m)
+
+
+def absorbed_sum_sparse_blocked(x, y, phi, psi, eps, cols, counts, p=2, block=512):
+    """Plain twin of :func:`absorbed_sum_sparse`."""
+    _check_biases("absorbed_sum_sparse", x, y, phi, psi)
+    _check_sparse_table("absorbed_sum_sparse", x, y, cols, counts, block, block)
+    return _sum_rows_blocked(x, y, phi, psi, eps, _dense_rows(cols, counts), p, block, block)
+
+
+def absorbed_sum_walk_blocked(x, y, phi, psi, eps, tbl, p=2, block=512):
+    """Plain twin of :func:`absorbed_sum_walk`."""
+    _check_biases("absorbed_sum_walk", x, y, phi, psi)
+    rows = _walk_rows(tbl, _check_walk("absorbed_sum_walk", x, y, tbl, block, block))
+    return _sum_rows_blocked(x, y, phi, psi, eps, rows, p, block, block)
 
 
 def _check_kind(kind):
@@ -357,12 +521,29 @@ def _check_kind(kind):
         raise ValueError(f"Unknown gibbs_apply_tiles kind: {kind!r}")
 
 
-def _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind):
-    _check_sparse_table("gibbs_apply_sparse", x, y, cols, counts, block_n, block_m)
+def _check_biases(name, x, y, phi, psi):
+    if tuple(phi.shape) != (x.shape[0],) or tuple(psi.shape) != (y.shape[0],):
+        raise ValueError(f"{name}: phi must be (N,) and psi (M,).")
+
+
+def _check_apply(name, x, y, phi, psi, V, kind):
     ck._check_kind(kind)
+    _check_biases(name, x, y, phi, psi)
+    if V.ndim != 2 or V.shape[0] != y.shape[0]:
+        raise ValueError(f"{name}: phi must be (N,), psi (M,) and V (M, C).")
+
+
+def _check_walk(name, x, y, tbl, block_n, block_m):
+    """Checks of a walk table's call; returns its row tiles ``N / block_n``."""
     N, M = x.shape[0], y.shape[0]
-    if tuple(phi.shape) != (N,) or tuple(psi.shape) != (M,) or V.ndim != 2 or V.shape[0] != M:
-        raise ValueError("gibbs_apply_sparse: phi must be (N,), psi (M,) and V (M, C).")
+    if block_n < 1 or block_m < 1 or N % block_n or M % block_m:
+        raise ValueError(
+            f"{name}: point counts ({N}, {M}) must be multiples of the tiles ({block_n}, {block_m})."
+        )
+    nI = N // block_n
+    if tbl.ndim != 2 or tbl.shape[0] != _cdiv(nI, min(nI, MAX_WALK_ROWS)):
+        raise ValueError(f"{name}: tbl must be a walk_plan table of N / block_n row tiles, (nc, T_c).")
+    return nI
 
 
 # ==============================================================================
@@ -546,13 +727,35 @@ def gibbs_apply_sparse(
     the table. Channels go through the kernel in groups of four.
     Returns ``(N, C)`` in V's dtype.
     """
+    _check_apply("gibbs_apply_sparse", x, y, phi, psi, V, kind)
+    _check_sparse_table("gibbs_apply_sparse", x, y, cols, counts, block_n, block_m)
     if not x.is_cuda:
         return gibbs_apply_sparse_blocked(x, y, phi, psi, V, eps, cols, counts, p, kind, block_n, block_m)
-    _check_apply_sparse(x, y, phi, psi, V, cols, counts, block_n, block_m, kind)
     _check_cuda("gibbs_apply_sparse", x, y, phi, psi, V, cols, counts)
+    rows = _dense_rows(cols, counts)
+    return _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, "gibbs_apply_sparse")
+
+
+def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512, block_m=512):
+    """:func:`gibbs_apply_sparse`'s function over a :func:`walk_plan`
+    table ``tbl`` (the JAX package's ``gibbs_apply_walk``, argument order
+    and defaults included): the table is decoded on the device
+    (:func:`_walk_rows`) and kernel 8's CUDA kernel runs over it, counted
+    under ``"gibbs_apply_walk"``. Rows the walk's budget clipped visit
+    their kept tiles only."""
+    _check_apply("gibbs_apply_walk", x, y, phi, psi, V, kind)
+    nI = _check_walk("gibbs_apply_walk", x, y, tbl, block_n, block_m)
+    if not x.is_cuda:
+        return gibbs_apply_walk_blocked(x, y, phi, psi, V, eps, tbl, p, kind, block_n, block_m)
+    _check_cuda("gibbs_apply_walk", x, y, phi, psi, V, tbl)
+    return _apply_rows(x, y, phi, psi, V, eps, _walk_rows(tbl, nI), p, kind, block_n, block_m, "gibbs_apply_walk")
+
+
+def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count):
+    """Kernel 8 over a CSR table, channels in groups of four."""
     mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
-    (xf, yf), Dk = _points("gibbs_apply_sparse", x, y, dims=_KERNEL_DIMS)
+    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
     N, M = xf.shape[0], yf.shape[0]
     p_bias = 2 if mode == 0 else 1
     phi2, psi2 = _bias2(xf, phi, eps, p_bias), _bias2(yf, psi, eps, p_bias)
@@ -560,8 +763,7 @@ def gibbs_apply_sparse(
     G = ck._CHANNELS
     Cp = _cdiv(C, G) * G
     Vt = torch.nn.functional.pad(_f32(V).T, (0, 0, 0, Cp - C)).contiguous()
-    cols_i = cols.to(torch.int32).contiguous()
-    cnt_i = counts.to(torch.int32).contiguous()
+    cols, start, cnt = rows
     c2 = LOG2E / eps if mode <= 2 else 0.0
     outs = []
     with torch.cuda.device(x.device):
@@ -569,9 +771,60 @@ def gibbs_apply_sparse(
             out = torch.empty((N, G), dtype=torch.float32, device=x.device)
             _LIB.launch(
                 "gibbs_apply_sparse", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                psi2.data_ptr(), Vt[c0 : c0 + G].data_ptr(), cols_i.data_ptr(), cnt_i.data_ptr(),
-                out.data_ptr(), M, cols.shape[0], cols.shape[1], block_n, block_m, Dk, mode, c2,
-                count="gibbs_apply_sparse",
+                psi2.data_ptr(), Vt[c0 : c0 + G].data_ptr(), cols.data_ptr(), start.data_ptr(),
+                cnt.data_ptr(), out.data_ptr(), M, cnt.shape[0], block_n, block_m, Dk, mode, c2,
+                count=count,
             )
             outs.append(out)
     return torch.cat(outs, dim=1)[:, :C].to(V.dtype)
+
+
+def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):
+    """Kernel 12 over a CSR table: raw absorbed row sums, float32."""
+    eps = float(eps)
+    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
+    phi2, psi2 = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
+    cols, start, cnt = rows
+    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _LIB.launch(
+            "absorbed_sum_sparse", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(), psi2.data_ptr(),
+            cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(), cnt.shape[0],
+            block_n, block_m, Dk, p, LOG2E / eps, count=count,
+        )
+    return out.to(phi.dtype)
+
+
+def absorbed_sum_sparse(x, y, phi, psi, eps, cols, counts, p=2, block=512):
+    """Absorbed row sums over the kept tiles of a ``(cols, counts)`` table:
+
+    ``r_i = sum_{j kept for i} exp(phi_i + psi_j - C_p(x_i, y_j)/eps)``,
+    row tile ``I`` keeping the column tiles ``cols[I, k]``, ``k <
+    counts[I]``, tiles of ``block`` points on both sides. Raw sums, no
+    floor and no max pass (the JAX package's ``_absorbed_sum`` returns them
+    floored at 1e-37).
+
+    Args: x ``(N, D)``, y ``(M, D)``, phi ``(N,)``, psi ``(M,)``; cols
+    ``(N / block, ck)`` and counts ``(N / block,)``.
+    Returns ``(N,)`` in phi's dtype.
+    """
+    _check_biases("absorbed_sum_sparse", x, y, phi, psi)
+    _check_sparse_table("absorbed_sum_sparse", x, y, cols, counts, block, block)
+    if not x.is_cuda:
+        return absorbed_sum_sparse_blocked(x, y, phi, psi, eps, cols, counts, p, block)
+    _check_cuda("absorbed_sum_sparse", x, y, phi, psi, cols, counts)
+    return _sum_rows(x, y, phi, psi, eps, _dense_rows(cols, counts), p, block, block, "absorbed_sum_sparse")
+
+
+def absorbed_sum_walk(x, y, phi, psi, eps, tbl, p=2, block=512):
+    """:func:`absorbed_sum_sparse`'s function over a :func:`walk_plan`
+    table ``tbl`` (the JAX package's ``_absorbed_sum_walk``, without its
+    floor): the table is decoded on the device (:func:`_walk_rows`) and
+    kernel 12's CUDA kernel runs over it, counted under
+    ``"absorbed_sum_walk"``."""
+    _check_biases("absorbed_sum_walk", x, y, phi, psi)
+    nI = _check_walk("absorbed_sum_walk", x, y, tbl, block, block)
+    if not x.is_cuda:
+        return absorbed_sum_walk_blocked(x, y, phi, psi, eps, tbl, p, block)
+    _check_cuda("absorbed_sum_walk", x, y, phi, psi, tbl)
+    return _sum_rows(x, y, phi, psi, eps, _walk_rows(tbl, nI), p, block, block, "absorbed_sum_walk")

@@ -319,3 +319,77 @@ def test_gibbs_apply_sparse_wrapper_raises_on_what_it_cannot_launch(cuda_device)
     x9, y9 = torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device)
     with pytest.raises(NotImplementedError):
         cbs.gibbs_apply_sparse(x9, y9, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 256, 128)
+
+
+def _sum_problem(D, p, block, seed, n_tiles=3, m_tiles=5, cap=4):
+    """Kernel 12's inputs: absorbed biases, a ragged table with a row whose
+    count lies above the table's width (clamped to it) and one keeping a
+    single tile."""
+    N, M = n_tiles * block, m_tiles * block
+    x, y, _ = problem(N, M, D=D, seed=seed)
+    f, g, la, lb = potentials(N, M, seed=seed + 1)
+    eps = 0.05 if p == 2 else 0.2
+    cols, counts = kept_table(n_tiles, m_tiles, cap, seed=seed + 2)
+    counts[0], counts[1] = cap + 3, 1
+    return x, y, la + f / eps, lb + g / eps, eps, cols, counts
+
+
+@pytest.mark.parametrize("block", [128, 512])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_absorbed_sum_sparse_kernel_matches_twin(cuda_device, D, p, block):
+    """Kernel 12 (``_absorbed_sum``): raw absorbed row sums, compared as the
+    Sinkhorn step reads them (``f + eps (loga - log r)``)."""
+    x, y, phi, psi, eps, cols, counts = _sum_problem(D, p, block, seed=D + 10 * p + block)
+    args = (*tensors(x, y, phi, psi, device=cuda_device), eps, *tensors(cols, counts, device=cuda_device), p, block)
+    got = _counted("absorbed_sum_sparse", lambda: cbs.absorbed_sum_sparse(*args), cbs.launch_counts)
+    ref = cbs.absorbed_sum_sparse_blocked(*args)
+    zero = torch.zeros_like(got)
+    torch.testing.assert_close(ck._absorbed_update(zero, zero, eps, got), ck._absorbed_update(zero, zero, eps, ref),
+                               **VAL_TOL)
+    assert torch.equal(got, cbs.absorbed_sum_sparse(*args))
+
+
+@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+def test_gibbs_apply_sparse_row_start_form(cuda_device, p, kind):
+    """Kernel 8 reads its table through row starts: counts above the width
+    are clamped to it, and the result equals the twin's."""
+    x, y, phi, psi, eps, cols, counts = _sum_problem(3, p, 256, seed=3 + p)
+    V = np.concatenate([np.ones((y.shape[0], 1), np.float32), y], 1)
+    args = (*tensors(x, y, phi - phi.max(), psi, V, device=cuda_device), eps,
+            *tensors(cols, counts, device=cuda_device), p, kind, 256, 256)
+    got = _counted("gibbs_apply_sparse", lambda: cbs.gibbs_apply_sparse(*args), cbs.launch_counts)
+    tol = apply_tolerance(x, y, phi - phi.max(), psi, V, eps, p, kind)
+    assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*args).cpu(), **tol)
+    clamped = (*args[:7], torch.clamp(args[7], max=cols.shape[1]), *args[8:])
+    assert torch.equal(got, cbs.gibbs_apply_sparse(*clamped))
+
+
+@pytest.mark.parametrize("t_mean", [4, 2])
+@pytest.mark.parametrize("p", [1, 2])
+def test_walk_kernels_match_twins_on_a_multi_chunk_table(cuda_device, p, t_mean, monkeypatch):
+    """Kernels 10 and 11 over a walk table of three chunks of two rows (the
+    last padded), unclipped (t_mean = 4) and clipped (t_mean = 2): the CUDA
+    decode equals the CPU one, and each kernel its twin."""
+    monkeypatch.setattr(cbs, "MAX_WALK_ROWS", 2)
+    block = 256
+    x, y, phi, psi, eps, cols, counts = _sum_problem(3, p, block, seed=7 * p + t_mean, n_tiles=5, m_tiles=6)
+    counts[0] = 4
+    tbl = cbs.walk_plan(*tensors(cols, counts, device=cuda_device), t_mean)
+    assert tbl.shape[0] == 3
+    for a, b in zip(cbs._walk_rows(tbl, 5), cbs._walk_rows(tbl.cpu(), 5)):
+        assert torch.equal(a.cpu(), b)
+    t = tensors(x, y, phi, psi, device=cuda_device)
+    args = (*t, eps, tbl, p, block)
+    got = _counted("absorbed_sum_walk", lambda: cbs.absorbed_sum_walk(*args), cbs.launch_counts)
+    zero = torch.zeros_like(got)
+    torch.testing.assert_close(ck._absorbed_update(zero, zero, eps, got),
+                               ck._absorbed_update(zero, zero, eps, cbs.absorbed_sum_walk_blocked(*args)), **VAL_TOL)
+    V = np.concatenate([np.ones((y.shape[0], 1), np.float32), y], 1)
+    kind = "gibbs" if p == 2 else "gibbs_grad"
+    phi0 = phi - phi.max()
+    a_args = (*tensors(x, y, phi0, psi, V, device=cuda_device), eps, tbl, p, kind, block, block)
+    got = _counted("gibbs_apply_walk", lambda: cbs.gibbs_apply_walk(*a_args), cbs.launch_counts)
+    assert_apply_close(got, cbs.gibbs_apply_walk_blocked(*a_args).cpu(),
+                       **apply_tolerance(x, y, phi0, psi, V, eps, p, kind))
+    assert torch.equal(got, cbs.gibbs_apply_walk(*a_args))
