@@ -1,9 +1,10 @@
 """GPU smoke run of geomloss_tpu_torch: builds the kernels, checks each
 against its plain PyTorch twin, drives the online and the multiscale
 Sinkhorn paths at N = M = 100,000, the multiscale mid path at
-N = M = 2,000,000 and 4,000,000, the kernel (MMD) losses at 100,000
-and 1,000,000 points, and the public sparse and walk Sinkhorn ops on the
-multiscale path's tables, and times them.
+N = M = 2,000,000, 4,000,000 and 10,000,000 (tile 2048), the online path
+in D = 32, the kernel (MMD) losses at 100,000 and 1,000,000 points, and
+the public sparse and walk Sinkhorn ops on the multiscale path's tables,
+and times them.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,11 @@ phase fails. Phases, one line each:
 
 1. device: the card's name, the device count and its power limit;
 2. build: compiles ``geomloss_tpu_torch/csrc/online_kernels.cu`` and
-   ``block_sparse_kernels.cu``, one ``nvcc`` each, started together;
+   ``block_sparse_kernels.cu``, one ``nvcc`` each, started together, into
+   the checkout's ``build/smoke_kernels`` (set as
+   ``$GEOMLOSS_TPU_TORCH_BUILD_DIR`` whatever the caller set it to; emptied
+   first, and the libraries must land there);
+   prints kernels 5 and 6's registers and spills from ``-Xptxas -v``;
 3. repair: peak device memory of the two step kernels at N = M = 1e6 under
    256 MB beyond their inputs, and two calls bitwise equal;
 4. parity: each online kernel against its twin on the card at N = M = 1e5
@@ -60,8 +65,12 @@ phase fails. Phases, one line each:
     their times, launches and peak memory; a user gaussian callable
     against the named route; the gaussian multiscale route at 1e6 (kernel
     8 parity, time, idle share);
-11. the auto route at N = M = 4e6 (``[4m]``): loss, loss + gradient time,
-    peak memory, launches and the fine tables' kept tiles per row;
+11. the auto route at N = M = 4e6 (``[4m]``) and 1e7 (``[tile2048]``:
+    pads to 2^24 and takes tile 2048, which the JAX banded kernels refuse):
+    loss, loss + gradient time, peak memory, launches and the first fine
+    table's kept tiles per row; at 1e7 kernels 5 and 6 against their
+    float64 twins on the first 8 row tiles of its first fine tables
+    (``truncate=None`` is not run there: an O(N^2) fine phase);
 12. the public sparse and walk Sinkhorn ops (``[sparse]``, run before
     ``[4m]``), on the first fine tables of the multiscale solve at 1e5
     (p in {1, 2}): kernels 12 (``absorbed_sum_sparse``), 10
@@ -74,7 +83,13 @@ phase fails. Phases, one line each:
     their launches counted from zero, against the float64 twins, and walk
     against sparse; kernel 5's banded step beside the sparse step; the
     kernels' times beside their bound and twin at 1e5, then at 2e6 on the
-    mid path's first fine table (parity on its first 64 row tiles).
+    mid path's first fine table (parity on its first 64 row tiles);
+13. ``[wide-d]`` (run before ``[mmd]``): ``SamplesLoss()`` at N = M = 1e4
+    in D = 32 (the online route, through the kernels' wide
+    instantiations) against the same solve through the float64 twins,
+    and kernels 1 and 4 timed at D = 32 beside their bound.
+
+Each phase prints its seconds.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -84,6 +99,8 @@ reports them; the last line is ``{"ok": true, "device": {...}}``.
 import contextlib
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -105,6 +122,15 @@ BLUR, DIAMETER, SCALING = 0.05, 2.0, 0.5
 # float64 twins, relative error of the loss and relative L2 error of the
 # gradient, each <= 1e-3.
 VAL_RTOL = VAL_ATOL = 2e-5
+#: Kernels 5 and 6 take one ex2.approx.ftz per pair, which flushes weights
+#: below 2^-126 to zero: a sum of n kept pairs may lose up to n x 2^-126.
+#: Where that is more than FLUSH_SHARE of a positive twin sum (a column
+#: that only far rows reach, when a parity check keeps the first row tiles
+#: alone), the raw sums are compared, within n x 2^-126 plus the relative
+#: error the potentials' tolerance allows; every other sum (zero sums
+#: included) is compared as the fine step reads it.
+FLUSH_WEIGHT = 2.0**-126
+FLUSH_SHARE = 1e-6
 APPLY_RTOL, APPLY_ATOL_SCALE = 2e-3, 3e-5
 PATH_TOL = 1e-3
 #: Extra device memory one step call may take beyond its inputs at 1e6.
@@ -117,6 +143,18 @@ REPAIR_BYTES = 256e6
 MID_CALLS = {"lse_tiles": 4, "absorbed_sum_tiles": 6, "gibbs_apply_tiles": 2}
 #: The auto route at bench_suite.py's largest size (pads to 2^22 points).
 N_4M = 4_000_000
+#: The auto route at 1e7 points: pads to 2^24 and takes tile 2048
+#: (multiscale.auto_tile), which the JAX banded kernels refuse; kernels 5
+#: and 6 are held against their float64 twins on its first row tiles. At
+#: blur 0.05 the pooled mid scale takes every annealing step left after
+#: the jump at this size (mid_delay 2 of 2), so no fine table is visited;
+#: blur 0.02 leaves one fine iteration, the schedule of bench.py's call at
+#: 2e6 (MID_CALLS).
+N_TILE2048 = 10_000_000
+TILE2048_BLUR = 0.02
+TILE2048_PARITY_TILES = 8
+#: [wide-d]: SamplesLoss() at 1e4 points in D = 32.
+N_WIDE, D_WIDE = 10_000, 32
 #: The MMD configurations (bench_suite.py's MMD rows): blur 0.1, the
 #: multiscale routes at truncate 3; the gaussian multiscale route also at
 #: 1e6.
@@ -152,6 +190,7 @@ MID_PARITY_TILES = 64
 # clock per SM, 132 SMs, at the card's maximum SM clock), NVIDIA H100 SXM.
 HBM_BYTES_PER_S = 3.35e12
 MUFU_PER_CLOCK = 16 * 132
+FP32_FLOPS_PER_S = 67e12
 
 # TPU kernel each CUDA kernel replaces (wrapper definition, file:line).
 REPLACES = {
@@ -178,10 +217,10 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def sphere_cloud(n, seed):
-    """bench.py's clouds: n points on the unit sphere, float32."""
+def sphere_cloud(n, seed, d=3):
+    """bench.py's clouds: n points on the unit sphere of R^d, float32."""
     rng = np.random.RandomState(seed)
-    v = rng.randn(n, 3)
+    v = rng.randn(n, d)
     v /= np.linalg.norm(v, axis=1, keepdims=True)
     return v.astype(np.float32)
 
@@ -194,11 +233,13 @@ def sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def bound(exps, nbytes, clock_hz):
+def bound(exps, nbytes, clock_hz, flops=0):
     """``(bound_ms, bound_by)``: the larger of ``nbytes`` over the memory
-    rate and ``exps`` exponentials over the MUFU rate."""
+    rate and the operations' time: ``exps`` exponentials over the MUFU
+    rate, or ``flops`` float32 operations over the FP32 peak, whichever is
+    longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = exps / (MUFU_PER_CLOCK * clock_hz)
+    t_ops = max(exps / (MUFU_PER_CLOCK * clock_hz), flops / FP32_FLOPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -262,6 +303,57 @@ def walk_budget_clips(cnt, cap, rows_per_chunk=1024):
             rows += int((clipped < ch).sum())
             tiles += int((ch - clipped).sum())
     return rows, tiles
+
+
+def kernel_label(mangled):
+    """``name<a,b>`` of a mangled kernel name (the last component of its
+    nested name and its integer template arguments), or the name itself."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), None
+    while True:
+        d = re.match(r"\d+", mangled[pos:])
+        if not d:
+            break
+        n = int(d.group())
+        name = mangled[pos + d.end():pos + d.end() + n]
+        pos += d.end() + n
+    if name is None:
+        return mangled
+    t = re.match(r"I((?:L[ib]-?\d+E)+)E", mangled[pos:])
+    args = re.findall(r"L[ib](-?\d+)E", t.group(1)) if t else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_usage(log):
+    """``{kernel label: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}}`` from ``nvcc -Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["smem"] = int(m.group(1))
+    return out
+
+
+def phase_took(tag, t0):
+    """Print a phase's seconds since ``t0``; returns the time now."""
+    now = time.perf_counter()
+    print(f"[{tag}] phase took {now - t0:.1f} s", flush=True)
+    return now
 
 
 def card_line():
@@ -375,6 +467,84 @@ def first_fine_steps(rec):
     if not all(steps):
         fail("the multiscale solve ran no truncated fine step")
     return {"xy": steps[0][0][0], "xx": steps[1][0][0]}
+
+
+def check_tile_kernels(state, label, rows=None, twin_dtype=None):
+    """Kernels 5 and 6 against their twins on the tables of a fine step,
+    as the fine step and the extrapolation backward call them; ``rows``:
+    only the first ``rows`` row tiles keep their tiles; ``twin_dtype``: the
+    twins' dtype (the inputs' by default). Two calls must be bitwise
+    equal."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    e, xs, ys, la, lb, f, g, cols, cnt, p, tile, _ = state["xy"]
+    _, _, _, f_aa, cols_xx, cnt_xx, _, _, _ = state["xx"]
+    if rows is not None:
+        cnt, cnt_xx = cnt.clone(), cnt_xx.clone()
+        cnt[rows:], cnt_xx[rows:] = 0, 0
+    label = (f"{label} p={p} tile={tile} ck={cols.shape[1]} "
+             f"kept {int(cnt.sum())}/{cols.numel()} (xx {int(cnt_xx.sum())})")
+    phi, psi, phx = la + f / e, lb + g / e, la + f_aa / e
+
+    def twin(fn, args):
+        if twin_dtype is None:
+            return fn(*args)
+        return fn(*(a.to(twin_dtype) if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
+
+    def sums_check(lab, a, b, pot, lw, pairs):
+        # As the fine step reads them: S = f + eps (loga - log sums); the
+        # sums that flushed weights could move (FLUSH_SHARE) as raw sums.
+        pot, lw = pot.to(b.dtype), lw.to(b.dtype)
+        flush = pairs.to(b) * FLUSH_WEIGHT
+        near = (b > 0) & (flush > FLUSH_SHARE * b)
+        s_got, s_ref = ck._absorbed_update(pot, lw, e, a), ck._absorbed_update(pot, lw, e, b)
+        check_val("absorbed_sum_tiles", f"{lab} ({int(near.sum())} sums within reach of flushed weights "
+                  "compared raw)", s_got[~near], s_ref[~near])
+        if near.any():
+            a, b, tol = a[near], b[near], VAL_ATOL + VAL_RTOL * s_ref[near].abs()
+            excess = ((a - b).abs() - (flush[near] + b * torch.expm1(tol / e))).max().item()
+            print(f"[parity] absorbed_sum_tiles {lab}: {int(near.sum())} raw sums, twin sums up to "
+                  f"{b.max().item():.3e}, max_abs_err {(a - b).abs().max().item():.3e} (tol kept pairs x 2^-126 + "
+                  f"the potentials' tolerance, max excess {excess:.3e})", flush=True)
+            if not excess <= 0:
+                fail(f"absorbed_sum_tiles {lab}: raw sums miss their tolerance by {excess:.3e}")
+
+    for tri, args in (
+        (False, (xs, ys, phi, psi, e, cols, cnt, p, tile, False)),
+        (True, (xs, xs, phx, phx, e, cols_xx, cnt_xx, p, tile, True)),
+    ):
+        got, ref = cbs.absorbed_sum_tiles(*args), twin(cbs.absorbed_sum_tiles_blocked, args)
+        same = all(torch.equal(a, b) for a, b in zip(got, cbs.absorbed_sum_tiles(*args)))
+        if not same:
+            fail(f"absorbed_sum_tiles {label}: two calls differ")
+        got = [a.to(ref[0].dtype) for a in got]
+        # Kept pairs in each row sum and each column sum.
+        slot_j = cbs.kept_pairs(args[5], args[6], tri).view(args[5].shape).long()
+        row_pairs = ((slot_j >= 0).sum(1) * tile).repeat_interleave(tile)
+        col_pairs = (torch.bincount(slot_j[slot_j >= 0], minlength=ys.shape[0] // tile) * tile).repeat_interleave(tile)
+        if tri:
+            sums_check(f"{label} triangle", got[0] + got[1], ref[0] + ref[1], f_aa, la, row_pairs + col_pairs)
+        else:
+            for d, (a, b, pot, lw, n) in enumerate(zip(got, ref, (f, g), (la, lb), (row_pairs, col_pairs))):
+                sums_check(f"{label} {'xy' if d == 0 else 'yx'}", a, b, pot, lw, n)
+    # The dual apply of the extrapolation backward: raw weights, C = 4.
+    kind_t = "gibbs" if p == 2 else "gibbs_grad"
+    Vy = torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
+    Vx = torch.cat([torch.ones_like(xs[:, :1]), xs], 1)
+    for tri, args in (
+        (False, (xs, ys, phi, psi, Vy, Vx, e, cols, cnt, p, kind_t, tile, False)),
+        (True, (xs, xs, phx, phx, Vx, Vx, e, cols_xx, cnt_xx, p, kind_t, tile, True)),
+    ):
+        got, ref = cbs.gibbs_apply_tiles(*args), twin(cbs.gibbs_apply_tiles_blocked, args)
+        same = all(torch.equal(a, b) for a, b in zip(got, cbs.gibbs_apply_tiles(*args)))
+        if not same:
+            fail(f"gibbs_apply_tiles {label}: two calls differ")
+        scales = twin(cbs.gibbs_apply_tiles_blocked, (*args[:4], args[4].abs(), args[5].abs(), *args[6:]))
+        for d in range(2):
+            check_apply("gibbs_apply_tiles", f"{label}{' triangle' if tri else ''} "
+                        f"{'rows' if d == 0 else 'cols'} C=4", got[d].to(ref[d].dtype), ref[d],
+                        scales[d].abs().max().item())
 
 
 # ------------------------------------------------------------------------------
@@ -984,20 +1154,24 @@ def sparse_phase(dev, card, clock, n_small=N_POINTS, n_mid=N_MID, mid_rows=MID_P
 
 
 # ------------------------------------------------------------------------------
-#  11. The auto route at N = M = 4e6
+#  11. The auto route at N = M = 4e6 and 1e7 (tile 2048)
 # ------------------------------------------------------------------------------
 
 
-def auto_4m_phase(dev, card, n=N_4M, reps=2):
-    """bench.py's call at bench_suite.py's largest size: the mid path with
-    kernels 5 and 6 in bounded chunks."""
+def auto_route_phase(dev, card, n, tag, reps, blur=BLUR, tile=1024, parity_rows=None):
+    """bench.py's call at ``n`` points (the mid path, kernels 5 and 6 in
+    bounded chunks), at ``blur``: loss, loss + gradient time after the
+    warm-up, peak memory, launches and the first fine table's kept tiles
+    per row; the fine tables must have tiles of ``tile`` points; with
+    ``parity_rows``, kernels 5 and 6 against their float64 twins on that
+    many first row tiles of the first fine tables."""
     from geomloss_tpu_torch import SamplesLoss
     from geomloss_tpu_torch.models import multiscale as ms
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
     from geomloss_tpu_torch.ops import cuda_kernels as ck
 
     t_phase = time.perf_counter()
-    auto = SamplesLoss("sinkhorn", p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    auto = SamplesLoss("sinkhorn", p=2, blur=blur, diameter=DIAMETER, scaling=SCALING)
     x = torch.from_numpy(sphere_cloud(n, 0)).to(dev)
     y = torch.from_numpy(sphere_cloud(n, 1)).to(dev)
     ck.reset_launch_counts()
@@ -1005,7 +1179,8 @@ def auto_4m_phase(dev, card, n=N_4M, reps=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording(cbs, tuple(MID_CALLS)) as rec, recording(ms, ("sinkhorn_step_walk_banded",)) as rec_ms:
+    with recording(cbs, tuple(MID_CALLS)) as rec, recording(
+            ms, ("sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")) as rec_ms:
         v, g = value_and_grad(lambda x: auto(x, y), x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1016,23 +1191,88 @@ def auto_4m_phase(dev, card, n=N_4M, reps=2):
         fail(f"auto route N=M={n}: non-finite or misshapen output")
     if not all(calls.values()):
         fail(f"auto route N=M={n} did not take the mid path's kernels: {calls}")
+    del rec, g
     wall = []
     for _ in range(reps):  # the counted call above was the warm-up
         t0 = time.perf_counter()
         value_and_grad(lambda x: auto(x, y), x)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    cols, cnt = rec_ms["sinkhorn_step_walk_banded"][0][0][7:9]
+    state = first_fine_steps(rec_ms)
+    cols, cnt = state["xy"][7], state["xy"][8]
+    if state["xy"][10] != tile:
+        fail(f"auto route N=M={n}: fine tiles of {state['xy'][10]} points, not {tile}")
     kept, mean, most, at_cap = table_stats(cols, cnt)
-    print(f"[4m] auto route N=M={n} (padded to {cols.shape[0] * rec_ms['sinkhorn_step_walk_banded'][0][0][10]}): "
+    print(f"[{tag}] auto route N=M={n} blur {blur} (padded to {cols.shape[0] * tile}, tile {tile}): "
           f"loss {v.item():.9e}, finite gradient; launches {json.dumps(launches)}, calls {json.dumps(calls)}; "
           f"first call {first_s:.2f} s; loss+grad host clock, {reps} reps after the warm-up: "
           f"{', '.join(f'{t:.3f}' for t in wall)} ms; peak device memory {peak_gb:.3f} GB; first fine table "
-          f"{cols.shape[0]} row tiles x width {cols.shape[1]}, {kept} kept, per row mean {mean:.2f} max {most}, "
-          f"{at_cap} rows at the width; card {card}", flush=True)
-    del x, y, g, rec, rec_ms
+          f"{cols.shape[0]} row tiles x width {cols.shape[1]}, {kept} kept ({kept * tile * tile:.4g} pairs), per row "
+          f"mean {mean:.2f} max {most}, {at_cap} rows at the width; card {card}", flush=True)
+    del x, y, rec_ms
     torch.cuda.empty_cache()
-    print(f"[4m] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if parity_rows is not None:
+        check_tile_kernels(state, f"N=M={n} first {parity_rows} row tiles, float64 twins", rows=parity_rows,
+                           twin_dtype=torch.float64)
+        print(f"[{tag}] truncate=None is not run at N=M={n}: its fine phase is exact, O(N^2) = "
+              f"{float(cols.shape[0] * tile) ** 2:.3g} pairs per step", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    print(f"[{tag}] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ------------------------------------------------------------------------------
+#  13. A point dimension above the compiled widths (the wide instantiations)
+# ------------------------------------------------------------------------------
+
+
+def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
+    """``SamplesLoss()`` at D = 32 (the auto route takes the online backend
+    for D > 3): its kernels launched, value and gradient against the same
+    solve through the float64 twins; kernels 1 and 4 timed at D = 32."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    kw = dict(p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    x = torch.from_numpy(sphere_cloud(n, 0, d)).to(dev)
+    y = torch.from_numpy(sphere_cloud(n, 1, d)).to(dev)
+    loss = SamplesLoss("sinkhorn", **kw)
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    v, g = value_and_grad(lambda x: loss(x, y), x)
+    torch.cuda.synchronize()
+    launches = {k: n_ for k, n_ in ck.launch_counts.items() if n_}
+    if not (launches.get("sinkhorn_step") and launches.get("gibbs_apply")):
+        fail(f"SamplesLoss at D={d} did not run the online kernels: {launches}")
+    w64 = torch.full((1, n), 1.0 / n, dtype=torch.float64, device=dev)
+    v_r, g_r = value_and_grad(
+        lambda x: sinkhorn_online(w64, x[None], w64, y.double()[None], impl="blocked", **kw)[0], x.double())
+    if g.shape != (n, d) or not (torch.isfinite(v) and torch.isfinite(g).all()):
+        fail(f"SamplesLoss at D={d}: non-finite or misshapen output")
+    rel_v, rel_g = rel_errs(v, g, v_r, g_r)
+    t_call = sync_ms(lambda: value_and_grad(lambda x: loss(x, y), x), 3)
+    print(f"[wide-d] SamplesLoss() N=M={n} D={d} (padded to {ck.padded_dim(d)}, the wide instantiation): launches "
+          f"{json.dumps(launches)}; loss {v.item():.9e} (float64 twins {v_r.item():.9e}), loss rel err {rel_v:.3e}, "
+          f"grad rel L2 err {rel_g:.3e} (tol {PATH_TOL:g}); loss+grad host clock {t_call:.3f} ms (3 reps); "
+          f"card {card}", flush=True)
+    if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
+        fail(f"SamplesLoss at D={d} misses its tolerance")
+    la = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
+    eps = BLUR**2
+    lse_ref = ck.lse_blocked(x, y, la, eps, 2)
+    V = torch.cat([torch.ones_like(y[:, :1]), y[:, :3]], 1)
+    for name, call, nb in (
+        ("lse", lambda: ck.lse(x, y, la, eps, 2), nbytes(x, y, la) + 4 * n),
+        ("gibbs_apply", lambda: ck.gibbs_apply(x, y, -lse_ref, la, V, eps, 2), nbytes(x, y, la, la, V) + 16 * n),
+    ):
+        b_ms, b_by = bound(n * n, nb, clock, flops=2 * d * n * n)
+        print(f"[time] {name:18s} N=M={n} D={d} p=2: kernel {event_ms(call, 5):.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}: {n * n:.4g} exp2, {2 * d * n * n:.4g} FP32 flops of the D FFMAs per pair) (CUDA events); "
+              f"card {card}", flush=True)
+    print(f"[wide-d] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main():
@@ -1052,18 +1292,30 @@ def main():
     from geomloss_tpu_torch.ops import cuda_kernels as ck
 
     # --- 2. Build, from the sources of this checkout -----------------------------
-    shutil.rmtree(ck.BUILD_DIR, ignore_errors=True)
+    # Into the checkout's build/smoke_kernels, named by GEOMLOSS_TPU_TORCH_BUILD_DIR
+    # (whatever the caller set it to) and emptied first.
+    os.environ[ck.BUILD_DIR_ENV] = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_kernels")
+    out_dir = ck.build_dir()
+    shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         for fut in [pool.submit(ck.build), pool.submit(cbs.build)]:
             fut.result()
-    print(f"[build] {', '.join(SOURCES.values())} -> {ck.BUILD_DIR} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    libs = [ck._LIB.path, cbs._LIB.path]
+    print(f"[build] {', '.join(SOURCES.values())} -> {', '.join(map(str, libs))} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if any(lib.parent != out_dir for lib in libs):
+        fail(f"the libraries were not built into {ck.BUILD_DIR_ENV}={out_dir}")
+    usage = ptxas_usage(cbs._LIB.path.with_suffix(".log").read_text())
+    for name in sorted(usage):
+        if name.startswith(("tiles_step_kernel", "tiles_apply_kernel")):
+            print(f"[build] ptxas {name}: {json.dumps(usage[name])}", flush=True)
 
     f32, f64 = torch.float32, torch.float64
     MAX_ERR.update({name: 0.0 for name in REPLACES})
 
     # --- 3. Repair: bounded, deterministic step kernels at 1e6 --------------------
+    t_sec = time.perf_counter()
     xr = torch.from_numpy(sphere_cloud(N_REPAIR, 2)).to(dev)
     yr = torch.from_numpy(sphere_cloud(N_REPAIR, 3)).to(dev)
     lr = torch.full((N_REPAIR,), -math.log(N_REPAIR), dtype=f32, device=dev)
@@ -1088,6 +1340,7 @@ def main():
         if not (extra < REPAIR_BYTES and same and finite):
             fail(f"{name} at N=M={N_REPAIR}: scratch over budget, nondeterministic or not finite")
     del xr, yr, lr, zr, first
+    t_sec = phase_took("repair", t_sec)
 
     # --- 4. Kernel parity on the card --------------------------------------------
     x0 = torch.from_numpy(sphere_cloud(N_POINTS, 0)).to(dev)
@@ -1119,52 +1372,6 @@ def main():
                     check_apply("gibbs_apply", f"{label} {kind_c} C={C}", ck.gibbs_apply(*args),
                                 ck.gibbs_apply_blocked(*args), scale)
 
-    def check_tile_kernels(state, label, rows=None):
-        """Kernels 5 and 6 against their twins on the tables of a fine
-        step, as the fine step and the extrapolation backward call them;
-        ``rows``: only the first ``rows`` row tiles keep their tiles."""
-        e, xs, ys, la, lb, f, g, cols, cnt, p, tile, _ = state["xy"]
-        _, _, _, f_aa, cols_xx, cnt_xx, _, _, _ = state["xx"]
-        if rows is not None:
-            cnt, cnt_xx = cnt.clone(), cnt_xx.clone()
-            cnt[rows:], cnt_xx[rows:] = 0, 0
-        label = (f"{label} p={p} tile={tile} ck={cols.shape[1]} "
-                 f"kept {int(cnt.sum())}/{cols.numel()} (xx {int(cnt_xx.sum())})")
-        phi, psi, phx = la + f / e, lb + g / e, la + f_aa / e
-        for tri, args in (
-            (False, (xs, ys, phi, psi, e, cols, cnt, p, tile, False)),
-            (True, (xs, xs, phx, phx, e, cols_xx, cnt_xx, p, tile, True)),
-        ):
-            got, ref = cbs.absorbed_sum_tiles(*args), cbs.absorbed_sum_tiles_blocked(*args)
-            same = all(torch.equal(a, b) for a, b in zip(got, cbs.absorbed_sum_tiles(*args)))
-            if not same:
-                fail(f"absorbed_sum_tiles {label}: two calls differ")
-            # As the fine step reads them: S = f + eps (loga - log sums).
-            if tri:
-                check_val("absorbed_sum_tiles", f"{label} triangle",
-                          ck._absorbed_update(f_aa, la, e, got[0] + got[1]),
-                          ck._absorbed_update(f_aa, la, e, ref[0] + ref[1]))
-            else:
-                for d, (a, b, pot, lw) in enumerate(zip(got, ref, (f, g), (la, lb))):
-                    check_val("absorbed_sum_tiles", f"{label} {'xy' if d == 0 else 'yx'}",
-                              ck._absorbed_update(pot, lw, e, a), ck._absorbed_update(pot, lw, e, b))
-        # The dual apply of the extrapolation backward: raw weights, C = 4.
-        kind_t = "gibbs" if p == 2 else "gibbs_grad"
-        Vy = torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
-        Vx = torch.cat([torch.ones_like(xs[:, :1]), xs], 1)
-        for tri, args in (
-            (False, (xs, ys, phi, psi, Vy, Vx, e, cols, cnt, p, kind_t, tile, False)),
-            (True, (xs, xs, phx, phx, Vx, Vx, e, cols_xx, cnt_xx, p, kind_t, tile, True)),
-        ):
-            got, ref = cbs.gibbs_apply_tiles(*args), cbs.gibbs_apply_tiles_blocked(*args)
-            same = all(torch.equal(a, b) for a, b in zip(got, cbs.gibbs_apply_tiles(*args)))
-            if not same:
-                fail(f"gibbs_apply_tiles {label}: two calls differ")
-            scales = cbs.gibbs_apply_tiles_blocked(*args[:4], args[4].abs(), args[5].abs(), *args[6:])
-            for d in range(2):
-                check_apply("gibbs_apply_tiles", f"{label}{' triangle' if tri else ''} "
-                            f"{'rows' if d == 0 else 'cols'} C=4", got[d], ref[d], scales[d].abs().max().item())
-
     # The block-sparse kernels on the tables of the multiscale path at 1e5.
     kw = dict(blur=BLUR, diameter=DIAMETER, scaling=SCALING)
     w = torch.full((N_POINTS,), 1.0 / N_POINTS, dtype=f32, device=dev)
@@ -1172,6 +1379,8 @@ def main():
     for p in (1, 2):
         fine[p] = capture_fine_state(ms, lambda: ms.sinkhorn_multiscale(w, x0, w, y0, p=p, **kw))
         check_tile_kernels(fine[p], f"N=M={N_POINTS}")
+
+    t_sec = phase_took("parity", t_sec)
 
     # --- 5. Online path ----------------------------------------------------------
     loss = SamplesLoss("sinkhorn", p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING, backend="online")
@@ -1231,6 +1440,8 @@ def main():
     if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
         fail("small online problem misses the dense float64 reference")
 
+    t_sec = phase_took("online", t_sec)
+
     # --- 6. Multiscale path: bench.py's call, backend "auto" ---------------------
     auto = SamplesLoss("sinkhorn", p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
     ck.reset_launch_counts()
@@ -1254,6 +1465,8 @@ def main():
         rel_v, rel_g = rel_errs(v_m, g_m, v_ref, g_ref)
         print(f"[multiscale] for information, against {label}: loss rel err {rel_v:.3e}, "
               f"grad rel L2 err {rel_g:.3e}", flush=True)
+
+    t_sec = phase_took("multiscale", t_sec)
 
     # --- 7. Timing -----------------------------------------------------------------
     reps = 5
@@ -1339,6 +1552,8 @@ def main():
                  else f"first fine step's table, kept {int(cnt.sum())} tile pairs of {tile}")
         kernel_entry(name, where, kern, twin, 3, all_launches[name])
     del fine, cases, t_args, a_args, lse_ref, V1, xs, ys, cols, cnt, f, g, la_f, lb_f, Vx, Vy
+
+    phase_took("time", t_sec)
 
     # --- 8. Mid path: bench.py's call at N = M = 2e6, backend "auto" -------------
     t_mid = time.perf_counter()
@@ -1485,9 +1700,12 @@ def main():
     torch.cuda.empty_cache()
 
     # --- 10. MMD losses, 12. the public sparse and walk ops, 11. the auto route at 4e6 --
+    wide_dim_phase(dev, card, clock)
     kernels += mmd_phase(dev, card, clock)
     kernels += sparse_phase(dev, card, clock)
-    auto_4m_phase(dev, card)
+    auto_route_phase(dev, card, N_4M, "4m", reps=2)
+    auto_route_phase(dev, card, N_TILE2048, "tile2048", reps=1, blur=TILE2048_BLUR, tile=2048,
+                     parity_rows=TILE2048_PARITY_TILES)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -16,8 +16,12 @@
 // live count.
 //
 // What bounds these kernels on an H100: the exponential, as for the online
-// kernels (one exp2 per kept pair, 16 MUFU results per clock per SM); a
-// kept pair reads nothing but the two tiles' coordinates and biases.
+// kernels (one exp2 per kept pair, 16 MUFU results per clock per SM), and,
+// once the few FFMAs of a pair come near it, instruction issue; a kept pair
+// reads nothing but the two tiles' coordinates and biases. Kernels 5 and 6
+// run register-tiled pair blocks (pair_common.cuh) to stay near that bound;
+// kernels 7, 8 and 12 keep one thread per row and, above D = 8, a wide
+// instantiation in chunks of 8 coordinates.
 //
 // Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7, 8
 // and 12 read a (cols, cnt) table directly, with row tiles of block_n
@@ -45,79 +49,48 @@
 
 namespace {
 
+// Coordinates per chunk of the wide instantiation (D above 8).
+constexpr int kWideChunk = 8;
+
 // -----------------------------------------------------------------------------
 // 5. Absorbed sums over the kept tile pairs. Replaces
 //    geomloss_tpu/ops/block_sparse.py::_absorbed_sum_walk_banded
 //    (_pair_walk_banded_kernel): r_i = sum_j W_ij and c_j = sum_i W_ij over
 //    the kept pairs, W_ij = exp2(phi_i + psi_j + arg_ij), no max pass.
-//    Bound: one exp2 per kept pair gives both directions. Design: one block
-//    per (live slot, 256-row slice of the tile), column tiles staged 256
-//    columns at a time, column sums by the transposed warp reduction.
+//    Bound: one exp2 per kept pair gives both directions (MUFU: 16 per
+//    clock per SM); at p = 2, D = 3 a pair also takes D + 1 FFMAs and two
+//    adds, about 8 issue slots, which the MUFU rate just balances.
+//    Design: one block per (live slot, 256-row slice of the tile), the
+//    register-tiled pair blocks of pair_common.cuh, kStepCols columns per
+//    lane and pass: per pair one LDS.128 shared by 8 rows (per kv float4
+//    of the packed points), D + 1 FFMAs, one MUFU.EX2 and the two adds.
+//    Points of up to kStepStaged float4s (D <= 8 at p = 2, D <= 12 at
+//    p = 1) are staged, the lane's rows in registers and the columns in
+//    shared memory; wider points (KV = 0) are read from global memory, a
+//    float4 of each at a time, the scores built up in registers. Row sums
+//    stay in 8 registers per lane over the whole column tile and are added
+//    over the 8 warps once at the end;
+//    column sums stay in kStepCols registers over a lane's 8 rows and go to
+//    shared memory, where each 256-column stage adds its 32 lanes once, in
+//    a fixed order. No shuffles, no atomics: deterministic.
 // -----------------------------------------------------------------------------
-template <int D, int P>
+constexpr int kStepCols = 8;
+constexpr int kStepStaged = 3;        // the widest staged points, in float4s (46 KB of shared memory)
+constexpr int kRedPitch = kTile + 4;  // keeps a lane's float4 stores off each other's banks
+
+template <int P, int KV>
 __global__ void __launch_bounds__(kThreads)
-tiles_step_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ phi, const float* __restrict__ psi,
+tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+                  const float* __restrict__ rb, const float* __restrict__ cb,
                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
                   float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
-                  int tri, float c2) {
-  __shared__ Tile<D> t;
-  __shared__ float wsum[kWarps][kTile];
-  const int64_t q = blockIdx.x;
-  const int h = blockIdx.y;
-  const int I = slot_i[q];
-  const int J = slot_j[q];
-  if (J < 0) return;  // a dead slot: left out of the sums
-  const int rows = min(kThreads, tile - h * kThreads);
-  const bool valid = threadIdx.x < rows;
-  float* rp = rowpart + q * tile + h * kThreads;
-  float* cp = colpart + (q * gridDim.y + h) * tile;
-  const bool cols = !(tri && I == J);
-  const Row<D> r = load_row<D>(x, phi, (int64_t)I * tile + h * kThreads + threadIdx.x,
-                               valid, P == 2 ? c2 : 1.f);
-  float rsum = 0.f;
-  for (int c0 = 0; c0 < tile; c0 += kTile) {
-    const int n = min(kTile, tile - c0);
-    __syncthreads();
-    load_tile<D>(t, y, psi, (int64_t)J * tile + c0, n);
-    __syncthreads();
-    if (cols) {
-      rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
-      __syncthreads();
-      if (threadIdx.x < n) cp[c0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
-    } else {
-      rsum += absorbed_tile<D, P, false>(r, t, n, valid, c2, wsum);
-      if (threadIdx.x < n) cp[c0 + threadIdx.x] = 0.f;
-    }
-  }
-  if (valid) rp[threadIdx.x] = rsum;
-}
-
-// -----------------------------------------------------------------------------
-// 6. Dual apply over the kept tile pairs. Replaces
-//    block_sparse.py::gibbs_apply_walk_banded (_apply_walk_banded_kernel):
-//    R_row[i] = sum_j w_ij Vy[j] and R_col[j] = sum_i w_ij Vx[i] in one
-//    visit of each kept pair, four channels, raw absorbed weights of
-//    apply_weight's modes 0-2 (pair_common.cuh).
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt and a division),
-//    then 4 FFMAs for the rows and 4 x 31 shuffles per 32 x 32 pairs for
-//    the columns. Design: as kernel 5, with Vy's column tile staged beside
-//    y's and each row's Vx in registers; the column direction runs one
-//    transposed warp reduction per channel. Row partials go to
-//    rowpart[q, i, c] (4 channels interleaved), column partials to
-//    colpart[q, h, c, j].
-// -----------------------------------------------------------------------------
-template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads)
-tiles_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ phi, const float* __restrict__ psi,
-                   const float* __restrict__ vyt, const float* __restrict__ vx,
-                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
-                   float* __restrict__ rowpart, float* __restrict__ colpart, int M,
-                   int tile, int tri, float c2) {
-  __shared__ Tile<D> t;
-  __shared__ float v[4][kTile];
-  __shared__ float wsum[4][kWarps][kTile];
+                  int tri, int kv, float c2) {
+  constexpr int R = kPairRows, C = kStepCols;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ float4 ys[KS][WIDE ? 1 : kTile];
+  __shared__ float ycb[kTile];
+  __shared__ __align__(16) float red[32][kRedPitch];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t q = blockIdx.x;
@@ -126,61 +99,302 @@ tiles_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int J = slot_j[q];
   if (J < 0) return;  // a dead slot: left out of the sums
   const int rows = min(kThreads, tile - h * kThreads);
-  const bool valid = threadIdx.x < rows;
-  float* rp = rowpart + (q * tile + h * kThreads + threadIdx.x) * 4;
-  float* cp = colpart + (q * gridDim.y + h) * 4 * tile;
+  const int64_t i0 = (int64_t)I * tile + h * kThreads;
+  float* rp = rowpart + q * tile + h * kThreads;
+  float* cp = colpart + (q * gridDim.y + h) * tile;
   const bool cols = !(tri && I == J);
-  const int64_t i = (int64_t)I * tile + h * kThreads + threadIdx.x;
-  const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
-  float u[4];
+  // The lane's rows: an invalid row gets bias -inf, so its weights are 0.
+  float4 xr[R][KS];
+  float br[R], racc[R];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) u[c] = valid ? vx[i * 4 + c] : 0.f;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = 0; r < R; ++r) {
+    const int il = lane + 32 * r;
+    const bool ok = il < rows;
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      xr[r][k] = (!WIDE && ok) ? xv[(i0 + il) * KS + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (P == 2) xr[r][KS - 1].w = 1.f;  // the packed row's last slot: the column bias's factor
+    br[r] = ok ? rb[i0 + il] : -INFINITY;
+    racc[r] = 0.f;
+  }
   for (int c0 = 0; c0 < tile; c0 += kTile) {
     const int n = min(kTile, tile - c0);
     const int64_t j0 = (int64_t)J * tile + c0;
-    __syncthreads();
-    load_tile<D>(t, y, psi, j0, n);
+    __syncthreads();  // the last stage's reads of ys, ycb and red are done
     for (int k = threadIdx.x; k < n; k += kThreads) {
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) v[c][k] = vyt[(int64_t)c * M + j0 + k];
+        for (int kk = 0; kk < KS; ++kk) ys[kk][k] = yv[(j0 + k) * KS + kk];
+      }
+      if constexpr (P == 1) ycb[k] = cb[j0 + k];
     }
     __syncthreads();
-    for (int g0 = 0; g0 < n; g0 += 32) {
-      float w[32];
+    for (int b = 0; b < n; b += kWarps * C) {
+      const int cb0 = b + warp * C;
+      float cacc[C];
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {
-        const int col = g0 + k;
-        w[k] = (valid && col < n) ? apply_weight<D, MODE>(r, t, col, c2) : 0.f;
+        for (int c = 0; c < C; ++c) {
+          float4 y[KS];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] = fmaf(w[k], v[c][col < n ? col : 0], acc[c]);
+          for (int kk = 0; kk < KS; ++kk) y[kk] = ys[kk][cb0 + c];
+          const float bc = P == 1 ? ycb[cb0 + c] : 0.f;
+          float cs = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float sc = P == 2 ? br[r] : 0.f;
+#pragma unroll
+            for (int kk = 0; kk < KS; ++kk) sc = packed_acc<P>(xr[r][kk], y[kk], sc);
+            const float w = packed_weight<P, -1>(sc, br[r] + bc, c2);
+            racc[r] += w;
+            cs += w;
+          }
+          cacc[c] = cs;
+        }
+      } else {
+        float s[R][C];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
+        }
+        for (int k = 0; k < kv; ++k) {
+          float4 xk[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int il = lane + 32 * r;
+            xk[r] = il < rows ? xv[(i0 + il) * kv + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float4 y = yv[(j0 + cb0 + c) * kv + k];
+#pragma unroll
+            for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float bc = P == 1 ? ycb[cb0 + c] : 0.f;
+          float cs = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float w = packed_weight<P, -1>(s[r][c], br[r] + bc, c2);
+            racc[r] += w;
+            cs += w;
+          }
+          cacc[c] = cs;
+        }
       }
       if (cols) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float wc[32];
-#pragma unroll
-          for (int k = 0; k < 32; ++k) wc[k] = w[k] * u[c];
-          warp_transpose_sum(wc, lane);
-          wsum[c][warp][g0 + lane] = wc[0];
-        }
+        for (int c = 0; c < C; c += 4)
+          *reinterpret_cast<float4*>(&red[lane][cb0 + c]) =
+              make_float4(cacc[c], cacc[c + 1], cacc[c + 2], cacc[c + 3]);
       }
     }
     if (cols) {
       __syncthreads();
       if (threadIdx.x < n) {
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          cp[c * tile + c0 + threadIdx.x] = sum_warps(wsum[c], threadIdx.x);
+        for (int l = 0; l < 32; ++l) sum[l & 3] += red[l][threadIdx.x];
+        cp[c0 + threadIdx.x] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
       }
     } else if (threadIdx.x < n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cp[c * tile + c0 + threadIdx.x] = 0.f;
+      cp[c0 + threadIdx.x] = 0.f;
     }
   }
-  if (valid) {
+  // Row sums: the 8 warps' partials of each row, added in warp order.
+  __syncthreads();
+  float* rr = &red[0][0];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) rp[c] = acc[c];
+  for (int r = 0; r < R; ++r) rr[warp * kThreads + lane + 32 * r] = racc[r];
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += rr[w * kThreads + threadIdx.x];
+    rp[threadIdx.x] = sum;
+  }
+}
+
+// -----------------------------------------------------------------------------
+// 6. Dual apply over the kept tile pairs. Replaces
+//    block_sparse.py::gibbs_apply_walk_banded (_apply_walk_banded_kernel):
+//    R_row[i] = sum_j w_ij Vy[j] and R_col[j] = sum_i w_ij Vx[i] in one
+//    visit of each kept pair, four channels, raw absorbed weights of
+//    apply_weight's modes 0-2 (pair_common.cuh).
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
+//    a division); at p = 2, D = 3 a pair takes D + 1 FFMAs, the MUFU.EX2
+//    and 8 FFMAs for the two directions: about 13 issue slots, so issue,
+//    not the MUFU rate, bounds it.
+//    Design: kernel 5's register-tiled pair blocks with kApplyCols columns
+//    per lane and pass; a lane keeps its 8 rows' Vx and their four row
+//    accumulators in registers, and each column's Vy (a float4) is staged
+//    beside its coordinates. Column partials (kApplyCols x 4 per lane) go
+//    to shared memory once per pass, double-buffered, and 128 threads add
+//    the 32 lanes of each (column, channel) in a fixed order. Row partials
+//    go to rowpart[q, i, c] (4 channels interleaved), column partials to
+//    colpart[q, h, c, j].
+//    No tensor cores: the contractions could go to mma.sync, but TF32
+//    rounding of V = [1, y] would undo the ones-channel cancellation the
+//    backward relies on, unless each operand were split into a high and a
+//    low part.
+// -----------------------------------------------------------------------------
+constexpr int kApplyCols = 4;
+constexpr int kApplyPass = kWarps * kApplyCols;  // columns per pass
+constexpr int kApplyBlocksPerSM = 2;             // the register cap of kv = 1
+
+template <int MODE, bool WIDE>
+__global__ void __launch_bounds__(kThreads, WIDE ? 1 : kApplyBlocksPerSM)
+tiles_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+                   const float* __restrict__ rb, const float* __restrict__ cb,
+                   const float4* __restrict__ vy, const float4* __restrict__ vx,
+                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
+                   float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
+                   int tri, int kv, float c2) {
+  constexpr int P = MODE == 0 ? 2 : 1;
+  constexpr int R = kPairRows, C = kApplyCols;
+  __shared__ float4 ys[WIDE ? 1 : kTile];
+  __shared__ float ycb[kTile];
+  __shared__ float4 vys[kTile];
+  __shared__ float4 red[2][32][kApplyPass + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t q = blockIdx.x;
+  const int h = blockIdx.y;
+  const int I = slot_i[q];
+  const int J = slot_j[q];
+  if (J < 0) return;  // a dead slot: left out of the sums
+  const int rows = min(kThreads, tile - h * kThreads);
+  const int64_t i0 = (int64_t)I * tile + h * kThreads;
+  float4* rp = reinterpret_cast<float4*>(rowpart) + q * tile + h * kThreads;
+  float* cp = colpart + (q * gridDim.y + h) * 4 * tile;
+  const bool cols = !(tri && I == J);
+  // Column reduction: lane l stores its pass partials at red[buf][l][warp C
+  // ..]; thread t then adds column o / 4, channel o % 4 (o = t / 2) over
+  // the lanes of its half (t % 2).
+  static_assert(4 * kApplyPass == kThreads / 2, "one (column, channel) per thread pair");
+  constexpr int kRedPitch4 = 4 * (kApplyPass + 1);  // floats per lane row
+  constexpr int kRedBuf = 32 * (kApplyPass + 1);    // float4s per buffer
+  const int half = threadIdx.x & 1, o = threadIdx.x >> 1;
+  float4* red_w = &red[0][lane][warp * C];
+  const float* red_r = &red[0][half * 4][o >> 2].x + (o & 3);
+  float* cpo = cp + (o & 3) * tile + (o >> 2);
+  float4 xr[R], ux[R], racc[R];
+  float br[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int il = lane + 32 * r;
+    const bool ok = il < rows;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    xr[r] = (!WIDE && ok) ? xv[i0 + il] : zero;
+    if constexpr (P == 2) xr[r].w = 1.f;  // the packed row's last slot: the column bias's factor
+    ux[r] = ok ? vx[i0 + il] : zero;
+    br[r] = ok ? rb[i0 + il] : -INFINITY;
+    racc[r] = zero;
+  }
+  int buf = 0;
+  for (int c0 = 0; c0 < tile; c0 += kTile) {
+    const int n = min(kTile, tile - c0);
+    const int64_t j0 = (int64_t)J * tile + c0;
+    __syncthreads();  // the last stage's reads of ys, ycb and vys are done
+    for (int k = threadIdx.x; k < n; k += kThreads) {
+      if constexpr (!WIDE) ys[k] = yv[j0 + k];
+      if constexpr (P == 1) ycb[k] = cb[j0 + k];
+      vys[k] = vy[j0 + k];
+    }
+    __syncthreads();
+    for (int b = 0; b < n; b += kApplyPass) {
+      const int cb0 = b + warp * C;
+      float4 cacc[C];
+      float s[WIDE ? R : 1][C];
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
+        }
+        for (int k = 0; k < kv; ++k) {
+          float4 xk[R];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int il = lane + 32 * r;
+            xk[r] = il < rows ? xv[(i0 + il) * kv + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float4 y = yv[(j0 + cb0 + c) * kv + k];
+#pragma unroll
+            for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float4 v = vys[cb0 + c];
+        const float bc = P == 1 ? ycb[cb0 + c] : 0.f;
+        float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+        if constexpr (!WIDE) y = ys[cb0 + c];
+        float4 ca = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float sc;
+          if constexpr (WIDE) sc = s[r][c];
+          else sc = packed_acc<P>(xr[r], y, P == 2 ? br[r] : 0.f);
+          const float w = packed_weight<P, MODE>(sc, br[r] + bc, c2);
+          racc[r].x = fmaf(w, v.x, racc[r].x);
+          racc[r].y = fmaf(w, v.y, racc[r].y);
+          racc[r].z = fmaf(w, v.z, racc[r].z);
+          racc[r].w = fmaf(w, v.w, racc[r].w);
+          ca.x = fmaf(w, ux[r].x, ca.x);
+          ca.y = fmaf(w, ux[r].y, ca.y);
+          ca.z = fmaf(w, ux[r].z, ca.z);
+          ca.w = fmaf(w, ux[r].w, ca.w);
+        }
+        cacc[c] = ca;
+      }
+      if (cols) {
+#pragma unroll
+        float4* w = red_w + buf * kRedBuf;
+#pragma unroll
+        for (int c = 0; c < C; ++c) w[c] = cacc[c];
+        __syncthreads();
+        // Threads 2 o and 2 o + 1 add column o / 4, channel o % 4 of the
+        // pass over 16 lanes each (lanes 4 rows apart, so the two halves
+        // read other banks), then combine; the next pass writes the other
+        // buffer.
+        const float* rd = red_r + buf * 4 * kRedBuf;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < 16; ++k) sum[k & 3] += rd[((k >> 2) * 8 + (k & 3)) * kRedPitch4];
+        const float part = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+        const float other = __shfl_xor_sync(kFullMask, part, 1);
+        if (half == 0) cpo[c0 + b] = part + other;
+        buf ^= 1;
+      } else if (half == 0) {
+        cpo[c0 + b] = 0.f;
+      }
+    }
+  }
+  // Row sums: the 8 warps' partials of each row, added in warp order.
+  static_assert(sizeof(red) >= sizeof(float4) * kWarps * kThreads, "row buffer");
+  __syncthreads();
+  float4* rr = &red[0][0][0];
+#pragma unroll
+  for (int r = 0; r < R; ++r) rr[warp * kThreads + lane + 32 * r] = racc[r];
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float4 v = rr[w * kThreads + threadIdx.x];
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    rp[threadIdx.x] = sum;
   }
 }
 
@@ -207,25 +421,40 @@ __global__ void __launch_bounds__(kThreads)
 tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
                  const float* __restrict__ h2, const int* __restrict__ cols,
                  const int* __restrict__ cnt, float* __restrict__ out, int ck,
-                 int block_n, int block_m, float c2) {
-  __shared__ Tile<D> t;
+                 int block_n, int block_m, int dw, float c2) {
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
   const bool valid = threadIdx.x < rows;
   const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
   const int* row_cols = cols + (int64_t)I * ck;
   const int n_kept = min(cnt[I], ck);
   float m = -INFINITY;
   float s = 0.f;
-  for (int k = 0; k < n_kept; ++k) {
-    const int64_t j0 = (int64_t)row_cols[k] * block_m;
-    for (int c0 = 0; c0 < block_m; c0 += kTile) {
-      const int n = min(kTile, block_m - c0);
-      __syncthreads();
-      load_tile<D>(t, y, h2, j0 + c0, n);
-      __syncthreads();
-      lse_tile<D, P>(r, t, n, c2, m, s);
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j0 = (int64_t)row_cols[k] * block_m;
+      for (int g = 0; g < block_m; g += kGroup) {
+        const int n = min(kGroup, block_m - g);
+        float a[kGroup];
+        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, h2, j0 + g, n, dw, st, a);
+#pragma unroll
+        for (int kk = 0; kk < kGroup; ++kk) a[kk] = kk < n ? wide_arg<P>(a[kk], st.bias[kk], c2) : -INFINITY;
+        lse_group(a, m, s);
+      }
+    }
+  } else {
+    __shared__ Tile<D> t;
+    const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j0 = (int64_t)row_cols[k] * block_m;
+      for (int c0 = 0; c0 < block_m; c0 += kTile) {
+        const int n = min(kTile, block_m - c0);
+        __syncthreads();
+        load_tile<D>(t, y, h2, j0 + c0, n);
+        __syncthreads();
+        lse_tile<D, P>(r, t, n, c2, m, s);
+      }
     }
   }
   if (valid) out[i] = m + log2f(s);
@@ -259,39 +488,64 @@ sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
                     const float* __restrict__ phi, const float* __restrict__ psi,
                     const float* __restrict__ vt, const int* __restrict__ cols,
                     const int* __restrict__ row_start, const int* __restrict__ cnt,
-                    float* __restrict__ out, int M, int block_n, int block_m, float c2) {
-  __shared__ Tile<D> t;
-  __shared__ float v[4][kTile];
+                    float* __restrict__ out, int M, int block_n, int block_m, int dw, float c2) {
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
   const bool valid = threadIdx.x < rows;
   const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
   const int* row_cols = cols + row_start[I];
   const int n_kept = cnt[I];
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < n_kept; ++k) {
-    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-    for (int c0 = 0; c0 < block_m; c0 += kTile) {
-      const int n = min(kTile, block_m - c0);
-      const int64_t j0 = j_tile + c0;
-      __syncthreads();
-      load_tile<D>(t, y, psi, j0, n);
-      for (int kk = threadIdx.x; kk < n; kk += kThreads) {
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    const float bi = valid ? phi[i] : 0.f;
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+      for (int g = 0; g < block_m; g += kGroup) {
+        const int n = min(kGroup, block_m - g);
+        const int64_t j0 = j_tile + g;
+        float a[kGroup];
+        wide_scores<kWideChunk, MODE != 0>(x, i, valid, MODE == 0 ? c2 : 1.f, y, psi, j0, n, dw, st, a);
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int c = 0; c < 4; ++c) v[c][kk] = vt[(int64_t)c * M + j0 + kk];
+        for (int kk = 0; kk < kGroup; ++kk) {
+          if (kk < n) {
+            const float w = wide_weight<MODE>(a[kk], bi + st.bias[kk], c2);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[c] = fmaf(w, vt[(int64_t)c * M + j0 + kk], part[c]);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] += part[c];
       }
-      __syncthreads();
-      // One partial sum per staged tile, added once: the rounding error
-      // grows with the tiles of a row, not its kept points.
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kk = 0; kk < n; ++kk) {
-        const float w = apply_weight<D, MODE>(r, t, kk, c2);
+    }
+  } else {
+    __shared__ Tile<D> t;
+    __shared__ float v[4][kTile];
+    const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+      for (int c0 = 0; c0 < block_m; c0 += kTile) {
+        const int n = min(kTile, block_m - c0);
+        const int64_t j0 = j_tile + c0;
+        __syncthreads();
+        load_tile<D>(t, y, psi, j0, n);
+        for (int kk = threadIdx.x; kk < n; kk += kThreads) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][kk], part[c]);
+          for (int c = 0; c < 4; ++c) v[c][kk] = vt[(int64_t)c * M + j0 + kk];
+        }
+        __syncthreads();
+        // One partial sum per staged tile, added once: the rounding error
+        // grows with the tiles of a row, not its kept points.
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int kk = 0; kk < n; ++kk) {
+          const float w = apply_weight<D, MODE>(r, t, kk, c2);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][kk], part[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] += part[c];
       }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += part[c];
     }
   }
   if (valid) {
@@ -322,24 +576,42 @@ sparse_sum_kernel(const float* __restrict__ x, const float* __restrict__ y,
                   const float* __restrict__ phi, const float* __restrict__ psi,
                   const int* __restrict__ cols, const int* __restrict__ row_start,
                   const int* __restrict__ cnt, float* __restrict__ out, int block_n,
-                  int block_m, float c2) {
-  __shared__ Tile<D> t;
+                  int block_m, int dw, float c2) {
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
   const bool valid = threadIdx.x < rows;
   const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
   const int* row_cols = cols + row_start[I];
   const int n_kept = cnt[I];
   float acc = 0.f;
-  for (int k = 0; k < n_kept; ++k) {
-    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-    for (int c0 = 0; c0 < block_m; c0 += kTile) {
-      const int n = min(kTile, block_m - c0);
-      __syncthreads();
-      load_tile<D>(t, y, psi, j_tile + c0, n);
-      __syncthreads();
-      acc += absorbed_tile<D, P, false>(r, t, n, valid, c2, nullptr);
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    const float bi = valid ? phi[i] : 0.f;
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+      for (int g = 0; g < block_m; g += kGroup) {
+        const int n = min(kGroup, block_m - g);
+        float a[kGroup];
+        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, psi, j_tile + g, n, dw, st, a);
+        float part = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kGroup; ++kk)
+          part += (valid && kk < n) ? exp2f(wide_arg<P>(a[kk], bi + st.bias[kk], c2)) : 0.f;
+        acc += part;
+      }
+    }
+  } else {
+    __shared__ Tile<D> t;
+    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
+    for (int k = 0; k < n_kept; ++k) {
+      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+      for (int c0 = 0; c0 < block_m; c0 += kTile) {
+        const int n = min(kTile, block_m - c0);
+        __syncthreads();
+        load_tile<D>(t, y, psi, j_tile + c0, n);
+        __syncthreads();
+        acc += absorbed_tile<D, P, false>(r, t, n, valid, c2, nullptr);
+      }
     }
   }
   if (valid) out[i] = acc;
@@ -374,36 +646,59 @@ segment_sum_kernel(const float* __restrict__ parts, const int* __restrict__ orde
 extern "C" {
 
 // nslots slots (slot_i, slot_j: their row and column tiles, slot_j = -1
-// for a dead slot), nsub = ceil(tile / 256) row slices per slot.
-int gl_absorbed_sum_tiles(const float* x, const float* y, const float* phi,
-                          const float* psi, const int* slot_i, const int* slot_j,
-                          float* rowpart, float* colpart, int nslots, int tile, int D,
+// for a dead slot), nsub = ceil(tile / 256) row slices per slot; xv and yv
+// the packed points (kv float4 each, pair_common.cuh), rb and cb the row
+// and column biases (cb read for p = 1 only).
+int gl_absorbed_sum_tiles(const float* xv, const float* yv, const float* rb,
+                          const float* cb, const int* slot_i, const int* slot_j,
+                          float* rowpart, float* colpart, int nslots, int tile, int kv,
                           int p, int tri, float c2, void* stream) {
   if (nslots == 0) return (int)cudaSuccess;
+  if ((p != 1 && p != 2) || kv < 1 || tile % 128) return (int)cudaErrorInvalidValue;
   const dim3 grid(nslots, cdiv(tile, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  GL_DISPATCH_D8(D,
-    if (p == 2) tiles_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_i, slot_j, rowpart, colpart, tile, tri, c2);
-    else tiles_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, slot_i, slot_j, rowpart, colpart, tile, tri, c2))
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_STEP(P, KV) \
+  tiles_step_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, slot_i, slot_j, rowpart, colpart, tile, tri, kv, c2)
+#define GL_STEP_KV(P)                                  \
+  switch (kv) {                                        \
+    case 1: GL_STEP(P, 1); break;                      \
+    case 2: GL_STEP(P, 2); break;                      \
+    case kStepStaged: GL_STEP(P, kStepStaged); break;  \
+    default: GL_STEP(P, 0); break;                     \
+  }
+  if (p == 2) GL_STEP_KV(2)
+  else GL_STEP_KV(1)
+#undef GL_STEP_KV
+#undef GL_STEP
   return (int)cudaGetLastError();
 }
 
-int gl_gibbs_apply_tiles(const float* x, const float* y, const float* phi,
-                         const float* psi, const float* vyt, const float* vx,
+// vy (M, 4) and vx (N, 4): one channel group of Vy and Vx.
+int gl_gibbs_apply_tiles(const float* xv, const float* yv, const float* rb,
+                         const float* cb, const float* vy, const float* vx,
                          const int* slot_i, const int* slot_j, float* rowpart,
-                         float* colpart, int M, int nslots, int tile, int D, int mode,
+                         float* colpart, int nslots, int tile, int kv, int mode,
                          int tri, float c2, void* stream) {
   if (nslots == 0) return (int)cudaSuccess;
+  if (mode < 0 || mode > 2 || kv < 1 || tile % 128) return (int)cudaErrorInvalidValue;
   const dim3 grid(nslots, cdiv(tile, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GL_DISPATCH_D8(D,
-    switch (mode) {
-      case 0: tiles_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
-      case 1: tiles_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
-      case 2: tiles_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M, tile, tri, c2); break;
-      default: return (int)cudaErrorInvalidValue;
-    })
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+  const float4* vy4 = reinterpret_cast<const float4*>(vy);
+  const float4* vx4 = reinterpret_cast<const float4*>(vx);
+#define GL_APPLY(MODE, WIDE)                                                                  \
+  tiles_apply_kernel<MODE, WIDE><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, vy4, vx4, slot_i, \
+                                                           slot_j, rowpart, colpart, tile, tri, kv, c2)
+  const bool wide = kv > 1;
+  switch (mode) {
+    case 0: if (wide) GL_APPLY(0, true); else GL_APPLY(0, false); break;
+    case 1: if (wide) GL_APPLY(1, true); else GL_APPLY(1, false); break;
+    default: if (wide) GL_APPLY(2, true); else GL_APPLY(2, false); break;
+  }
+#undef GL_APPLY
   return (int)cudaGetLastError();
 }
 
@@ -415,9 +710,10 @@ int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* col
   const dim3 grid(n_rows, cdiv(block_n, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  const int dw = D;
   GL_DISPATCH_D8(D,
-    if (p == 2) tiles_lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2);
-    else tiles_lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, c2))
+    if (p == 2) tiles_lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, dw, c2);
+    else tiles_lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, dw, c2))
   return (int)cudaGetLastError();
 }
 
@@ -431,13 +727,14 @@ int gl_gibbs_apply_sparse(const float* x, const float* y, const float* phi,
   if (n_rows == 0) return (int)cudaSuccess;
   const dim3 grid(n_rows, cdiv(block_n, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dw = D;
   GL_DISPATCH_D8(D,
     switch (mode) {
-      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
-      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
-      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
-      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
-      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, c2); break;
+      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
+      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
+      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
+      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
+      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
       default: return (int)cudaErrorInvalidValue;
     })
   return (int)cudaGetLastError();
@@ -452,9 +749,10 @@ int gl_absorbed_sum_sparse(const float* x, const float* y, const float* phi,
   const dim3 grid(n_rows, cdiv(block_n, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  const int dw = D;
   GL_DISPATCH_D8(D,
-    if (p == 2) sparse_sum_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, c2);
-    else sparse_sum_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, c2))
+    if (p == 2) sparse_sum_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, dw, c2);
+    else sparse_sum_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, dw, c2))
   return (int)cudaGetLastError();
 }
 

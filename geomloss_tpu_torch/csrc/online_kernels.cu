@@ -21,6 +21,9 @@
 
 namespace {
 
+// Coordinates per chunk of the wide instantiation (D above 16).
+constexpr int kWideChunk = 16;
+
 // -----------------------------------------------------------------------------
 // 1. Streaming LSE. Replaces geomloss_tpu/ops/pallas_kernels.py::lse_pallas
 //    (_lse_kernel). out_i = log2 sum_j exp2(h2_j + arg_ij) in base-2 units;
@@ -35,19 +38,31 @@ template <int D, int P>
 __global__ void __launch_bounds__(kThreads)
 lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
            const float* __restrict__ h2, float* __restrict__ out, int N, int M,
-           float c2) {
-  __shared__ Tile<D> t;
+           int dw, float c2) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool valid = i < N;
-  const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
   float m = -INFINITY;
   float s = 0.f;
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    const int n = min(kTile, M - j0);
-    __syncthreads();
-    load_tile<D>(t, y, h2, j0, n);
-    __syncthreads();
-    lse_tile<D, P>(r, t, n, c2, m, s);
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    for (int j0 = 0; j0 < M; j0 += kGroup) {
+      const int n = min(kGroup, M - j0);
+      float a[kGroup];
+      wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, h2, j0, n, dw, st, a);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) a[k] = k < n ? wide_arg<P>(a[k], st.bias[k], c2) : -INFINITY;
+      lse_group(a, m, s);
+    }
+  } else {
+    __shared__ Tile<D> t;
+    const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
+    for (int j0 = 0; j0 < M; j0 += kTile) {
+      const int n = min(kTile, M - j0);
+      __syncthreads();
+      load_tile<D>(t, y, h2, j0, n);
+      __syncthreads();
+      lse_tile<D, P>(r, t, n, c2, m, s);
+    }
   }
   if (valid) out[i] = m + log2f(s);
 }
@@ -74,23 +89,44 @@ __global__ void __launch_bounds__(kThreads)
 step_kernel(const float* __restrict__ x, const float* __restrict__ y,
             const float* __restrict__ phi, const float* __restrict__ psi,
             float* __restrict__ rowpart, float* __restrict__ colpart, int N, int M,
-            int row_blk0, int width, float c2) {
-  __shared__ Tile<D> t;
+            int row_blk0, int width, int dw, float c2) {
   __shared__ float wsum[kWarps][kTile];
   const int64_t i = (int64_t)(row_blk0 + blockIdx.x) * kThreads + threadIdx.x;
   const bool valid = i < N;
-  const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
   float rsum = 0.f;
   float* cp = colpart + (int64_t)blockIdx.x * M;
   const int j_end = min(M, (int)(blockIdx.y + 1) * width);
-  for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile) {
-    const int n = min(kTile, j_end - j0);
-    __syncthreads();
-    load_tile<D>(t, y, psi, j0, n);
-    __syncthreads();
-    rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
-    __syncthreads();
-    if (threadIdx.x < n) cp[j0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const float bi = valid ? phi[i] : 0.f;
+    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kGroup) {
+      const int n = min(kGroup, j_end - j0);
+      float w[kGroup];
+      wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, psi, j0, n, dw, st, w);
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        w[k] = (valid && k < n) ? exp2f(wide_arg<P>(w[k], bi + st.bias[k], c2)) : 0.f;
+        rsum += w[k];
+      }
+      warp_transpose_sum(w, lane);
+      wsum[warp][lane] = w[0];
+      __syncthreads();
+      if (threadIdx.x < n) cp[j0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
+    }
+  } else {
+    __shared__ Tile<D> t;
+    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
+    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile) {
+      const int n = min(kTile, j_end - j0);
+      __syncthreads();
+      load_tile<D>(t, y, psi, j0, n);
+      __syncthreads();
+      rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
+      __syncthreads();
+      if (threadIdx.x < n) cp[j0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
+    }
   }
   rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = rsum;
 }
@@ -115,34 +151,70 @@ template <int D, int P>
 __global__ void __launch_bounds__(kThreads)
 sym_step_kernel(const float* __restrict__ x, const float* __restrict__ phi,
                 float* __restrict__ rowpart, float* __restrict__ colpart, int N,
-                int tile0, int wt, int nb, float c2) {
-  __shared__ Tile<D> t;
+                int tile0, int wt, int nb, int dw, float c2) {
   __shared__ float wsum[kWarps][kTile];
   const int I = tile0 + blockIdx.x;
   const int64_t i = (int64_t)I * kThreads + threadIdx.x;
   const bool valid = i < N;
-  const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
   float* cp = colpart + (int64_t)blockIdx.x * (nb - tile0) * kTile + threadIdx.x;
   float rsum = 0.f;
   const int J_end = min(nb, tile0 + (int)(blockIdx.y + 1) * wt);
-  for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
-    float* cj = cp + (int64_t)(J - tile0) * kTile;
-    if (J < I) {
-      *cj = 0.f;
-      continue;
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const float bi = valid ? phi[i] : 0.f;
+    for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
+      float* cj = cp + (int64_t)(J - tile0) * kTile;
+      if (J < I) {
+        *cj = 0.f;
+        continue;
+      }
+      const int64_t j0 = (int64_t)J * kTile;
+      const int n = (int)min((int64_t)kTile, N - j0);
+      for (int g = 0; g < n; g += kGroup) {
+        const int ng = min(kGroup, n - g);
+        float w[kGroup];
+        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, x, phi, j0 + g, ng, dw, st, w);
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          w[k] = (valid && k < ng) ? exp2f(wide_arg<P>(w[k], bi + st.bias[k], c2)) : 0.f;
+          rsum += w[k];
+        }
+        if (J != I) {
+          warp_transpose_sum(w, lane);
+          wsum[warp][g + lane] = w[0];
+        }
+      }
+      if (J == I) {
+        *cj = 0.f;
+      } else {
+        __syncthreads();
+        *cj = threadIdx.x < n ? sum_warps(wsum, threadIdx.x) : 0.f;
+      }
     }
-    const int64_t j0 = (int64_t)J * kTile;
-    const int n = (int)min((int64_t)kTile, N - j0);
-    __syncthreads();
-    load_tile<D>(t, x, phi, j0, n);
-    __syncthreads();
-    if (J == I) {
-      rsum += absorbed_tile<D, P, false>(r, t, n, valid, c2, wsum);
-      *cj = 0.f;
-    } else {
-      rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
+  } else {
+    __shared__ Tile<D> t;
+    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
+    for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
+      float* cj = cp + (int64_t)(J - tile0) * kTile;
+      if (J < I) {
+        *cj = 0.f;
+        continue;
+      }
+      const int64_t j0 = (int64_t)J * kTile;
+      const int n = (int)min((int64_t)kTile, N - j0);
       __syncthreads();
-      *cj = threadIdx.x < n ? sum_warps(wsum, threadIdx.x) : 0.f;
+      load_tile<D>(t, x, phi, j0, n);
+      __syncthreads();
+      if (J == I) {
+        rsum += absorbed_tile<D, P, false>(r, t, n, valid, c2, wsum);
+        *cj = 0.f;
+      } else {
+        rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
+        __syncthreads();
+        *cj = threadIdx.x < n ? sum_warps(wsum, threadIdx.x) : 0.f;
+      }
     }
   }
   rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = rsum;
@@ -162,32 +234,53 @@ __global__ void __launch_bounds__(kThreads)
 apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
              const float* __restrict__ phi, const float* __restrict__ psi,
              const float* __restrict__ vt, float* __restrict__ out, int N, int M,
-             float c2) {
-  __shared__ Tile<D> t;
-  __shared__ float v[4][kTile];
+             int dw, float c2) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool valid = i < N;
-  const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    const int n = min(kTile, M - j0);
-    __syncthreads();
-    load_tile<D>(t, y, psi, j0, n);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+  if constexpr (D == 0) {
+    __shared__ WideStage<kWideChunk> st;
+    const float bi = valid ? phi[i] : 0.f;
+    for (int j0 = 0; j0 < M; j0 += kGroup) {
+      const int n = min(kGroup, M - j0);
+      float a[kGroup];
+      wide_scores<kWideChunk, MODE != 0>(x, i, valid, MODE == 0 ? c2 : 1.f, y, psi, j0, n, dw, st, a);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) v[c][k] = vt[(int64_t)c * M + j0 + k];
+      for (int k = 0; k < kGroup; ++k) {
+        if (k < n) {
+          const float w = wide_weight<MODE>(a[k], bi + st.bias[k], c2);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[c] = fmaf(w, vt[(int64_t)c * M + j0 + k], part[c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += part[c];
     }
-    __syncthreads();
-    // One partial sum per staged tile, added once: the rounding error
-    // grows with the tiles, not the columns.
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < n; ++k) {
-      const float w = apply_weight<D, MODE>(r, t, k, c2);
+  } else {
+    __shared__ Tile<D> t;
+    __shared__ float v[4][kTile];
+    const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
+    for (int j0 = 0; j0 < M; j0 += kTile) {
+      const int n = min(kTile, M - j0);
+      __syncthreads();
+      load_tile<D>(t, y, psi, j0, n);
+      for (int k = threadIdx.x; k < n; k += blockDim.x) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][k], part[c]);
+        for (int c = 0; c < 4; ++c) v[c][k] = vt[(int64_t)c * M + j0 + k];
+      }
+      __syncthreads();
+      // One partial sum per staged tile, added once: the rounding error
+      // grows with the tiles, not the columns.
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k = 0; k < n; ++k) {
+        const float w = apply_weight<D, MODE>(r, t, k, c2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][k], part[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] += part[c];
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] += part[c];
   }
   if (valid) {
 #pragma unroll
@@ -204,9 +297,10 @@ int gl_lse(const float* x, const float* y, const float* h2, float* out, int N,
   const dim3 grid(cdiv(N, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  const int dw = D;
   GL_DISPATCH_D(D,
-    if (p == 2) lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, c2);
-    else lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, c2))
+    if (p == 2) lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, dw, c2);
+    else lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, dw, c2))
   return (int)cudaGetLastError();
 }
 
@@ -219,9 +313,10 @@ int gl_sinkhorn_step(const float* x, const float* y, const float* phi,
   const dim3 grid(n_blk, n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  const int dw = D;
   GL_DISPATCH_D(D,
-    if (p == 2) step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, c2);
-    else step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, c2))
+    if (p == 2) step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, dw, c2);
+    else step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, dw, c2))
   return (int)cudaGetLastError();
 }
 
@@ -234,9 +329,10 @@ int gl_sinkhorn_step_sym(const float* x, const float* phi, float* rowpart,
   const int wt = cdiv(nb - tile0, n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
+  const int dw = D;
   GL_DISPATCH_D(D,
-    if (p == 2) sym_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, c2);
-    else sym_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, c2))
+    if (p == 2) sym_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, dw, c2);
+    else sym_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, dw, c2))
   return (int)cudaGetLastError();
 }
 
@@ -245,13 +341,14 @@ int gl_gibbs_apply(const float* x, const float* y, const float* phi,
                    int D, int mode, float c2, void* stream) {
   const dim3 grid(cdiv(N, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dw = D;
   GL_DISPATCH_D(D,
     switch (mode) {
-      case 0: apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, c2); break;
-      case 1: apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, c2); break;
-      case 2: apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, c2); break;
-      case 3: apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, c2); break;
-      case 4: apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, c2); break;
+      case 0: apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
+      case 1: apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
+      case 2: apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
+      case 3: apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
+      case 4: apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
       default: return (int)cudaErrorInvalidValue;
     })
   return (int)cudaGetLastError();

@@ -12,6 +12,10 @@
 //   p = 1: d = sqrt(max(|x_i - y_j|^2, 1e-8)) from coordinate differences,
 //          so a near pair carries no cancellation noise, and
 //          arg = bias_i + bias_j - c2 d.
+// Above the compiled widths, D is padded to a multiple of the widest and
+// the kernels' wide instantiation (D = 0) builds the scores of a group of
+// columns up over coordinate chunks (wide_scores). Kernels 5 and 6 use the
+// register-tiled pair blocks at the end of this file instead.
 
 #pragma once
 
@@ -208,28 +212,204 @@ __device__ __forceinline__ float sum_warps(const float (*wsum)[kTile], int c) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// -----------------------------------------------------------------------------
+// Wide point dimensions. Above a library's compiled widths, D is zero-padded
+// to a multiple of a chunk of DW coordinates (the widest build; padding adds
+// 0 to dot products and to squared differences). The scores of a group of
+// kGroup columns build up in a per-thread buffer over the coordinate chunks
+// (wide_scores), each chunk of the group's columns staged in shared memory;
+// then the kernel's own epilogue runs on the buffer: the LSE max/sum pass
+// (lse_group), the absorbed sums or the apply weights (wide_arg,
+// wide_weight), with the same kSqdistFloor and kGradCut rules.
+// -----------------------------------------------------------------------------
+constexpr int kGroup = 32;
+
+template <int DW>
+struct WideStage {
+  float y[DW][kGroup];
+  float bias[kGroup];
+};
+
+// s[k] = <scale x_i, y_j> (SQ false) or |x_i - y_j|^2 (SQ true) for the
+// columns j = j0 + k, k < n <= kGroup (s[k] = 0 past n), each point dw
+// floats (a multiple of DW); the group's column biases go to st.bias (0
+// without `bias`). Every thread of the block calls it: it synchronises.
+template <int DW, bool SQ>
+__device__ __forceinline__ void wide_scores(const float* __restrict__ x, int64_t i, bool valid,
+                                            float scale, const float* __restrict__ y,
+                                            const float* __restrict__ bias, int64_t j0, int n,
+                                            int dw, WideStage<DW>& st, float (&s)[kGroup]) {
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) s[k] = 0.f;
+  for (int d0 = 0; d0 < dw; d0 += DW) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < DW * kGroup; e += blockDim.x) {
+      const int k = e / DW, d = e % DW;
+      st.y[d][k] = k < n ? y[(j0 + k) * dw + d0 + d] : 0.f;
+    }
+    if (d0 == 0 && threadIdx.x < kGroup)
+      st.bias[threadIdx.x] = (bias != nullptr && (int)threadIdx.x < n) ? bias[j0 + threadIdx.x] : 0.f;
+    __syncthreads();
+    float xr[DW];
+#pragma unroll
+    for (int d = 0; d < DW; ++d) xr[d] = valid ? scale * x[i * dw + d0 + d] : 0.f;
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+#pragma unroll
+      for (int d = 0; d < DW; ++d) {
+        if constexpr (SQ) {
+          const float diff = xr[d] - st.y[d][k];
+          s[k] = fmaf(diff, diff, s[k]);
+        } else {
+          s[k] = fmaf(xr[d], st.y[d][k], s[k]);
+        }
+      }
+    }
+  }
+}
+
+// Base-2 log weight from a wide score: p = 2 (s = <c2 x, y>) or p = 1
+// (s = |x - y|^2), `bias` the sum of both biases.
+template <int P>
+__device__ __forceinline__ float wide_arg(float s, float bias, float c2) {
+  if constexpr (P == 2) return bias + s;
+  else return fmaf(-sqrtf(fmaxf(s, kSqdistFloor)), c2, bias);
+}
+
+// apply_weight's modes from a wide score (mode 0: s = <c2 x, y>; modes 1-4:
+// s = |x - y|^2).
+template <int MODE>
+__device__ __forceinline__ float wide_weight(float s, float bias, float c2) {
+  if constexpr (MODE == 0) {
+    return exp2f(bias + s);
+  } else {
+    const float d = sqrtf(fmaxf(s, kSqdistFloor));
+    if constexpr (MODE == 3) {
+      return -d;
+    } else if constexpr (MODE == 4) {
+      return s > kGradCut ? 1.f / d : 0.f;
+    } else {
+      const float w = exp2f(fmaf(-d, c2, bias));
+      if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
+      return w;
+    }
+  }
+}
+
+// lse_tile's two passes over a group's log weights a[k] (-inf past the
+// group's columns).
+__device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, float& s) {
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) tmax = fmaxf(tmax, a[k]);
+  const float m_new = fmaxf(m, tmax);
+  if (m_new == -INFINITY) return;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < kGroup; k += 4) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] += exp2f(a[k + q] - m_new);
+  }
+  s = s * exp2f(m - m_new) + ((acc[0] + acc[1]) + (acc[2] + acc[3]));
+  m = m_new;
+}
+
+// -----------------------------------------------------------------------------
+// Register-tiled pair blocks (kernels 5 and 6). A block's 256 threads form a
+// 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l owns rows
+// l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C) of each
+// pass, so every shared-memory load of a column serves all rows of a lane
+// and is a broadcast across the warp. Points are packed by the wrapper as
+// float4 vectors, kv of them per point:
+//   p = 2: row [c2 x, 1, 0...], column [y, bias, 0...]: a score is the row
+//          bias plus D + 1 FFMAs (the column bias rides as a coordinate);
+//   p = 1: row [x, 0...], column [y, 0...], the column bias apart:
+//          sqrt(max(|x - y|^2, 1e-8)) as pair_arg's.
+// With kv = 1 (p = 2 up to D = 3, p = 1 up to D = 4) a lane keeps its rows'
+// vectors in registers; a wider point builds its R x C scores up in
+// registers over the kv chunks (the wide instantiation).
+// -----------------------------------------------------------------------------
+constexpr int kPairRows = kThreads / 32;  // rows per lane: 8
+
+// exp2 as one MUFU.EX2 (ex2.approx.ftz): results below 2^-126 flush to 0,
+// weights far below the sums they join.
+__device__ __forceinline__ float fast_exp2(float a) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
+  return r;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ float sqdiff4(float4 a, float4 b, float s) {
+  const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z, dw = a.w - b.w;
+  s = fmaf(dx, dx, s);
+  s = fmaf(dy, dy, s);
+  s = fmaf(dz, dz, s);
+  return fmaf(dw, dw, s);
+}
+
+// Score accumulator of one packed chunk: p = 2 a dot product, p = 1 a sum
+// of squared differences.
+template <int P>
+__device__ __forceinline__ float packed_acc(float4 x, float4 y, float s) {
+  if constexpr (P == 2) return dot4(x, y, s);
+  else return sqdiff4(x, y, s);
+}
+
+// Weight of a pair from its accumulated score s (p = 2: the base-2 log
+// weight; p = 1: the squared distance), `bias` the row bias plus (p = 1)
+// the column bias: MODE as apply_weight's 0-2, or -1 for kernel 5's
+// absorbed weight exp2(arg).
+template <int P, int MODE>
+__device__ __forceinline__ float packed_weight(float s, float bias, float c2) {
+  if constexpr (P == 2) {
+    return fast_exp2(s);
+  } else {
+    const float d = sqrtf(fmaxf(s, kSqdistFloor));
+    const float w = fast_exp2(fmaf(-d, c2, bias));
+    if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
+    return w;
+  }
+}
+
 }  // namespace
 
-// Template dispatch on the (padded) point dimension.
-#define GL_DISPATCH_D(D_RUNTIME, ...)                      \
-  switch (D_RUNTIME) {                                     \
-    case 1: { constexpr int D = 1; __VA_ARGS__; break; }   \
-    case 2: { constexpr int D = 2; __VA_ARGS__; break; }   \
-    case 3: { constexpr int D = 3; __VA_ARGS__; break; }   \
-    case 4: { constexpr int D = 4; __VA_ARGS__; break; }   \
-    case 8: { constexpr int D = 8; __VA_ARGS__; break; }   \
-    case 16: { constexpr int D = 16; __VA_ARGS__; break; } \
-    default: return (int)cudaErrorInvalidValue;            \
+// Template dispatch on the (padded) point dimension; D = 0 is the wide
+// instantiation, for a multiple of 16 above 16 (the kernel reads the
+// runtime width).
+#define GL_DISPATCH_D(D_RUNTIME, ...)                                    \
+  switch (D_RUNTIME) {                                                   \
+    case 1: { constexpr int D = 1; __VA_ARGS__; break; }                 \
+    case 2: { constexpr int D = 2; __VA_ARGS__; break; }                 \
+    case 3: { constexpr int D = 3; __VA_ARGS__; break; }                 \
+    case 4: { constexpr int D = 4; __VA_ARGS__; break; }                 \
+    case 8: { constexpr int D = 8; __VA_ARGS__; break; }                 \
+    case 16: { constexpr int D = 16; __VA_ARGS__; break; }               \
+    default:                                                             \
+      if ((D_RUNTIME) > 16 && (D_RUNTIME) % 16 == 0) {                   \
+        constexpr int D = 0; __VA_ARGS__; break;                         \
+      }                                                                  \
+      return (int)cudaErrorInvalidValue;                                 \
   }
 
 // The same, for kernels compiled up to D = 8 (their shared memory holds
-// more per column).
-#define GL_DISPATCH_D8(D_RUNTIME, ...)                     \
-  switch (D_RUNTIME) {                                     \
-    case 1: { constexpr int D = 1; __VA_ARGS__; break; }   \
-    case 2: { constexpr int D = 2; __VA_ARGS__; break; }   \
-    case 3: { constexpr int D = 3; __VA_ARGS__; break; }   \
-    case 4: { constexpr int D = 4; __VA_ARGS__; break; }   \
-    case 8: { constexpr int D = 8; __VA_ARGS__; break; }   \
-    default: return (int)cudaErrorInvalidValue;            \
+// more per column); the wide instantiation takes multiples of 8 above 8.
+#define GL_DISPATCH_D8(D_RUNTIME, ...)                                   \
+  switch (D_RUNTIME) {                                                   \
+    case 1: { constexpr int D = 1; __VA_ARGS__; break; }                 \
+    case 2: { constexpr int D = 2; __VA_ARGS__; break; }                 \
+    case 3: { constexpr int D = 3; __VA_ARGS__; break; }                 \
+    case 4: { constexpr int D = 4; __VA_ARGS__; break; }                 \
+    case 8: { constexpr int D = 8; __VA_ARGS__; break; }                 \
+    default:                                                             \
+      if ((D_RUNTIME) > 8 && (D_RUNTIME) % 8 == 0) {                     \
+        constexpr int D = 0; __VA_ARGS__; break;                         \
+      }                                                                  \
+      return (int)cudaErrorInvalidValue;                                 \
   }

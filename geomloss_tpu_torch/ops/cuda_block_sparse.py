@@ -47,7 +47,10 @@ are visited: the column direction then supplies the mirrored lower
 triangle, and a diagonal tile contributes to the row direction only. They
 launch the table's slots compacted on the device, the live ones first, in
 chunks whose partial sums stay under :data:`TILES_SCRATCH_BYTES`
-(:func:`_chunks`).
+(:func:`_chunks`). Their CUDA kernels are register-tiled pair blocks that
+read packed points (:func:`_pair_vectors`), so they take any point
+dimension; kernels 7, 8 and 12 pad D to a compiled width, or above 8 to a
+multiple of 8 (their wide instantiation).
 
 Each wrapper takes its plain PyTorch twin (``*_blocked``, same signature, a
 loop over row tiles in the input dtype) only for tensors that lie on the
@@ -99,7 +102,9 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-#: Point dimensions the block-sparse kernels are compiled for.
+#: Point dimensions kernels 7, 8 and 12 are compiled for; above 8, D is
+#: padded to a multiple of 8 (their wide instantiation). Kernels 5 and 6
+#: take packed points of any D (:func:`_pair_vectors`).
 _KERNEL_DIMS = (1, 2, 3, 4, 8)
 #: Rows per CUDA block.
 _ROWS = 256
@@ -132,12 +137,12 @@ _P, _I, _F = ck._P, ck._I, ck._F
 _LIB = ck.KernelLibrary(
     "block_sparse_kernels",
     {
-        # x, y, phi, psi, slot_i, slot_j, rowpart, colpart, nslots, tile, D,
+        # xv, yv, rb, cb, slot_i, slot_j, rowpart, colpart, nslots, tile, kv,
         # p, tri, c2, stream
         "gl_absorbed_sum_tiles": [_P] * 8 + [_I] * 5 + [_F, _P],
-        # x, y, phi, psi, vyt, vx, slot_i, slot_j, rowpart, colpart, M,
-        # nslots, tile, D, mode, tri, c2, stream
-        "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 6 + [_F, _P],
+        # xv, yv, rb, cb, vy, vx, slot_i, slot_j, rowpart, colpart, nslots,
+        # tile, kv, mode, tri, c2, stream
+        "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 5 + [_F, _P],
         # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
         # stream
         "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
@@ -561,6 +566,31 @@ def _tables(name, x, y, cols, cnt, tile, tri):
     return slot_i, slot_j, cols.shape[0], y.shape[0] // tile, _cdiv(tile, _ROWS)
 
 
+def _pair_vectors(x, y, phi, psi, eps, p):
+    """Packed points of kernels 5 and 6 (``csrc/pair_common.cuh``,
+    register-tiled pair blocks), ``kv`` float4 vectors per point:
+
+    - p = 2: rows ``[c2 x, 0..., 1]``, columns ``[y, 0..., psi2]`` (the
+      one and the column bias in the last of ``4 kv`` floats), so that a
+      score is the row bias plus one dot product;
+    - p = 1: rows ``x`` and columns ``y``, zero-padded.
+
+    Returns ``(xv, yv, rb, cb, kv)``: the vectors, and the row and column
+    biases in base 2 (``_bias2``; the kernels read ``cb`` for p = 1 only).
+    """
+    (xf, yf), D = _points("pair_vectors", x, y, dims=())
+    rb, cb = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
+    kv = _cdiv(D + 1 if p == 2 else D, 4)
+    f = torch.nn.functional.pad
+    if p == 2:
+        pad = (0, 4 * kv - 1 - D)
+        xv = torch.cat([f(xf * (LOG2E / eps), pad), torch.ones_like(xf[:, :1])], 1)
+        yv = torch.cat([f(yf, pad), cb[:, None]], 1)
+    else:
+        xv, yv = f(xf, (0, 4 * kv - D)), f(yf, (0, 4 * kv - D))
+    return xv.contiguous(), yv.contiguous(), rb, cb, kv
+
+
 def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False):
     """Absorbed row and column sums over the kept tile pairs of a table:
 
@@ -578,8 +608,7 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False)
     slot_i, slot_j, nI, nJ, nsub = _tables("absorbed_sum_tiles", x, y, cols, cnt, tile, tri)
     _check_cuda("absorbed_sum_tiles", x, phi, psi)
     eps = float(eps)
-    (xf, yf), Dk = _points("absorbed_sum_tiles", x, y, dims=_KERNEL_DIMS)
-    phi2, psi2 = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
+    xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, p)
     f32 = dict(dtype=torch.float32, device=x.device)
     R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub))
     # Partials of one chunk of live slots, added into r and c in slot order
@@ -591,9 +620,9 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False)
     with torch.cuda.device(x.device):
         for q0, n, rows, cols_ix in chunks:
             _LIB.launch(
-                "absorbed_sum_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                psi2.data_ptr(), slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(),
-                rowpart.data_ptr(), colpart.data_ptr(), n, tile, Dk, p, int(tri), LOG2E / eps,
+                "absorbed_sum_tiles", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(),
+                cb.data_ptr(), slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(),
+                rowpart.data_ptr(), colpart.data_ptr(), n, tile, kv, p, int(tri), LOG2E / eps,
                 count="absorbed_sum_tiles",
             )
             _segment_sum(rowpart, rows, r, tile, 1)
@@ -629,12 +658,10 @@ def gibbs_apply_tiles(
         raise ValueError("gibbs_apply_tiles: Vy must be (M, C) and Vx (N, C).")
     mode = _APPLY_MODES[(kind, p)]
     eps = float(eps)
-    (xf, yf), Dk = _points("gibbs_apply_tiles", x, y, dims=_KERNEL_DIMS)
-    p_bias = 2 if mode == 0 else 1
-    phi2, psi2 = _bias2(xf, phi, eps, p_bias), _bias2(yf, psi, eps, p_bias)
+    xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
     G = ck._CHANNELS
     Cp = _cdiv(C, G) * G
-    Vyt = torch.nn.functional.pad(_f32(Vy).T, (0, 0, 0, Cp - C)).contiguous()
+    Vyp = torch.nn.functional.pad(_f32(Vy), (0, Cp - C))
     Vxp = torch.nn.functional.pad(_f32(Vx), (0, Cp - C))
     f32 = dict(dtype=torch.float32, device=x.device)
     R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub))
@@ -643,15 +670,16 @@ def gibbs_apply_tiles(
     rows_out, cols_out = [], []
     with torch.cuda.device(x.device):
         for c0 in range(0, Cp, G):
+            vy = Vyp[:, c0 : c0 + G].contiguous()
             vx = Vxp[:, c0 : c0 + G].contiguous()
             r = torch.zeros((nI, tile * G), **f32)
             c = torch.zeros((nJ, G * tile), **f32)
             for q0, n, rows, cols_ix in chunks:
                 _LIB.launch(
-                    "gibbs_apply_tiles", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                    psi2.data_ptr(), Vyt[c0 : c0 + G].data_ptr(), vx.data_ptr(),
+                    "gibbs_apply_tiles", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(),
+                    cb.data_ptr(), vy.data_ptr(), vx.data_ptr(),
                     slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(), rowpart.data_ptr(),
-                    colpart.data_ptr(), y.shape[0], n, tile, Dk, mode, int(tri), LOG2E / eps,
+                    colpart.data_ptr(), n, tile, kv, mode, int(tri), LOG2E / eps,
                     count="gibbs_apply_tiles",
                 )
                 _segment_sum(rowpart, rows, r, tile * G, 1)

@@ -20,8 +20,14 @@ kernels compute in float32; the wrappers fold weights, potentials and
 results in the input dtype.
 
 The library is compiled with ``nvcc`` at first use (a plain C interface,
-loaded with ``ctypes``) into ``build/kernels/`` at the repository root,
-keyed by a hash of its sources (the ``.cu`` file and the shared headers).
+loaded with ``ctypes``) into :func:`build_dir`, keyed by a hash of its
+sources (the ``.cu`` file and the shared headers).
+
+The kernels take any point dimension: D is zero-padded to a compiled width
+(1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16, which runs each
+kernel's wide instantiation (scores built up over chunks of 16
+coordinates; ``csrc/pair_common.cuh``).
+
 Each wrapper adds one to its entry of :data:`launch_counts` where it
 launches its kernel, and nowhere else.
 
@@ -38,6 +44,7 @@ import math
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import torch
@@ -54,6 +61,8 @@ __all__ = [
     "gibbs_apply",
     "gibbs_apply_blocked",
     "build",
+    "build_dir",
+    "padded_dim",
     "launch_counts",
     "reset_launch_counts",
     "step_plan",
@@ -77,7 +86,8 @@ BLOCK_M = 2048
 #: Rows per CUDA block (one thread per row) and columns per shared-memory
 #: tile; must match ``kThreads`` / ``kTile`` in the source.
 _CUDA_BLOCK = 256
-#: Point dimensions the kernels are compiled for; smaller D is zero-padded.
+#: Point dimensions the kernels are compiled for; smaller D is zero-padded,
+#: larger D padded to a multiple of the last (the wide instantiation).
 _KERNEL_DIMS = (1, 2, 3, 4, 8, 16)
 #: Channels per launch of the apply kernel; wider V loops over groups.
 _CHANNELS = 4
@@ -96,7 +106,10 @@ _MAX_GRID_Y = 65535
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = _PKG_DIR / "csrc"
+#: Build directory of a checkout: ``build/kernels`` beside the package.
 BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+#: Environment variable that names the build directory.
+BUILD_DIR_ENV = "GEOMLOSS_TPU_TORCH_BUILD_DIR"
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts = {
@@ -115,6 +128,31 @@ def reset_launch_counts():
 # ==============================================================================
 #  Build and launch
 # ==============================================================================
+
+
+def _writable(path):
+    """Whether ``path`` can be created and written (it is created)."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+        with tempfile.NamedTemporaryFile(dir=path):
+            return True
+    except OSError:
+        return False
+
+
+def build_dir():
+    """Directory the kernels are compiled into: ``$GEOMLOSS_TPU_TORCH_BUILD_DIR``
+    if it is set; else :data:`BUILD_DIR` (a checkout's ``build/kernels``)
+    where it can be written; else, as for an installed package,
+    ``geomloss_tpu_torch/kernels`` under the user cache directory
+    (``$XDG_CACHE_HOME``, or ``~/.cache``)."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    if env:
+        return Path(env)
+    if _writable(BUILD_DIR):
+        return BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "geomloss_tpu_torch" / "kernels"
 
 
 def _nvcc():
@@ -138,6 +176,7 @@ class KernelLibrary:
         self.stem = stem
         self.signatures = signatures
         self.counts = counts
+        self.path = None  # the built library, once loaded
         self._lib = None
 
     def build(self):
@@ -147,9 +186,10 @@ class KernelLibrary:
         h = hashlib.sha256()
         for src in [self.source, *sorted(CSRC.glob("*.cuh"))]:
             h.update(src.read_bytes())
-        so = BUILD_DIR / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
+        out = build_dir()
+        so = out / f"lib{self.stem}_{h.hexdigest()[:16]}.so"
         if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            out.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             cmd = [
                 _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -161,6 +201,7 @@ class KernelLibrary:
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
             os.replace(tmp, so)
+        self.path = so
         lib = ctypes.CDLL(str(so))
         for name, argtypes in self.signatures.items():
             fn = getattr(lib, name)
@@ -221,17 +262,22 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: all tensors must lie on one CUDA device.")
 
 
+def padded_dim(D, dims=_KERNEL_DIMS):
+    """The point dimension a kernel runs ``D`` at: the first compiled width
+    that holds it, or a multiple of the widest (the wide instantiation);
+    ``D`` itself for no ``dims``."""
+    if not dims:
+        return D
+    return next((k for k in dims if D <= k), None) or _cdiv(D, dims[-1]) * dims[-1]
+
+
 def _points(name, *clouds, dims=_KERNEL_DIMS):
-    """float32, contiguous, zero-padded to a compiled point dimension."""
+    """float32, contiguous, zero-padded to :func:`padded_dim`."""
     D = clouds[0].shape[-1]
     for c in clouds:
-        if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0:
-            raise ValueError(f"{name}: point clouds must be non-empty (N, D).")
-    Dk = next((k for k in dims if D <= k), None)
-    if Dk is None:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels are compiled for D <= {dims[-1]} (got D={D})."
-        )
+        if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0 or D == 0:
+            raise ValueError(f"{name}: point clouds must be non-empty (N, D), D >= 1.")
+    Dk = padded_dim(D, dims)
     out = [
         torch.nn.functional.pad(c.detach().float(), (0, Dk - D)).contiguous()
         for c in clouds

@@ -139,17 +139,19 @@ def test_step_kernels_bounded_scratch_and_deterministic(cuda_device):
 
 
 TILE_CASES = [
-    # (tile, n_tiles, m_tiles, cap): one CTA row slice (128), two (512) and
-    # four (1024); ragged kept counts in every table.
+    # (tile, n_tiles, m_tiles, cap): one CTA row slice (128), two (512),
+    # four (1024) and eight (2048, the auto route's tile above 2^23
+    # points); ragged kept counts in every table.
     (128, 5, 7, 5),
     (512, 4, 6, 4),
     (1024, 3, 3, 2),
+    (2048, 2, 3, 2),
 ]
 
 
-def _tile_problem(tile, n_tiles, m_tiles, seed, tri):
+def _tile_problem(tile, n_tiles, m_tiles, seed, tri, D=3):
     N, M = n_tiles * tile, (n_tiles if tri else m_tiles) * tile
-    x, y, _ = problem(N, M, seed=seed)
+    x, y, _ = problem(N, M, D=D, seed=seed)
     f, g, la, lb = potentials(N, M, seed=seed + 1)
     if tri:
         y, g, lb = x, f, la
@@ -226,9 +228,11 @@ def test_lse_tiles_wrapper_raises_on_what_it_cannot_launch(cuda_device):
         cbs.lse_tiles(x, y, h, 0.1, cols.cpu(), cnt, 256, 128)
     with pytest.raises(ValueError):
         cbs.lse_tiles(x, y, h, 0.1, cols, cnt, 300, 128)
-    with pytest.raises(NotImplementedError):
-        cbs.lse_tiles(torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device), h,
-                      0.1, cols, cnt, 256, 128)
+    # D = 9, above the compiled widths, runs the wide instantiation.
+    x9, y9, _ = tensors(*problem(512, 256, D=9, seed=2), device=cuda_device)
+    args = (x9, y9, h, 0.1, cols, cnt, 256, 128)
+    got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(*args), **VAL_TOL)
 
 
 @pytest.mark.parametrize("tri", [False, True])
@@ -316,9 +320,12 @@ def test_gibbs_apply_sparse_wrapper_raises_on_what_it_cannot_launch(cuda_device)
         cbs.gibbs_apply_sparse(x, y, z_n, z_m, V, 0.1, cols.cpu(), cnt, 2, "gibbs", 256, 128)
     with pytest.raises(ValueError):
         cbs.gibbs_apply_sparse(x, y, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 300, 128)
-    x9, y9 = torch.zeros(512, 9, device=cuda_device), torch.zeros(256, 9, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        cbs.gibbs_apply_sparse(x9, y9, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 256, 128)
+    # D = 9, above the compiled widths, runs the wide instantiation.
+    x9, y9, _ = tensors(*problem(512, 256, D=9, seed=2), device=cuda_device)
+    args = (x9, y9, z_n, z_m, V, 0.1, cols, cnt, 2, "gibbs", 256, 128)
+    got = _counted("gibbs_apply_sparse", lambda: cbs.gibbs_apply_sparse(*args), cbs.launch_counts)
+    tol = apply_tolerance(*(t.cpu().numpy() for t in (x9, y9, z_n, z_m, V)), 0.1, 2, "gibbs")
+    assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*args).cpu(), **tol)
 
 
 def _sum_problem(D, p, block, seed, n_tiles=3, m_tiles=5, cap=4):
@@ -393,3 +400,109 @@ def test_walk_kernels_match_twins_on_a_multi_chunk_table(cuda_device, p, t_mean,
     assert_apply_close(got, cbs.gibbs_apply_walk_blocked(*a_args).cpu(),
                        **apply_tolerance(x, y, phi0, psi, V, eps, p, kind))
     assert torch.equal(got, cbs.gibbs_apply_walk(*a_args))
+
+
+# ------------------------------------------------------------------------------
+#  Point dimensions above the compiled widths (the wide instantiations), and
+#  kernels 5 and 6 at D other than 3 (packed in chunks of four floats)
+# ------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tri", [False, True])
+@pytest.mark.parametrize("p,kind", [(2, "gibbs"), (1, "gibbs"), (1, "gibbs_grad")])
+@pytest.mark.parametrize("D", [5, 8, 9, 12, 17])
+def test_tile_kernels_other_dims_match_twins(cuda_device, D, p, kind, tri):
+    """Kernels 5 (p of the case) and 6 (apply modes 0-2) at D = 5 to 17:
+    scores built up over several packed chunks (kernel 5: staged up to
+    three float4s, D = 8 at p = 2 and D = 12 at p = 1; wide beyond)."""
+    tile, n_tiles, m_tiles, cap = 256, 3, 4, 3
+    x, y, f, g, la, lb = _tile_problem(tile, n_tiles, m_tiles, seed=D + p, tri=tri, D=D)
+    cols, counts = kept_table(n_tiles, n_tiles if tri else m_tiles, cap, seed=D, sym=tri)
+    eps = 0.05 * D
+    phi, psi = la + f / eps, lb + g / eps
+    t = tensors(x, y, phi, psi, device=cuda_device)
+    table = tensors(cols, counts, device=cuda_device)
+    args = (*t, eps, *table, p, tile, tri)
+    got = _counted("absorbed_sum_tiles", lambda: cbs.absorbed_sum_tiles(*args), cbs.launch_counts)
+    for a, b in zip(got, cbs.absorbed_sum_tiles_blocked(*args)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    Vy = np.concatenate([np.ones((y.shape[0], 1), np.float32), y[:, :3]], 1)
+    Vx = np.concatenate([np.ones((x.shape[0], 1), np.float32), x[:, :3]], 1)
+    tv = tensors(x, y, phi, psi, Vy, Vx, device=cuda_device)
+    a_args = (*tv, eps, *table, p, kind, tile, tri)
+    got = _counted("gibbs_apply_tiles", lambda: cbs.gibbs_apply_tiles(*a_args), cbs.launch_counts)
+    ref = cbs.gibbs_apply_tiles_blocked(*a_args)
+    assert_apply_close(got[0], ref[0].cpu(), **apply_tolerance(x, y, phi, psi, Vy, eps, p, kind))
+    assert_apply_close(got[1], ref[1].cpu(), **apply_tolerance(y, x, psi, phi, Vx, eps, p, kind))
+    for a, b in zip(got, cbs.gibbs_apply_tiles(*a_args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [17, 64])
+def test_online_kernels_wide_dims_match_twins(cuda_device, D, p):
+    """Kernels 1-3 at D = 17 and 64 (padded to 32 and 64: the wide
+    instantiation, in chunks of 16 coordinates)."""
+    N, M = 700, 513
+    x, y, h = problem(N, M, D=D, seed=D + p)
+    eps = 0.1 * D
+    xt, yt, ht = tensors(x, y, h, device=cuda_device)
+    got = _counted("lse", lambda: ck.lse(xt, yt, ht, eps, p))
+    torch.testing.assert_close(got, ck.lse_blocked(xt, yt, ht, eps, p), **VAL_TOL)
+    t = tensors(x, y, *potentials(N, M, seed=D), device=cuda_device)
+    got = _counted("sinkhorn_step", lambda: ck.sinkhorn_step(*t, eps, p))
+    for a, b in zip(got, ck.sinkhorn_step_blocked(*t, eps, p)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    xs, fs, las = t[0], t[2], t[4]
+    got = _counted("sinkhorn_step_sym", lambda: ck.sinkhorn_step_sym(xs, fs, las, eps, p))
+    torch.testing.assert_close(got, ck.sinkhorn_step_sym_blocked(xs, fs, las, eps, p), **VAL_TOL)
+
+
+@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+@pytest.mark.parametrize("D", [17, 64])
+def test_gibbs_apply_wide_dims_matches_twin(cuda_device, D, p, kind):
+    """Kernel 4, every weight kind, at D = 17 and 64."""
+    N, M = 600, 517
+    x, y, psi = problem(N, M, D=D, seed=D)
+    rng = np.random.RandomState(D)
+    phi = (-np.abs(rng.randn(N))).astype(np.float32)
+    V = rng.randn(M, 5).astype(np.float32)
+    eps = 0.1 * D
+    tol = apply_tolerance(x, y, phi, psi, V, eps, p, kind)
+    t = tensors(x, y, phi, psi, V, device=cuda_device)
+    got = _counted("gibbs_apply", lambda: ck.gibbs_apply(*t, eps, p, kind))
+    assert_apply_close(got, ck.gibbs_apply_blocked(*t, eps, p, kind).cpu(), **tol)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [9, 17])
+def test_block_sparse_kernels_wide_dims_match_twins(cuda_device, D, p):
+    """Kernels 7, 8 (every weight kind of this p) and 12 at D = 9 and 17
+    (padded to 16 and 24: the wide instantiation, in chunks of 8)."""
+    block_n, block_m = 256, 128
+    x, y, h = problem(3 * block_n, 7 * block_m, D=D, seed=D + p)
+    cols, counts = kept_table(3, 7, 5, seed=D + p)
+    xt, yt, ht, ct, nt = tensors(x, y, h, cols, counts, device=cuda_device)
+    eps = 0.05 * D
+    args = (xt, yt, ht, eps, ct, nt, block_n, block_m, p)
+    got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(*args), **VAL_TOL)
+    rng = np.random.RandomState(D)
+    phi = (-np.abs(rng.randn(x.shape[0]))).astype(np.float32)
+    V = rng.randn(y.shape[0], 4).astype(np.float32)
+    for pp, kind in APPLY_KINDS:
+        if pp != p:
+            continue
+        tol = apply_tolerance(x, y, phi, h, V, eps, p, kind)
+        a_args = (xt, yt, *tensors(phi, device=cuda_device), ht, *tensors(V, device=cuda_device), eps, ct, nt, p,
+                  kind, block_n, block_m)
+        got = _counted("gibbs_apply_sparse", lambda: cbs.gibbs_apply_sparse(*a_args), cbs.launch_counts)
+        assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*a_args).cpu(), **tol)
+    xs, ys, phi_s, psi_s, eps_s, cols_s, counts_s = _sum_problem(D, p, 256, seed=D + 10 * p)
+    s_args = (*tensors(xs, ys, phi_s, psi_s, device=cuda_device), eps_s, *tensors(cols_s, counts_s, device=cuda_device),
+              p, 256)
+    got = _counted("absorbed_sum_sparse", lambda: cbs.absorbed_sum_sparse(*s_args), cbs.launch_counts)
+    zero = torch.zeros_like(got)
+    torch.testing.assert_close(ck._absorbed_update(zero, zero, eps_s, got),
+                               ck._absorbed_update(zero, zero, eps_s, cbs.absorbed_sum_sparse_blocked(*s_args)),
+                               **VAL_TOL)
