@@ -17,11 +17,14 @@ phase fails. Phases, one line each:
    the checkout's ``build/smoke_kernels`` (set as
    ``$GEOMLOSS_TPU_TORCH_BUILD_DIR`` whatever the caller set it to; emptied
    first, and the libraries must land there);
-   prints kernels 5 and 6's registers and spills from ``-Xptxas -v``;
+   prints the registers and spills (``-Xptxas -v``) of kernels 5 and 6 and
+   of the bench.py instantiations of kernels 2 and 8 (PTXAS_SHOWN);
 3. repair: peak device memory of the two step kernels at N = M = 1e6 under
    256 MB beyond their inputs, and two calls bitwise equal;
 4. parity: each online kernel against its twin on the card at N = M = 1e5
-   and at a ragged size, p in {1, 2}; the two block-sparse kernels
+   and at a ragged size, p in {1, 2} (kernel 2's raw sums as
+   ``check_sums`` reads them, and two calls bitwise equal); the two
+   block-sparse kernels
    (absorbed sums, full and triangle tables; dual apply, C = 4) against
    their twins on the truncation tables of the multiscale path at 1e5,
    p in {1, 2};
@@ -37,7 +40,8 @@ phase fails. Phases, one line each:
    that run;
 7. timing: loss + gradient of both paths, kernels and plain float32 twins;
    each kernel against its twin and its bound (the larger of its bytes
-   over the memory rate and its exp2 count over the MUFU rate); the
+   over the memory rate and its exp2 count over the MUFU rate), and the
+   register-tiled kernels' issue floor (``pair_slots``); the
    device's idle share over one multiscale call (``torch.profiler``);
 8. mid path (bench.py's call at N = M = 2e6, ``backend="auto"``: the
    pooled intermediate scale, kernel 7 on the four truncated
@@ -87,7 +91,7 @@ phase fails. Phases, one line each:
 13. ``[wide-d]`` (run before ``[mmd]``): ``SamplesLoss()`` at N = M = 1e4
     in D = 32 (the online route, through the kernels' wide
     instantiations) against the same solve through the float64 twins,
-    and kernels 1 and 4 timed at D = 32 beside their bound.
+    and kernels 1, 2 and 4 timed at D = 32 beside their bound.
 
 Each phase prints its seconds.
 
@@ -207,6 +211,24 @@ REPLACES = {
     "gibbs_apply_walk": "geomloss_tpu/ops/block_sparse.py:1185",
     "absorbed_sum_sparse": "geomloss_tpu/ops/block_sparse.py:1944",
 }
+#: Register-tiled instantiations whose ptxas usage the build phase prints
+#: (besides every one of kernels 5 and 6): kernel 2 at p = 2 for one, two,
+#: three staged float4s and the wide form, and kernel 8 in mode 0 at one
+#: float4, with one and four channels, and wide.
+PTXAS_SHOWN = ("step_kernel<2,1>", "step_kernel<2,2>", "step_kernel<2,3>", "step_kernel<2,0>",
+               "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>", "sparse_apply_kernel<0,0,4>")
+#: Instructions per pair of the register-tiled kernels after the score and
+#: its MUFU: two adds (kernels 2 and 5: both sums), 8 FFMAs (kernel 6: four
+#: channels each way), one FFMA per channel of a launch (kernel 8).
+PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "absorbed_sum_tiles": 2, "gibbs_apply_tiles": 8}
+
+
+def pair_slots(name, kv=1, ch=1):
+    """Instructions per pair of a register-tiled kernel at p = 2 with kv
+    packed float4s per point: 4 kv score FFMAs, the MUFU, then its tail
+    (PAIR_TAIL_SLOTS; ``ch`` channels for kernel 8). Its issue floor is
+    :func:`issue_ms` of these."""
+    return 4 * kv + 1 + (ch if name == "gibbs_apply_sparse" else PAIR_TAIL_SLOTS[name])
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
     "block_sparse_kernels": "geomloss_tpu_torch/csrc/block_sparse_kernels.cu",
@@ -241,6 +263,17 @@ def bound(exps, nbytes, clock_hz, flops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(exps / (MUFU_PER_CLOCK * clock_hz), flops / FP32_FLOPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "operations" if t_ops >= t_bytes else "bytes"
+
+
+#: Instructions an H100 SM issues per clock (4 schedulers x 32 lanes).
+ISSUE_PER_CLOCK = 128 * 132
+
+
+def issue_ms(slots, pairs, clock_hz):
+    """The issue floor of a pair kernel, in ms: ``slots`` instructions per
+    pair of its design (score FFMAs, the MUFU, the accumulating FFMAs or
+    adds) over ``pairs`` pairs, at one instruction per lane and clock."""
+    return 1e3 * slots * pairs / (ISSUE_PER_CLOCK * clock_hz)
 
 
 def nbytes(*tensors):
@@ -388,10 +421,10 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_busy_ms(fn):
+def profile_busy_ms(fn, top=8):
     """Wall time of one call, the device's kernel time in it (ms) and its
-    number of kernel launches (torch.profiler), with the eight kernels
-    that took the most."""
+    number of kernel launches (torch.profiler), with the ``top`` kernels
+    that took the most (all for None) as ``(ms, launches, name)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -410,7 +443,7 @@ def profile_busy_ms(fn):
         if dev > 0:
             rows.append((dev / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:8]
+    return wall, sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:top]
 
 
 #: Largest error of each kernel against its twin over the parity checks.
@@ -438,6 +471,31 @@ def check_apply(name, label, got, ref, scale):
           f"(tol {APPLY_ATOL_SCALE:g}*{scale:.3g} + {APPLY_RTOL:g}|ref|, max excess {excess:.3e})", flush=True)
     if not excess <= 0:
         fail(f"{name} {label} misses its tolerance by {excess:.3e}")
+
+
+def check_sums(name, lab, a, b, pot, lw, e, pairs):
+    """Raw absorbed sums ``a`` of a kernel that takes one ex2.approx.ftz per
+    pair against its twin's ``b``: as a Sinkhorn step reads them, S = f +
+    eps (loga - log sums), except the sums that flushed weights could move
+    by more than FLUSH_SHARE of themselves (``pairs`` terms each), which are
+    compared raw within pairs x 2^-126 plus the relative error the
+    potentials' tolerance allows."""
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    a, pot, lw = a.to(b.dtype), pot.to(b.dtype), lw.to(b.dtype)
+    flush = pairs.to(b) * FLUSH_WEIGHT
+    near = (b > 0) & (flush > FLUSH_SHARE * b)
+    s_got, s_ref = ck._absorbed_update(pot, lw, e, a), ck._absorbed_update(pot, lw, e, b)
+    check_val(name, f"{lab} ({int(near.sum())} sums within reach of flushed weights compared raw)", s_got[~near],
+              s_ref[~near])
+    if near.any():
+        a, b, tol = a[near], b[near], VAL_ATOL + VAL_RTOL * s_ref[near].abs()
+        excess = ((a - b).abs() - (flush[near] + b * torch.expm1(tol / e))).max().item()
+        print(f"[parity] {name} {lab}: {int(near.sum())} raw sums, twin sums up to {b.max().item():.3e}, max_abs_err "
+              f"{(a - b).abs().max().item():.3e} (tol kept pairs x 2^-126 + the potentials' tolerance, max excess "
+              f"{excess:.3e})", flush=True)
+        if not excess <= 0:
+            fail(f"{name} {lab}: raw sums miss their tolerance by {excess:.3e}")
 
 
 def value_and_grad(fn, x):
@@ -493,22 +551,7 @@ def check_tile_kernels(state, label, rows=None, twin_dtype=None):
         return fn(*(a.to(twin_dtype) if torch.is_tensor(a) and a.is_floating_point() else a for a in args))
 
     def sums_check(lab, a, b, pot, lw, pairs):
-        # As the fine step reads them: S = f + eps (loga - log sums); the
-        # sums that flushed weights could move (FLUSH_SHARE) as raw sums.
-        pot, lw = pot.to(b.dtype), lw.to(b.dtype)
-        flush = pairs.to(b) * FLUSH_WEIGHT
-        near = (b > 0) & (flush > FLUSH_SHARE * b)
-        s_got, s_ref = ck._absorbed_update(pot, lw, e, a), ck._absorbed_update(pot, lw, e, b)
-        check_val("absorbed_sum_tiles", f"{lab} ({int(near.sum())} sums within reach of flushed weights "
-                  "compared raw)", s_got[~near], s_ref[~near])
-        if near.any():
-            a, b, tol = a[near], b[near], VAL_ATOL + VAL_RTOL * s_ref[near].abs()
-            excess = ((a - b).abs() - (flush[near] + b * torch.expm1(tol / e))).max().item()
-            print(f"[parity] absorbed_sum_tiles {lab}: {int(near.sum())} raw sums, twin sums up to "
-                  f"{b.max().item():.3e}, max_abs_err {(a - b).abs().max().item():.3e} (tol kept pairs x 2^-126 + "
-                  f"the potentials' tolerance, max excess {excess:.3e})", flush=True)
-            if not excess <= 0:
-                fail(f"absorbed_sum_tiles {lab}: raw sums miss their tolerance by {excess:.3e}")
+        check_sums("absorbed_sum_tiles", lab, a, b, pot, lw, e, pairs)
 
     for tri, args in (
         (False, (xs, ys, phi, psi, e, cols, cnt, p, tile, False)),
@@ -619,8 +662,20 @@ def check_sparse_apply(label, args, clock, card, time_it=True):
     b_ms, b_by = bound(ops * kept, nbytes(x, y, phi, psi, V, cols, cnt) + 4 * V.numel() * x.shape[0] // y.shape[0],
                        clock)
     print(f"[time] gibbs_apply_sparse {label}: kernel {event_ms(lambda: cbs.gibbs_apply_sparse(*args), 3):.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) x {kept:.4g} kept pairs) (CUDA events); card {card}",
-          flush=True)
+          f"bound {b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) x {kept:.4g} kept pairs){sparse_floor(V, p, kind, kept, clock)} "
+          f"(CUDA events); card {card}", flush=True)
+
+
+def sparse_floor(V, p, kind, kept, clock):
+    """Kernel 8's issue floor at p = 2 (mode 0) and D <= 3, as text: a
+    launch per channel group."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+
+    if p != 2 or kind not in ("gibbs", "gibbs_grad"):
+        return ""
+    G, Cp = cbs._channel_groups(V.shape[1])
+    slots = pair_slots("gibbs_apply_sparse", ch=G)
+    return f", issue floor {issue_ms(slots * (Cp // G), kept, clock):.3f} ms ({slots} slots per pair)"
 
 
 def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_rows=MID_PARITY_TILES,
@@ -851,12 +906,14 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
                 check_sparse_apply(f"N=M={n_large} mask_{key} first {large_rows} row tiles p={p} {kind} C={C}",
                                    args8, clock, card, time_it=False)
         if key == "xy":
-            full = (xs, ys, zx, zy, v[:, None], MMD_BLUR**2, mask.cols, mask.counts, 2, "gibbs", tile, tile)
             kept = table_stats(mask.cols, mask.counts)[0] * tile * tile
-            b_ms, b_by = bound(kept, nbytes(*full[:5], mask.cols, mask.counts) + 4 * xs.shape[0], clock)
-            print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy full table p=2 gibbs C=1: kernel "
-                  f"{event_ms(lambda: cbs.gibbs_apply_sparse(*full), 3):.3f} ms, bound {b_ms:.3f} ms ({b_by}) "
-                  f"(CUDA events); card {card}", flush=True)
+            for V in (v[:, None], v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)):
+                full = (xs, ys, zx, zy, V, MMD_BLUR**2, mask.cols, mask.counts, 2, "gibbs", tile, tile)
+                b_ms, b_by = bound(kept, nbytes(*full[:5], mask.cols, mask.counts) + 4 * V.numel(), clock,
+                                   flops=2 * (4 + V.shape[1]) * kept)
+                print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy full table p=2 gibbs C={V.shape[1]}: kernel "
+                      f"{event_ms(lambda: cbs.gibbs_apply_sparse(*full), 3):.3f} ms, bound {b_ms:.3f} ms ({b_by})"
+                      f"{sparse_floor(V, 2, 'gibbs', kept, clock)} (CUDA events); card {card}", flush=True)
     del xl, yl, g_l, rec
     torch.cuda.empty_cache()
 
@@ -1229,7 +1286,7 @@ def auto_route_phase(dev, card, n, tag, reps, blur=BLUR, tile=1024, parity_rows=
 def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
     """``SamplesLoss()`` at D = 32 (the auto route takes the online backend
     for D > 3): its kernels launched, value and gradient against the same
-    solve through the float64 twins; kernels 1 and 4 timed at D = 32."""
+    solve through the float64 twins; kernels 1, 2 and 4 timed at D = 32."""
     from geomloss_tpu_torch import SamplesLoss
     from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
@@ -1264,8 +1321,10 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
     eps = BLUR**2
     lse_ref = ck.lse_blocked(x, y, la, eps, 2)
     V = torch.cat([torch.ones_like(y[:, :1]), y[:, :3]], 1)
+    z = torch.zeros_like(la)
     for name, call, nb in (
         ("lse", lambda: ck.lse(x, y, la, eps, 2), nbytes(x, y, la) + 4 * n),
+        ("sinkhorn_step", lambda: ck.sinkhorn_step(x, y, z, z, la, la, eps, 2), nbytes(x, y, z, z, la, la) + 8 * n),
         ("gibbs_apply", lambda: ck.gibbs_apply(x, y, -lse_ref, la, V, eps, 2), nbytes(x, y, la, la, V) + 16 * n),
     ):
         b_ms, b_by = bound(n * n, nb, clock, flops=2 * d * n * n)
@@ -1306,9 +1365,11 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if any(lib.parent != out_dir for lib in libs):
         fail(f"the libraries were not built into {ck.BUILD_DIR_ENV}={out_dir}")
-    usage = ptxas_usage(cbs._LIB.path.with_suffix(".log").read_text())
+    usage = {}
+    for lib in (ck._LIB, cbs._LIB):
+        usage.update(ptxas_usage(lib.path.with_suffix(".log").read_text()))
     for name in sorted(usage):
-        if name.startswith(("tiles_step_kernel", "tiles_apply_kernel")):
+        if name.startswith(("tiles_step_kernel", "tiles_apply_kernel")) or name in PTXAS_SHOWN:
             print(f"[build] ptxas {name}: {json.dumps(usage[name])}", flush=True)
 
     f32, f64 = torch.float32, torch.float64
@@ -1358,9 +1419,15 @@ def main():
             g = torch.zeros(M, dtype=f32, device=dev)
             lse_ref = ck.lse_blocked(x, y, lb, eps, p)
             check_val("lse", label, ck.lse(x, y, lb, eps, p), lse_ref)
-            got = ck.sinkhorn_step(x, y, f, g, la, lb, eps, p)
-            for d, (a, b) in enumerate(zip(got, ck.sinkhorn_step_blocked(x, y, f, g, la, lb, eps, p))):
-                check_val("sinkhorn_step", f"{label} {'xy' if d == 0 else 'yx'}", a, b)
+            # Kernel 2's raw sums (M terms in a row sum, N in a column sum).
+            got = ck._step_sums(x, y, f, g, la, lb, eps, p)
+            ref = ck._step_sums_blocked(x, y, f, g, la, lb, eps, p)
+            for d, (a, b, pot, lw, n) in enumerate(zip(got, ref, (f, g), (la, lb), (M, N))):
+                check_sums("sinkhorn_step", f"{label} {'xy' if d == 0 else 'yx'}", a, b, pot, lw, eps,
+                           torch.full_like(b, n))
+            for a, b in zip(ck.sinkhorn_step(x, y, f, g, la, lb, eps, p), ck.sinkhorn_step(x, y, f, g, la, lb, eps, p)):
+                if not torch.equal(a, b):
+                    fail(f"sinkhorn_step {label}: two calls differ")
             check_val("sinkhorn_step_sym", label, ck.sinkhorn_step_sym(x, f, la, eps, p),
                       ck.sinkhorn_step_sym_blocked(x, f, la, eps, p))
             # Row-normalized weights, as in the softmin backward passes:
@@ -1536,9 +1603,11 @@ def main():
         ms_k = event_ms(kern, 10)
         plain_ms = event_ms(twin, twin_reps)
         bound_ms, bound_by = bound(*work[name], clock)
+        floor = (f", issue floor {issue_ms(pair_slots(name), work[name][0], clock):.3f} ms ({pair_slots(name)} "
+                 f"slots per pair)" if name in PAIR_TAIL_SLOTS else "")
         print(f"[time] {name:18s} {where}: kernel {ms_k:.3f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-              f"({bound_by}: {work[name][0]:.4g} exp2, {work[name][1]:.4g} bytes, SM clock {clock / 1e6:.0f} MHz) "
-              f"(CUDA events); card {card}", flush=True)
+              f"({bound_by}: {work[name][0]:.4g} exp2, {work[name][1]:.4g} bytes, SM clock {clock / 1e6:.0f} MHz)"
+              f"{floor} (CUDA events); card {card}", flush=True)
         # No single PyTorch call computes these functions: each needs the
         # dense (N, M) matrix (40 GB at 1e5) or a gather of kept tiles.
         kernels.append({

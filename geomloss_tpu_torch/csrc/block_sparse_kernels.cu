@@ -18,10 +18,10 @@
 // What bounds these kernels on an H100: the exponential, as for the online
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM), and,
 // once the few FFMAs of a pair come near it, instruction issue; a kept pair
-// reads nothing but the two tiles' coordinates and biases. Kernels 5 and 6
-// run register-tiled pair blocks (pair_common.cuh) to stay near that bound;
-// kernels 7, 8 and 12 keep one thread per row and, above D = 8, a wide
-// instantiation in chunks of 8 coordinates.
+// reads nothing but the two tiles' coordinates and biases. Kernels 5, 6 and
+// 8 run register-tiled pair blocks over packed points (pair_common.cuh) to
+// stay near that bound; kernels 7 and 12 keep one thread per row and, above
+// D = 8, a wide instantiation in chunks of 8 coordinates.
 //
 // Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7, 8
 // and 12 read a (cols, cnt) table directly, with row tiles of block_n
@@ -61,23 +61,19 @@ constexpr int kWideChunk = 8;
 //    clock per SM); at p = 2, D = 3 a pair also takes D + 1 FFMAs and two
 //    adds, about 8 issue slots, which the MUFU rate just balances.
 //    Design: one block per (live slot, 256-row slice of the tile), the
-//    register-tiled pair blocks of pair_common.cuh, kStepCols columns per
-//    lane and pass: per pair one LDS.128 shared by 8 rows (per kv float4
-//    of the packed points), D + 1 FFMAs, one MUFU.EX2 and the two adds.
-//    Points of up to kStepStaged float4s (D <= 8 at p = 2, D <= 12 at
-//    p = 1) are staged, the lane's rows in registers and the columns in
-//    shared memory; wider points (KV = 0) are read from global memory, a
-//    float4 of each at a time, the scores built up in registers. Row sums
-//    stay in 8 registers per lane over the whole column tile and are added
-//    over the 8 warps once at the end;
-//    column sums stay in kStepCols registers over a lane's 8 rows and go to
-//    shared memory, where each 256-column stage adds its 32 lanes once, in
-//    a fixed order. No shuffles, no atomics: deterministic.
+//    register-tiled pair blocks of pair_common.cuh (step_stage, shared with
+//    kernel 2), kStepCols columns per lane and pass: per pair one LDS.128
+//    shared by 8 rows (per kv float4 of the packed points), D + 1 FFMAs,
+//    one MUFU.EX2 and the two adds. Points of up to kStepStaged float4s
+//    (D <= 11 at p = 2, D <= 12 at p = 1) are staged, the lane's rows in
+//    registers and the columns in shared memory; wider points (KV = 0) are
+//    read from global memory, a float4 of each at a time, the scores built
+//    up in registers. Row sums stay in 8 registers per lane over the whole
+//    column tile and are added over the 8 warps once at the end; column
+//    sums stay in kStepCols registers over a lane's 8 rows and go to shared
+//    memory, where each 256-column stage adds its 32 lanes once, in a fixed
+//    order. No shuffles, no atomics: deterministic.
 // -----------------------------------------------------------------------------
-constexpr int kStepCols = 8;
-constexpr int kStepStaged = 3;        // the widest staged points, in float4s (46 KB of shared memory)
-constexpr int kRedPitch = kTile + 4;  // keeps a lane's float4 stores off each other's banks
-
 template <int P, int KV>
 __global__ void __launch_bounds__(kThreads)
 tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
@@ -85,14 +81,10 @@ tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
                   float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
                   int tri, int kv, float c2) {
-  constexpr int R = kPairRows, C = kStepCols;
   constexpr bool WIDE = KV == 0;
   constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
-  __shared__ float4 ys[KS][WIDE ? 1 : kTile];
-  __shared__ float ycb[kTile];
-  __shared__ __align__(16) float red[32][kRedPitch];
+  __shared__ StepSmem<P, KS, WIDE> sm;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int64_t q = blockIdx.x;
   const int h = blockIdx.y;
   const int I = slot_i[q];
@@ -103,119 +95,18 @@ tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
   float* rp = rowpart + q * tile + h * kThreads;
   float* cp = colpart + (q * gridDim.y + h) * tile;
   const bool cols = !(tri && I == J);
-  // The lane's rows: an invalid row gets bias -inf, so its weights are 0.
-  float4 xr[R][KS];
-  float br[R], racc[R];
+  float4 xr[kPairRows][KS];
+  float br[kPairRows], racc[kPairRows];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int il = lane + 32 * r;
-    const bool ok = il < rows;
-#pragma unroll
-    for (int k = 0; k < KS; ++k)
-      xr[r][k] = (!WIDE && ok) ? xv[(i0 + il) * KS + k] : make_float4(0.f, 0.f, 0.f, 0.f);
-    if constexpr (P == 2) xr[r][KS - 1].w = 1.f;  // the packed row's last slot: the column bias's factor
-    br[r] = ok ? rb[i0 + il] : -INFINITY;
-    racc[r] = 0.f;
-  }
+  for (int r = 0; r < kPairRows; ++r) racc[r] = 0.f;
   for (int c0 = 0; c0 < tile; c0 += kTile) {
     const int n = min(kTile, tile - c0);
-    const int64_t j0 = (int64_t)J * tile + c0;
-    __syncthreads();  // the last stage's reads of ys, ycb and red are done
-    for (int k = threadIdx.x; k < n; k += kThreads) {
-      if constexpr (!WIDE) {
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) ys[kk][k] = yv[(j0 + k) * KS + kk];
-      }
-      if constexpr (P == 1) ycb[k] = cb[j0 + k];
-    }
-    __syncthreads();
-    for (int b = 0; b < n; b += kWarps * C) {
-      const int cb0 = b + warp * C;
-      float cacc[C];
-      if constexpr (!WIDE) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float4 y[KS];
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) y[kk] = ys[kk][cb0 + c];
-          const float bc = P == 1 ? ycb[cb0 + c] : 0.f;
-          float cs = 0.f;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float sc = P == 2 ? br[r] : 0.f;
-#pragma unroll
-            for (int kk = 0; kk < KS; ++kk) sc = packed_acc<P>(xr[r][kk], y[kk], sc);
-            const float w = packed_weight<P, -1>(sc, br[r] + bc, c2);
-            racc[r] += w;
-            cs += w;
-          }
-          cacc[c] = cs;
-        }
-      } else {
-        float s[R][C];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-#pragma unroll
-          for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
-        }
-        for (int k = 0; k < kv; ++k) {
-          float4 xk[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const int il = lane + 32 * r;
-            xk[r] = il < rows ? xv[(i0 + il) * kv + k] : make_float4(0.f, 0.f, 0.f, 0.f);
-          }
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const float4 y = yv[(j0 + cb0 + c) * kv + k];
-#pragma unroll
-            for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float bc = P == 1 ? ycb[cb0 + c] : 0.f;
-          float cs = 0.f;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float w = packed_weight<P, -1>(s[r][c], br[r] + bc, c2);
-            racc[r] += w;
-            cs += w;
-          }
-          cacc[c] = cs;
-        }
-      }
-      if (cols) {
-#pragma unroll
-        for (int c = 0; c < C; c += 4)
-          *reinterpret_cast<float4*>(&red[lane][cb0 + c]) =
-              make_float4(cacc[c], cacc[c + 1], cacc[c + 2], cacc[c + 3]);
-      }
-    }
-    if (cols) {
-      __syncthreads();
-      if (threadIdx.x < n) {
-        float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int l = 0; l < 32; ++l) sum[l & 3] += red[l][threadIdx.x];
-        cp[c0 + threadIdx.x] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
-      }
-    } else if (threadIdx.x < n) {
-      cp[c0 + threadIdx.x] = 0.f;
-    }
+    step_stage<P, KV>(sm, xr, br, racc, xv, i0, rows, kv, yv, cb, (int64_t)J * tile + c0, n, n, cols,
+                      cp + c0, c2);
   }
-  // Row sums: the 8 warps' partials of each row, added in warp order.
-  __syncthreads();
-  float* rr = &red[0][0];
-#pragma unroll
-  for (int r = 0; r < R; ++r) rr[warp * kThreads + lane + 32 * r] = racc[r];
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += rr[w * kThreads + threadIdx.x];
-    rp[threadIdx.x] = sum;
-  }
+  const float sum = block_row_sum(sm, racc);
+  if (threadIdx.x < rows) rp[threadIdx.x] = sum;
 }
 
 // -----------------------------------------------------------------------------
@@ -465,92 +356,187 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    geomloss_tpu/ops/block_sparse.py::gibbs_apply_sparse
 //    (_apply_sparse_kernel), the truncated MMD matvecs and the backward of
 //    the truncated softmin: O_i = sum_j w_ij V_j over the source tiles
-//    cols[I, k], k < cnt[I], of row i's tile I, four channels (the wrapper
-//    pads V and loops over channel groups), with the weights of
-//    apply_weight's modes 0-4 (pair_common.cuh). Rows come in tiles of
-//    block_n points, sources in tiles of block_m points. Also serves
+//    cols[row_start[I] + k], k < cnt[I], of row i's tile I, CH = 1 or 4
+//    channels (the wrapper sends one channel alone and wider V in groups of
+//    four), with the weights of packed_weight's modes 0-4
+//    (pair_common.cuh). Rows come in tiles of block_n points, sources in
+//    tiles of block_m points (any sizes). Also serves
 //    block_sparse.py::gibbs_apply_walk (_apply_walk_kernel), the same
 //    function over a walk table: the walk is only the TPU's traversal
 //    order, and the wrapper decodes it into row starts and counts.
 //    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
 //    a division; energy and inv_dist take a sqrt and a reciprocal, no
-//    exp2), then four FFMAs into float32 accumulators. Design: kernel 7's
-//    CSR indirection (one block per (row tile, 256-row slice), one thread
-//    per row, each kept source tile staged in shared memory kTile points at
-//    a time) around kernel 4's per-pair body, V's four channels staged
-//    beside y. Each output row is written once: no scratch, no atomics,
-//    bitwise reproducible. The TPU's bf16 split of wide V (the mxu path,
-//    C >= 9) has no counterpart: every channel is an exact float32 FFMA.
+//    exp2), then CH FFMAs: at p = 2, D = 3 a pair takes 4 FFMAs, the
+//    MUFU.EX2 and CH FFMAs, 6 issue slots at CH = 1 (the MUFU rate binds)
+//    and 9 at CH = 4 (issue binds, just above the MUFU rate).
+//    Design: the register-tiled pair blocks of kernel 5 with the row
+//    direction only. One block per (row tile, 256-row slice) keeps kernel
+//    7's CSR indirection; a lane owns 8 rows (packed points and CH
+//    accumulators in registers) and a warp kSparseCols columns of each
+//    pass. Each kept source tile is staged kTile columns at a time (packed
+//    points, p = 1 biases, V), padded to whole passes with copies of the
+//    last column whose V is 0. Per pair: one LDS.128 (per staged float4)
+//    and one V load shared by 8 rows, the score FFMAs, one ex2.approx and
+//    CH FFMAs into a stage partial, added to the row's accumulator once per
+//    stage (the rounding error grows with the stages of a row, not its kept
+//    points). At the end the 8 warps' partials of each row are added in
+//    warp order and the row written once: no scratch, no atomics, bitwise
+//    reproducible. Points of up to kStepStaged float4s are staged; wider
+//    ones (KV = 0) are read from global memory per pass, as kernel 5's.
+//    The TPU's bf16 split of wide V (the mxu path, C >= 9) has no
+//    counterpart: every channel is an exact float32 FFMA.
 // -----------------------------------------------------------------------------
-template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads)
-sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                    const float* __restrict__ phi, const float* __restrict__ psi,
-                    const float* __restrict__ vt, const int* __restrict__ cols,
+template <int CH> struct Chan;
+template <> struct Chan<1> { using T = float; };
+template <> struct Chan<4> { using T = float4; };
+
+__device__ __forceinline__ void chan_zero(float& a) { a = 0.f; }
+__device__ __forceinline__ void chan_zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void chan_fma(float w, float v, float& a) { a = fmaf(w, v, a); }
+__device__ __forceinline__ void chan_fma(float w, float4 v, float4& a) {
+  a.x = fmaf(w, v.x, a.x);
+  a.y = fmaf(w, v.y, a.y);
+  a.z = fmaf(w, v.z, a.z);
+  a.w = fmaf(w, v.w, a.w);
+}
+__device__ __forceinline__ void chan_add(float& a, float b) { a += b; }
+__device__ __forceinline__ void chan_add(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Shared memory of kernel 8: a stage of packed columns, their p = 1 biases
+// and V, and (after the last stage) the warps' row partials.
+template <int KS, int CH, bool WIDE>
+union SparseSmem {
+  struct {
+    float4 ys[KS][WIDE ? 1 : kTile];
+    typename Chan<CH>::T vs[kTile];
+    float ycb[kTile];
+  } st;
+  typename Chan<CH>::T red[kWarps * kThreads];
+};
+
+template <int MODE, int KV, int CH>
+__global__ void __launch_bounds__(kThreads, KV == 1 ? 2 : 1)
+sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+                    const float* __restrict__ rb, const float* __restrict__ cb,
+                    const typename Chan<CH>::T* __restrict__ v, const int* __restrict__ cols,
                     const int* __restrict__ row_start, const int* __restrict__ cnt,
-                    float* __restrict__ out, int M, int block_n, int block_m, int dw, float c2) {
+                    typename Chan<CH>::T* __restrict__ out, int block_n, int block_m, int kv,
+                    float c2) {
+  using VT = typename Chan<CH>::T;
+  constexpr int P = MODE == 0 ? 2 : 1;
+  constexpr int R = kPairRows;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  // Columns per lane and pass: 4 where a pass holds four channels or wide
+  // scores in registers, else 8.
+  constexpr int C = (CH == 4 || WIDE) ? 4 : 8;
+  constexpr int PASS = kWarps * C;  // columns per pass
+  static_assert(kTile % PASS == 0, "a padded stage fits the staging buffers");
+  __shared__ SparseSmem<KS, CH, WIDE> sm;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
-  const bool valid = threadIdx.x < rows;
-  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
+  const int64_t i0 = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads;
+  float4 xr[R][KS];
+  float br[R];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
+  VT acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) chan_zero(acc[r]);
   const int* row_cols = cols + row_start[I];
   const int n_kept = cnt[I];
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    const float bi = valid ? phi[i] : 0.f;
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-      for (int g = 0; g < block_m; g += kGroup) {
-        const int n = min(kGroup, block_m - g);
-        const int64_t j0 = j_tile + g;
-        float a[kGroup];
-        wide_scores<kWideChunk, MODE != 0>(x, i, valid, MODE == 0 ? c2 : 1.f, y, psi, j0, n, dw, st, a);
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < n_kept; ++k) {
+    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+    for (int c0 = 0; c0 < block_m; c0 += kTile) {
+      const int n = min(kTile, block_m - c0);
+      const int n_pad = (n + PASS - 1) / PASS * PASS;
+      const int64_t j0 = j_tile + c0;
+      __syncthreads();  // the last stage's reads are done
+      for (int kk = threadIdx.x; kk < n_pad; kk += kThreads) {
+        // A padded column repeats the last one with V = 0: it adds nothing.
+        const int64_t j = j0 + min(kk, n - 1);
+        if constexpr (!WIDE) {
 #pragma unroll
-        for (int kk = 0; kk < kGroup; ++kk) {
-          if (kk < n) {
-            const float w = wide_weight<MODE>(a[kk], bi + st.bias[kk], c2);
+          for (int q = 0; q < KS; ++q) sm.st.ys[q][kk] = yv[j * KS + q];
+        }
+        if constexpr (P == 1) sm.st.ycb[kk] = cb[j];
+        VT vj;
+        chan_zero(vj);
+        if (kk < n) vj = v[j];
+        sm.st.vs[kk] = vj;
+      }
+      __syncthreads();
+      VT part[R];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) part[c] = fmaf(w, vt[(int64_t)c * M + j0 + kk], part[c]);
+      for (int r = 0; r < R; ++r) chan_zero(part[r]);
+      for (int b = 0; b < n_pad; b += PASS) {
+        const int cb0 = b + warp * C;
+        float s[WIDE ? R : 1][C];
+        if constexpr (WIDE) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
+          }
+          for (int q = 0; q < kv; ++q) {
+            float4 xk[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const int il = lane + 32 * r;
+              xk[r] = il < rows ? xv[(i0 + il) * kv + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const float4 y = yv[(j0 + min(cb0 + c, n - 1)) * kv + q];
+#pragma unroll
+              for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
+            }
           }
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] += part[c];
-      }
-    }
-  } else {
-    __shared__ Tile<D> t;
-    __shared__ float v[4][kTile];
-    const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-      for (int c0 = 0; c0 < block_m; c0 += kTile) {
-        const int n = min(kTile, block_m - c0);
-        const int64_t j0 = j_tile + c0;
-        __syncthreads();
-        load_tile<D>(t, y, psi, j0, n);
-        for (int kk = threadIdx.x; kk < n; kk += kThreads) {
+        for (int c = 0; c < C; ++c) {
+          const VT vc = sm.st.vs[cb0 + c];
+          const float bc = P == 1 ? sm.st.ycb[cb0 + c] : 0.f;
+          float4 y[KS];
+          if constexpr (!WIDE) {
 #pragma unroll
-          for (int c = 0; c < 4; ++c) v[c][kk] = vt[(int64_t)c * M + j0 + kk];
+            for (int q = 0; q < KS; ++q) y[q] = sm.st.ys[q][cb0 + c];
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float sc;
+            if constexpr (WIDE) {
+              sc = s[r][c];
+            } else {
+              sc = P == 2 ? br[r] : 0.f;
+#pragma unroll
+              for (int q = 0; q < KS; ++q) sc = packed_acc<P>(xr[r][q], y[q], sc);
+            }
+            chan_fma(packed_weight<P, MODE>(sc, br[r] + bc, c2), vc, part[r]);
+          }
         }
-        __syncthreads();
-        // One partial sum per staged tile, added once: the rounding error
-        // grows with the tiles of a row, not its kept points.
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int kk = 0; kk < n; ++kk) {
-          const float w = apply_weight<D, MODE>(r, t, kk, c2);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][kk], part[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] += part[c];
       }
+#pragma unroll
+      for (int r = 0; r < R; ++r) chan_add(acc[r], part[r]);
     }
   }
-  if (valid) {
+  // Row sums: the 8 warps' partials of each row, added in warp order.
+  __syncthreads();
 #pragma unroll
-    for (int c = 0; c < 4; ++c) out[i * 4 + c] = acc[c];
+  for (int r = 0; r < R; ++r) sm.red[warp * kThreads + lane + 32 * r] = acc[r];
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    VT sum;
+    chan_zero(sum);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) chan_add(sum, sm.red[w * kThreads + threadIdx.x]);
+    out[i0 + threadIdx.x] = sum;
   }
 }
 
@@ -564,10 +550,10 @@ sparse_apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    wrapper floors them and takes the log). No max pass: the annealing
 //    bounds the absorbed weights (block_sparse.py, "Single-pass absorbed
 //    sparse softmin"), and phi_i stays inside the exponent.
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 8's
-//    CSR indirection and staging with kernel 5's absorbed weight
-//    (absorbed_tile, pair_common.cuh), no V: one float32 accumulator per
-//    row taking one partial per staged tile. Each output row is written
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 7's
+//    CSR indirection and staging (one thread per row) with the absorbed
+//    weight of kernel 3 (absorbed_tile, pair_common.cuh), no V: one float32
+//    accumulator per row taking one partial per staged tile. Each output row is written
 //    once: no scratch, no atomics, bitwise reproducible.
 // -----------------------------------------------------------------------------
 template <int D, int P>
@@ -717,26 +703,49 @@ int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* col
   return (int)cudaGetLastError();
 }
 
-// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt),
-// vt (4, M) with row stride M.
-int gl_gibbs_apply_sparse(const float* x, const float* y, const float* phi,
-                          const float* psi, const float* vt, const int* cols,
-                          const int* row_start, const int* cnt, float* out, int M,
-                          int n_rows, int block_n, int block_m, int D, int mode, float c2,
+// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt); xv
+// and yv the packed points (kv float4 each), rb and cb their biases (cb
+// read for modes 1 and 2), v (M, ch) one channel group of V, ch 1 or 4;
+// out (N, ch).
+int gl_gibbs_apply_sparse(const float* xv, const float* yv, const float* rb,
+                          const float* cb, const float* v, const int* cols,
+                          const int* row_start, const int* cnt, float* out, int n_rows,
+                          int block_n, int block_m, int kv, int ch, int mode, float c2,
                           void* stream) {
   if (n_rows == 0) return (int)cudaSuccess;
+  if (mode < 0 || mode > 4 || kv < 1 || (ch != 1 && ch != 4) || block_n < 1 || block_m < 1)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(n_rows, cdiv(block_n, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dw = D;
-  GL_DISPATCH_D8(D,
-    switch (mode) {
-      case 0: sparse_apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
-      case 1: sparse_apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
-      case 2: sparse_apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
-      case 3: sparse_apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
-      case 4: sparse_apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, cols, row_start, cnt, out, M, block_n, block_m, dw, c2); break;
-      default: return (int)cudaErrorInvalidValue;
-    })
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_SPARSE(MODE, KV, CH)                                                             \
+  sparse_apply_kernel<MODE, KV, CH><<<grid, kThreads, 0, s>>>(                              \
+      x4, y4, rb, cb, reinterpret_cast<const Chan<CH>::T*>(v), cols, row_start, cnt,        \
+      reinterpret_cast<Chan<CH>::T*>(out), block_n, block_m, kv, c2)
+#define GL_SPARSE_KV(MODE, CH)                             \
+  switch (kv) {                                            \
+    case 1: GL_SPARSE(MODE, 1, CH); break;                 \
+    case 2: GL_SPARSE(MODE, 2, CH); break;                 \
+    case kStepStaged: GL_SPARSE(MODE, kStepStaged, CH); break; \
+    default: GL_SPARSE(MODE, 0, CH); break;                \
+  }
+#define GL_SPARSE_CH(MODE) \
+  if (ch == 1) {           \
+    GL_SPARSE_KV(MODE, 1)  \
+  } else {                 \
+    GL_SPARSE_KV(MODE, 4)  \
+  }
+  switch (mode) {
+    case 0: GL_SPARSE_CH(0) break;
+    case 1: GL_SPARSE_CH(1) break;
+    case 2: GL_SPARSE_CH(2) break;
+    case 3: GL_SPARSE_CH(3) break;
+    default: GL_SPARSE_CH(4) break;
+  }
+#undef GL_SPARSE_CH
+#undef GL_SPARSE_KV
+#undef GL_SPARSE
   return (int)cudaGetLastError();
 }
 

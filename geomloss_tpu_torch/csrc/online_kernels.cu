@@ -13,7 +13,9 @@
 // spend FFMAs to save exponentials: LSE recomputes each tile's scores for
 // a max pass instead of rescaling per pair, the fused step reads both
 // softmin directions off one exponential, and the symmetric step visits
-// each off-diagonal pair once.
+// each off-diagonal pair once. The fused step runs the register-tiled pair
+// blocks of kernel 5 (pair_common.cuh) over packed points; the others keep
+// one thread per row.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -72,7 +74,9 @@ lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    (_pair_step_kernel). W_ij = exp2(phi_i + psi_j + arg_ij), no max pass
 //    (W is bounded after an averaged update; see the JAX block comment).
 //    Row sums of W give S_xy, column sums give S_yx.
-//    Bound: one exp2 per pair gives both directions. Design: the TPU's
+//    Bound: one exp2 per pair gives both directions (MUFU: 16 per clock per
+//    SM); at p = 2, D = 3 a pair also takes D + 1 FFMAs and two adds, about
+//    8 issue slots, which the MUFU rate just balances. Design: the TPU's
 //    sequential column carry has no counterpart between blocks, so block
 //    (b, s) takes the 256 rows of row block row_blk0 + b against column
 //    slice s ([s * width, (s + 1) * width)) and writes its column sums to
@@ -81,54 +85,40 @@ lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    written exactly once, and the wrapper sums them in a fixed order, so
 //    the result is deterministic without atomics. The wrapper launches
 //    row blocks in chunks sized to a fixed scratch budget and slices the
-//    columns so that each launch still fills the card. Column sums inside
-//    a block use a transposed warp reduction.
+//    columns so that each launch still fills the card. Inside the block,
+//    kernel 5's register-tiled stage (step_stage, pair_common.cuh) runs
+//    over 256-column stages of the slice: packed float4 points, 8 rows per
+//    lane in registers, one ex2.approx per pair, row sums in registers and
+//    column sums through shared memory once per stage. The wrapper pads
+//    the columns to whole stages with bias -inf (weight 0); only columns
+//    below M are written. Points wider than kStepStaged float4s (D > 11 at
+//    p = 2) are read from global memory per pass (KV = 0).
 // -----------------------------------------------------------------------------
-template <int D, int P>
+template <int P, int KV>
 __global__ void __launch_bounds__(kThreads)
-step_kernel(const float* __restrict__ x, const float* __restrict__ y,
-            const float* __restrict__ phi, const float* __restrict__ psi,
+step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+            const float* __restrict__ rb, const float* __restrict__ cb,
             float* __restrict__ rowpart, float* __restrict__ colpart, int N, int M,
-            int row_blk0, int width, int dw, float c2) {
-  __shared__ float wsum[kWarps][kTile];
-  const int64_t i = (int64_t)(row_blk0 + blockIdx.x) * kThreads + threadIdx.x;
-  const bool valid = i < N;
-  float rsum = 0.f;
+            int row_blk0, int width, int kv, float c2) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ StepSmem<P, KS, WIDE> sm;
+  const int lane = threadIdx.x & 31;
+  const int64_t i0 = (int64_t)(row_blk0 + blockIdx.x) * kThreads;
+  const int64_t left = (int64_t)N - i0;
+  const int rows = left < kThreads ? (int)left : kThreads;
   float* cp = colpart + (int64_t)blockIdx.x * M;
   const int j_end = min(M, (int)(blockIdx.y + 1) * width);
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const float bi = valid ? phi[i] : 0.f;
-    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kGroup) {
-      const int n = min(kGroup, j_end - j0);
-      float w[kGroup];
-      wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, psi, j0, n, dw, st, w);
+  float4 xr[kPairRows][KS];
+  float br[kPairRows], racc[kPairRows];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        w[k] = (valid && k < n) ? exp2f(wide_arg<P>(w[k], bi + st.bias[k], c2)) : 0.f;
-        rsum += w[k];
-      }
-      warp_transpose_sum(w, lane);
-      wsum[warp][lane] = w[0];
-      __syncthreads();
-      if (threadIdx.x < n) cp[j0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
-    }
-  } else {
-    __shared__ Tile<D> t;
-    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
-    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile) {
-      const int n = min(kTile, j_end - j0);
-      __syncthreads();
-      load_tile<D>(t, y, psi, j0, n);
-      __syncthreads();
-      rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
-      __syncthreads();
-      if (threadIdx.x < n) cp[j0 + threadIdx.x] = sum_warps(wsum, threadIdx.x);
-    }
-  }
-  rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = rsum;
+  for (int r = 0; r < kPairRows; ++r) racc[r] = 0.f;
+  for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile)
+    step_stage<P, KV>(sm, xr, br, racc, xv, i0, rows, kv, yv, cb, j0, kTile, min(kTile, j_end - j0), true,
+                      cp + j0, c2);
+  const float sum = block_row_sum(sm, racc);
+  rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = sum;
 }
 
 // -----------------------------------------------------------------------------
@@ -305,18 +295,32 @@ int gl_lse(const float* x, const float* y, const float* h2, float* out, int N,
 }
 
 // Row blocks row_blk0 .. row_blk0 + n_blk of x against all of y, in
-// n_slices column slices of `width` columns.
-int gl_sinkhorn_step(const float* x, const float* y, const float* phi,
-                     const float* psi, float* rowpart, float* colpart, int N, int M,
-                     int row_blk0, int n_blk, int n_slices, int width, int D, int p,
+// n_slices column slices of `width` columns (a multiple of 256); xv and yv
+// the packed points (kv float4 each, pair_common.cuh), yv's columns padded
+// to a multiple of 256 with bias -inf; rb and cb the row and column biases
+// (cb read for p = 1 only).
+int gl_sinkhorn_step(const float* xv, const float* yv, const float* rb,
+                     const float* cb, float* rowpart, float* colpart, int N, int M,
+                     int row_blk0, int n_blk, int n_slices, int width, int kv, int p,
                      float c2, void* stream) {
+  if ((p != 1 && p != 2) || kv < 1 || width % kTile) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_blk, n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  const int dw = D;
-  GL_DISPATCH_D(D,
-    if (p == 2) step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, dw, c2);
-    else step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, rowpart, colpart, N, M, row_blk0, width, dw, c2))
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_STEP(P, KV) \
+  step_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, rowpart, colpart, N, M, row_blk0, width, kv, c2)
+#define GL_STEP_KV(P)                                  \
+  switch (kv) {                                        \
+    case 1: GL_STEP(P, 1); break;                      \
+    case 2: GL_STEP(P, 2); break;                      \
+    case kStepStaged: GL_STEP(P, kStepStaged); break;  \
+    default: GL_STEP(P, 0); break;                     \
+  }
+  if (p == 2) GL_STEP_KV(2)
+  else GL_STEP_KV(1)
+#undef GL_STEP_KV
+#undef GL_STEP
   return (int)cudaGetLastError();
 }
 

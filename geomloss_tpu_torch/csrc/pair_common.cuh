@@ -14,8 +14,9 @@
 //          arg = bias_i + bias_j - c2 d.
 // Above the compiled widths, D is padded to a multiple of the widest and
 // the kernels' wide instantiation (D = 0) builds the scores of a group of
-// columns up over coordinate chunks (wide_scores). Kernels 5 and 6 use the
-// register-tiled pair blocks at the end of this file instead.
+// columns up over coordinate chunks (wide_scores). Kernels 2, 5, 6 and 8
+// use the register-tiled pair blocks at the end of this file instead, over
+// points packed by the wrapper.
 
 #pragma once
 
@@ -315,19 +316,23 @@ __device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, fl
 }
 
 // -----------------------------------------------------------------------------
-// Register-tiled pair blocks (kernels 5 and 6). A block's 256 threads form a
-// 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l owns rows
-// l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C) of each
-// pass, so every shared-memory load of a column serves all rows of a lane
-// and is a broadcast across the warp. Points are packed by the wrapper as
-// float4 vectors, kv of them per point:
-//   p = 2: row [c2 x, 1, 0...], column [y, bias, 0...]: a score is the row
+// Register-tiled pair blocks (kernels 2, 5, 6 and 8). A block's 256 threads
+// form a 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l
+// owns rows l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C)
+// of each pass, so every shared-memory load of a column serves all rows of
+// a lane and is a broadcast across the warp. Points are packed by the
+// wrapper (cuda_kernels._pair_vectors) as float4 vectors, kv of them per
+// point:
+//   p = 2: row [c2 x, 0..., 1], column [y, 0..., bias]: a score is the row
 //          bias plus D + 1 FFMAs (the column bias rides as a coordinate);
 //   p = 1: row [x, 0...], column [y, 0...], the column bias apart:
 //          sqrt(max(|x - y|^2, 1e-8)) as pair_arg's.
-// With kv = 1 (p = 2 up to D = 3, p = 1 up to D = 4) a lane keeps its rows'
-// vectors in registers; a wider point builds its R x C scores up in
-// registers over the kv chunks (the wide instantiation).
+// A column the wrapper pads (kernel 2's ragged last stage) has bias -inf,
+// so its weights are 0. Points of up to kStepStaged float4s are staged: a
+// lane keeps its rows' vectors in registers and the block stages kTile
+// columns in shared memory. A wider point (the wide instantiation, KV = 0)
+// builds its R x C scores up in registers over the kv chunks, read from
+// global memory.
 // -----------------------------------------------------------------------------
 constexpr int kPairRows = kThreads / 32;  // rows per lane: 8
 
@@ -364,18 +369,191 @@ __device__ __forceinline__ float packed_acc(float4 x, float4 y, float s) {
 
 // Weight of a pair from its accumulated score s (p = 2: the base-2 log
 // weight; p = 1: the squared distance), `bias` the row bias plus (p = 1)
-// the column bias: MODE as apply_weight's 0-2, or -1 for kernel 5's
-// absorbed weight exp2(arg).
+// the column bias: MODE as apply_weight's 0-4 (3 and 4 take s only), or -1
+// for the absorbed weight exp2(arg) of kernels 2 and 5.
 template <int P, int MODE>
 __device__ __forceinline__ float packed_weight(float s, float bias, float c2) {
   if constexpr (P == 2) {
     return fast_exp2(s);
   } else {
     const float d = sqrtf(fmaxf(s, kSqdistFloor));
-    const float w = fast_exp2(fmaf(-d, c2, bias));
-    if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
-    return w;
+    if constexpr (MODE == 3) {
+      return -d;
+    } else if constexpr (MODE == 4) {
+      return s > kGradCut ? 1.f / d : 0.f;
+    } else {
+      const float w = fast_exp2(fmaf(-d, c2, bias));
+      if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
+      return w;
+    }
   }
+}
+
+// The lane's rows of a block whose first `rows` rows from i0 are valid,
+// KS float4s each (WIDE: left out, the passes read them from global
+// memory): an invalid row gets bias -inf, so its weights are 0.
+template <int P, int KS, bool WIDE>
+__device__ __forceinline__ void load_pair_rows(float4 (&xr)[kPairRows][KS], float (&br)[kPairRows],
+                                               const float4* __restrict__ xv,
+                                               const float* __restrict__ rb, int64_t i0, int rows,
+                                               int lane) {
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    const int il = lane + 32 * r;
+    const bool ok = il < rows;
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      xr[r][k] = (!WIDE && ok) ? xv[(i0 + il) * KS + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+    if constexpr (P == 2) xr[r][KS - 1].w = 1.f;  // the packed row's last slot: the column bias's factor
+    br[r] = ok ? rb[i0 + il] : -INFINITY;
+  }
+}
+
+// -----------------------------------------------------------------------------
+// The absorbed-sum stage of kernels 2 and 5: the lane's 8 rows against a
+// stage of n <= kTile columns in passes of kStepPass, kStepCols columns per
+// lane and pass: per pair one LDS.128 shared by 8 rows (per staged float4),
+// D + 1 FFMAs, one MUFU.EX2 and two adds (the row sum and the column sum).
+// Row sums stay in registers (racc) over the caller's stages and are added
+// over the 8 warps once at the end (block_row_sum); column sums stay in
+// kStepCols registers over a lane's 8 rows and go to shared memory, where
+// the stage adds its 32 lanes once, in a fixed order. No shuffles, no
+// atomics: deterministic.
+// -----------------------------------------------------------------------------
+constexpr int kStepCols = 8;
+constexpr int kStepPass = kWarps * kStepCols;  // columns per pass: 64
+constexpr int kStepStaged = 3;        // the widest staged points, in float4s (46 KB of shared memory)
+constexpr int kRedPitch = kTile + 4;  // keeps a lane's float4 stores off each other's banks
+
+// Shared memory of the stage: kTile packed columns (KS float4s each; none
+// for the wide instantiation), their p = 1 biases, and the lanes' column
+// partials (at the end, the warps' row partials).
+template <int P, int KS, bool WIDE>
+struct StepSmem {
+  float4 ys[KS][WIDE ? 1 : kTile];
+  float ycb[P == 1 ? kTile : 1];
+  __align__(16) float red[32][kRedPitch];
+};
+
+// One stage: the columns j0 .. j0 + n of yv (n a multiple of kStepPass),
+// against the lane's rows (xr, br; WIDE: xv's `rows` rows from i0, kv
+// float4s each). Adds the row sums into racc; with `cols`, writes the
+// column sums of the first n_out columns to cp[0 .. n_out), else zeros.
+// Every thread of the block calls it: it synchronises.
+template <int P, int KV>
+__device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0>& sm,
+                                           const float4 (&xr)[kPairRows][KV == 0 ? 1 : KV],
+                                           const float (&br)[kPairRows], float (&racc)[kPairRows],
+                                           const float4* __restrict__ xv, int64_t i0, int rows,
+                                           int kv, const float4* __restrict__ yv,
+                                           const float* __restrict__ cb, int64_t j0, int n,
+                                           int n_out, bool cols, float* __restrict__ cp,
+                                           float c2) {
+  constexpr int R = kPairRows, C = kStepCols;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // the last stage's reads of ys, ycb and red are done
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) sm.ys[kk][k] = yv[(j0 + k) * KS + kk];
+    }
+    if constexpr (P == 1) sm.ycb[k] = cb[j0 + k];
+  }
+  __syncthreads();
+  for (int b = 0; b < n; b += kStepPass) {
+    const int cb0 = b + warp * C;
+    float cacc[C];
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float4 y[KS];
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) y[kk] = sm.ys[kk][cb0 + c];
+        const float bc = P == 1 ? sm.ycb[cb0 + c] : 0.f;
+        float cs = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float sc = P == 2 ? br[r] : 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) sc = packed_acc<P>(xr[r][kk], y[kk], sc);
+          const float w = packed_weight<P, -1>(sc, br[r] + bc, c2);
+          racc[r] += w;
+          cs += w;
+        }
+        cacc[c] = cs;
+      }
+    } else {
+      float s[R][C];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
+      }
+      for (int k = 0; k < kv; ++k) {
+        float4 xk[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int il = lane + 32 * r;
+          xk[r] = il < rows ? xv[(i0 + il) * kv + k] : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float4 y = yv[(j0 + cb0 + c) * kv + k];
+#pragma unroll
+          for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float bc = P == 1 ? sm.ycb[cb0 + c] : 0.f;
+        float cs = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float w = packed_weight<P, -1>(s[r][c], br[r] + bc, c2);
+          racc[r] += w;
+          cs += w;
+        }
+        cacc[c] = cs;
+      }
+    }
+    if (cols) {
+#pragma unroll
+      for (int c = 0; c < C; c += 4)
+        *reinterpret_cast<float4*>(&sm.red[lane][cb0 + c]) =
+            make_float4(cacc[c], cacc[c + 1], cacc[c + 2], cacc[c + 3]);
+    }
+  }
+  if (cols) {
+    __syncthreads();
+    if (threadIdx.x < n_out) {
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int l = 0; l < 32; ++l) sum[l & 3] += sm.red[l][threadIdx.x];
+      cp[threadIdx.x] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+    }
+  } else if (threadIdx.x < n_out) {
+    cp[threadIdx.x] = 0.f;
+  }
+}
+
+// Row sums of the block: the 8 warps' partials racc of each row, added in
+// warp order; thread t returns row t's. Every thread calls it.
+template <int P, int KS, bool WIDE>
+__device__ __forceinline__ float block_row_sum(StepSmem<P, KS, WIDE>& sm, const float (&racc)[kPairRows]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  float* rr = &sm.red[0][0];
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) rr[warp * kThreads + lane + 32 * r] = racc[r];
+  __syncthreads();
+  float sum = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) sum += rr[w * kThreads + threadIdx.x];
+  return sum;
 }
 
 }  // namespace

@@ -47,10 +47,11 @@ are visited: the column direction then supplies the mirrored lower
 triangle, and a diagonal tile contributes to the row direction only. They
 launch the table's slots compacted on the device, the live ones first, in
 chunks whose partial sums stay under :data:`TILES_SCRATCH_BYTES`
-(:func:`_chunks`). Their CUDA kernels are register-tiled pair blocks that
-read packed points (:func:`_pair_vectors`), so they take any point
-dimension; kernels 7, 8 and 12 pad D to a compiled width, or above 8 to a
-multiple of 8 (their wide instantiation).
+(:func:`_chunks`). Their CUDA kernels, and kernel 8's, are
+register-tiled pair blocks that read packed points
+(``cuda_kernels._pair_vectors``), so they take any point dimension;
+kernels 7 and 12 pad D to a compiled width, or above 8 to a multiple of 8
+(their wide instantiation).
 
 Each wrapper takes its plain PyTorch twin (``*_blocked``, same signature, a
 loop over row tiles in the input dtype) only for tensors that lie on the
@@ -74,6 +75,7 @@ from .cuda_kernels import (
     _f32,
     _fold_norms,
     _log_weights_blk,
+    _pair_vectors,
     _points,
 )
 
@@ -102,9 +104,9 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-#: Point dimensions kernels 7, 8 and 12 are compiled for; above 8, D is
-#: padded to a multiple of 8 (their wide instantiation). Kernels 5 and 6
-#: take packed points of any D (:func:`_pair_vectors`).
+#: Point dimensions kernels 7 and 12 are compiled for; above 8, D is padded
+#: to a multiple of 8 (their wide instantiation). Kernels 5, 6 and 8 take
+#: packed points of any D (``cuda_kernels._pair_vectors``).
 _KERNEL_DIMS = (1, 2, 3, 4, 8)
 #: Rows per CUDA block.
 _ROWS = 256
@@ -146,8 +148,8 @@ _LIB = ck.KernelLibrary(
         # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
         # stream
         "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
-        # x, y, phi, psi, vt, cols, row_start, cnt, out, M, n_rows, block_n,
-        # block_m, D, mode, c2, stream
+        # xv, yv, rb, cb, v, cols, row_start, cnt, out, n_rows, block_n,
+        # block_m, kv, ch, mode, c2, stream
         "gl_gibbs_apply_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
         # x, y, phi, psi, cols, row_start, cnt, out, n_rows, block_n,
         # block_m, D, p, c2, stream
@@ -566,31 +568,6 @@ def _tables(name, x, y, cols, cnt, tile, tri):
     return slot_i, slot_j, cols.shape[0], y.shape[0] // tile, _cdiv(tile, _ROWS)
 
 
-def _pair_vectors(x, y, phi, psi, eps, p):
-    """Packed points of kernels 5 and 6 (``csrc/pair_common.cuh``,
-    register-tiled pair blocks), ``kv`` float4 vectors per point:
-
-    - p = 2: rows ``[c2 x, 0..., 1]``, columns ``[y, 0..., psi2]`` (the
-      one and the column bias in the last of ``4 kv`` floats), so that a
-      score is the row bias plus one dot product;
-    - p = 1: rows ``x`` and columns ``y``, zero-padded.
-
-    Returns ``(xv, yv, rb, cb, kv)``: the vectors, and the row and column
-    biases in base 2 (``_bias2``; the kernels read ``cb`` for p = 1 only).
-    """
-    (xf, yf), D = _points("pair_vectors", x, y, dims=())
-    rb, cb = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
-    kv = _cdiv(D + 1 if p == 2 else D, 4)
-    f = torch.nn.functional.pad
-    if p == 2:
-        pad = (0, 4 * kv - 1 - D)
-        xv = torch.cat([f(xf * (LOG2E / eps), pad), torch.ones_like(xf[:, :1])], 1)
-        yv = torch.cat([f(yf, pad), cb[:, None]], 1)
-    else:
-        xv, yv = f(xf, (0, 4 * kv - D)), f(yf, (0, 4 * kv - D))
-    return xv.contiguous(), yv.contiguous(), rb, cb, kv
-
-
 def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False):
     """Absorbed row and column sums over the kept tile pairs of a table:
 
@@ -752,7 +729,8 @@ def gibbs_apply_sparse(
     Args: x ``(N, D)`` rows in tiles of ``block_n`` points, y ``(M, D)``
     sources in tiles of ``block_m`` points, phi ``(N,)``, psi ``(M,)``,
     V ``(M, C)``; cols ``(N / block_n, ck)`` and counts ``(N / block_n,)``
-    the table. Channels go through the kernel in groups of four.
+    the table. One channel goes through the kernel alone, more in groups
+    of four.
     Returns ``(N, C)`` in V's dtype.
     """
     _check_apply("gibbs_apply_sparse", x, y, phi, psi, V, kind)
@@ -779,29 +757,32 @@ def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512
     return _apply_rows(x, y, phi, psi, V, eps, _walk_rows(tbl, nI), p, kind, block_n, block_m, "gibbs_apply_walk")
 
 
+def _channel_groups(C):
+    """Channels per launch of kernel 8 and the padded channel count: one
+    channel goes alone, any other count in groups of four (zero-padded)."""
+    G = 1 if C == 1 else ck._CHANNELS
+    return G, _cdiv(C, G) * G
+
+
 def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count):
-    """Kernel 8 over a CSR table, channels in groups of four."""
+    """Kernel 8 over a CSR table, channels as :func:`_channel_groups`."""
     mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
-    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
-    N, M = xf.shape[0], yf.shape[0]
-    p_bias = 2 if mode == 0 else 1
-    phi2, psi2 = _bias2(xf, phi, eps, p_bias), _bias2(yf, psi, eps, p_bias)
-    C = V.shape[1]
-    G = ck._CHANNELS
-    Cp = _cdiv(C, G) * G
-    Vt = torch.nn.functional.pad(_f32(V).T, (0, 0, 0, Cp - C)).contiguous()
+    xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
+    N, C = x.shape[0], V.shape[1]
+    G, Cp = _channel_groups(C)
+    Vp = torch.nn.functional.pad(_f32(V), (0, Cp - C))
     cols, start, cnt = rows
     c2 = LOG2E / eps if mode <= 2 else 0.0
     outs = []
     with torch.cuda.device(x.device):
         for c0 in range(0, Cp, G):
+            v = Vp[:, c0 : c0 + G].contiguous()
             out = torch.empty((N, G), dtype=torch.float32, device=x.device)
             _LIB.launch(
-                "gibbs_apply_sparse", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                psi2.data_ptr(), Vt[c0 : c0 + G].data_ptr(), cols.data_ptr(), start.data_ptr(),
-                cnt.data_ptr(), out.data_ptr(), M, cnt.shape[0], block_n, block_m, Dk, mode, c2,
-                count=count,
+                "gibbs_apply_sparse", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
+                v.data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+                cnt.shape[0], block_n, block_m, kv, G, mode, c2, count=count,
             )
             outs.append(out)
     return torch.cat(outs, dim=1)[:, :C].to(V.dtype)

@@ -23,10 +23,13 @@ The library is compiled with ``nvcc`` at first use (a plain C interface,
 loaded with ``ctypes``) into :func:`build_dir`, keyed by a hash of its
 sources (the ``.cu`` file and the shared headers).
 
-The kernels take any point dimension: D is zero-padded to a compiled width
-(1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16, which runs each
-kernel's wide instantiation (scores built up over chunks of 16
-coordinates; ``csrc/pair_common.cuh``).
+The kernels take any point dimension. The fused step (kernel 2) reads
+points packed as float4 vectors (:func:`_pair_vectors`, shared with the
+block-sparse kernels 5, 6 and 8): up to three vectors a point are staged,
+wider ones read from global memory. The other three pad D to a compiled
+width (1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16, which runs
+their wide instantiation (scores built up over chunks of 16 coordinates;
+``csrc/pair_common.cuh``).
 
 Each wrapper adds one to its entry of :data:`launch_counts` where it
 launches its kernel, and nowhere else.
@@ -86,8 +89,9 @@ BLOCK_M = 2048
 #: Rows per CUDA block (one thread per row) and columns per shared-memory
 #: tile; must match ``kThreads`` / ``kTile`` in the source.
 _CUDA_BLOCK = 256
-#: Point dimensions the kernels are compiled for; smaller D is zero-padded,
-#: larger D padded to a multiple of the last (the wide instantiation).
+#: Point dimensions kernels 1, 3 and 4 are compiled for; smaller D is
+#: zero-padded, larger D padded to a multiple of the last (the wide
+#: instantiation).
 _KERNEL_DIMS = (1, 2, 3, 4, 8, 16)
 #: Channels per launch of the apply kernel; wider V loops over groups.
 _CHANNELS = 4
@@ -229,8 +233,8 @@ _LIB = KernelLibrary(
     {
         # x, y, h2, out, N, M, D, p, c2, stream
         "gl_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        # x, y, phi, psi, rowpart, colpart, N, M, row_blk0, n_blk, n_slices,
-        # width, D, p, c2, stream
+        # xv, yv, rb, cb, rowpart, colpart, N, M, row_blk0, n_blk, n_slices,
+        # width, kv, p, c2, stream
         "gl_sinkhorn_step": [_P] * 6 + [_I] * 8 + [_F, _P],
         # x, phi, rowpart, colpart, N, tile0, n_rows, n_slices, nb, D, p, c2,
         # stream
@@ -283,6 +287,37 @@ def _points(name, *clouds, dims=_KERNEL_DIMS):
         for c in clouds
     ]
     return out, Dk
+
+
+def _pair_vectors(x, y, phi, psi, eps, p, cols_to=1):
+    """Packed points of the register-tiled pair blocks (kernels 2, 5, 6 and
+    8; ``csrc/pair_common.cuh``), ``kv`` float4 vectors per point:
+
+    - p = 2: rows ``[c2 x, 0..., 1]``, columns ``[y, 0..., psi2]`` (the
+      one and the column bias in the last of ``4 kv`` floats), so that a
+      score is the row bias plus one dot product;
+    - p = 1: rows ``x`` and columns ``y``, zero-padded.
+
+    The columns are padded to a multiple of ``cols_to`` with points that
+    weigh 0: coordinates 0 and bias ``-inf``.
+
+    Returns ``(xv, yv, rb, cb, kv)``: the vectors, and the row and column
+    biases in base 2 (:func:`_bias2`; the kernels read ``cb`` for p = 1
+    only).
+    """
+    (xf, yf), D = _points("pair_vectors", x, y, dims=())
+    rb, cb = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
+    kv = _cdiv(D + 1 if p == 2 else D, 4)
+    f = torch.nn.functional.pad
+    pad_m = _cdiv(yf.shape[0], cols_to) * cols_to - yf.shape[0]
+    yf, cb = f(yf, (0, 0, 0, pad_m)), f(cb, (0, pad_m), value=-math.inf)
+    if p == 2:
+        pad = (0, 4 * kv - 1 - D)
+        xv = torch.cat([f(xf * (LOG2E / eps), pad), torch.ones_like(xf[:, :1])], 1)
+        yv = torch.cat([f(yf, pad), cb[:, None]], 1)
+    else:
+        xv, yv = f(xf, (0, 4 * kv - D)), f(yf, (0, 4 * kv - D))
+    return xv.contiguous(), yv.contiguous(), rb, cb.contiguous(), kv
 
 
 # ==============================================================================
@@ -423,17 +458,24 @@ def _absorbed_update(f, loga, eps, sums):
     return f + eps * (loga - torch.log(torch.clamp(sums, min=SUM_FLOOR)))
 
 
-def sinkhorn_step_blocked(x, y, f, g, loga, logb, eps, p=2, block_m=BLOCK_M):
-    """Plain twin of :func:`sinkhorn_step`: both raw softmin values of one
-    Jacobi Sinkhorn iteration, from the row and column sums of the absorbed
-    Gibbs matrix."""
+def _step_sums_blocked(x, y, f, g, loga, logb, eps, p=2, block_m=BLOCK_M):
+    """Plain twin of :func:`_step_sums`: the raw row and column sums of the
+    absorbed Gibbs matrix, in the promoted input dtype."""
     dt = _acc(x, y, f, g)
     x, y, fa, ga, la, lb = (t.to(dt) for t in (x, y, f, g, loga, logb))
     phi = _fold_norms(x, la + fa / eps, eps, p)
     psi = _fold_norms(y, lb + ga / eps, eps, p)
-    r, c = _absorbed_sums(x, phi, y, psi, eps, p, True, block_m)
-    S_xy = _absorbed_update(fa, la, eps, r)
-    S_yx = _absorbed_update(ga, lb, eps, c)
+    return _absorbed_sums(x, phi, y, psi, eps, p, True, block_m)
+
+
+def sinkhorn_step_blocked(x, y, f, g, loga, logb, eps, p=2, block_m=BLOCK_M):
+    """Plain twin of :func:`sinkhorn_step`: both raw softmin values of one
+    Jacobi Sinkhorn iteration, from the row and column sums of the absorbed
+    Gibbs matrix."""
+    r, c = _step_sums_blocked(x, y, f, g, loga, logb, eps, p, block_m)
+    dt = r.dtype
+    S_xy = _absorbed_update(f.to(dt), loga.to(dt), eps, r)
+    S_yx = _absorbed_update(g.to(dt), logb.to(dt), eps, c)
     return S_xy.to(f.dtype), S_yx.to(g.dtype)
 
 
@@ -523,22 +565,19 @@ def lse(x, y, h, eps, p=2):
     return out.to(x.dtype)
 
 
-def sinkhorn_step(x, y, f, g, loga, logb, eps, p=2):
-    """Both raw softmin values of one Jacobi Sinkhorn iteration, from one
-    pass over the absorbed Gibbs matrix ``W_ij = exp(loga_i + logb_j +
-    (f_i + g_j - C_ij)/eps)``:
-
-    ``S_xy = f + eps (loga - log rowsum W)``, ``S_yx = g + eps (logb -
-    log colsum W)``, sums floored at :data:`SUM_FLOOR`.
-    """
+def _step_sums(x, y, f, g, loga, logb, eps, p=2):
+    """Kernel 2: the raw row and column sums of the absorbed Gibbs matrix
+    ``W_ij = exp(loga_i + logb_j + (f_i + g_j - C_ij)/eps)``, float32
+    ``(N,)`` and ``(M,)`` on the card (no floor). The kernel's
+    ``ex2.approx`` flushes a weight below 2^-126 to 0."""
     if not x.is_cuda:
-        return sinkhorn_step_blocked(x, y, f, g, loga, logb, eps, p)
+        return _step_sums_blocked(x, y, f, g, loga, logb, eps, p)
     _check_cuda("sinkhorn_step", x, y, f, g, loga, logb)
     eps = float(eps)
-    (xf, yf), Dk = _points("sinkhorn_step", x, y)
-    N, M = xf.shape[0], yf.shape[0]
-    phi = _bias2(xf, _f32(loga) + _f32(f) / eps, eps, p)
-    psi = _bias2(yf, _f32(logb) + _f32(g) / eps, eps, p)
+    xv, yv, rb, cb, kv = _pair_vectors(
+        x, y, _f32(loga) + _f32(f) / eps, _f32(logb) + _f32(g) / eps, eps, p, cols_to=_CUDA_BLOCK
+    )
+    N, M = x.shape[0], y.shape[0]
     nb = _cdiv(N, _CUDA_BLOCK)
     R, S, width = step_plan(N, M)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -552,16 +591,30 @@ def sinkhorn_step(x, y, f, g, loga, logb, eps, p=2):
         for b0 in range(0, nb, R):
             n = min(R, nb - b0)
             _launch(
-                "sinkhorn_step", xf.data_ptr(), yf.data_ptr(), phi.data_ptr(),
-                psi.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(), N, M, b0,
-                n, S, width, Dk, p, LOG2E / eps,
+                "sinkhorn_step", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(),
+                cb.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(), N, M, b0,
+                n, S, width, kv, p, LOG2E / eps,
             )
             rows[b0 * _CUDA_BLOCK : (b0 + n) * _CUDA_BLOCK] = (
                 rowpart[: S * n * _CUDA_BLOCK].view(S, -1).sum(0)
             )
             cols += colpart[: n * M].view(n, M).sum(0)
-    S_xy = _absorbed_update(_f32(f), _f32(loga), eps, rows[:N])
-    S_yx = _absorbed_update(_f32(g), _f32(logb), eps, cols)
+    return rows[:N], cols
+
+
+def sinkhorn_step(x, y, f, g, loga, logb, eps, p=2):
+    """Both raw softmin values of one Jacobi Sinkhorn iteration, from one
+    pass over the absorbed Gibbs matrix ``W_ij = exp(loga_i + logb_j +
+    (f_i + g_j - C_ij)/eps)``:
+
+    ``S_xy = f + eps (loga - log rowsum W)``, ``S_yx = g + eps (logb -
+    log colsum W)``, sums floored at :data:`SUM_FLOOR`.
+    """
+    if not x.is_cuda:
+        return sinkhorn_step_blocked(x, y, f, g, loga, logb, eps, p)
+    r, c = _step_sums(x, y, f, g, loga, logb, eps, p)
+    S_xy = _absorbed_update(_f32(f), _f32(loga), eps, r)
+    S_yx = _absorbed_update(_f32(g), _f32(logb), eps, c)
     return S_xy.to(f.dtype), S_yx.to(g.dtype)
 
 

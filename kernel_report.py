@@ -1,36 +1,53 @@
-"""Build report and CUDA-event times of the block-sparse kernels 5 and 6
-(``absorbed_sum_tiles``, ``gibbs_apply_tiles``) of geomloss_tpu_torch on
-one GPU.
+"""Build report and CUDA-event times of the register-tiled pair kernels of
+geomloss_tpu_torch on one GPU: kernel 2 (``sinkhorn_step``), kernels 5
+and 6 (``absorbed_sum_tiles``, ``gibbs_apply_tiles``) and kernel 8
+(``gibbs_apply_sparse``).
 
-    python3 kernel_report.py [--root DIR] [--sizes 100000 2000000] [--dim 3] [--backend auto]
-                             [--reps 3] [--no-build-report]
+    python3 kernel_report.py [--root DIR] [--report tiles step sparse] [--sizes 100000 2000000]
+                             [--dim 3] [--backend auto] [--reps 3] [--no-build-report] [--dump DIR]
 
 ``--root`` imports the package from another checkout (for example the
 parent commit unpacked with ``git archive``), so that two versions can be
 compared on one card in one job: run parent, change, change, parent.
 
-Prints, from the build of the block-sparse library:
+Prints, from the build of both libraries:
 
 - each kernel's registers, stack and spills as ``nvcc -Xptxas -v`` gave
-  them (the ``.log`` beside the library);
-- for kernels 5 and 6 at D = 3 (p = 2, apply mode 0: bench.py's call) and
-  kernel 5 at D = 8, the instruction counts of the hot loop of their SASS
-  (``cuobjdump -sass``): the innermost loop with the most MUFU
-  instructions, by opcode class.
+  them (the ``.log`` beside each library);
+- for the kernels of SASS_LABELS, the instruction counts of the hot loop
+  of their SASS (``cuobjdump -sass``): the innermost loop with the most
+  MUFU instructions, by opcode class, and per pair (over its MUFU count:
+  one exp2 per pair at these instantiations).
 
-Then, for each size, bench.py's call (``SamplesLoss("sinkhorn", p=2,
-blur=0.05, diameter=2.0, scaling=0.5)``, value and gradient in x, two
-unit-sphere clouds of seeds 0 and 1, in ``--dim`` dimensions through
-``--backend``: ``multiscale`` for a D above 3, which ``auto`` sends to the
-online backend) is run once with every kernel 5 and 6 call recorded; each
-recorded call is then timed alone (CUDA events, after a warm-up), and so
-are both kernels on the first fine step's xy table. The last line of each
-size is a JSON object with these times and the card's name and power
-limit. Needs a CUDA device.
+Then each report of ``--report`` (all three by default):
+
+- ``tiles``: for each of ``--sizes``, bench.py's call (``SamplesLoss(
+  "sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)``, value and
+  gradient in x, two unit-sphere clouds of seeds 0 and 1, in ``--dim``
+  dimensions through ``--backend``: ``multiscale`` for a D above 3, which
+  ``auto`` sends to the online backend) is run once with every kernel 5
+  and 6 call recorded; each recorded call is then timed alone, and so are
+  both kernels on the first fine step's xy table;
+- ``step``: the same call with ``backend="online"`` at N = M = 1e5 (in
+  ``--dim`` dimensions), and ``SamplesLoss()`` at 1e4 points in D = 32:
+  kernel 2's wrapper calls and launches, the device time of each kernel in
+  one call (``torch.profiler``) and the idle share, and one kernel-2 call
+  timed alone beside its MUFU bound and issue floor;
+- ``sparse``: the gaussian MMD's truncated route (``SamplesLoss(
+  "gaussian", blur=0.1, truncate=3, backend="multiscale")``) at
+  N = M = 1e6: each of its kernel-8 applies with its table (kept tile
+  pairs, mean and longest row, channels), timed alone beside its MUFU
+  bound and issue floor, and the device time of one call; then kernel 8
+  at each of its weight kinds, C = 1 and 4, on the same route's xy table
+  at 1e5.
+
+Times are CUDA events after a warm-up; each report ends with a JSON line
+holding them and the card's name and power limit. Needs a CUDA device.
 """
 
 import argparse
 import json
+import math
 import os
 import re
 import shutil
@@ -38,19 +55,35 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import card_line, event_ms, kernel_label, ptxas_usage, recording, sphere_cloud
+from chip_smoke import (
+    MUFU_PER_CLOCK,
+    card_line,
+    event_ms,
+    issue_ms,
+    kernel_label,
+    pair_slots,
+    profile_busy_ms,
+    ptxas_usage,
+    recording,
+    sm_clock_hz,
+    sphere_cloud,
+    table_stats,
+    value_and_grad,
+)
 
 #: Opcode classes counted in a hot loop (by the opcode's first field).
 SASS_CLASSES = ("MUFU", "SHFL", "LDS", "LDG", "LDL", "STL", "FFMA", "FADD", "FMUL", "FSEL", "SEL", "FMNMX", "FSETP",
                 "ISETP", "BAR", "STS")
-#: Kernels whose hot loop is read, at bench.py's instantiation: D = 3, p = 2
-#: (kernel 6: apply mode 0). Kernels 5 and 6 were templated on <D, P> and
-#: <D, MODE> before their register-tiled form, and on <P, KV> (KV float4s
-#: per packed point, 0 for the wide form) and <MODE, WIDE> since; kernel 5
-#: at p = 2, D = 8 (KV = 3) is read too. In a build of the first form,
-#: <2,1> names another instantiation (D = 2, p = 1).
+#: Kernels whose hot loop is read, at bench.py's instantiation (D = 3,
+#: p = 2; applies in mode 0). Kernels 2, 5, 6 and 8 were templated on
+#: <D, P> and <D, MODE> before their register-tiled forms; since, kernels 2
+#: and 5 on <P, KV> (KV float4s per packed point, 0 for the wide form),
+#: kernel 6 on <MODE, WIDE> and kernel 8 on <MODE, KV, CH> (CH channels).
+#: Kernel 5 at p = 2, D = 8 (KV = 3) is read too. In a build of the first
+#: forms, <2,1> names another instantiation (D = 2, p = 1).
 SASS_LABELS = ("tiles_step_kernel<3,2>", "tiles_apply_kernel<3,0>", "tiles_step_kernel<2,1>",
-               "tiles_step_kernel<2,3>", "tiles_apply_kernel<0,0>")
+               "tiles_step_kernel<2,3>", "tiles_apply_kernel<0,0>", "step_kernel<3,2>", "step_kernel<2,1>",
+               "sparse_apply_kernel<3,0>", "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>")
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -72,90 +105,85 @@ def sass_functions(text):
 
 
 def hot_loop(instrs):
-    """The loop (a backward branch and its target) with the most MUFU
-    instructions, the shortest of those: ``(start, end, [opcodes])``, or
+    """The innermost loop (a backward branch and its target, holding no
+    other) with the most MUFU instructions, the shortest of those, or any
+    loop if no innermost one has a MUFU: ``(start, end, [opcodes])``, or
     None. Per pass of a register-tiled pair block, that is the pass."""
-    best = None
+    loops = []
     for addr, op, rest in instrs:
         m = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
         if m and int(m.group(1), 16) <= addr:
-            s, e = int(m.group(1), 16), addr
+            loops.append((int(m.group(1), 16), addr))
+    best = None
+    for inner_only in (True, False):
+        for s, e in loops:
+            if inner_only and any(s <= s2 and e2 <= e and (s2, e2) != (s, e) for s2, e2 in loops):
+                continue
             ops = [o for a, o, _ in instrs if s <= a <= e]
             key = (sum(o.startswith("MUFU") for o in ops), -len(ops))
-            if best is None or key > best[0]:
+            if key[0] and (best is None or key > best[0]):
                 best = (key, (s, e, ops))
-    return best[1] if best else None
+        if best:
+            return best[1]
+    return None
 
 
 def loop_counts(ops):
-    """Instruction counts of a loop body by opcode class, and its total."""
+    """Instruction counts of a loop body by opcode class, its total and the
+    total per MUFU instruction (per pair where a pair takes one)."""
     counts = {c: 0 for c in SASS_CLASSES}
     for op in ops:
         base = op.split(".")[0]
         if base in counts:
             counts[base] += 1
     counts["total"] = len(ops)
+    counts["per_pair"] = round(len(ops) / counts["MUFU"], 3) if counts["MUFU"] else None
     return counts
 
 
-def build_report(lib, dump=None):
-    """Print the ptxas usage of every kernel of a built library and the hot
-    loops of kernels 5 and 6 (their SASS listings written under ``dump``,
-    if given); returns ``(ptxas usage, hot-loop counts)``."""
-    so = lib._name
-    log = open(os.path.splitext(so)[0] + ".log").read()
-    usage = ptxas_usage(log)
+def build_report(libs, dump=None):
+    """Print the ptxas usage of every kernel of the built libraries and the
+    hot loops of the kernels of SASS_LABELS (their SASS listings written
+    under ``dump``, if given); returns ``(ptxas usage, hot-loop counts)``."""
+    usage, loops = {}, {}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib in libs:
+        so = lib._name
+        usage.update(ptxas_usage(open(os.path.splitext(so)[0] + ".log").read()))
+        sass = sass_functions(subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True).stdout)
+        for name, instrs in sorted(sass.items()):
+            if name not in SASS_LABELS:
+                continue
+            loop = hot_loop(instrs)
+            if loop is None:
+                continue
+            s, e, ops = loop
+            loops[name] = loop_counts(ops)
+            if dump:
+                os.makedirs(dump, exist_ok=True)
+                with open(os.path.join(dump, re.sub(r"\W", "_", name) + ".sass"), "w") as fh:
+                    fh.writelines(f"{a:06x} {'>' if s <= a <= e else ' '} {op}{rest}\n" for a, op, rest in instrs)
+            print(f"[sass] {name}: {len(instrs)} instructions; hot loop 0x{s:x}-0x{e:x}: {json.dumps(loops[name])}",
+                  flush=True)
     for name, u in sorted(usage.items()):
         print(f"[ptxas] {name}: {u}", flush=True)
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = sass_functions(subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True).stdout)
-    loops = {}
-    for name, instrs in sorted(sass.items()):
-        if name not in SASS_LABELS:
-            continue
-        loop = hot_loop(instrs)
-        if loop is None:
-            continue
-        s, e, ops = loop
-        loops[name] = loop_counts(ops)
-        if dump:
-            os.makedirs(dump, exist_ok=True)
-            with open(os.path.join(dump, re.sub(r"\W", "_", name) + ".sass"), "w") as fh:
-                fh.writelines(f"{a:06x} {'>' if s <= a <= e else ' '} {op}{rest}\n" for a, op, rest in instrs)
-        print(f"[sass] {name}: {len(instrs)} instructions; hot loop 0x{s:x}-0x{e:x}: {json.dumps(loops[name])}",
-              flush=True)
     return usage, loops
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--sizes", type=int, nargs="+", default=[100_000, 2_000_000])
-    ap.add_argument("--dim", type=int, default=3)
-    ap.add_argument("--backend", default="auto")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--no-build-report", action="store_true")
-    ap.add_argument("--dump", help="directory for the SASS listings of kernels 5 and 6")
-    args = ap.parse_args()
+def kernel_times(rows):
+    """Device ms and launches of a profile's rows, summed by kernel name."""
+    out = {}
+    for dev_ms, calls, key in rows:
+        m = re.search(r"::(\w+)", key) or re.match(r"(\w+)", key)
+        name = m.group(1) if m else key[:40]
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + dev_ms, n + calls)
+    return out
 
-    import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_report.py needs a CUDA device")
-    sys.path.insert(0, os.path.abspath(args.root))
-    from geomloss_tpu_torch import SamplesLoss
-    from geomloss_tpu_torch.models import multiscale as ms
-    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
-    from geomloss_tpu_torch.ops import cuda_kernels as ck
-
-    card = card_line()
-    t0 = time.perf_counter()
-    ck.build()
-    lib = cbs.build()
-    print(f"[build] {lib._name} in {time.perf_counter() - t0:.1f} s (root {args.root})", flush=True)
-    if not args.no_build_report:
-        build_report(lib, args.dump)
-
+def tiles_report(torch, mods, args, card):
+    """Kernels 5 and 6 in bench.py's call at each size."""
+    SamplesLoss, ms, cbs = mods["SamplesLoss"], mods["ms"], mods["cbs"]
     dev = torch.device("cuda")
     loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5, backend=args.backend)
     names = ("absorbed_sum_tiles", "gibbs_apply_tiles")
@@ -165,7 +193,7 @@ def main():
         with recording(cbs, names) as rec, recording(ms, ("sinkhorn_step_walk_banded",)) as rec_ms:
             (g,) = torch.autograd.grad(loss(x0, y0), x0)
         torch.cuda.synchronize()
-        res = {"root": args.root, "n": n, "dim": args.dim, "backend": args.backend, "card": card}
+        res = {"root": args.root, "report": "tiles", "n": n, "dim": args.dim, "backend": args.backend, "card": card}
         torch.set_grad_enabled(False)
         for name in names:
             times = []
@@ -191,6 +219,160 @@ def main():
         del x0, y0, g, rec, rec_ms, t_args, a_args, xs, ys, Vx, Vy
         torch.cuda.empty_cache()
         torch.set_grad_enabled(True)
+
+
+def step_report(torch, mods, args, card, clock):
+    """Kernel 2 in the online call at 1e5 (``--dim``) and in SamplesLoss()
+    at 1e4 points in D = 32."""
+    SamplesLoss, ck = mods["SamplesLoss"], mods["ck"]
+    dev = torch.device("cuda")
+    kw = dict(p=2, blur=0.05, diameter=2.0, scaling=0.5)
+    for n, dim, backend in ((100_000, args.dim, "online"), (10_000, 32, "auto")):
+        loss = SamplesLoss("sinkhorn", backend=backend, **kw)
+        x0 = torch.from_numpy(sphere_cloud(n, 0, dim)).to(dev)
+        y0 = torch.from_numpy(sphere_cloud(n, 1, dim)).to(dev)
+        call = lambda: value_and_grad(lambda x: loss(x, y0), x0)  # noqa: E731
+        call()
+        ck.reset_launch_counts()
+        with recording(ck, ("sinkhorn_step",)) as rec:
+            call()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ck.launch_counts.items() if v}
+        wall, busy, n_launch, rows = profile_busy_ms(call, top=None)
+        by_kernel = kernel_times(rows)
+        a, kwa = rec["sinkhorn_step"][0]
+        t = event_ms(lambda: ck.sinkhorn_step(*a, **kwa), args.reps)
+        pairs = n * n
+        kv = math.ceil((dim + 1) / 4)
+        mufu = 1e3 * pairs / (MUFU_PER_CLOCK * clock)
+        slots = pair_slots("sinkhorn_step", kv)
+        floor = issue_ms(slots, pairs, clock)
+        res = {"root": args.root, "report": "step", "n": n, "dim": dim, "backend": backend,
+               "sinkhorn_step_calls": len(rec["sinkhorn_step"]), "launches": launches,
+               "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "device_launches": n_launch,
+               "device_ms_by_kernel": {k: round(v[0], 4) for k, v in by_kernel.items()},
+               "device_launches_by_kernel": {k: v[1] for k, v in by_kernel.items()},
+               "sinkhorn_step_ms": t, "mufu_bound_ms": mufu, "issue_floor_ms": floor, "card": card}
+        print(f"[step] N=M={n} D={dim} {backend}: {len(rec['sinkhorn_step'])} kernel-2 calls, launches "
+              f"{json.dumps(launches)}; one call {t:.3f} ms (CUDA events, {args.reps} reps), MUFU bound {mufu:.3f} ms, "
+              f"issue floor {floor:.3f} ms ({slots} slots per pair); profiled wall {wall:.3f} ms, device busy "
+              f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f} %; card {card}", flush=True)
+        print(json.dumps(res), flush=True)
+        del x0, y0, rec, a, kwa
+        torch.cuda.empty_cache()
+
+
+def sparse_report(torch, mods, args, card, clock):
+    """Kernel 8's applies in the gaussian MMD's truncated route at 1e6."""
+    SamplesLoss, cbs = mods["SamplesLoss"], mods["cbs"]
+    dev = torch.device("cuda")
+    n = 1_000_000
+    loss = SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")
+    x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+    call = lambda: value_and_grad(lambda x: loss(x, y0), x0)  # noqa: E731
+    call()
+    with recording(cbs, ("gibbs_apply_sparse",)) as rec:
+        v, _ = call()
+    torch.cuda.synchronize()
+    wall, busy, n_launch, rows = profile_busy_ms(call, top=None)
+    by_kernel = kernel_times(rows)
+    applies = []
+    for k, (a, kwa) in enumerate(rec["gibbs_apply_sparse"]):
+        x, y, phi, psi, V, eps, cols, counts, p, kind, bn, bm = a
+        kept, mean, most, at_cap = table_stats(cols, counts)
+        pairs = kept * bn * bm
+        C = V.shape[1]
+        t = event_ms(lambda: cbs.gibbs_apply_sparse(*a, **kwa), args.reps)
+        mufu = 1e3 * pairs / (MUFU_PER_CLOCK * clock)
+        ch = 1 if C == 1 else 4
+        kv = math.ceil((x.shape[1] + 1) / 4)
+        slots = pair_slots("gibbs_apply_sparse", kv, ch)
+        floor = issue_ms(slots * math.ceil(C / ch), pairs, clock)
+        applies.append({"ms": t, "C": C, "p": p, "kind": kind, "tile": (bn, bm), "kept_tile_pairs": kept,
+                        "pairs": pairs, "row_mean": mean, "row_max": most, "rows_at_width": at_cap,
+                        "width": cols.shape[1], "mufu_bound_ms": mufu * math.ceil(C / ch), "issue_floor_ms": floor})
+        print(f"[sparse] apply {k}: {t:.3f} ms (CUDA events, {args.reps} reps); p={p} {kind} C={C}, tiles {bn}x{bm}, "
+              f"table {tuple(cols.shape)}, {kept} kept tile pairs ({pairs:.4g} pairs), kept tiles per row mean "
+              f"{mean:.2f} max {most}, {at_cap} rows at the width; MUFU bound {mufu * math.ceil(C / ch):.3f} ms, "
+              f"issue floor {floor:.3f} ms ({slots} slots per pair and launch); card {card}", flush=True)
+    del rec
+    modes = sparse_modes(torch, mods, args, card)
+    res = {"root": args.root, "report": "sparse", "n": n, "dim": args.dim, "loss": v.item(), "applies": applies,
+           "modes_1e5": modes,
+           "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall, "device_launches": n_launch,
+           "device_ms_by_kernel": {k: round(val[0], 4) for k, val in by_kernel.items()},
+           "device_launches_by_kernel": {k: val[1] for k, val in by_kernel.items()}, "card": card}
+    print(f"[sparse] gaussian multiscale N=M={n}: profiled wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"{100 * (1 - busy / wall):.1f} %; card {card}", flush=True)
+    print(json.dumps(res), flush=True)
+    del x0, y0
+    torch.cuda.empty_cache()
+
+
+def sparse_modes(torch, mods, args, card, n=100_000):
+    """Kernel 8 at every weight kind (p = 2 gibbs, p = 1 gibbs, gibbs_grad,
+    energy, inv_dist), C = 1 and 4, on the xy table of the gaussian MMD's
+    truncated route at ``n`` points: ``{label: ms}``."""
+    SamplesLoss, ks, cbs = mods["SamplesLoss"], mods["ks"], mods["cbs"]
+    dev = torch.device("cuda")
+    loss = SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")
+    x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+    with recording(ks, ("kernel_matvec_sparse",)) as rec, torch.no_grad():
+        loss(x0, y0)
+    a, kwa = rec["kernel_matvec_sparse"][2]  # the xy product
+    xs, ys, v, mask, tile = a[0], a[1], a[2], a[4], kwa["block"]
+    zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
+    out = {}
+    for p, kind in ((2, "gibbs"), (1, "gibbs"), (1, "gibbs_grad"), (1, "energy"), (1, "inv_dist")):
+        for V in (v[:, None], v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)):
+            call = (xs, ys, zx, zy, V, 0.1**p, mask.cols, mask.counts, p, kind, tile, tile)
+            label = f"p={p} {kind} C={V.shape[1]}"
+            out[label] = event_ms(lambda: cbs.gibbs_apply_sparse(*call), args.reps)
+            print(f"[sparse] N=M={n} mask_xy {label}: {out[label]:.3f} ms (CUDA events, {args.reps} reps); card {card}",
+                  flush=True)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse"), default=["tiles", "step", "sparse"])
+    ap.add_argument("--sizes", type=int, nargs="+", default=[100_000, 2_000_000])
+    ap.add_argument("--dim", type=int, default=3)
+    ap.add_argument("--backend", default="auto")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--no-build-report", action="store_true")
+    ap.add_argument("--dump", help="directory for the SASS listings of the kernels read")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_report.py needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.root))
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import kernel_samples as ks
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    card = card_line()
+    clock = sm_clock_hz()
+    t0 = time.perf_counter()
+    libs = [ck.build(), cbs.build()]
+    print(f"[build] {', '.join(lib._name for lib in libs)} in {time.perf_counter() - t0:.1f} s (root {args.root})",
+          flush=True)
+    if not args.no_build_report:
+        build_report(libs, args.dump)
+    mods = dict(SamplesLoss=SamplesLoss, ms=ms, ks=ks, cbs=cbs, ck=ck)
+    if "step" in args.report:
+        step_report(torch, mods, args, card, clock)
+    if "sparse" in args.report:
+        sparse_report(torch, mods, args, card, clock)
+    if "tiles" in args.report:
+        tiles_report(torch, mods, args, card)
 
 
 if __name__ == "__main__":

@@ -506,3 +506,97 @@ def test_block_sparse_kernels_wide_dims_match_twins(cuda_device, D, p):
     torch.testing.assert_close(ck._absorbed_update(zero, zero, eps_s, got),
                                ck._absorbed_update(zero, zero, eps_s, cbs.absorbed_sum_sparse_blocked(*s_args)),
                                **VAL_TOL)
+
+
+# ------------------------------------------------------------------------------
+#  Kernels 8 and 2 as register-tiled pair blocks: one channel unpadded,
+#  ragged passes, empty rows, every staged width and the wide form
+# ------------------------------------------------------------------------------
+
+
+def _sparse_apply_problem(p, kind, C, D=3, block_n=256, block_m=256, seed=0, n_tiles=3, m_tiles=4):
+    x, y, psi = problem(n_tiles * block_n, m_tiles * block_m, D=D, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    phi = (-np.abs(rng.randn(x.shape[0]))).astype(np.float32)
+    V = rng.randn(y.shape[0], C).astype(np.float32)
+    cols, counts = kept_table(n_tiles, m_tiles, 3, seed=seed + 2)
+    eps = 0.5 * max(1, D // 3)
+    return (x, y, phi, psi, V, eps), (cols, counts)
+
+
+def _check_sparse_apply(pts, table, p, kind, block_n, block_m, launches):
+    x, y, phi, psi, V, eps = pts
+    args = (*tensors(x, y, phi, psi, V, device="cuda"), eps, *tensors(*table, device="cuda"), p, kind, block_n,
+            block_m)
+    before = cbs.launch_counts["gibbs_apply_sparse"]
+    got = _counted("gibbs_apply_sparse", lambda: cbs.gibbs_apply_sparse(*args), cbs.launch_counts)
+    assert cbs.launch_counts["gibbs_apply_sparse"] - before == launches
+    assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*args).cpu(),
+                       **apply_tolerance(x, y, phi, psi, V, eps, p, kind))
+    assert torch.equal(got, cbs.gibbs_apply_sparse(*args))
+    return got
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+def test_gibbs_apply_sparse_channel_groups(cuda_device, p, kind, C):
+    """Kernel 8 at every mode: one channel in one unpadded launch, more in
+    groups of four (C = 5 and 8: two launches); two calls bitwise equal."""
+    pts, table = _sparse_apply_problem(p, kind, C, seed=C)
+    _check_sparse_apply(pts, table, p, kind, 256, 256, cbs._cdiv(C, 4) if C > 1 else 1)
+
+
+@pytest.mark.parametrize("block_n,block_m", [(100, 48), (300, 100), (256, 200)])
+@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+def test_gibbs_apply_sparse_ragged_passes_and_empty_rows(cuda_device, p, kind, block_n, block_m):
+    """Kernel 8 where block_m is no multiple of a pass (32 or 64 columns)
+    and block_n no multiple of 256, with a row tile that keeps no tile: its
+    rows are exactly 0."""
+    for C in (1, 4):
+        pts, (cols, counts) = _sparse_apply_problem(p, kind, C, block_n=block_n, block_m=block_m, seed=block_m + C)
+        counts[1] = 0
+        got = _check_sparse_apply(pts, (cols, counts), p, kind, block_n, block_m, 1)
+        assert not got[block_n : 2 * block_n].any()
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 8, 9, 17])
+def test_gibbs_apply_sparse_point_dims(cuda_device, D, p):
+    """Kernel 8's packed points at every staged width (one to three float4s)
+    and the wide form (D = 17 at either p), C = 1 and 4, the gibbs kinds of
+    this p."""
+    for kind in ("gibbs", "gibbs_grad"):
+        for C in (1, 4):
+            pts, table = _sparse_apply_problem(p, kind, C, D=D, seed=D + C)
+            _check_sparse_apply(pts, table, p, kind, 256, 256, 1)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 1000), (300, 65), (777, 513), (257, 4099)])
+def test_sinkhorn_step_kernel_ragged_edges(cuda_device, p, shape):
+    """Kernel 2 at N = 1 and at M no multiple of 64 or 256: padded columns
+    weigh 0 and write no column sum; two calls bitwise equal."""
+    N, M = shape
+    x, y, _ = problem(N, M, seed=N + M + p)
+    t = tensors(x, y, *potentials(N, M, seed=N), device=cuda_device)
+    got = _counted("sinkhorn_step", lambda: ck.sinkhorn_step(*t, 0.21, p))
+    for a, b in zip(got, ck.sinkhorn_step_blocked(*t, 0.21, p)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    for a, b in zip(got, ck.sinkhorn_step(*t, 0.21, p)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 8, 17, 64])
+def test_sinkhorn_step_kernel_point_dims(cuda_device, D, p):
+    """Kernel 2's packed points: staged up to three float4s (D <= 11 at
+    p = 2, D <= 12 at p = 1), wide above (D = 17, 64)."""
+    N, M = 700, 517
+    x, y, _ = problem(N, M, D=D, seed=D + p)
+    t = tensors(x, y, *potentials(N, M, seed=D), device=cuda_device)
+    eps = 0.1 * D
+    got = _counted("sinkhorn_step", lambda: ck.sinkhorn_step(*t, eps, p))
+    for a, b in zip(got, ck.sinkhorn_step_blocked(*t, eps, p)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+    for a, b in zip(got, ck.sinkhorn_step(*t, eps, p)):
+        assert torch.equal(a, b)

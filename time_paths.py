@@ -1,11 +1,13 @@
 """Times bench.py's call through geomloss_tpu_torch on one GPU: the value and
 gradient in x of ``SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0,
-scaling=0.5)`` (``backend="auto"``) between two unit-sphere clouds (seeds 0
+scaling=0.5)`` (``backend="auto"``, or ``--backend``: ``online`` for the
+streaming route of kernels 1-4) between two unit-sphere clouds (seeds 0
 and 1), at each size given; with ``--loss gaussian``, the gaussian MMD's
 truncated route instead (``SamplesLoss("gaussian", blur=0.1, truncate=3,
 backend="multiscale")``, kernel 8).
 
     python3 time_paths.py --sizes 100000 2000000 [--reps 5] [--root DIR] [--loss gaussian]
+                          [--backend online]
 
 ``--root`` imports the package from another checkout (for example the
 parent commit unpacked with ``git archive``), so that two versions can be
@@ -39,6 +41,7 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--loss", choices=("sinkhorn", "gaussian"), default="sinkhorn")
+    ap.add_argument("--backend", default="auto", help="the Sinkhorn call's backend")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -53,7 +56,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     if args.loss == "sinkhorn":
-        loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)
+        loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5, backend=args.backend)
     else:
         loss = SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")
     dev = torch.device("cuda")
@@ -79,8 +82,9 @@ def main():
             call()
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-        print(json.dumps({"root": args.root, "loss_fn": args.loss, "n": n, "ms": ms, "peak_gb": peak / 1e9, "loss": v.item(),
-                          "card": card}), flush=True)
+        backend = args.backend if args.loss == "sinkhorn" else "multiscale"
+        print(json.dumps({"root": args.root, "loss_fn": args.loss, "backend": backend, "n": n, "ms": ms,
+                          "peak_gb": peak / 1e9, "loss": v.item(), "card": card}), flush=True)
         del x0, y0
         torch.cuda.empty_cache()
 
