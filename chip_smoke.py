@@ -18,12 +18,13 @@ phase fails. Phases, one line each:
    ``$GEOMLOSS_TPU_TORCH_BUILD_DIR`` whatever the caller set it to; emptied
    first, and the libraries must land there);
    prints the registers and spills (``-Xptxas -v``) of kernels 5 and 6 and
-   of the bench.py instantiations of kernels 2 and 8 (PTXAS_SHOWN);
+   of the bench.py instantiations of kernels 2, 3, 4 and 8 (PTXAS_SHOWN);
 3. repair: peak device memory of the two step kernels at N = M = 1e6 under
    256 MB beyond their inputs, and two calls bitwise equal;
 4. parity: each online kernel against its twin on the card at N = M = 1e5
    and at a ragged size, p in {1, 2} (kernel 2's raw sums as
-   ``check_sums`` reads them, and two calls bitwise equal); the two
+   ``check_sums`` reads them; kernels 2 and 3 two calls bitwise equal;
+   kernel 4 in every mode at C in {1, 3, 4}); the two
    block-sparse kernels
    (absorbed sums, full and triangle tables; dual apply, C = 4) against
    their twins on the truncation tables of the multiscale path at 1e5,
@@ -62,7 +63,8 @@ phase fails. Phases, one line each:
     0.1) at 1e5 and on the first 64 row tiles at 1e6, modes 0-4, C in
     {1, 4}, each with its time and bound; ``softmin_sparse`` at 1e5, p in
     {1, 2} (kernel 7's CUDA kernel forward as ``lse_sparse``, kernel 8
-    backward); kernel 4's energy and inv_dist modes timed at 1e5; the
+    backward); kernel 4's energy and inv_dist modes timed at 1e5, C in
+    {1, 4}, beside their bound and issue floor; the
     gaussian (online, multiscale), energy and laplacian (multiscale)
     losses at 1e5 through ``SamplesLoss``, value and gradient against the
     float64 plain versions to bounds scaled by the MMD's terms, with
@@ -91,7 +93,7 @@ phase fails. Phases, one line each:
 13. ``[wide-d]`` (run before ``[mmd]``): ``SamplesLoss()`` at N = M = 1e4
     in D = 32 (the online route, through the kernels' wide
     instantiations) against the same solve through the float64 twins,
-    and kernels 1, 2 and 4 timed at D = 32 beside their bound.
+    and kernels 1-4 timed at D = 32 beside their bound.
 
 Each phase prints its seconds.
 
@@ -212,23 +214,33 @@ REPLACES = {
     "absorbed_sum_sparse": "geomloss_tpu/ops/block_sparse.py:1944",
 }
 #: Register-tiled instantiations whose ptxas usage the build phase prints
-#: (besides every one of kernels 5 and 6): kernel 2 at p = 2 for one, two,
-#: three staged float4s and the wide form, and kernel 8 in mode 0 at one
-#: float4, with one and four channels, and wide.
+#: (besides every one of kernels 5 and 6): kernels 2 and 3 at p = 2 for
+#: one, two, three staged float4s and the wide form, and kernels 4 and 8
+#: in mode 0 at one float4, with one and four channels, and wide (kernel 4
+#: also in modes 3 and 4).
 PTXAS_SHOWN = ("step_kernel<2,1>", "step_kernel<2,2>", "step_kernel<2,3>", "step_kernel<2,0>",
+               "sym_step_kernel<2,1>", "sym_step_kernel<2,2>", "sym_step_kernel<2,3>", "sym_step_kernel<2,0>",
+               "apply_kernel<0,1,1>", "apply_kernel<0,1,4>", "apply_kernel<0,0,4>", "apply_kernel<3,1,1>",
+               "apply_kernel<4,1,4>",
                "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>", "sparse_apply_kernel<0,0,4>")
 #: Instructions per pair of the register-tiled kernels after the score and
-#: its MUFU: two adds (kernels 2 and 5: both sums), 8 FFMAs (kernel 6: four
-#: channels each way), one FFMA per channel of a launch (kernel 8).
-PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "absorbed_sum_tiles": 2, "gibbs_apply_tiles": 8}
+#: its MUFU: two adds (kernels 2, 3 and 5: both sums), 8 FFMAs (kernel 6:
+#: four channels each way); the apply kernels 4 and 8 take one FFMA per
+#: channel of a group (APPLY_KERNELS).
+PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "sinkhorn_step_sym": 2, "absorbed_sum_tiles": 2, "gibbs_apply_tiles": 8}
+APPLY_KERNELS = ("gibbs_apply", "gibbs_apply_sparse")
 
 
-def pair_slots(name, kv=1, ch=1):
-    """Instructions per pair of a register-tiled kernel at p = 2 with kv
-    packed float4s per point: 4 kv score FFMAs, the MUFU, then its tail
-    (PAIR_TAIL_SLOTS; ``ch`` channels for kernel 8). Its issue floor is
-    :func:`issue_ms` of these."""
-    return 4 * kv + 1 + (ch if name == "gibbs_apply_sparse" else PAIR_TAIL_SLOTS[name])
+def pair_slots(name, kv=1, ch=1, mode=0):
+    """Instructions per pair of a register-tiled kernel with kv packed
+    float4s per point: at p = 2 (mode 0 of the apply kernels) 4 kv score
+    FFMAs and the MUFU; in the apply kernels' modes 3 and 4 (p = 1) 8 kv
+    (a subtraction and an FFMA per coordinate), the max with the floor, the
+    MUFU (rsqrt) and an FMUL (mode 3) or a compare and a select (mode 4);
+    then the tail (PAIR_TAIL_SLOTS; ``ch`` channels for the apply kernels).
+    Its issue floor is :func:`issue_ms` of these."""
+    head = {3: 8 * kv + 3, 4: 8 * kv + 4}.get(mode, 4 * kv + 1)
+    return head + (ch if name in APPLY_KERNELS else PAIR_TAIL_SLOTS[name])
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
     "block_sparse_kernels": "geomloss_tpu_torch/csrc/block_sparse_kernels.cu",
@@ -594,10 +606,10 @@ def check_tile_kernels(state, label, rows=None, twin_dtype=None):
 #  10. The MMD losses (kernel 8, kernel 9 on kernel 7's CUDA kernel)
 # ------------------------------------------------------------------------------
 
-#: Weight kinds of kernel 8, modes 0-4 (pair_common.cuh::apply_weight), and
-#: the MUFU operations one pair takes in each: an exp2 (modes 0-2), a sqrt
-#: (mode 3), a sqrt and a reciprocal (mode 4).
-SPARSE_MODES = [(2, "gibbs", 1), (1, "gibbs", 1), (1, "gibbs_grad", 1), (1, "energy", 1), (1, "inv_dist", 2)]
+#: Kernel 8's modes 0-4 as (p, kind). Each takes one MUFU operation per
+#: pair: an ex2.approx (modes 0-2; the p = 1 Sinkhorn weights' IEEE sqrt
+#: beside it is not counted) or an rsqrt.approx (energy, inv_dist).
+SPARSE_MODES = [(2, "gibbs"), (1, "gibbs"), (1, "gibbs_grad"), (1, "energy"), (1, "inv_dist")]
 
 
 def table_stats(cols, cnt):
@@ -657,23 +669,22 @@ def check_sparse_apply(label, args, clock, card, time_it=True):
     check_apply("gibbs_apply_sparse", label, got, ref, scale)
     if not time_it:
         return
-    ops = next(m for pp, k, m in SPARSE_MODES if k == kind and (pp == p or k in ("energy", "inv_dist")))
     kept = table_stats(cols, cnt)[0] * bn * bm
-    b_ms, b_by = bound(ops * kept, nbytes(x, y, phi, psi, V, cols, cnt) + 4 * V.numel() * x.shape[0] // y.shape[0],
+    b_ms, b_by = bound(kept, nbytes(x, y, phi, psi, V, cols, cnt) + 4 * V.numel() * x.shape[0] // y.shape[0],
                        clock)
     print(f"[time] gibbs_apply_sparse {label}: kernel {event_ms(lambda: cbs.gibbs_apply_sparse(*args), 3):.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) x {kept:.4g} kept pairs){sparse_floor(V, p, kind, kept, clock)} "
+          f"bound {b_ms:.3f} ms ({b_by}: one MUFU op x {kept:.4g} kept pairs){sparse_floor(V, p, kind, kept, clock)} "
           f"(CUDA events); card {card}", flush=True)
 
 
 def sparse_floor(V, p, kind, kept, clock):
     """Kernel 8's issue floor at p = 2 (mode 0) and D <= 3, as text: a
     launch per channel group."""
-    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
 
     if p != 2 or kind not in ("gibbs", "gibbs_grad"):
         return ""
-    G, Cp = cbs._channel_groups(V.shape[1])
+    G, Cp = ck._channel_groups(V.shape[1])
     slots = pair_slots("gibbs_apply_sparse", ch=G)
     return f", issue floor {issue_ms(slots * (Cp // G), kept, clock):.3f} ms ({slots} slots per pair)"
 
@@ -730,7 +741,7 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
         xs, ys, v, mask, tile = tab[key]
         print_table(f"gaussian multiscale N=M={n_small} mask_{key}", mask)
         zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
-        for p, kind, _ in SPARSE_MODES:
+        for p, kind in SPARSE_MODES:
             for C in (1, 4):
                 V = v[:, None] if C == 1 else v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
                 args = (xs, ys, zx, zy, V, MMD_BLUR**p, mask.cols, mask.counts, p, kind, tile, tile)
@@ -793,14 +804,18 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
           f"twin {sm_entry['plain_ms']:.3f} ms, bound {sm_entry['bound'][0]:.3f} ms ({sm_entry['bound'][1]}) "
           f"(CUDA events); card {card}", flush=True)
 
-    # Kernel 4's energy and inv_dist modes (the energy route) at n_small.
+    # Kernel 4's energy and inv_dist modes (the energy route) at n_small: one
+    # MUFU operation (rsqrt) per pair.
     z = torch.zeros(n_small, dtype=f32, device=dev)
-    V4 = torch.cat([torch.ones_like(y0[:, :1]), y0], 1)
-    for kind, V, ops in (("energy", w[:, None], 1), ("inv_dist", V4, 2)):
-        b_ms, b_by = bound(ops * n_small * n_small, nbytes(x0, y0, z, z, V) + 4 * V.numel(), clock)
+    V4 = w[:, None] * torch.cat([torch.ones_like(y0[:, :1]), y0], 1)
+    for (kind, mode), V in [(km, V) for km in (("energy", 3), ("inv_dist", 4)) for V in (V4[:, :1], V4)]:
+        pairs = n_small * n_small
+        b_ms, b_by = bound(pairs, nbytes(x0, y0, z, z, V) + 4 * V.numel(), clock)
+        slots = pair_slots("gibbs_apply", ch=V.shape[1], mode=mode)
         t = event_ms(lambda: ck.gibbs_apply(x0, y0, z, z, V, 1.0, 1, kind), 3)
         print(f"[time] gibbs_apply        N=M={n_small} {kind} C={V.shape[1]}: kernel {t:.3f} ms, bound "
-              f"{b_ms:.3f} ms ({b_by}: {ops} MUFU op(s) per pair) (CUDA events); card {card}", flush=True)
+              f"{b_ms:.3f} ms ({b_by}: 1 MUFU op per pair), issue floor {issue_ms(slots, pairs, clock):.3f} ms "
+              f"({slots} slots per pair) (CUDA events); card {card}", flush=True)
 
     # --- The configurations through SamplesLoss ----------------------------------
     configs = {
@@ -899,7 +914,7 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
         cnt = mask.counts.clone()
         cnt[large_rows:] = 0
         zx, zy = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
-        for p, kind, _ in SPARSE_MODES:
+        for p, kind in SPARSE_MODES:
             for C in (1, 4):
                 V = v[:, None] if C == 1 else v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
                 args8 = (xs, ys, zx, zy, V, MMD_BLUR**p, mask.cols, cnt, p, kind, tile, tile)
@@ -1079,7 +1094,7 @@ def sparse_phase(dev, card, clock, n_small=N_POINTS, n_mid=N_MID, mid_rows=MID_P
                            cbs.absorbed_sum_walk_blocked(*wargs), pot, lw, e)
                 if d != "xy":
                     continue
-                for pp, kind, _ in SPARSE_MODES:
+                for pp, kind in SPARSE_MODES:
                     if pp != p and kind in ("gibbs", "gibbs_grad"):
                         continue  # the other p's weights: that solve's state checks them
                     for C in (1, 4):
@@ -1286,7 +1301,8 @@ def auto_route_phase(dev, card, n, tag, reps, blur=BLUR, tile=1024, parity_rows=
 def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
     """``SamplesLoss()`` at D = 32 (the auto route takes the online backend
     for D > 3): its kernels launched, value and gradient against the same
-    solve through the float64 twins; kernels 1, 2 and 4 timed at D = 32."""
+    solve through the float64 twins; kernels 3 and 4 held against their
+    twins and kernels 1-4 timed at D = 32."""
     from geomloss_tpu_torch import SamplesLoss
     from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
@@ -1302,7 +1318,7 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
     v, g = value_and_grad(lambda x: loss(x, y), x)
     torch.cuda.synchronize()
     launches = {k: n_ for k, n_ in ck.launch_counts.items() if n_}
-    if not (launches.get("sinkhorn_step") and launches.get("gibbs_apply")):
+    if not all(launches.get(k) for k in ("sinkhorn_step", "sinkhorn_step_sym", "gibbs_apply")):
         fail(f"SamplesLoss at D={d} did not run the online kernels: {launches}")
     w64 = torch.full((1, n), 1.0 / n, dtype=torch.float64, device=dev)
     v_r, g_r = value_and_grad(
@@ -1311,26 +1327,51 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
         fail(f"SamplesLoss at D={d}: non-finite or misshapen output")
     rel_v, rel_g = rel_errs(v, g, v_r, g_r)
     t_call = sync_ms(lambda: value_and_grad(lambda x: loss(x, y), x), 3)
-    print(f"[wide-d] SamplesLoss() N=M={n} D={d} (padded to {ck.padded_dim(d)}, the wide instantiation): launches "
+    print(f"[wide-d] SamplesLoss() N=M={n} D={d} (kernels 2-4: {math.ceil((d + 1) / 4)} packed float4s a point, "
+          f"read from global memory; kernel 1 padded to {ck.padded_dim(d)}): launches "
           f"{json.dumps(launches)}; loss {v.item():.9e} (float64 twins {v_r.item():.9e}), loss rel err {rel_v:.3e}, "
           f"grad rel L2 err {rel_g:.3e} (tol {PATH_TOL:g}); loss+grad host clock {t_call:.3f} ms (3 reps); "
           f"card {card}", flush=True)
     if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
         fail(f"SamplesLoss at D={d} misses its tolerance")
     la = torch.full((n,), -math.log(n), dtype=torch.float32, device=dev)
+    z = torch.zeros_like(la)
+    ones_y = torch.cat([torch.ones_like(y[:, :1]), y], 1)
+    # Kernels 3 and 4 (wide form) against their twins on the inputs timed
+    # below: kernel 3 at p = 1 and 2; kernel 4 in mode 0 (p = 2) and modes
+    # 1-4 (p = 1), at C = 1, 4 and 1 + D (the backward's channels).
+    for p in (1, 2):
+        e = BLUR**p
+        label = f"N=M={n} D={d} p={p}"
+        check_val("sinkhorn_step_sym", label, ck.sinkhorn_step_sym(x, z, la, e, p),
+                  ck.sinkhorn_step_sym_blocked(x, z, la, e, p))
+        lse_p = ck.lse_blocked(x, y, la, e, p)
+        for kind in ("gibbs", "gibbs_grad", "energy", "inv_dist") if p == 1 else ("gibbs",):
+            for C in (1, 4, 1 + d):
+                V = ones_y[:, 1:2] if C == 1 else ones_y[:, :C]
+                if kind in ("energy", "inv_dist"):
+                    V = la.exp()[:, None] * V
+                args = (x, y, -lse_p, la, V, e, p, kind)
+                scale = ck.gibbs_apply_blocked(x, y, -lse_p, la, V.abs(), e, p, kind).abs().max().item()
+                check_apply("gibbs_apply", f"{label} {kind} C={C}", ck.gibbs_apply(*args),
+                            ck.gibbs_apply_blocked(*args), scale)
     eps = BLUR**2
     lse_ref = ck.lse_blocked(x, y, la, eps, 2)
-    V = torch.cat([torch.ones_like(y[:, :1]), y[:, :3]], 1)
-    z = torch.zeros_like(la)
-    for name, call, nb in (
-        ("lse", lambda: ck.lse(x, y, la, eps, 2), nbytes(x, y, la) + 4 * n),
-        ("sinkhorn_step", lambda: ck.sinkhorn_step(x, y, z, z, la, la, eps, 2), nbytes(x, y, z, z, la, la) + 8 * n),
-        ("gibbs_apply", lambda: ck.gibbs_apply(x, y, -lse_ref, la, V, eps, 2), nbytes(x, y, la, la, V) + 16 * n),
+    # (name, call, bytes, FFMAs per pair: the D of the score, and the
+    # apply's C channels)
+    for name, call, nb, fma in (
+        ("lse", lambda: ck.lse(x, y, la, eps, 2), nbytes(x, y, la) + 4 * n, d),
+        ("sinkhorn_step", lambda: ck.sinkhorn_step(x, y, z, z, la, la, eps, 2), nbytes(x, y, z, z, la, la) + 8 * n,
+         d),
+        ("sinkhorn_step_sym", lambda: ck.sinkhorn_step_sym(x, z, la, eps, 2), nbytes(x, z, la) + 4 * n, d),
+        *((f"gibbs_apply C={C}", lambda V=ones_y[:, :C]: ck.gibbs_apply(x, y, -lse_ref, la, V, eps, 2),
+           nbytes(x, y, la, la, ones_y[:, :C]) + 4 * C * n, d + C) for C in (4, 1 + d)),
     ):
-        b_ms, b_by = bound(n * n, nb, clock, flops=2 * d * n * n)
+        pairs = n * (n + 1) // 2 if name == "sinkhorn_step_sym" else n * n
+        b_ms, b_by = bound(pairs, nb, clock, flops=2 * fma * pairs)
         print(f"[time] {name:18s} N=M={n} D={d} p=2: kernel {event_ms(call, 5):.3f} ms, bound {b_ms:.3f} ms "
-              f"({b_by}: {n * n:.4g} exp2, {2 * d * n * n:.4g} FP32 flops of the D FFMAs per pair) (CUDA events); "
-              f"card {card}", flush=True)
+              f"({b_by}: {pairs:.4g} exp2, {2 * fma * pairs:.4g} FP32 flops of the {fma} FFMAs per pair) "
+              f"(CUDA events); card {card}", flush=True)
     print(f"[wide-d] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
@@ -1428,12 +1469,21 @@ def main():
             for a, b in zip(ck.sinkhorn_step(x, y, f, g, la, lb, eps, p), ck.sinkhorn_step(x, y, f, g, la, lb, eps, p)):
                 if not torch.equal(a, b):
                     fail(f"sinkhorn_step {label}: two calls differ")
-            check_val("sinkhorn_step_sym", label, ck.sinkhorn_step_sym(x, f, la, eps, p),
-                      ck.sinkhorn_step_sym_blocked(x, f, la, eps, p))
-            # Row-normalized weights, as in the softmin backward passes:
-            for kind_c in ("gibbs", "gibbs_grad"):
-                for C in (3, 4):
-                    V = y if C == 3 else torch.cat([torch.ones_like(y[:, :1]), y], 1)
+            sym = ck.sinkhorn_step_sym(x, f, la, eps, p)
+            check_val("sinkhorn_step_sym", label, sym, ck.sinkhorn_step_sym_blocked(x, f, la, eps, p))
+            if not torch.equal(sym, ck.sinkhorn_step_sym(x, f, la, eps, p)):
+                fail(f"sinkhorn_step_sym {label}: two calls differ")
+            # Every mode of kernel 4: the Gibbs kinds with row-normalized
+            # weights, as in the softmin backward passes; the distance kinds
+            # (modes 3 and 4, which ignore p: checked at p = 1) with the
+            # weights b, as in the energy MMD.
+            kinds = ("gibbs", "gibbs_grad", "energy", "inv_dist") if p == 1 else ("gibbs", "gibbs_grad")
+            ones_y = torch.cat([torch.ones_like(y[:, :1]), y], 1)
+            for kind_c in kinds:
+                for C in (1, 3, 4):
+                    V = {1: ones_y[:, 1:2], 3: y, 4: ones_y}[C]
+                    if kind_c in ("energy", "inv_dist"):
+                        V = lb.exp()[:, None] * V
                     args = (x, y, -lse_ref, lb, V, eps, p, kind_c)
                     scale = ck.gibbs_apply_blocked(x, y, -lse_ref, lb, V.abs(), eps, p, kind_c).abs().max().item()
                     check_apply("gibbs_apply", f"{label} {kind_c} C={C}", ck.gibbs_apply(*args),
@@ -1603,8 +1653,10 @@ def main():
         ms_k = event_ms(kern, 10)
         plain_ms = event_ms(twin, twin_reps)
         bound_ms, bound_by = bound(*work[name], clock)
-        floor = (f", issue floor {issue_ms(pair_slots(name), work[name][0], clock):.3f} ms ({pair_slots(name)} "
-                 f"slots per pair)" if name in PAIR_TAIL_SLOTS else "")
+        # Kernel 4 is timed at C = 4 (V1).
+        slots = pair_slots(name, ch=4) if name in (*PAIR_TAIL_SLOTS, "gibbs_apply") else None
+        floor = (f", issue floor {issue_ms(slots, work[name][0], clock):.3f} ms ({slots} slots per pair)"
+                 if slots else "")
         print(f"[time] {name:18s} {where}: kernel {ms_k:.3f} ms, twin {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}: {work[name][0]:.4g} exp2, {work[name][1]:.4g} bytes, SM clock {clock / 1e6:.0f} MHz)"
               f"{floor} (CUDA events); card {card}", flush=True)

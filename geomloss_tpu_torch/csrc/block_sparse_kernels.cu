@@ -114,7 +114,7 @@ tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
 //    block_sparse.py::gibbs_apply_walk_banded (_apply_walk_banded_kernel):
 //    R_row[i] = sum_j w_ij Vy[j] and R_col[j] = sum_i w_ij Vx[i] in one
 //    visit of each kept pair, four channels, raw absorbed weights of
-//    apply_weight's modes 0-2 (pair_common.cuh).
+//    packed_weight's modes 0-2 (pair_common.cuh).
 //    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
 //    a division); at p = 2, D = 3 a pair takes D + 1 FFMAs, the MUFU.EX2
 //    and 8 FFMAs for the two directions: about 13 issue slots, so issue,
@@ -364,61 +364,22 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    block_sparse.py::gibbs_apply_walk (_apply_walk_kernel), the same
 //    function over a walk table: the walk is only the TPU's traversal
 //    order, and the wrapper decodes it into row starts and counts.
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt and, for gibbs_grad,
-//    a division; energy and inv_dist take a sqrt and a reciprocal, no
-//    exp2), then CH FFMAs: at p = 2, D = 3 a pair takes 4 FFMAs, the
-//    MUFU.EX2 and CH FFMAs, 6 issue slots at CH = 1 (the MUFU rate binds)
-//    and 9 at CH = 4 (issue binds, just above the MUFU rate).
-//    Design: the register-tiled pair blocks of kernel 5 with the row
-//    direction only. One block per (row tile, 256-row slice) keeps kernel
-//    7's CSR indirection; a lane owns 8 rows (packed points and CH
-//    accumulators in registers) and a warp kSparseCols columns of each
-//    pass. Each kept source tile is staged kTile columns at a time (packed
-//    points, p = 1 biases, V), padded to whole passes with copies of the
-//    last column whose V is 0. Per pair: one LDS.128 (per staged float4)
-//    and one V load shared by 8 rows, the score FFMAs, one ex2.approx and
-//    CH FFMAs into a stage partial, added to the row's accumulator once per
-//    stage (the rounding error grows with the stages of a row, not its kept
-//    points). At the end the 8 warps' partials of each row are added in
-//    warp order and the row written once: no scratch, no atomics, bitwise
-//    reproducible. Points of up to kStepStaged float4s are staged; wider
-//    ones (KV = 0) are read from global memory per pass, as kernel 5's.
-//    The TPU's bf16 split of wide V (the mxu path, C >= 9) has no
-//    counterpart: every channel is an exact float32 FFMA.
+//    Bound: one MUFU operation per kept pair (an exp2; p = 1 adds an IEEE
+//    sqrt and, for gibbs_grad, a division; energy and inv_dist take one
+//    rsqrt.approx, no exp2), then CH FFMAs: at p = 2, D = 3 a pair takes 4
+//    FFMAs, the MUFU.EX2 and CH FFMAs, 6 issue slots at CH = 1 (the MUFU
+//    rate binds) and 9 at CH = 4 (issue binds, just above the MUFU rate).
+//    Design: the register-tiled pair blocks with the row direction only.
+//    One block per (row tile, 256-row slice) keeps kernel 7's CSR
+//    indirection; a lane owns 8 rows (packed points and CH accumulators in
+//    registers). Each kept source tile goes through the row-contraction
+//    stage shared with kernel 4 (apply_stage, pair_common.cuh) kTile
+//    columns at a time, and each row is written once: no scratch, no
+//    atomics, bitwise reproducible. Points of up to kStepStaged float4s are
+//    staged; wider ones (KV = 0) are read from global memory per pass, as
+//    kernel 5's. The TPU's bf16 split of wide V (the mxu path, C >= 9) has
+//    no counterpart: every channel is an exact float32 FFMA.
 // -----------------------------------------------------------------------------
-template <int CH> struct Chan;
-template <> struct Chan<1> { using T = float; };
-template <> struct Chan<4> { using T = float4; };
-
-__device__ __forceinline__ void chan_zero(float& a) { a = 0.f; }
-__device__ __forceinline__ void chan_zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void chan_fma(float w, float v, float& a) { a = fmaf(w, v, a); }
-__device__ __forceinline__ void chan_fma(float w, float4 v, float4& a) {
-  a.x = fmaf(w, v.x, a.x);
-  a.y = fmaf(w, v.y, a.y);
-  a.z = fmaf(w, v.z, a.z);
-  a.w = fmaf(w, v.w, a.w);
-}
-__device__ __forceinline__ void chan_add(float& a, float b) { a += b; }
-__device__ __forceinline__ void chan_add(float4& a, float4 b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
-}
-
-// Shared memory of kernel 8: a stage of packed columns, their p = 1 biases
-// and V, and (after the last stage) the warps' row partials.
-template <int KS, int CH, bool WIDE>
-union SparseSmem {
-  struct {
-    float4 ys[KS][WIDE ? 1 : kTile];
-    typename Chan<CH>::T vs[kTile];
-    float ycb[kTile];
-  } st;
-  typename Chan<CH>::T red[kWarps * kThreads];
-};
-
 template <int MODE, int KV, int CH>
 __global__ void __launch_bounds__(kThreads, KV == 1 ? 2 : 1)
 sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
@@ -429,115 +390,29 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
                     float c2) {
   using VT = typename Chan<CH>::T;
   constexpr int P = MODE == 0 ? 2 : 1;
-  constexpr int R = kPairRows;
   constexpr bool WIDE = KV == 0;
   constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
-  // Columns per lane and pass: 4 where a pass holds four channels or wide
-  // scores in registers, else 8.
-  constexpr int C = (CH == 4 || WIDE) ? 4 : 8;
-  constexpr int PASS = kWarps * C;  // columns per pass
-  static_assert(kTile % PASS == 0, "a padded stage fits the staging buffers");
-  __shared__ SparseSmem<KS, CH, WIDE> sm;
+  __shared__ ApplySmem<KS, CH, WIDE> sm;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
   const int64_t i0 = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads;
-  float4 xr[R][KS];
-  float br[R];
+  float4 xr[kPairRows][KS];
+  float br[kPairRows];
   load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
-  VT acc[R];
+  VT acc[kPairRows];
 #pragma unroll
-  for (int r = 0; r < R; ++r) chan_zero(acc[r]);
+  for (int r = 0; r < kPairRows; ++r) chan_zero(acc[r]);
   const int* row_cols = cols + row_start[I];
   const int n_kept = cnt[I];
   for (int k = 0; k < n_kept; ++k) {
     const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-    for (int c0 = 0; c0 < block_m; c0 += kTile) {
-      const int n = min(kTile, block_m - c0);
-      const int n_pad = (n + PASS - 1) / PASS * PASS;
-      const int64_t j0 = j_tile + c0;
-      __syncthreads();  // the last stage's reads are done
-      for (int kk = threadIdx.x; kk < n_pad; kk += kThreads) {
-        // A padded column repeats the last one with V = 0: it adds nothing.
-        const int64_t j = j0 + min(kk, n - 1);
-        if constexpr (!WIDE) {
-#pragma unroll
-          for (int q = 0; q < KS; ++q) sm.st.ys[q][kk] = yv[j * KS + q];
-        }
-        if constexpr (P == 1) sm.st.ycb[kk] = cb[j];
-        VT vj;
-        chan_zero(vj);
-        if (kk < n) vj = v[j];
-        sm.st.vs[kk] = vj;
-      }
-      __syncthreads();
-      VT part[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) chan_zero(part[r]);
-      for (int b = 0; b < n_pad; b += PASS) {
-        const int cb0 = b + warp * C;
-        float s[WIDE ? R : 1][C];
-        if constexpr (WIDE) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
-          }
-          for (int q = 0; q < kv; ++q) {
-            float4 xk[R];
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const int il = lane + 32 * r;
-              xk[r] = il < rows ? xv[(i0 + il) * kv + q] : make_float4(0.f, 0.f, 0.f, 0.f);
-            }
-#pragma unroll
-            for (int c = 0; c < C; ++c) {
-              const float4 y = yv[(j0 + min(cb0 + c, n - 1)) * kv + q];
-#pragma unroll
-              for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const VT vc = sm.st.vs[cb0 + c];
-          const float bc = P == 1 ? sm.st.ycb[cb0 + c] : 0.f;
-          float4 y[KS];
-          if constexpr (!WIDE) {
-#pragma unroll
-            for (int q = 0; q < KS; ++q) y[q] = sm.st.ys[q][cb0 + c];
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float sc;
-            if constexpr (WIDE) {
-              sc = s[r][c];
-            } else {
-              sc = P == 2 ? br[r] : 0.f;
-#pragma unroll
-              for (int q = 0; q < KS; ++q) sc = packed_acc<P>(xr[r][q], y[q], sc);
-            }
-            chan_fma(packed_weight<P, MODE>(sc, br[r] + bc, c2), vc, part[r]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) chan_add(acc[r], part[r]);
-    }
+    for (int c0 = 0; c0 < block_m; c0 += kTile)
+      apply_stage<MODE, KV, CH>(sm, xr, br, acc, xv, i0, rows, kv, yv, cb, v, j_tile + c0,
+                                min(kTile, block_m - c0), c2);
   }
-  // Row sums: the 8 warps' partials of each row, added in warp order.
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < R; ++r) sm.red[warp * kThreads + lane + 32 * r] = acc[r];
-  __syncthreads();
-  if (threadIdx.x < rows) {
-    VT sum;
-    chan_zero(sum);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) chan_add(sum, sm.red[w * kThreads + threadIdx.x]);
-    out[i0 + threadIdx.x] = sum;
-  }
+  const VT sum = block_apply_sum(sm, acc);
+  if (threadIdx.x < rows) out[i0 + threadIdx.x] = sum;
 }
 
 // -----------------------------------------------------------------------------
@@ -552,7 +427,7 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
 //    sparse softmin"), and phi_i stays inside the exponent.
 //    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 7's
 //    CSR indirection and staging (one thread per row) with the absorbed
-//    weight of kernel 3 (absorbed_tile, pair_common.cuh), no V: one float32
+//    weight (absorbed_tile, pair_common.cuh), no V: one float32
 //    accumulator per row taking one partial per staged tile. Each output row is written
 //    once: no scratch, no atomics, bitwise reproducible.
 // -----------------------------------------------------------------------------
@@ -596,7 +471,7 @@ sparse_sum_kernel(const float* __restrict__ x, const float* __restrict__ y,
         __syncthreads();
         load_tile<D>(t, y, psi, j_tile + c0, n);
         __syncthreads();
-        acc += absorbed_tile<D, P, false>(r, t, n, valid, c2, nullptr);
+        acc += absorbed_tile<D, P>(r, t, n, valid, c2);
       }
     }
   }

@@ -2,8 +2,7 @@
 // Hopper (sm_90a). Plain C interface, loaded with ctypes by
 // geomloss_tpu_torch/ops/cuda_kernels.py, which also holds each kernel's
 // plain PyTorch twin and folds the biases (base-2 units) before launch.
-// The shared design (row state in registers, column tiles in shared
-// memory, explicit float32 pair scores) is in pair_common.cuh.
+// The shared device code is in pair_common.cuh.
 //
 // What bounds these kernels on an H100: the exponential. At N = M = 1e5 a
 // sweep is 1e10 pairs and reads a few bytes per point, so memory traffic
@@ -13,9 +12,11 @@
 // spend FFMAs to save exponentials: LSE recomputes each tile's scores for
 // a max pass instead of rescaling per pair, the fused step reads both
 // softmin directions off one exponential, and the symmetric step visits
-// each off-diagonal pair once. The fused step runs the register-tiled pair
-// blocks of kernel 5 (pair_common.cuh) over packed points; the others keep
-// one thread per row.
+// each off-diagonal pair once. Kernels 2-4 run the register-tiled pair
+// blocks of pair_common.cuh over packed points: kernels 2 and 3 its
+// absorbed-sum stage (step_stage, shared with kernel 5), kernel 4 its row
+// contraction (apply_stage, shared with kernel 8). Kernel 1 keeps one
+// thread per row.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -127,155 +128,110 @@ step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
 //    Only the upper triangle of tile pairs (I <= J) is visited. W is
 //    symmetric, so an off-diagonal tile's column sums are the row sums of
 //    its mirror (J, I); diagonal tiles contribute rows only.
-//    Bound: exp2, as above. Design: half the pairs of a full sweep. Block
-//    (b, s) takes row tile I = tile0 + b against the column tiles J >= I of
-//    slice s (wt tiles from tile0 + s * wt), keeping its row sums in a
-//    register: they go to rowpart[s, b] ((gridDim.y, gridDim.x, 256)), and
-//    each tile's column sums to colpart[b, J - tile0] ((gridDim.x,
-//    nb - tile0, 256)), the tiles below the diagonal and the diagonal's
-//    column sums as zeros. Every entry is written exactly once, and the
-//    wrapper sums both over their short leading axis in a fixed order:
-//    deterministic, no atomics, scratch bounded by the row tiles per launch.
+//    Bound: exp2, as above, over half the pairs of a full sweep.
+//    Design: block (b, s) takes the 256 rows of row tile I = tile0 + b, in
+//    registers as packed points (load_pair_rows), against the column tiles
+//    J >= I of slice s (wt tiles from tile0 + s * wt), one step_stage per
+//    tile: with column sums for J > I, without for the diagonal tile, which
+//    gives row sums over all of I x I. Its row sums stay in registers and
+//    go to rowpart[s, b] ((gridDim.y, gridDim.x, 256)) through
+//    block_row_sum; each tile's column sums go to colpart[b, J - tile0]
+//    ((gridDim.x, nb - tile0, 256)), the tiles below the diagonal and the
+//    diagonal's column sums as zeros. Every entry is written exactly once,
+//    and the wrapper sums both over their short leading axis in a fixed
+//    order: deterministic, no atomics, scratch bounded by the row tiles per
+//    launch. The wrapper packs the points twice (rows, and columns that
+//    carry the bias), the columns padded to whole tiles with bias -inf;
+//    rows past N get bias -inf. Points wider than kStepStaged float4s
+//    (D > 11 at p = 2) are read from global memory per pass (KV = 0).
 // -----------------------------------------------------------------------------
-template <int D, int P>
+template <int P, int KV>
 __global__ void __launch_bounds__(kThreads)
-sym_step_kernel(const float* __restrict__ x, const float* __restrict__ phi,
-                float* __restrict__ rowpart, float* __restrict__ colpart, int N,
-                int tile0, int wt, int nb, int dw, float c2) {
-  __shared__ float wsum[kWarps][kTile];
+sym_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+                const float* __restrict__ rb, const float* __restrict__ cb,
+                float* __restrict__ rowpart, float* __restrict__ colpart, int N, int tile0,
+                int wt, int nb, int kv, float c2) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ StepSmem<P, KS, WIDE> sm;
+  const int lane = threadIdx.x & 31;
   const int I = tile0 + blockIdx.x;
-  const int64_t i = (int64_t)I * kThreads + threadIdx.x;
-  const bool valid = i < N;
-  float* cp = colpart + (int64_t)blockIdx.x * (nb - tile0) * kTile + threadIdx.x;
-  float rsum = 0.f;
-  const int J_end = min(nb, tile0 + (int)(blockIdx.y + 1) * wt);
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const float bi = valid ? phi[i] : 0.f;
-    for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
-      float* cj = cp + (int64_t)(J - tile0) * kTile;
-      if (J < I) {
-        *cj = 0.f;
-        continue;
-      }
-      const int64_t j0 = (int64_t)J * kTile;
-      const int n = (int)min((int64_t)kTile, N - j0);
-      for (int g = 0; g < n; g += kGroup) {
-        const int ng = min(kGroup, n - g);
-        float w[kGroup];
-        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, x, phi, j0 + g, ng, dw, st, w);
+  const int64_t i0 = (int64_t)I * kThreads;
+  const int64_t left = (int64_t)N - i0;
+  const int rows = left < kThreads ? (int)left : kThreads;
+  float* cp = colpart + (int64_t)blockIdx.x * (nb - tile0) * kTile;
+  float4 xr[kPairRows][KS];
+  float br[kPairRows], racc[kPairRows];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
 #pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          w[k] = (valid && k < ng) ? exp2f(wide_arg<P>(w[k], bi + st.bias[k], c2)) : 0.f;
-          rsum += w[k];
-        }
-        if (J != I) {
-          warp_transpose_sum(w, lane);
-          wsum[warp][g + lane] = w[0];
-        }
-      }
-      if (J == I) {
-        *cj = 0.f;
-      } else {
-        __syncthreads();
-        *cj = threadIdx.x < n ? sum_warps(wsum, threadIdx.x) : 0.f;
-      }
+  for (int r = 0; r < kPairRows; ++r) racc[r] = 0.f;
+  const int J_end = min(nb, tile0 + (int)(blockIdx.y + 1) * wt);
+  for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
+    float* cj = cp + (int64_t)(J - tile0) * kTile;
+    if (J < I) {
+      cj[threadIdx.x] = 0.f;  // kThreads == kTile
+      continue;
     }
-  } else {
-    __shared__ Tile<D> t;
-    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
-    for (int J = tile0 + blockIdx.y * wt; J < J_end; ++J) {
-      float* cj = cp + (int64_t)(J - tile0) * kTile;
-      if (J < I) {
-        *cj = 0.f;
-        continue;
-      }
-      const int64_t j0 = (int64_t)J * kTile;
-      const int n = (int)min((int64_t)kTile, N - j0);
-      __syncthreads();
-      load_tile<D>(t, x, phi, j0, n);
-      __syncthreads();
-      if (J == I) {
-        rsum += absorbed_tile<D, P, false>(r, t, n, valid, c2, wsum);
-        *cj = 0.f;
-      } else {
-        rsum += absorbed_tile<D, P, true>(r, t, n, valid, c2, wsum);
-        __syncthreads();
-        *cj = threadIdx.x < n ? sum_warps(wsum, threadIdx.x) : 0.f;
-      }
-    }
+    step_stage<P, KV>(sm, xr, br, racc, xv, i0, rows, kv, yv, cb, (int64_t)J * kTile, kTile, kTile, J > I,
+                      cj, c2);
   }
-  rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = rsum;
+  const float sum = block_row_sum(sm, racc);
+  rowpart[((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * kThreads + threadIdx.x] = sum;
 }
 
 // -----------------------------------------------------------------------------
 // 4. Gibbs apply. Replaces pallas_kernels.py::gibbs_apply_pallas
-//    (_apply_kernel + _gibbs_weights). O_i = sum_j w_ij V_j for four
-//    channels (the wrapper pads V and loops over channel groups), with the
-//    weight kinds of apply_weight (pair_common.cuh).
-//    Bound: one exp2 per pair plus four FFMAs into float32 accumulators.
-//    Design: V's tile sits in shared memory beside y's; no weight block is
-//    ever stored.
+//    (_apply_kernel + _gibbs_weights). O_i = sum_j w_ij V_j with the weight
+//    kinds of packed_weight's modes 0-4 (pair_common.cuh), CH = 1 or 4
+//    channels a group: the wrapper sends one channel alone and wider V in
+//    zero-padded groups of four, the groups being the grid's z axis, so
+//    that one call is one launch.
+//    Bound: one MUFU operation per pair (an exp2; p = 1 adds an IEEE sqrt
+//    and, for gibbs_grad, a division; energy and inv_dist take one
+//    rsqrt.approx, no exp2), then CH FFMAs: at p = 2, D = 3, 6 issue slots
+//    a pair at CH = 1 (the MUFU rate binds) and 9 at CH = 4.
+//    Design: kernel 8's register-tiled pass (apply_stage) over dense column
+//    slices, no weight block ever stored. Block (b, s, g) takes the 256
+//    rows of row block row_blk0 + b (packed points and CH accumulators in
+//    registers, 8 rows a lane) against the columns of slice s ([s width,
+//    (s + 1) width), width a multiple of 256) in 256-column stages, for
+//    channel group g. A slice's row sums go to out[s, g, row] ((gridDim.y,
+//    gridDim.z, out_rows) of CH floats each, rows counted from the launch's
+//    first block), each entry written once; with more than one slice the
+//    wrapper adds the slices in a fixed order: deterministic, no atomics.
+//    The slices let a launch of few row blocks (N = 1e4: 40) still fill the
+//    card. Points wider than kStepStaged float4s are read from global
+//    memory per pass (KV = 0).
 // -----------------------------------------------------------------------------
-template <int D, int MODE>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ x, const float* __restrict__ y,
-             const float* __restrict__ phi, const float* __restrict__ psi,
-             const float* __restrict__ vt, float* __restrict__ out, int N, int M,
-             int dw, float c2) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = i < N;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    const float bi = valid ? phi[i] : 0.f;
-    for (int j0 = 0; j0 < M; j0 += kGroup) {
-      const int n = min(kGroup, M - j0);
-      float a[kGroup];
-      wide_scores<kWideChunk, MODE != 0>(x, i, valid, MODE == 0 ? c2 : 1.f, y, psi, j0, n, dw, st, a);
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
+template <int MODE, int KV, int CH>
+__global__ void __launch_bounds__(kThreads, KV == 1 ? 2 : 1)
+apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+             const float* __restrict__ rb, const float* __restrict__ cb,
+             const typename Chan<CH>::T* __restrict__ v, typename Chan<CH>::T* __restrict__ out, int N,
+             int M, int row_blk0, int width, int out_rows, int kv, float c2) {
+  using VT = typename Chan<CH>::T;
+  constexpr int P = MODE == 0 ? 2 : 1;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ ApplySmem<KS, CH, WIDE> sm;
+  const int lane = threadIdx.x & 31;
+  const int64_t i0 = (int64_t)(row_blk0 + blockIdx.x) * kThreads;
+  const int64_t left = (int64_t)N - i0;
+  const int rows = left < kThreads ? (int)left : kThreads;
+  float4 xr[kPairRows][KS];
+  float br[kPairRows];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
+  VT acc[kPairRows];
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        if (k < n) {
-          const float w = wide_weight<MODE>(a[k], bi + st.bias[k], c2);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) part[c] = fmaf(w, vt[(int64_t)c * M + j0 + k], part[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += part[c];
-    }
-  } else {
-    __shared__ Tile<D> t;
-    __shared__ float v[4][kTile];
-    const Row<D> r = load_row<D>(x, phi, i, valid, MODE == 0 ? c2 : 1.f);
-    for (int j0 = 0; j0 < M; j0 += kTile) {
-      const int n = min(kTile, M - j0);
-      __syncthreads();
-      load_tile<D>(t, y, psi, j0, n);
-      for (int k = threadIdx.x; k < n; k += blockDim.x) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) v[c][k] = vt[(int64_t)c * M + j0 + k];
-      }
-      __syncthreads();
-      // One partial sum per staged tile, added once: the rounding error
-      // grows with the tiles, not the columns.
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k = 0; k < n; ++k) {
-        const float w = apply_weight<D, MODE>(r, t, k, c2);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[c] = fmaf(w, v[c][k], part[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] += part[c];
-    }
-  }
-  if (valid) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[(int64_t)i * 4 + c] = acc[c];
-  }
+  for (int r = 0; r < kPairRows; ++r) chan_zero(acc[r]);
+  const VT* vg = v + (int64_t)blockIdx.z * M;
+  const int j_end = min(M, (int)(blockIdx.y + 1) * width);
+  for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile)
+    apply_stage<MODE, KV, CH>(sm, xr, br, acc, xv, i0, rows, kv, yv, cb, vg, j0, min(kTile, j_end - j0), c2);
+  const VT sum = block_apply_sum(sm, acc);
+  if (threadIdx.x < rows)
+    out[((int64_t)blockIdx.y * gridDim.z + blockIdx.z) * out_rows + (int64_t)blockIdx.x * kThreads + threadIdx.x] =
+        sum;
 }
 
 }  // namespace
@@ -325,36 +281,79 @@ int gl_sinkhorn_step(const float* xv, const float* yv, const float* rb,
 }
 
 // Row tiles tile0 .. tile0 + n_rows against column tiles tile0 .. nb, in
-// n_slices slices of cdiv(nb - tile0, n_slices) tiles.
-int gl_sinkhorn_step_sym(const float* x, const float* phi, float* rowpart,
-                         float* colpart, int N, int tile0, int n_rows, int n_slices,
-                         int nb, int D, int p, float c2, void* stream) {
+// n_slices slices of cdiv(nb - tile0, n_slices) tiles; xv and yv the
+// packed points as rows and as columns (kv float4 each, pair_common.cuh),
+// yv's columns padded to nb * 256 with bias -inf; rb and cb the row and
+// column biases (cb read for p = 1 only).
+int gl_sinkhorn_step_sym(const float* xv, const float* yv, const float* rb,
+                         const float* cb, float* rowpart, float* colpart, int N, int tile0,
+                         int n_rows, int n_slices, int nb, int kv, int p, float c2,
+                         void* stream) {
+  if ((p != 1 && p != 2) || kv < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_rows, n_slices);
   const int wt = cdiv(nb - tile0, n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  const int dw = D;
-  GL_DISPATCH_D(D,
-    if (p == 2) sym_step_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, dw, c2);
-    else sym_step_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, phi, rowpart, colpart, N, tile0, wt, nb, dw, c2))
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_SYM(P, KV) \
+  sym_step_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, rowpart, colpart, N, tile0, wt, nb, kv, c2)
+#define GL_SYM_KV(P)                                  \
+  switch (kv) {                                       \
+    case 1: GL_SYM(P, 1); break;                      \
+    case 2: GL_SYM(P, 2); break;                      \
+    case kStepStaged: GL_SYM(P, kStepStaged); break;  \
+    default: GL_SYM(P, 0); break;                     \
+  }
+  if (p == 2) GL_SYM_KV(2)
+  else GL_SYM_KV(1)
+#undef GL_SYM_KV
+#undef GL_SYM
   return (int)cudaGetLastError();
 }
 
-int gl_gibbs_apply(const float* x, const float* y, const float* phi,
-                   const float* psi, const float* vt, float* out, int N, int M,
-                   int D, int mode, float c2, void* stream) {
-  const dim3 grid(cdiv(N, kThreads));
+// Row blocks row_blk0 .. row_blk0 + n_blk against all columns, in n_slices
+// slices of `width` columns (a multiple of 256), for n_groups channel
+// groups of ch (1 or 4) channels; xv and yv the packed points (kv float4
+// each), rb and cb their biases (cb read for modes 1 and 2), v (n_groups,
+// M, ch) and out (n_slices, n_groups, out_rows, ch), out's row 0 being row
+// block row_blk0's first row.
+int gl_gibbs_apply(const float* xv, const float* yv, const float* rb, const float* cb,
+                   const float* v, float* out, int N, int M, int row_blk0, int n_blk,
+                   int n_slices, int width, int n_groups, int out_rows, int kv, int ch,
+                   int mode, float c2, void* stream) {
+  if (mode < 0 || mode > 4 || kv < 1 || (ch != 1 && ch != 4) || width % kTile || n_blk < 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_blk, n_slices, n_groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int dw = D;
-  GL_DISPATCH_D(D,
-    switch (mode) {
-      case 0: apply_kernel<D, 0><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
-      case 1: apply_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
-      case 2: apply_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
-      case 3: apply_kernel<D, 3><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
-      case 4: apply_kernel<D, 4><<<grid, kThreads, 0, s>>>(x, y, phi, psi, vt, out, N, M, dw, c2); break;
-      default: return (int)cudaErrorInvalidValue;
-    })
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_APPLY(MODE, KV, CH)                                                                    \
+  apply_kernel<MODE, KV, CH><<<grid, kThreads, 0, s>>>(                                           \
+      x4, y4, rb, cb, reinterpret_cast<const Chan<CH>::T*>(v), reinterpret_cast<Chan<CH>::T*>(out), \
+      N, M, row_blk0, width, out_rows, kv, c2)
+#define GL_APPLY_KV(MODE, CH)                             \
+  switch (kv) {                                           \
+    case 1: GL_APPLY(MODE, 1, CH); break;                 \
+    case 2: GL_APPLY(MODE, 2, CH); break;                 \
+    case kStepStaged: GL_APPLY(MODE, kStepStaged, CH); break; \
+    default: GL_APPLY(MODE, 0, CH); break;                \
+  }
+#define GL_APPLY_CH(MODE) \
+  if (ch == 1) {          \
+    GL_APPLY_KV(MODE, 1)  \
+  } else {                \
+    GL_APPLY_KV(MODE, 4)  \
+  }
+  switch (mode) {
+    case 0: GL_APPLY_CH(0) break;
+    case 1: GL_APPLY_CH(1) break;
+    case 2: GL_APPLY_CH(2) break;
+    case 3: GL_APPLY_CH(3) break;
+    default: GL_APPLY_CH(4) break;
+  }
+#undef GL_APPLY_CH
+#undef GL_APPLY_KV
+#undef GL_APPLY
   return (int)cudaGetLastError();
 }
 

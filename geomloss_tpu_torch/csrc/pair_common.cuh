@@ -1,6 +1,11 @@
 // Device code shared by the pair-interaction kernels of geomloss_tpu_torch
 // (online_kernels.cu, block_sparse_kernels.cu), for Hopper (sm_90a).
 //
+// Two designs. Kernels 2-6 and 8 (and 11, on kernel 8) run the
+// register-tiled pair blocks in the second half of this file, over points
+// packed by the wrapper (cuda_kernels._pair_vectors). Kernels 1, 7 and 12
+// keep one thread per row, in the first half:
+//
 // x is (N, D) and y is (M, D), float32, row-major, with D zero-padded to a
 // compiled width. One thread owns one row i and keeps its coordinates in
 // registers; the block stages kTile columns of y (coordinates and column
@@ -14,9 +19,7 @@
 //          arg = bias_i + bias_j - c2 d.
 // Above the compiled widths, D is padded to a multiple of the widest and
 // the kernels' wide instantiation (D = 0) builds the scores of a group of
-// columns up over coordinate chunks (wide_scores). Kernels 2, 5, 6 and 8
-// use the register-tiled pair blocks at the end of this file instead, over
-// points packed by the wrapper.
+// columns up over coordinate chunks (wide_scores).
 
 #pragma once
 
@@ -98,33 +101,6 @@ __device__ __forceinline__ float pair_arg(const Row<D>& r, const Tile<D>& t, int
   }
 }
 
-// Weight of pair (i, j) for the apply kernels, with d = sqrt(max(sq, 1e-8)):
-//   MODE 0: gibbs, p=2          w = exp2(phi + psi + <c2 x, y>)
-//   MODE 1: gibbs, p=1          w = exp2(phi + psi - c2 d)
-//   MODE 2: gibbs_grad, p=1     w = exp2(phi + psi - c2 d) / d
-//   MODE 3: energy              w = -d
-//   MODE 4: inv_dist            w = 1 / d
-// Modes 2 and 4 vanish where sq <= 1e-6.
-template <int D, int MODE>
-__device__ __forceinline__ float apply_weight(const Row<D>& r, const Tile<D>& t, int k,
-                                              float c2) {
-  if constexpr (MODE == 0) {
-    return exp2f(pair_arg<D, 2>(r, t, k, c2));
-  } else {
-    const float sq = pair_sq<D>(r, t, k);
-    const float d = sqrtf(fmaxf(sq, kSqdistFloor));
-    if constexpr (MODE == 3) {
-      return -d;
-    } else if constexpr (MODE == 4) {
-      return sq > kGradCut ? 1.f / d : 0.f;
-    } else {
-      const float w = exp2f(fmaf(-d, c2, r.bias + t.bias[k]));
-      if constexpr (MODE == 2) return sq > kGradCut ? w / d : 0.f;
-      return w;
-    }
-  }
-}
-
 // One staged tile of n columns of an online LSE in base 2, against the
 // running max m and sum s (m = -inf, s = 0 before the first tile): a max
 // pass that only recomputes scores (FFMAs), then one exp2-sum pass against
@@ -152,63 +128,16 @@ __device__ __forceinline__ void lse_tile(const Row<D>& r, const Tile<D>& t, int 
   m = m_new;
 }
 
-// One butterfly step of warp_transpose_sum: lanes whose OFF bit is set
-// keep the upper half of their values, the others the lower half.
-template <int OFF>
-__device__ __forceinline__ void transpose_step(float (&w)[32], int lane) {
-  const bool upper = (lane & OFF) != 0;
-#pragma unroll
-  for (int k = 0; k < OFF; ++k) {
-    const float send = upper ? w[k] : w[k + OFF];
-    const float keep = upper ? w[k + OFF] : w[k];
-    w[k] = keep + __shfl_xor_sync(kFullMask, send, OFF);
-  }
-}
-
-// Sums 32 per-lane column values over the warp, transposed: afterwards
-// lane l holds, in w[0], the warp's sum of column l. 31 shuffles per lane
-// for 32 x 32 pairs (a per-column tree would take 5 x 32).
-__device__ __forceinline__ void warp_transpose_sum(float (&w)[32], int lane) {
-  transpose_step<16>(w, lane);
-  transpose_step<8>(w, lane);
-  transpose_step<4>(w, lane);
-  transpose_step<2>(w, lane);
-  transpose_step<1>(w, lane);
-}
-
-// Row sums of exp2(arg) over one staged tile of n columns; with COLS, each
-// warp's column sums of the tile go to wsum[warp][0..n) in shared memory
-// (read after a __syncthreads()).
-template <int D, int P, bool COLS>
-__device__ __forceinline__ float absorbed_tile(const Row<D>& r, const Tile<D>& t,
-                                               int n, bool valid, float c2,
-                                               float (*wsum)[kTile]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// Row sums of exp2(arg) over one staged tile of n columns (kernel 12).
+template <int D, int P>
+__device__ __forceinline__ float absorbed_tile(const Row<D>& r, const Tile<D>& t, int n,
+                                               bool valid, float c2) {
   float rsum = 0.f;
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    float w[32];
-#pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      const int col = c0 + k;
-      const float v = (valid && col < n) ? exp2f(pair_arg<D, P>(r, t, col, c2)) : 0.f;
-      w[k] = v;
-      rsum += v;
-    }
-    if constexpr (COLS) {
-      warp_transpose_sum(w, lane);
-      wsum[warp][c0 + lane] = w[0];
-    }
+  if (valid) {
+#pragma unroll 4
+    for (int col = 0; col < n; ++col) rsum += exp2f(pair_arg<D, P>(r, t, col, c2));
   }
   return rsum;
-}
-
-// Column c's sum over the block's warps of wsum (after a __syncthreads()).
-__device__ __forceinline__ float sum_warps(const float (*wsum)[kTile], int c) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) s += wsum[w][c];
-  return s;
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -220,8 +149,8 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // kGroup columns build up in a per-thread buffer over the coordinate chunks
 // (wide_scores), each chunk of the group's columns staged in shared memory;
 // then the kernel's own epilogue runs on the buffer: the LSE max/sum pass
-// (lse_group), the absorbed sums or the apply weights (wide_arg,
-// wide_weight), with the same kSqdistFloor and kGradCut rules.
+// (lse_group) or the absorbed sums (wide_arg), with the same kSqdistFloor
+// rule.
 // -----------------------------------------------------------------------------
 constexpr int kGroup = 32;
 
@@ -277,26 +206,6 @@ __device__ __forceinline__ float wide_arg(float s, float bias, float c2) {
   else return fmaf(-sqrtf(fmaxf(s, kSqdistFloor)), c2, bias);
 }
 
-// apply_weight's modes from a wide score (mode 0: s = <c2 x, y>; modes 1-4:
-// s = |x - y|^2).
-template <int MODE>
-__device__ __forceinline__ float wide_weight(float s, float bias, float c2) {
-  if constexpr (MODE == 0) {
-    return exp2f(bias + s);
-  } else {
-    const float d = sqrtf(fmaxf(s, kSqdistFloor));
-    if constexpr (MODE == 3) {
-      return -d;
-    } else if constexpr (MODE == 4) {
-      return s > kGradCut ? 1.f / d : 0.f;
-    } else {
-      const float w = exp2f(fmaf(-d, c2, bias));
-      if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
-      return w;
-    }
-  }
-}
-
 // lse_tile's two passes over a group's log weights a[k] (-inf past the
 // group's columns).
 __device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, float& s) {
@@ -316,7 +225,7 @@ __device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, fl
 }
 
 // -----------------------------------------------------------------------------
-// Register-tiled pair blocks (kernels 2, 5, 6 and 8). A block's 256 threads
+// Register-tiled pair blocks (kernels 2-6 and 8). A block's 256 threads
 // form a 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l
 // owns rows l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C)
 // of each pass, so every shared-memory load of a column serves all rows of
@@ -327,12 +236,14 @@ __device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, fl
 //          bias plus D + 1 FFMAs (the column bias rides as a coordinate);
 //   p = 1: row [x, 0...], column [y, 0...], the column bias apart:
 //          sqrt(max(|x - y|^2, 1e-8)) as pair_arg's.
-// A column the wrapper pads (kernel 2's ragged last stage) has bias -inf,
-// so its weights are 0. Points of up to kStepStaged float4s are staged: a
-// lane keeps its rows' vectors in registers and the block stages kTile
-// columns in shared memory. A wider point (the wide instantiation, KV = 0)
-// builds its R x C scores up in registers over the kv chunks, read from
-// global memory.
+// A column the wrapper pads (the ragged last stage of kernels 2 and 3) has
+// bias -inf, so its weights are 0; so has a row past the end. Points of up
+// to kStepStaged float4s are staged: a lane keeps its rows' vectors in
+// registers and the block stages kTile columns in shared memory. A wider
+// point (the wide instantiation, KV = 0) builds its R x C scores up in
+// registers over the kv chunks, read from global memory. Two stages serve
+// them: the absorbed sums (step_stage: kernels 2, 3 and 5) and the row
+// contraction with V (apply_stage: kernels 4 and 8).
 // -----------------------------------------------------------------------------
 constexpr int kPairRows = kThreads / 32;  // rows per lane: 8
 
@@ -367,25 +278,39 @@ __device__ __forceinline__ float packed_acc(float4 x, float4 y, float s) {
   else return sqdiff4(x, y, s);
 }
 
+// 1 / sqrt(a) as one MUFU.RSQ (rsqrt.approx.ftz; a >= kSqdistFloor here).
+__device__ __forceinline__ float fast_rsqrt(float a) {
+  float r;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(a));
+  return r;
+}
+
 // Weight of a pair from its accumulated score s (p = 2: the base-2 log
 // weight; p = 1: the squared distance), `bias` the row bias plus (p = 1)
-// the column bias: MODE as apply_weight's 0-4 (3 and 4 take s only), or -1
-// for the absorbed weight exp2(arg) of kernels 2 and 5.
+// the column bias, d = sqrt(max(s, 1e-8)):
+//   MODE -1: the absorbed weight of kernels 2, 3 and 5   exp2(arg)
+//   MODE 0:  gibbs, p = 2                                exp2(arg)
+//   MODE 1:  gibbs, p = 1                                exp2(bias - c2 d)
+//   MODE 2:  gibbs_grad, p = 1                           exp2(bias - c2 d) / d
+//   MODE 3:  energy                                      -d
+//   MODE 4:  inv_dist                                    1 / d
+// Modes 2 and 4 vanish where s <= 1e-6. Modes 3 and 4 take one MUFU from
+// r = rsqrt(max(s, 1e-8)): d = max(s, 1e-8) r, 1 / d = r. The Sinkhorn
+// modes 1 and 2 keep an IEEE sqrtf.
 template <int P, int MODE>
 __device__ __forceinline__ float packed_weight(float s, float bias, float c2) {
   if constexpr (P == 2) {
     return fast_exp2(s);
+  } else if constexpr (MODE == 3 || MODE == 4) {
+    const float m = fmaxf(s, kSqdistFloor);
+    const float r = fast_rsqrt(m);
+    if constexpr (MODE == 3) return -m * r;
+    else return s > kGradCut ? r : 0.f;
   } else {
     const float d = sqrtf(fmaxf(s, kSqdistFloor));
-    if constexpr (MODE == 3) {
-      return -d;
-    } else if constexpr (MODE == 4) {
-      return s > kGradCut ? 1.f / d : 0.f;
-    } else {
-      const float w = fast_exp2(fmaf(-d, c2, bias));
-      if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
-      return w;
-    }
+    const float w = fast_exp2(fmaf(-d, c2, bias));
+    if constexpr (MODE == 2) return s > kGradCut ? w / d : 0.f;
+    return w;
   }
 }
 
@@ -410,7 +335,7 @@ __device__ __forceinline__ void load_pair_rows(float4 (&xr)[kPairRows][KS], floa
 }
 
 // -----------------------------------------------------------------------------
-// The absorbed-sum stage of kernels 2 and 5: the lane's 8 rows against a
+// The absorbed-sum stage of kernels 2, 3 and 5: the lane's 8 rows against a
 // stage of n <= kTile columns in passes of kStepPass, kStepCols columns per
 // lane and pass: per pair one LDS.128 shared by 8 rows (per staged float4),
 // D + 1 FFMAs, one MUFU.EX2 and two adds (the row sum and the column sum).
@@ -553,6 +478,165 @@ __device__ __forceinline__ float block_row_sum(StepSmem<P, KS, WIDE>& sm, const 
   float sum = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) sum += rr[w * kThreads + threadIdx.x];
+  return sum;
+}
+
+// -----------------------------------------------------------------------------
+// The row contraction of kernels 4 and 8: O_i += sum_j w_ij V_j for the
+// lane's 8 rows against a stage of n <= kTile columns, with CH = 1 or 4
+// channels and the weights of packed_weight's modes 0-4. A warp takes C
+// columns of each pass: 4 where a pass holds four channels or wide scores
+// in registers, else 8. The stage is padded to whole passes
+// with copies of its last column whose V is 0 (they add nothing, so a
+// stage may be any width). Per pair: one LDS.128 per staged float4 and one
+// V load, each shared by 8 rows, the score FFMAs, the weight's MUFU and CH
+// FFMAs into a stage partial, added to the row's accumulator once per
+// stage: a float32 chain grows with the stages of a row, not its columns.
+// The 8 warps' accumulators of each row are added in warp order at the end
+// (block_apply_sum): no atomics, bitwise reproducible.
+// -----------------------------------------------------------------------------
+template <int CH> struct Chan;
+template <> struct Chan<1> { using T = float; };
+template <> struct Chan<4> { using T = float4; };
+
+__device__ __forceinline__ void chan_zero(float& a) { a = 0.f; }
+__device__ __forceinline__ void chan_zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void chan_fma(float w, float v, float& a) { a = fmaf(w, v, a); }
+__device__ __forceinline__ void chan_fma(float w, float4 v, float4& a) {
+  a.x = fmaf(w, v.x, a.x);
+  a.y = fmaf(w, v.y, a.y);
+  a.z = fmaf(w, v.z, a.z);
+  a.w = fmaf(w, v.w, a.w);
+}
+__device__ __forceinline__ void chan_add(float& a, float b) { a += b; }
+__device__ __forceinline__ void chan_add(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Shared memory of the stage: kTile packed columns, their p = 1 biases and
+// V, and (after the last stage) the warps' row partials.
+template <int KS, int CH, bool WIDE>
+union ApplySmem {
+  struct {
+    float4 ys[KS][WIDE ? 1 : kTile];
+    typename Chan<CH>::T vs[kTile];
+    float ycb[kTile];
+  } st;
+  typename Chan<CH>::T red[kWarps * kThreads];
+};
+
+// One stage: the columns j0 .. j0 + n of yv, cb and v (1 <= n <= kTile)
+// against the lane's rows (xr, br; WIDE: xv's `rows` rows from i0, kv
+// float4s each), added into acc. Every thread of the block calls it: it
+// synchronises.
+template <int MODE, int KV, int CH>
+__device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV == 0>& sm,
+                                            const float4 (&xr)[kPairRows][KV == 0 ? 1 : KV],
+                                            const float (&br)[kPairRows],
+                                            typename Chan<CH>::T (&acc)[kPairRows],
+                                            const float4* __restrict__ xv, int64_t i0, int rows, int kv,
+                                            const float4* __restrict__ yv, const float* __restrict__ cb,
+                                            const typename Chan<CH>::T* __restrict__ v, int64_t j0, int n,
+                                            float c2) {
+  using VT = typename Chan<CH>::T;
+  constexpr int P = MODE == 0 ? 2 : 1;
+  constexpr int R = kPairRows;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  constexpr int C = (CH == 4 || WIDE) ? 4 : 8;  // columns per lane and pass
+  constexpr int PASS = kWarps * C;  // columns per pass
+  static_assert(kTile % PASS == 0, "a padded stage fits the staging buffers");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_pad = (n + PASS - 1) / PASS * PASS;
+  __syncthreads();  // the last stage's reads are done
+  for (int kk = threadIdx.x; kk < n_pad; kk += kThreads) {
+    // A padded column repeats the last one with V = 0: it adds nothing.
+    const int64_t j = j0 + min(kk, n - 1);
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int q = 0; q < KS; ++q) sm.st.ys[q][kk] = yv[j * KS + q];
+    }
+    if constexpr (P == 1) sm.st.ycb[kk] = cb[j];
+    VT vj;
+    chan_zero(vj);
+    if (kk < n) vj = v[j];
+    sm.st.vs[kk] = vj;
+  }
+  __syncthreads();
+  VT part[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) chan_zero(part[r]);
+  for (int b = 0; b < n_pad; b += PASS) {
+    const int cb0 = b + warp * C;
+    float s[WIDE ? R : 1][C];
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) s[r][c] = P == 2 ? br[r] : 0.f;
+      }
+      for (int q = 0; q < kv; ++q) {
+        float4 xk[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int il = lane + 32 * r;
+          xk[r] = il < rows ? xv[(i0 + il) * kv + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float4 y = yv[(j0 + min(cb0 + c, n - 1)) * kv + q];
+#pragma unroll
+          for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const VT vc = sm.st.vs[cb0 + c];
+      const float bc = P == 1 ? sm.st.ycb[cb0 + c] : 0.f;
+      float4 y[KS];
+      if constexpr (!WIDE) {
+#pragma unroll
+        for (int q = 0; q < KS; ++q) y[q] = sm.st.ys[q][cb0 + c];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float sc;
+        if constexpr (WIDE) {
+          sc = s[r][c];
+        } else {
+          sc = P == 2 ? br[r] : 0.f;
+#pragma unroll
+          for (int q = 0; q < KS; ++q) sc = packed_acc<P>(xr[r][q], y[q], sc);
+        }
+        chan_fma(packed_weight<P, MODE>(sc, br[r] + bc, c2), vc, part[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) chan_add(acc[r], part[r]);
+}
+
+// Rows of the block: the 8 warps' accumulators of each row, added in warp
+// order; thread t returns row t's. Every thread calls it.
+template <int KS, int CH, bool WIDE>
+__device__ __forceinline__ typename Chan<CH>::T block_apply_sum(ApplySmem<KS, CH, WIDE>& sm,
+                                                                const typename Chan<CH>::T (&acc)[kPairRows]) {
+  using VT = typename Chan<CH>::T;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // the last stage's reads of st are done
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) sm.red[warp * kThreads + lane + 32 * r] = acc[r];
+  __syncthreads();
+  VT sum;
+  chan_zero(sum);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) chan_add(sum, sm.red[w * kThreads + threadIdx.x]);
   return sum;
 }
 

@@ -74,9 +74,11 @@ from .cuda_kernels import (
     _even_chunks,
     _f32,
     _fold_norms,
+    _group_channels,
     _log_weights_blk,
     _pair_vectors,
     _points,
+    _ungroup_channels,
 )
 
 __all__ = [
@@ -757,35 +759,25 @@ def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512
     return _apply_rows(x, y, phi, psi, V, eps, _walk_rows(tbl, nI), p, kind, block_n, block_m, "gibbs_apply_walk")
 
 
-def _channel_groups(C):
-    """Channels per launch of kernel 8 and the padded channel count: one
-    channel goes alone, any other count in groups of four (zero-padded)."""
-    G = 1 if C == 1 else ck._CHANNELS
-    return G, _cdiv(C, G) * G
-
-
 def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count):
-    """Kernel 8 over a CSR table, channels as :func:`_channel_groups`."""
+    """Kernel 8 over a CSR table, one launch per channel group
+    (``cuda_kernels._group_channels``)."""
     mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
-    N, C = x.shape[0], V.shape[1]
-    G, Cp = _channel_groups(C)
-    Vp = torch.nn.functional.pad(_f32(V), (0, Cp - C))
+    v = _group_channels(V)
+    ng, _, G = v.shape
     cols, start, cnt = rows
     c2 = LOG2E / eps if mode <= 2 else 0.0
-    outs = []
+    out = torch.empty((ng, x.shape[0], G), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        for c0 in range(0, Cp, G):
-            v = Vp[:, c0 : c0 + G].contiguous()
-            out = torch.empty((N, G), dtype=torch.float32, device=x.device)
+        for g in range(ng):
             _LIB.launch(
                 "gibbs_apply_sparse", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
-                v.data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(),
+                v[g].data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out[g].data_ptr(),
                 cnt.shape[0], block_n, block_m, kv, G, mode, c2, count=count,
             )
-            outs.append(out)
-    return torch.cat(outs, dim=1)[:, :C].to(V.dtype)
+    return _ungroup_channels(out, V.shape[1]).to(V.dtype)
 
 
 def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):

@@ -23,22 +23,25 @@ The library is compiled with ``nvcc`` at first use (a plain C interface,
 loaded with ``ctypes``) into :func:`build_dir`, keyed by a hash of its
 sources (the ``.cu`` file and the shared headers).
 
-The kernels take any point dimension. The fused step (kernel 2) reads
-points packed as float4 vectors (:func:`_pair_vectors`, shared with the
-block-sparse kernels 5, 6 and 8): up to three vectors a point are staged,
-wider ones read from global memory. The other three pad D to a compiled
-width (1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16, which runs
-their wide instantiation (scores built up over chunks of 16 coordinates;
-``csrc/pair_common.cuh``).
+The kernels take any point dimension. Kernels 2-4 are register-tiled
+pair blocks over points packed as float4 vectors (:func:`_pair_vectors`,
+shared with the block-sparse kernels 5, 6 and 8): up to three vectors a
+point are staged, wider ones read from global memory. Kernel 1 pads D to
+a compiled width (1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16,
+which runs its wide instantiation (scores built up over chunks of 16
+coordinates; ``csrc/pair_common.cuh``).
 
 Each wrapper adds one to its entry of :data:`launch_counts` where it
 launches its kernel, and nowhere else.
 
 The two step kernels write per-block partial sums that the wrappers add
-up in a fixed order (deterministic, no atomics). Their scratch is bounded:
+up in a fixed order (deterministic, no atomics), and so does the apply
+kernel when it cuts the columns into slices. Their scratch is bounded:
 row blocks are launched in chunks that keep it under
 :data:`STEP_SCRATCH_BYTES` plus ``O(N + M)`` (:func:`step_plan`,
-:func:`sym_step_plan`).
+:func:`sym_step_plan`, :func:`apply_plan`). One :func:`gibbs_apply` call
+is one launch wherever its scratch fits the budget: its channel groups
+are the grid's third axis.
 """
 
 import ctypes
@@ -70,6 +73,7 @@ __all__ = [
     "reset_launch_counts",
     "step_plan",
     "sym_step_plan",
+    "apply_plan",
     "step_scratch_bytes",
     "sym_step_scratch_bytes",
 ]
@@ -86,21 +90,21 @@ GRAD_SQDIST_CUT = 1e-6
 #: Column block of the plain twins.
 BLOCK_M = 2048
 
-#: Rows per CUDA block (one thread per row) and columns per shared-memory
-#: tile; must match ``kThreads`` / ``kTile`` in the source.
+#: Rows per CUDA block and columns per shared-memory tile; must match
+#: ``kThreads`` / ``kTile`` in the source.
 _CUDA_BLOCK = 256
-#: Point dimensions kernels 1, 3 and 4 are compiled for; smaller D is
-#: zero-padded, larger D padded to a multiple of the last (the wide
-#: instantiation).
+#: Point dimensions kernel 1 is compiled for; smaller D is zero-padded,
+#: larger D padded to a multiple of the last (the wide instantiation).
 _KERNEL_DIMS = (1, 2, 3, 4, 8, 16)
-#: Channels per launch of the apply kernel; wider V loops over groups.
+#: Channels of a group of the apply kernels (4, 6 and 8) when V has more
+#: than one.
 _CHANNELS = 4
 
 #: Scratch budget of one step call: the per-block partial sums of a launch
 #: stay under it (plus O(N + M) when a single row block needs more).
 STEP_SCRATCH_BYTES = 128 << 20
-#: Blocks per launch the step kernels aim for, so that a chunk of few row
-#: blocks still fills the card (132 SMs, several blocks each); the
+#: Blocks per launch the step and apply kernels aim for, so that a chunk of
+#: few row blocks still fills the card (132 SMs, several blocks each); the
 #: symmetric step's blocks walk parts of a triangle, so it takes smaller
 #: slices to keep their work even.
 _STEP_BLOCKS = 1024
@@ -236,11 +240,12 @@ _LIB = KernelLibrary(
         # xv, yv, rb, cb, rowpart, colpart, N, M, row_blk0, n_blk, n_slices,
         # width, kv, p, c2, stream
         "gl_sinkhorn_step": [_P] * 6 + [_I] * 8 + [_F, _P],
-        # x, phi, rowpart, colpart, N, tile0, n_rows, n_slices, nb, D, p, c2,
-        # stream
-        "gl_sinkhorn_step_sym": [_P] * 4 + [_I] * 7 + [_F, _P],
-        # x, y, phi, psi, vt, out, N, M, D, mode, c2, stream
-        "gl_gibbs_apply": [_P] * 6 + [_I] * 4 + [_F, _P],
+        # xv, yv, rb, cb, rowpart, colpart, N, tile0, n_rows, n_slices, nb,
+        # kv, p, c2, stream
+        "gl_sinkhorn_step_sym": [_P] * 6 + [_I] * 7 + [_F, _P],
+        # xv, yv, rb, cb, v, out, N, M, row_blk0, n_blk, n_slices, width,
+        # n_groups, out_rows, kv, ch, mode, c2, stream
+        "gl_gibbs_apply": [_P] * 6 + [_I] * 11 + [_F, _P],
     },
     launch_counts,
 )
@@ -290,8 +295,8 @@ def _points(name, *clouds, dims=_KERNEL_DIMS):
 
 
 def _pair_vectors(x, y, phi, psi, eps, p, cols_to=1):
-    """Packed points of the register-tiled pair blocks (kernels 2, 5, 6 and
-    8; ``csrc/pair_common.cuh``), ``kv`` float4 vectors per point:
+    """Packed points of the register-tiled pair blocks (kernels 2-6 and 8;
+    ``csrc/pair_common.cuh``), ``kv`` float4 vectors per point:
 
     - p = 2: rows ``[c2 x, 0..., 1]``, columns ``[y, 0..., psi2]`` (the
       one and the column bias in the last of ``4 kv`` floats), so that a
@@ -359,6 +364,51 @@ def sym_step_plan(N):
     nb = _cdiv(N, _CUDA_BLOCK)
     R = _even_chunks(nb, STEP_SCRATCH_BYTES // (4 * _CUDA_BLOCK * nb))
     return R, max(1, min(nb, _cdiv(_SYM_STEP_BLOCKS, R), _MAX_GRID_Y))
+
+
+def _channel_groups(C):
+    """Channels per group of an apply kernel (4 and 8) and the padded
+    channel count: one channel goes alone, any other count in groups of
+    four (zero-padded)."""
+    G = 1 if C == 1 else _CHANNELS
+    return G, _cdiv(C, G) * G
+
+
+def _group_channels(V):
+    """V ``(M, C)`` as the apply kernel reads it: float32 ``(groups, M,
+    ch)``, the groups of :func:`_channel_groups` one after another, the
+    last zero-padded."""
+    ch, Cp = _channel_groups(V.shape[1])
+    Vp = torch.nn.functional.pad(_f32(V), (0, Cp - V.shape[1]))
+    return Vp.view(V.shape[0], Cp // ch, ch).transpose(0, 1).contiguous()
+
+
+def _ungroup_channels(out, C):
+    """The ``(N, C)`` result from the kernel's ``(groups, N, ch)`` one."""
+    ng, N, ch = out.shape
+    return out.transpose(0, 1).reshape(N, ng * ch)[:, :C]
+
+
+def apply_plan(N, M, C=1):
+    """Chunking of :func:`gibbs_apply` with ``C`` channels: ``(R, S, width)``.
+
+    Each launch takes ``R`` row blocks of 256 rows against all columns, cut
+    into ``S`` slices of ``width`` columns (a multiple of 256), so that a
+    launch holds at least ``_STEP_BLOCKS`` blocks where M allows. With one
+    slice the kernel writes the output and ``R`` takes every row block;
+    with more, each slice writes its row partials, ``S * Cp * R * 256``
+    floats (``Cp`` the padded channels), at most :data:`STEP_SCRATCH_BYTES`
+    unless ``R = 1``.
+    """
+    nb = _cdiv(N, _CUDA_BLOCK)
+    tiles = _cdiv(M, _CUDA_BLOCK)
+    want = max(1, min(tiles, _cdiv(_STEP_BLOCKS, nb), _MAX_GRID_Y))
+    width = (tiles // want) * _CUDA_BLOCK
+    S = _cdiv(M, width)
+    if S == 1:
+        return nb, 1, width
+    _, Cp = _channel_groups(C)
+    return _even_chunks(nb, STEP_SCRATCH_BYTES // (4 * S * Cp * _CUDA_BLOCK)), S, width
 
 
 def step_scratch_bytes(N, M):
@@ -626,9 +676,11 @@ def sinkhorn_step_sym(x, f, loga, eps, p=2):
         return sinkhorn_step_sym_blocked(x, f, loga, eps, p)
     _check_cuda("sinkhorn_step_sym", x, f, loga)
     eps = float(eps)
-    (xf,), Dk = _points("sinkhorn_step_sym", x)
-    N = xf.shape[0]
-    phi = _bias2(xf, _f32(loga) + _f32(f) / eps, eps, p)
+    phi = _f32(loga) + _f32(f) / eps
+    # The points twice: as rows, and as columns carrying the bias, padded to
+    # whole tiles with bias -inf.
+    xv, yv, rb, cb, kv = _pair_vectors(x, x, phi, phi, eps, p, cols_to=_CUDA_BLOCK)
+    N = x.shape[0]
     nb = _cdiv(N, _CUDA_BLOCK)
     R, S = sym_step_plan(N)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -641,9 +693,8 @@ def sinkhorn_step_sym(x, f, loga, eps, p=2):
         for t0 in range(0, nb, R):
             n = min(R, nb - t0)
             _launch(
-                "sinkhorn_step_sym", xf.data_ptr(), phi.data_ptr(),
-                rowpart.data_ptr(), colpart.data_ptr(), N, t0, n, S, nb, Dk, p,
-                LOG2E / eps,
+                "sinkhorn_step_sym", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
+                rowpart.data_ptr(), colpart.data_ptr(), N, t0, n, S, nb, kv, p, LOG2E / eps,
             )
             r[t0 : t0 + n] += rowpart[: S * n * _CUDA_BLOCK].view(S, n, _CUDA_BLOCK).sum(0)
             r[t0:] += colpart[: n * (nb - t0) * _CUDA_BLOCK].view(n, nb - t0, _CUDA_BLOCK).sum(0)
@@ -667,8 +718,9 @@ def gibbs_apply(x, y, phi, psi, V, eps, p=2, kind="gibbs"):
     :func:`geomloss_tpu_torch.ops.softmin.gibbs_apply`.
 
     Shapes: x ``(N, D)``, y ``(M, D)``, phi ``(N,)``, psi ``(M,)``,
-    V ``(M, C)`` -> ``(N, C)`` in V's dtype. Channels go through the kernel
-    in groups of four.
+    V ``(M, C)`` -> ``(N, C)`` in V's dtype. One channel goes through the
+    kernel alone, more in groups of four, all groups in one launch
+    (:func:`_channel_groups`, :func:`apply_plan`).
     """
     _check_kind(kind)
     if not x.is_cuda:
@@ -676,22 +728,30 @@ def gibbs_apply(x, y, phi, psi, V, eps, p=2, kind="gibbs"):
     _check_cuda("gibbs_apply", x, y, phi, psi, V)
     mode = _APPLY_MODES[(kind, p)]
     eps = float(eps)
-    (xf, yf), Dk = _points("gibbs_apply", x, y)
-    N, M = xf.shape[0], yf.shape[0]
-    p_bias = 2 if mode == 0 else 1
-    phi2, psi2 = _bias2(xf, phi, eps, p_bias), _bias2(yf, psi, eps, p_bias)
-    C = V.shape[1]
-    Cp = _cdiv(C, _CHANNELS) * _CHANNELS
-    Vt = torch.nn.functional.pad(_f32(V).T, (0, 0, 0, Cp - C)).contiguous()
+    xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
+    N, M, C = x.shape[0], y.shape[0], V.shape[1]
+    v = _group_channels(V)
+    ng, _, ch = v.shape
+    nb = _cdiv(N, _CUDA_BLOCK)
+    R, S, width = apply_plan(N, M, C)
     c2 = LOG2E / eps if mode <= 2 else 0.0
-    outs = []
+    f32 = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty((ng, N, ch), **f32)
+    # With several slices, each slice's row partials of one chunk of row
+    # blocks, summed in a fixed order before the next chunk:
+    part = torch.empty((S, ng, R * _CUDA_BLOCK, ch), **f32) if S > 1 else None
     with torch.cuda.device(x.device):
-        for c0 in range(0, Cp, _CHANNELS):
-            out = torch.empty((N, _CHANNELS), dtype=torch.float32, device=x.device)
+        for b0 in range(0, nb, R):
+            n = min(R, nb - b0)
+            if S == 1:
+                dst, out_rows = out.data_ptr() + 4 * ch * b0 * _CUDA_BLOCK, N
+            else:
+                dst, out_rows = part.data_ptr(), R * _CUDA_BLOCK
             _launch(
-                "gibbs_apply", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(),
-                psi2.data_ptr(), Vt[c0 : c0 + _CHANNELS].data_ptr(),
-                out.data_ptr(), N, M, Dk, mode, c2,
+                "gibbs_apply", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(), v.data_ptr(),
+                dst, N, M, b0, n, S, width, ng, out_rows, kv, ch, mode, c2,
             )
-            outs.append(out)
-    return torch.cat(outs, dim=1)[:, :C].to(V.dtype)
+            if S > 1:
+                i0, i1 = b0 * _CUDA_BLOCK, min(N, (b0 + n) * _CUDA_BLOCK)
+                out[:, i0:i1] = part[:, :, : i1 - i0].sum(0)
+    return _ungroup_channels(out, C).to(V.dtype)

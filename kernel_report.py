@@ -1,9 +1,10 @@
 """Build report and CUDA-event times of the register-tiled pair kernels of
-geomloss_tpu_torch on one GPU: kernel 2 (``sinkhorn_step``), kernels 5
-and 6 (``absorbed_sum_tiles``, ``gibbs_apply_tiles``) and kernel 8
+geomloss_tpu_torch on one GPU: kernels 2, 3 and 4 (``sinkhorn_step``,
+``sinkhorn_step_sym``, ``gibbs_apply``), kernels 5 and 6
+(``absorbed_sum_tiles``, ``gibbs_apply_tiles``) and kernel 8
 (``gibbs_apply_sparse``).
 
-    python3 kernel_report.py [--root DIR] [--report tiles step sparse] [--sizes 100000 2000000]
+    python3 kernel_report.py [--root DIR] [--report tiles step sparse online] [--sizes 100000 2000000]
                              [--dim 3] [--backend auto] [--reps 3] [--no-build-report] [--dump DIR]
 
 ``--root`` imports the package from another checkout (for example the
@@ -19,7 +20,7 @@ Prints, from the build of both libraries:
   MUFU instructions, by opcode class, and per pair (over its MUFU count:
   one exp2 per pair at these instantiations).
 
-Then each report of ``--report`` (all three by default):
+Then each report of ``--report`` (all four by default):
 
 - ``tiles``: for each of ``--sizes``, bench.py's call (``SamplesLoss(
   "sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)``, value and
@@ -39,7 +40,15 @@ Then each report of ``--report`` (all three by default):
   pairs, mean and longest row, channels), timed alone beside its MUFU
   bound and issue floor, and the device time of one call; then kernel 8
   at each of its weight kinds, C = 1 and 4, on the same route's xy table
-  at 1e5.
+  at 1e5;
+- ``online``: kernel 3 (the debias step) per call at N = 1e5 (CUDA events
+  and host clock) and kernel 4 in each mode at C = 1 and 4 at N = M =
+  1e5, beside their MUFU bound and issue floor; both at D = 32 and 1e4
+  points (kernel 4 at C = 33, the backward's channels); kernel 8's modes
+  at 1e5 as in ``sparse``; then the energy, gaussian online and
+  laplacian multiscale MMD calls at 1e5 (blur 0.1, truncate 3): host
+  clock per call, and under ``torch.profiler`` the device busy time, the
+  idle share and the device time of each kernel.
 
 Times are CUDA events after a warm-up; each report ends with a JSON line
 holding them and the card's name and power limit. Needs a CUDA device.
@@ -75,15 +84,22 @@ from chip_smoke import (
 SASS_CLASSES = ("MUFU", "SHFL", "LDS", "LDG", "LDL", "STL", "FFMA", "FADD", "FMUL", "FSEL", "SEL", "FMNMX", "FSETP",
                 "ISETP", "BAR", "STS")
 #: Kernels whose hot loop is read, at bench.py's instantiation (D = 3,
-#: p = 2; applies in mode 0). Kernels 2, 5, 6 and 8 were templated on
-#: <D, P> and <D, MODE> before their register-tiled forms; since, kernels 2
-#: and 5 on <P, KV> (KV float4s per packed point, 0 for the wide form),
-#: kernel 6 on <MODE, WIDE> and kernel 8 on <MODE, KV, CH> (CH channels).
-#: Kernel 5 at p = 2, D = 8 (KV = 3) is read too. In a build of the first
-#: forms, <2,1> names another instantiation (D = 2, p = 1).
+#: p = 2; applies in mode 0, and in the energy and inv_dist modes 3 and 4).
+#: Kernels 2-6 and 8 were templated on <D, P> and <D, MODE> before their
+#: register-tiled forms; since, kernels 2, 3 and 5 on <P, KV> (KV float4s
+#: per packed point, 0 for the wide form), kernel 6 on <MODE, WIDE> and
+#: kernels 4 and 8 on <MODE, KV, CH> (CH channels). Kernel 5 at p = 2,
+#: D = 8 (KV = 3) is read too. In a build of the first forms, <2,1> names
+#: another instantiation (D = 2, p = 1), and so do <3,1> and <4,1> of the
+#: two-argument kernels (D = 3 and 4); kernel 4's first form in modes 3 and
+#: 4 is <3,3> and <3,4>.
 SASS_LABELS = ("tiles_step_kernel<3,2>", "tiles_apply_kernel<3,0>", "tiles_step_kernel<2,1>",
                "tiles_step_kernel<2,3>", "tiles_apply_kernel<0,0>", "step_kernel<3,2>", "step_kernel<2,1>",
-               "sparse_apply_kernel<3,0>", "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>")
+               "sparse_apply_kernel<3,0>", "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>",
+               "sparse_apply_kernel<3,1,1>", "sparse_apply_kernel<4,1,1>",
+               "sym_step_kernel<3,2>", "sym_step_kernel<2,1>", "apply_kernel<3,0>", "apply_kernel<3,3>",
+               "apply_kernel<3,4>", "apply_kernel<0,1,1>", "apply_kernel<0,1,4>", "apply_kernel<3,1,1>",
+               "apply_kernel<4,1,1>", "apply_kernel<3,1,4>", "apply_kernel<4,1,4>")
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -335,10 +351,93 @@ def sparse_modes(torch, mods, args, card, n=100_000):
     return out
 
 
+def host_ms(torch, fn, reps):
+    """Host-clock ms per call of ``fn`` (each ending in a synchronize),
+    after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def online_report(torch, mods, args, card, clock):
+    """Kernels 3 and 4 alone at 1e5 and at D = 32, kernel 8's modes, and the
+    MMD calls at 1e5 that run kernels 4 and 8."""
+    SamplesLoss, ck = mods["SamplesLoss"], mods["ck"]
+    dev = torch.device("cuda")
+    res = {"root": args.root, "report": "online", "card": card}
+    for n, dim in ((100_000, args.dim), (10_000, 32)):
+        x0 = torch.from_numpy(sphere_cloud(n, 0, dim)).to(dev)
+        y0 = torch.from_numpy(sphere_cloud(n, 1, dim)).to(dev)
+        la = torch.full((n,), -math.log(n), device=dev)
+        z = torch.zeros(n, device=dev)
+        kv2, kv1 = math.ceil((dim + 1) / 4), math.ceil(dim / 4)
+        key = f"n{n}_d{dim}"
+        # Kernel 3: the debias step of the online call (p = 2, eps = blur^2).
+        eps = 0.05**2
+        call = lambda: ck.sinkhorn_step_sym(x0, z, la, eps, 2)  # noqa: E731
+        pairs = n * (n + 1) // 2
+        k3 = {"ms": event_ms(call, args.reps), "wall_ms": host_ms(torch, call, args.reps),
+              "mufu_bound_ms": 1e3 * pairs / (MUFU_PER_CLOCK * clock),
+              "issue_floor_ms": issue_ms(pair_slots("sinkhorn_step_sym", kv2), pairs, clock)}
+        print(f"[online] sinkhorn_step_sym N={n} D={dim} p=2: {k3['ms']:.3f} ms (CUDA events), {k3['wall_ms']:.3f} ms "
+              f"(host clock), MUFU bound {k3['mufu_bound_ms']:.3f} ms, issue floor {k3['issue_floor_ms']:.3f} ms "
+              f"({pair_slots('sinkhorn_step_sym', kv2)} slots per pair); card {card}", flush=True)
+        res[f"sinkhorn_step_sym_{key}"] = k3
+        # Kernel 4 in each mode; at D = 32 in mode 0 at C = 1 + D, as in the backward.
+        pairs = n * n
+        modes = ((0, 2, "gibbs"), (1, 1, "gibbs"), (2, 1, "gibbs_grad"), (3, 1, "energy"), (4, 1, "inv_dist"))
+        ones_y = torch.cat([torch.ones_like(y0[:, :1]), y0], 1)
+        for mode, p, kind in modes if dim <= 3 else modes[:1]:
+            phi = -ck.lse(x0, y0, la, 0.05**p, p)
+            for V in (ones_y[:, :1], ones_y[:, :4]) if dim <= 3 else (ones_y,):
+                C = V.shape[1]
+                t = event_ms(lambda: ck.gibbs_apply(x0, y0, phi, la, V, 0.05**p, p, kind), args.reps)
+                ch = 1 if C == 1 else 4
+                kv = kv2 if mode == 0 else kv1
+                groups = math.ceil(C / ch)
+                floor = (issue_ms(pair_slots("gibbs_apply", kv, ch, mode) * groups, pairs, clock)
+                         if mode in (0, 3, 4) else None)
+                entry = {"ms": t, "C": C, "mufu_bound_ms": 1e3 * pairs * groups / (MUFU_PER_CLOCK * clock),
+                         "issue_floor_ms": floor}
+                res[f"gibbs_apply_{key}_mode{mode}_C{C}"] = entry
+                print(f"[online] gibbs_apply N=M={n} D={dim} mode {mode} (p={p} {kind}) C={C}: {t:.3f} ms (CUDA "
+                      f"events), MUFU bound {entry['mufu_bound_ms']:.3f} ms (one MUFU op per pair and group), issue "
+                      f"floor {'not counted' if floor is None else f'{floor:.3f} ms'}; card {card}", flush=True)
+        del x0, y0, la, z
+        torch.cuda.empty_cache()
+    res["kernel8_modes_1e5"] = sparse_modes(torch, mods, args, card)
+    n = 100_000
+    x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+    for label, kw in (("energy", dict(loss="energy", blur=0.1)),
+                      ("gaussian online", dict(loss="gaussian", blur=0.1, backend="online")),
+                      ("laplacian multiscale", dict(loss="laplacian", blur=0.1, truncate=3, backend="multiscale"))):
+        loss = SamplesLoss(**kw)
+        call = lambda: value_and_grad(lambda x: loss(x, y0), x0)  # noqa: E731
+        wall_h = host_ms(torch, call, args.reps)
+        wall, busy, n_launch, rows = profile_busy_ms(call, top=None)
+        by_kernel = kernel_times(rows)
+        res[f"mmd {label}"] = {"host_ms": wall_h, "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+                               "device_launches": n_launch,
+                               "device_ms_by_kernel": {k: round(v[0], 4) for k, v in by_kernel.items()},
+                               "device_launches_by_kernel": {k: v[1] for k, v in by_kernel.items()}}
+        print(f"[online] MMD {label} N=M={n}: {wall_h:.3f} ms per call (host clock, {args.reps} reps); profiled wall "
+              f"{wall:.3f} ms, device busy {busy:.3f} ms, idle {100 * (1 - busy / wall):.1f} %; card {card}",
+              flush=True)
+    print(json.dumps(res), flush=True)
+    del x0, y0
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse"), default=["tiles", "step", "sparse"])
+    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse", "online"),
+                    default=["tiles", "step", "sparse", "online"])
     ap.add_argument("--sizes", type=int, nargs="+", default=[100_000, 2_000_000])
     ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--backend", default="auto")
@@ -371,6 +470,8 @@ def main():
         step_report(torch, mods, args, card, clock)
     if "sparse" in args.report:
         sparse_report(torch, mods, args, card, clock)
+    if "online" in args.report:
+        online_report(torch, mods, args, card, clock)
     if "tiles" in args.report:
         tiles_report(torch, mods, args, card)
 

@@ -600,3 +600,111 @@ def test_sinkhorn_step_kernel_point_dims(cuda_device, D, p):
         torch.testing.assert_close(a, b, **VAL_TOL)
     for a, b in zip(got, ck.sinkhorn_step(*t, eps, p)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [1, 3, 5, 11, 12, 32])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 4099])
+def test_sinkhorn_step_sym_kernel_packed_points(cuda_device, N, p, D, monkeypatch):
+    """Kernel 3 on the shared absorbed-sum stage: ragged N (rows past N and
+    padded columns weigh 0), staged points up to three float4s (D <= 11 at
+    p = 2, D <= 12 at p = 1) and wide ones (D = 12 at p = 2, D = 32), two
+    calls bitwise equal, and in chunks of two row tiles."""
+    x, _, _ = problem(N, 1, D=D, seed=N + D + p)
+    f, _, la, _ = potentials(N, 1, seed=N + 1)
+    t = tensors(x, f, la, device=cuda_device)
+    eps = 0.1 * D
+    ref = ck.sinkhorn_step_sym_blocked(*t, eps, p)
+    got = _counted("sinkhorn_step_sym", lambda: ck.sinkhorn_step_sym(*t, eps, p))
+    torch.testing.assert_close(got, ref, **VAL_TOL)
+    assert torch.equal(got, ck.sinkhorn_step_sym(*t, eps, p))
+    nb = -(-N // 256)
+    monkeypatch.setattr(ck, "STEP_SCRATCH_BYTES", 2 * 4 * 256 * nb)
+    before = ck.launch_counts["sinkhorn_step_sym"]
+    chunked = ck.sinkhorn_step_sym(*t, eps, p)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["sinkhorn_step_sym"] - before == -(-nb // 2)
+    torch.testing.assert_close(chunked, ref, **VAL_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1000, 1283), (257, 4099), (1, 300)])
+@pytest.mark.parametrize("C", [1, 3, 4, 5, 33])
+@pytest.mark.parametrize("p,kind", APPLY_KINDS + [(2, "energy"), (2, "inv_dist")])
+def test_gibbs_apply_kernel_column_slices(cuda_device, p, kind, C, shape, monkeypatch):
+    """Kernel 4 in every mode: one launch per call whatever C (its channel
+    groups are the grid's third axis), several column slices against one,
+    both within the twin's tolerance, two calls bitwise equal."""
+    N, M = shape
+    x, y, psi = problem(N, M, seed=N + C)
+    rng = np.random.RandomState(C)
+    phi = (-np.abs(rng.randn(N))).astype(np.float32)
+    V = rng.randn(M, C).astype(np.float32)
+    tol = apply_tolerance(x, y, phi, psi, V, 0.5, p, kind)
+    t = tensors(x, y, phi, psi, V, device=cuda_device)
+    ref = ck.gibbs_apply_blocked(*t, 0.5, p, kind).cpu()
+    assert ck.apply_plan(N, M, C)[1] > 1
+    before = ck.launch_counts["gibbs_apply"]
+    got = ck.gibbs_apply(*t, 0.5, p, kind)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gibbs_apply"] - before == 1
+    assert got.shape == (N, C)
+    assert_apply_close(got, ref, **tol)
+    assert torch.equal(got, ck.gibbs_apply(*t, 0.5, p, kind))
+    monkeypatch.setattr(ck, "_STEP_BLOCKS", 1)
+    assert ck.apply_plan(N, M, C)[1] == 1
+    assert_apply_close(ck.gibbs_apply(*t, 0.5, p, kind), ref, **tol)
+
+
+def test_gibbs_apply_kernel_in_chunks(cuda_device, monkeypatch):
+    """Column slices under a scratch budget of a few row blocks: several
+    launches, the same result within the twin's tolerance."""
+    N, M, C = 4099, 2053, 5
+    x, y, psi = problem(N, M, seed=3)
+    phi = np.zeros(N, np.float32)
+    V = np.random.RandomState(3).randn(M, C).astype(np.float32)
+    t = tensors(x, y, phi, psi, V, device=cuda_device)
+    monkeypatch.setattr(ck, "STEP_SCRATCH_BYTES", 3 * 4 * 8 * 256 * 8)
+    R, S, _ = ck.apply_plan(N, M, C)
+    assert S > 1 and R < -(-N // 256)
+    before = ck.launch_counts["gibbs_apply"]
+    got = ck.gibbs_apply(*t, 0.5, 2, "gibbs")
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gibbs_apply"] - before == -(-(-(-N // 256)) // R)
+    assert_apply_close(got, ck.gibbs_apply_blocked(*t, 0.5, 2, "gibbs").cpu(),
+                       **apply_tolerance(x, y, phi, psi, V, 0.5, 2, "gibbs"))
+
+
+def test_energy_mmd_holds_its_tolerance(cuda_device):
+    """The energy MMD through kernel 4 (modes 3 and 4: one rsqrt.approx a
+    pair) against float64: the loss within 1e-5 of its three terms summed,
+    the gradient within 1e-3 of the larger of its two parts' norms."""
+    from geomloss_tpu_torch.models import kernel_samples as ks
+
+    n = 5000
+    rng = np.random.RandomState(0)
+    x, y = (v / np.linalg.norm(v, axis=1, keepdims=True) for v in (rng.randn(n, 3), rng.randn(n, 3)))
+    w = np.full(n, 1.0 / n)
+
+    def value_and_grad(dt, impl):
+        xt = torch.tensor(x, dtype=dt, device=cuda_device, requires_grad=True)
+        yt, wt = torch.tensor(y, dtype=dt, device=cuda_device), torch.tensor(w, dtype=dt, device=cuda_device)
+        v = ks.kernel_online(wt[None], xt[None], wt[None], yt[None], name="energy", blur=0.1, impl=impl)[0]
+        return v.detach(), torch.autograd.grad(v, xt)[0]
+
+    before = ck.launch_counts["gibbs_apply"]
+    v, g = value_and_grad(torch.float32, "auto")
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gibbs_apply"] > before
+    v64, g64 = value_and_grad(torch.float64, "blocked")
+    # The three terms and the gradient's two parts, in float64.
+    x64 = torch.tensor(x, device=cuda_device, requires_grad=True)
+    y64, a = torch.tensor(y, device=cuda_device), torch.tensor(w, device=cuda_device)[:, None]
+    z = torch.zeros(n, dtype=torch.float64, device=cuda_device)
+    t_xx = 0.5 * (a * ck.gibbs_apply_blocked(x64, x64.detach(), z, z, a, 1.0, 1, "energy")).sum()
+    t_yy = 0.5 * (a * ck.gibbs_apply_blocked(y64, y64, z, z, a, 1.0, 1, "energy")).sum()
+    t_xy = (a * ck.gibbs_apply_blocked(x64, y64, z, z, a, 1.0, 1, "energy")).sum()
+    g_self = 2 * torch.autograd.grad(t_xx, x64)[0]
+    g_cross = torch.autograd.grad(t_xy, x64)[0]
+    torch.testing.assert_close(v64, t_xx + t_yy - t_xy, rtol=1e-9, atol=1e-12)
+    assert abs(v.double() - v64).item() <= 1e-5 * (abs(t_xx) + abs(t_yy) + abs(t_xy)).item()
+    assert (g.double() - g64).norm().item() <= 1e-3 * max(g_self.norm().item(), g_cross.norm().item())

@@ -29,6 +29,14 @@ from torch_parity_utils import (
 )
 
 SHAPES = [(64, 96), (200, 300), (513, 1025)]
+# Every weight kind at four channels (the ids the kinds alone had), and at
+# one channel, which the CUDA apply kernels take unpadded; the distance
+# kinds at p = 2 too (they ignore p).
+APPLY_CASES = (
+    [pytest.param(p, kind, 4, id=f"{p}-{kind}") for p, kind in APPLY_KINDS]
+    + [pytest.param(p, kind, 1, id=f"{p}-{kind}-C1") for p, kind in APPLY_KINDS]
+    + [pytest.param(2, kind, C, id=f"2-{kind}-C{C}") for kind in ("energy", "inv_dist") for C in (1, 4)]
+)
 # A column block of the twins small enough for several blocks and a
 # ragged last one at every shape:
 SMALL_BLOCK = 40
@@ -83,14 +91,14 @@ def test_sinkhorn_step_sym_twin_matches_pallas(p, N):
     )
 
 
-@pytest.mark.parametrize("p,kind", APPLY_KINDS)
+@pytest.mark.parametrize("p,kind,C", APPLY_CASES)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_gibbs_apply_twin_matches_pallas(p, kind, shape):
+def test_gibbs_apply_twin_matches_pallas(p, kind, C, shape):
     N, M = shape
     x, y, psi = problem(N, M, seed=7 + N)
     rng = np.random.RandomState(8)
     phi = (-np.abs(rng.randn(N))).astype(np.float32)
-    V = rng.randn(M, 4).astype(np.float32)
+    V = rng.randn(M, 4).astype(np.float32)[:, :C]
     eps = 0.5
     expected = np.asarray(
         pk.gibbs_apply_pallas(

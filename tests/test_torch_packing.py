@@ -1,5 +1,6 @@
-"""Host-side code of the register-tiled pair blocks (kernels 2, 5, 6 and 8):
-the packed points every one of them reads, and kernel 8's channel groups.
+"""Host-side code of the register-tiled pair blocks (kernels 2-6 and 8):
+the packed points every one of them reads, and the channel groups of the
+apply kernels 4 and 8.
 
 No JAX, no card: the packing is checked against float64 scores computed
 from the unpacked points.
@@ -11,7 +12,6 @@ import numpy as np
 import pytest
 import torch
 
-from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
 from geomloss_tpu_torch.ops import cuda_kernels as ck
 
 
@@ -67,11 +67,54 @@ def test_padded_columns_weigh_zero(D, p):
     assert torch.equal(w[:, 11:], torch.zeros(7, 5, dtype=w.dtype))
 
 
-@pytest.mark.parametrize("C,groups", [(1, (1, 1)), (2, (4, 4)), (4, (4, 4)), (5, (4, 8)), (8, (4, 8)), (9, (4, 12))])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", range(1, 13))
+def test_symmetric_packing_scores(D, p):
+    """Kernel 3 packs one cloud twice, as rows and as columns padded to whole
+    tiles of 256: every pair (i, j) scores the float64 absorbed
+    ``log2(e) (phi_i + phi_j - C(x_i, x_j) / eps)``, and the padded columns
+    weigh 0."""
+    N, eps = 300, 0.3
+    rng = np.random.RandomState(D + 20 * p)
+    x, phi = rng.randn(N, D), rng.randn(N)
+    xt, pt = torch.tensor(x, dtype=torch.float32), torch.tensor(phi, dtype=torch.float32)
+    xv, yv, rb, cb, kv = ck._pair_vectors(xt, xt, pt, pt, eps, p, cols_to=256)
+    assert xv.shape == (N, 4 * kv) and yv.shape == (512, 4 * kv) and cb.shape == (512,)
+    sq = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    # p = 1 floors the squared distance at 1e-8, as the twins do: the
+    # diagonal's cost is 1e-4, not 0.
+    cost = sq / 2 if p == 2 else np.sqrt(np.maximum(sq, 1e-8))
+    ref = torch.tensor(ck.LOG2E * (phi[:, None] + phi[None, :] - cost / eps))
+    scores = _scores(xv, yv, rb, cb, eps, p)
+    torch.testing.assert_close(scores[:, :N], ref, rtol=0, atol=1e-4)
+    assert torch.equal(torch.exp2(scores[:, N:]), torch.zeros(N, 512 - N, dtype=scores.dtype))
+    assert torch.isfinite(scores[:, :N]).all()
+
+
+@pytest.mark.parametrize("C,groups", [(1, (1, 1)), (2, (4, 4)), (4, (4, 4)), (5, (4, 8)), (8, (4, 8)), (9, (4, 12)),
+                                      (33, (4, 36))])
 def test_kernel8_channel_groups(C, groups):
-    """Kernel 8 takes one channel alone (no padding to four) and any other
-    count in zero-padded groups of four."""
-    assert cbs._channel_groups(C) == groups
+    """The apply kernels (4 and 8) take one channel alone (no padding to
+    four) and any other count in zero-padded groups of four; the groups,
+    each applied on its own and put back together, give the apply of V."""
+    ch, Cp = ck._channel_groups(C)
+    assert (ch, Cp) == groups
+    rng = np.random.RandomState(C)
+    N, M = 50, 70
+    x, y = torch.tensor(rng.rand(N, 3)), torch.tensor(rng.rand(M, 3))
+    phi, psi = torch.tensor(-np.abs(rng.randn(N))), torch.tensor(0.1 * rng.randn(M))
+    V = torch.tensor(rng.randn(M, C))
+    v = ck._group_channels(V)
+    assert v.shape == (Cp // ch, M, ch) and v.dtype == torch.float32 and v.is_contiguous()
+    for k in range(Cp):
+        want = V[:, k].float() if k < C else torch.zeros(M)
+        assert torch.equal(v[k // ch, :, k % ch], want)
+    assert torch.equal(ck._ungroup_channels(v, C), V.float())
+    for p, kind in [(2, "gibbs"), (1, "energy")]:
+        out = torch.stack([ck.gibbs_apply_blocked(x, y, phi, psi, vg.double(), 0.3, p, kind) for vg in v])
+        torch.testing.assert_close(ck._ungroup_channels(out, C),
+                                   ck.gibbs_apply_blocked(x, y, phi, psi, V.float().double(), 0.3, p, kind),
+                                   rtol=1e-12, atol=1e-12)
 
 
 def test_step_sums_twin_is_the_step_twin():
