@@ -18,12 +18,12 @@ phase fails. Phases, one line each:
    ``$GEOMLOSS_TPU_TORCH_BUILD_DIR`` whatever the caller set it to; emptied
    first, and the libraries must land there);
    prints the registers and spills (``-Xptxas -v``) of kernels 5 and 6 and
-   of the bench.py instantiations of kernels 2, 3, 4 and 8 (PTXAS_SHOWN);
+   of the bench.py instantiations of kernels 1-4, 7 and 8 (PTXAS_SHOWN);
 3. repair: peak device memory of the two step kernels at N = M = 1e6 under
    256 MB beyond their inputs, and two calls bitwise equal;
 4. parity: each online kernel against its twin on the card at N = M = 1e5
    and at a ragged size, p in {1, 2} (kernel 2's raw sums as
-   ``check_sums`` reads them; kernels 2 and 3 two calls bitwise equal;
+   ``check_sums`` reads them; kernels 1, 2 and 3 two calls bitwise equal;
    kernel 4 in every mode at C in {1, 3, 4}); the two
    block-sparse kernels
    (absorbed sums, full and triangle tables; dual apply, C = 4) against
@@ -38,7 +38,9 @@ phase fails. Phases, one line each:
    to multiscale at this size): value and gradient against the same solve
    through the float64 twins; for information, against the online float64
    value of phase 5 and against ``truncate=None``; the launch counts of
-   that run;
+   that run; kernel 1 against its twin at the shape of that run's coarse
+   sweeps (4,096 points), two calls bitwise equal, timed beside its bound,
+   issue floor and the dense PyTorch composition (``check_lse_shapes``);
 7. timing: loss + gradient of both paths, kernels and plain float32 twins;
    each kernel against its twin and its bound (the larger of its bytes
    over the memory rate and its exp2 count over the MUFU rate), and the
@@ -51,7 +53,9 @@ phase fails. Phases, one line each:
    slots in chunks), loss + gradient time, peak device memory and the
    device's idle share over one call; the extra memory of one kernel 5
    and one kernel 6 call against their scratch budget;
-   kernel 7 against its twin on the run's four extrapolation tables, and
+   kernel 1 as in phase 6 at each shape of that run (the coarse sweeps,
+   the mid cloud); kernel 7 against its twin on the run's four
+   extrapolation tables, and
    kernels 5 and 6 on the first 64 row tiles of its first fine tables; for
    information, how many rows JAX's walk budget would have clipped and the
    value against ``truncate=None`` (the exact fine phase, kernels 2 and 3);
@@ -92,8 +96,9 @@ phase fails. Phases, one line each:
     mid path's first fine table (parity on its first 64 row tiles);
 13. ``[wide-d]`` (run before ``[mmd]``): ``SamplesLoss()`` at N = M = 1e4
     in D = 32 (the online route, through the kernels' wide
-    instantiations) against the same solve through the float64 twins,
-    and kernels 1-4 timed at D = 32 beside their bound.
+    instantiations) against the same solve through the float64 twins;
+    kernels 1, 3 and 4 against their twins and kernels 1-4 timed at
+    D = 32 beside their bound.
 
 Each phase prints its seconds.
 
@@ -214,20 +219,29 @@ REPLACES = {
     "absorbed_sum_sparse": "geomloss_tpu/ops/block_sparse.py:1944",
 }
 #: Register-tiled instantiations whose ptxas usage the build phase prints
-#: (besides every one of kernels 5 and 6): kernels 2 and 3 at p = 2 for
+#: (besides every one of kernels 5 and 6): kernels 1 and 7 (the LSE stage,
+#: KV = cdiv(D, 4)) at p = 2 for one to three staged float4s and the wide
+#: form, at p = 1 for one, and their merge; kernels 2 and 3 at p = 2 for
 #: one, two, three staged float4s and the wide form, and kernels 4 and 8
 #: in mode 0 at one float4, with one and four channels, and wide (kernel 4
 #: also in modes 3 and 4).
-PTXAS_SHOWN = ("step_kernel<2,1>", "step_kernel<2,2>", "step_kernel<2,3>", "step_kernel<2,0>",
+PTXAS_SHOWN = ("lse_kernel<2,1>", "lse_kernel<2,2>", "lse_kernel<2,3>", "lse_kernel<2,0>", "lse_kernel<1,1>",
+               "tiles_lse_kernel<2,1>", "tiles_lse_kernel<2,0>", "tiles_lse_kernel<1,1>", "lse_merge_kernel",
+               "step_kernel<2,1>", "step_kernel<2,2>", "step_kernel<2,3>", "step_kernel<2,0>",
                "sym_step_kernel<2,1>", "sym_step_kernel<2,2>", "sym_step_kernel<2,3>", "sym_step_kernel<2,0>",
                "apply_kernel<0,1,1>", "apply_kernel<0,1,4>", "apply_kernel<0,0,4>", "apply_kernel<3,1,1>",
                "apply_kernel<4,1,4>",
                "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>", "sparse_apply_kernel<0,0,4>")
 #: Instructions per pair of the register-tiled kernels after the score and
 #: its MUFU: two adds (kernels 2, 3 and 5: both sums), 8 FFMAs (kernel 6:
-#: four channels each way); the apply kernels 4 and 8 take one FFMA per
-#: channel of a group (APPLY_KERNELS).
-PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "sinkhorn_step_sym": 2, "absorbed_sum_tiles": 2, "gibbs_apply_tiles": 8}
+#: four channels each way); the LSE kernels 1, 7 and 9 at p = 2 the max
+#: and the add (the score is relative to the running max: its last FFMA
+#: takes the row's -max slot), and per row and pass of 8 pairs the compare
+#: with the running max, the -inf guard and the warp's vote on a rebase (3
+#: / 8 a pair); the apply kernels 4 and 8 take one FFMA per channel of a
+#: group (APPLY_KERNELS).
+PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "sinkhorn_step_sym": 2, "absorbed_sum_tiles": 2, "gibbs_apply_tiles": 8,
+                   "lse": 2 + 3 / 8, "lse_tiles": 2 + 3 / 8, "lse_sparse": 2 + 3 / 8}
 APPLY_KERNELS = ("gibbs_apply", "gibbs_apply_sparse")
 
 
@@ -523,6 +537,37 @@ def rel_errs(v, g, v_ref, g_ref):
     return rel_v, rel_g
 
 
+def check_lse_shapes(tag, rec, clock, card):
+    """Kernel 1 at each shape (N, M) a run launched it with (``rec``: its
+    recorded ``lse`` calls), on that run's first inputs of the shape:
+    against its twin, two calls bitwise equal, and timed beside its bound,
+    its issue floor and, for information, the dense PyTorch composition
+    ``logsumexp(h - cdist(x, y)^2 / 2 eps)`` where its matrix fits (p = 2)."""
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    shapes = {}
+    for args, _ in rec:
+        key = (args[0].shape[0], args[1].shape[0])
+        shapes.setdefault(key, [0, args])[0] += 1
+    for (N, M), (count, args) in sorted(shapes.items()):
+        x, y, h, eps, p = (a.detach() if torch.is_tensor(a) else a for a in args)
+        got = ck.lse(x, y, h, eps, p)
+        check_val("lse", f"{tag} {N}x{M} p={p} ({count} calls)", got, ck.lse_blocked(x, y, h, eps, p))
+        if not torch.equal(got, ck.lse(x, y, h, eps, p)):
+            fail(f"lse {tag} {N}x{M}: two calls differ")
+        pairs = N * M
+        b_ms, b_by = bound(pairs, nbytes(x, y, h) + 4 * N, clock)
+        slots = pair_slots("lse", math.ceil((x.shape[1] + 1) / 4))
+        floor = f", issue floor {issue_ms(slots, pairs, clock):.4f} ms ({slots} slots per pair)" if p == 2 else ""
+        dense = ""
+        if p == 2 and N * M <= 16384**2:
+            d_ms = event_ms(lambda: torch.logsumexp(h[None, :] - torch.cdist(x, y).square() / (2 * eps), dim=1), 5)
+            dense = f", dense PyTorch logsumexp over cdist {d_ms:.4f} ms (for information)"
+        print(f"[time] lse                {tag} {N}x{M} p={p} ({count} calls): kernel "
+              f"{event_ms(lambda: ck.lse(x, y, h, eps, p), 20):.4f} ms, bound {b_ms:.4f} ms ({b_by}){floor}{dense} "
+              f"(CUDA events); card {card}", flush=True)
+
+
 def capture_fine_state(ms, solve):
     """Arguments of the first fine step and the first symmetric fine step
     of one multiscale solve: the sorted clouds, potentials and truncation
@@ -800,9 +845,10 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
         plain_ms=event_ms(lambda: cbs.lse_tiles_blocked(*lse_args[:6], tile, tile, 2), 1),
         bound=bound(kept, nbytes(xs, ys, h, mask.cols, mask.counts) + 4 * xs.shape[0], clock),
     )
+    slots = pair_slots("lse_sparse", math.ceil((xs.shape[1] + 1) / 4))
     print(f"[time] lse_sparse softmin_sparse forward N=M={n_small} p=2 mask_xy: kernel {sm_entry['ms']:.3f} ms, "
-          f"twin {sm_entry['plain_ms']:.3f} ms, bound {sm_entry['bound'][0]:.3f} ms ({sm_entry['bound'][1]}) "
-          f"(CUDA events); card {card}", flush=True)
+          f"twin {sm_entry['plain_ms']:.3f} ms, bound {sm_entry['bound'][0]:.3f} ms ({sm_entry['bound'][1]}), issue "
+          f"floor {issue_ms(slots, kept, clock):.3f} ms ({slots} slots per pair) (CUDA events); card {card}", flush=True)
 
     # Kernel 4's energy and inv_dist modes (the energy route) at n_small: one
     # MUFU operation (rsqrt) per pair.
@@ -1327,8 +1373,8 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
         fail(f"SamplesLoss at D={d}: non-finite or misshapen output")
     rel_v, rel_g = rel_errs(v, g, v_r, g_r)
     t_call = sync_ms(lambda: value_and_grad(lambda x: loss(x, y), x), 3)
-    print(f"[wide-d] SamplesLoss() N=M={n} D={d} (kernels 2-4: {math.ceil((d + 1) / 4)} packed float4s a point, "
-          f"read from global memory; kernel 1 padded to {ck.padded_dim(d)}): launches "
+    print(f"[wide-d] SamplesLoss() N=M={n} D={d} (kernels 1-4: {math.ceil((d + 1) / 4)} packed float4s a point, "
+          f"read from global memory): launches "
           f"{json.dumps(launches)}; loss {v.item():.9e} (float64 twins {v_r.item():.9e}), loss rel err {rel_v:.3e}, "
           f"grad rel L2 err {rel_g:.3e} (tol {PATH_TOL:g}); loss+grad host clock {t_call:.3f} ms (3 reps); "
           f"card {card}", flush=True)
@@ -1346,6 +1392,10 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
         check_val("sinkhorn_step_sym", label, ck.sinkhorn_step_sym(x, z, la, e, p),
                   ck.sinkhorn_step_sym_blocked(x, z, la, e, p))
         lse_p = ck.lse_blocked(x, y, la, e, p)
+        lse_k = ck.lse(x, y, la, e, p)
+        check_val("lse", label, lse_k, lse_p)
+        if not torch.equal(lse_k, ck.lse(x, y, la, e, p)):
+            fail(f"lse {label}: two calls differ")
         for kind in ("gibbs", "gibbs_grad", "energy", "inv_dist") if p == 1 else ("gibbs",):
             for C in (1, 4, 1 + d):
                 V = ones_y[:, 1:2] if C == 1 else ones_y[:, :C]
@@ -1382,6 +1432,7 @@ def main():
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = card_line()
+    clock = sm_clock_hz()
     print(f"[device] {kind} x{count}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     from geomloss_tpu_torch import SamplesLoss
@@ -1459,7 +1510,10 @@ def main():
             f = torch.zeros(N, dtype=f32, device=dev)
             g = torch.zeros(M, dtype=f32, device=dev)
             lse_ref = ck.lse_blocked(x, y, lb, eps, p)
-            check_val("lse", label, ck.lse(x, y, lb, eps, p), lse_ref)
+            lse_k = ck.lse(x, y, lb, eps, p)
+            check_val("lse", label, lse_k, lse_ref)
+            if not torch.equal(lse_k, ck.lse(x, y, lb, eps, p)):
+                fail(f"lse {label}: two calls differ")
             # Kernel 2's raw sums (M terms in a row sum, N in a column sum).
             got = ck._step_sums(x, y, f, g, la, lb, eps, p)
             ref = ck._step_sums_blocked(x, y, f, g, la, lb, eps, p)
@@ -1564,7 +1618,8 @@ def main():
     ck.reset_launch_counts()
     cbs.reset_launch_counts()
     t0 = time.perf_counter()
-    v_m, g_m = value_and_grad(lambda x: auto(x, y0), x0)
+    with recording(ck, ("lse",)) as rec_lse:
+        v_m, g_m = value_and_grad(lambda x: auto(x, y0), x0)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches_ms = {**ck.launch_counts, **cbs.launch_counts}
@@ -1576,6 +1631,9 @@ def main():
         lambda x: ms.sinkhorn_multiscale(w64, x, w64, y0.to(f64), impl="blocked", **kw2), x0.to(f64)
     )
     compare("multiscale", f"multiscale (auto) N=M={N_POINTS}", v_m, g_m, v_mr, g_mr)
+    # Kernel 1 at the coarse sweeps' shape of that run (4,096 points).
+    check_lse_shapes(f"multiscale (auto) N=M={N_POINTS}", rec_lse["lse"], clock, card)
+    del rec_lse
     v_n, g_n = value_and_grad(lambda x: ms.sinkhorn_multiscale(w, x, w, y0, truncate=None, **kw2), x0)
     for label, (v_ref, g_ref) in (("online float64 twins (phase 5)", (v_r, g_r)),
                                   ("truncate=None kernels", (v_n, g_n))):
@@ -1643,7 +1701,6 @@ def main():
         "absorbed_sum_tiles": (kept, nbytes(*t_args[:4], cols, cnt) + 4 * (xs.shape[0] + ys.shape[0])),
         "gibbs_apply_tiles": (kept, nbytes(*a_args[:6], cols, cnt) + 16 * (xs.shape[0] + ys.shape[0])),
     }
-    clock = sm_clock_hz()
     src = {name: SOURCES["block_sparse_kernels" if name.endswith("_tiles") else "online_kernels"]
            for name in REPLACES}
     all_launches = {**launches, **{k: launches_ms[k] for k in cbs.launch_counts}}
@@ -1685,7 +1742,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with recording(cbs, tuple(MID_CALLS)) as rec_cbs, recording(
+    with recording(cbs, tuple(MID_CALLS)) as rec_cbs, recording(ck, ("lse",)) as rec_ck, recording(
         ms, ("run_mid_phase", "sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")
     ) as rec_ms:
         v_2m, g_2m = value_and_grad(lambda x: auto(x, ym), xm)
@@ -1727,6 +1784,8 @@ def main():
                   f"kept {kept7}/{cols7.numel()} extrapolation {k}", cbs.lse_tiles(*args), cbs.lse_tiles_blocked(*args))
         print(f"[mid] for information, extrapolation {k}: JAX's walk budget (max(12, ck // 2) per row) would "
               f"clip {rows_c} of {cnt7.shape[0]} row tiles, dropping {tiles_c} of {kept7} kept tiles", flush=True)
+    # Kernel 1 at the shapes of that run: the coarse sweeps and the mid cloud.
+    check_lse_shapes(f"mid path N=M={N_MID}", rec_ck["lse"], clock, card)
     args7 = tables[0]
     work["lse_tiles"] = (
         int(args7[5].clamp(max=args7[4].shape[1]).sum()) * args7[6] * args7[7],
@@ -1766,7 +1825,7 @@ def main():
               f"card {card}", flush=True)
         if extra > limit:
             fail(f"{name} at N=M={N_MID}: {extra} bytes of extra memory, over {limit}")
-    del rec_cbs, rec_ms, tables, args7, state, t_args, a_args, Vx, Vy, xs, ys, f, g, cols, cnt
+    del rec_cbs, rec_ck, rec_ms, tables, args7, state, t_args, a_args, Vx, Vy, xs, ys, f, g, cols, cnt
     torch.cuda.empty_cache()
 
     # For information: the exact fine phase (kernels 2 and 3) at 2e6.

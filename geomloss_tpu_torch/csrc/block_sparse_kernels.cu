@@ -18,10 +18,11 @@
 // What bounds these kernels on an H100: the exponential, as for the online
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM), and,
 // once the few FFMAs of a pair come near it, instruction issue; a kept pair
-// reads nothing but the two tiles' coordinates and biases. Kernels 5, 6 and
-// 8 run register-tiled pair blocks over packed points (pair_common.cuh) to
-// stay near that bound; kernels 7 and 12 keep one thread per row and, above
-// D = 8, a wide instantiation in chunks of 8 coordinates.
+// reads nothing but the two tiles' coordinates and biases. Kernels 5-8 run
+// register-tiled pair blocks (pair_common.cuh) to stay near that bound:
+// kernels 5, 6 and 8 over packed points, kernel 7 over the raw points
+// (lse_stage, shared with kernel 1); kernel 12 keeps one thread per row
+// and, above D = 8, a wide instantiation in chunks of 8 coordinates.
 //
 // Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7, 8
 // and 12 read a (cols, cnt) table directly, with row tiles of block_n
@@ -43,13 +44,13 @@
 // and the column partials of each column tile, in slot order, into the
 // outputs: deterministic, no atomics, scratch bounded by the chunk.
 //
-// Each entry point returns cudaGetLastError() after its launch.
+// Each entry point returns cudaGetLastError() after its launches.
 
 #include "pair_common.cuh"
 
 namespace {
 
-// Coordinates per chunk of the wide instantiation (D above 8).
+// Coordinates per chunk of kernel 12's wide instantiation (D above 8).
 constexpr int kWideChunk = 8;
 
 // -----------------------------------------------------------------------------
@@ -292,63 +293,64 @@ tiles_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
 // -----------------------------------------------------------------------------
 // 7. Truncated LSE over kept source tiles. Replaces
 //    geomloss_tpu/ops/block_sparse.py::lse_walk (_lse_walk_kernel), the
-//    detached coarse/mid -> fine extrapolations of the mid path:
-//    out_i = log2 sum_j exp2(h2_j + arg_ij) in base-2 units over the
-//    source tiles cols[I, k], k < cnt[I], of row i's tile I; rows come in
-//    tiles of block_n points, sources in tiles of block_m points (any
-//    sizes: block_m < kTile stages a partial tile).
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: the online
-//    LSE of kernel 1 (lse_tile, pair_common.cuh) with a column-tile
-//    indirection. One block per (row tile, 256-row slice), one thread per
-//    row, running max and sum in registers; each kept source tile is
-//    staged in shared memory kTile points at a time. Each output row is
-//    written once: no scratch, no atomics, bitwise reproducible. The mid
-//    path reads its (cols, cnt) tables directly, not packed into walk_plan
-//    step lists, so their per-chunk budget, which clipped kept tiles, does
-//    not apply: every kept tile is visited.
+//    detached coarse/mid -> fine extrapolations of the mid path, and serves
+//    block_sparse.py::lse_sparse (_lse_sparse_kernel, kernel 9), the same
+//    function over the same table: out_i = log sum_j exp(h_j - C_p(x_i,
+//    y_j) / eps) over the source tiles cols[I, k], k < cnt[I], of row i's
+//    tile I; rows come in tiles of block_n points, sources in tiles of
+//    block_m points (any sizes).
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt), as kernel 1.
+//    Design: kernel 1's register-tiled LSE (lse_stage, pair_common.cuh)
+//    over a virtual column range: a row tile's kept tiles laid end to end,
+//    virtual column v being column v % block_m of kept tile v / block_m.
+//    Stages of 256 virtual columns take two kept tiles of 128 at once, or a
+//    quarter of one of 1024. Block (I, h, q) takes the 256-row slice h of
+//    row tile I against kept tiles q span .. (q + 1) span - 1 (those below
+//    cnt[I]): a long row is split across blocks, so a table with one long
+//    row among short ones still fills the card; a range past cnt[I] is
+//    empty and gives (-inf, 0). With one range (gridDim.z == 1) the block
+//    writes out_i itself; with more, each writes its rows' (m, s) to part[q,
+//    i] and lse_merge_kernel merges them in range order: deterministic, no
+//    atomics. The mid path reads its (cols, cnt) tables directly, not
+//    packed into walk_plan step lists, so their per-chunk budget, which
+//    clipped kept tiles, does not apply: every kept tile is visited.
 // -----------------------------------------------------------------------------
-template <int D, int P>
-__global__ void __launch_bounds__(kThreads)
-tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 const float* __restrict__ h2, const int* __restrict__ cols,
-                 const int* __restrict__ cnt, float* __restrict__ out, int ck,
-                 int block_n, int block_m, int dw, float c2) {
+template <int P, int KV>
+__global__ void __launch_bounds__(kThreads, KV == 1 ? 2 : 1)
+tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ h,
+                 const int* __restrict__ cols, const int* __restrict__ cnt, float* __restrict__ out,
+                 float2* __restrict__ part, int N, int ck, int block_n, int block_m, int span, int ld, int D, int kv,
+                 float c2) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ LseSmem<KS, WIDE> sm;
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
-  const bool valid = threadIdx.x < rows;
-  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  const int* row_cols = cols + (int64_t)I * ck;
-  const int n_kept = min(cnt[I], ck);
-  float m = -INFINITY;
-  float s = 0.f;
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j0 = (int64_t)row_cols[k] * block_m;
-      for (int g = 0; g < block_m; g += kGroup) {
-        const int n = min(kGroup, block_m - g);
-        float a[kGroup];
-        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, h2, j0 + g, n, dw, st, a);
+  const int64_t i0 = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads;
+  float m[kPairRows], s[kPairRows];
+  load_lse_rows<KS, WIDE>(sm, x, ld, D, i0, rows, P == 2 ? c2 : 1.f);
 #pragma unroll
-        for (int kk = 0; kk < kGroup; ++kk) a[kk] = kk < n ? wide_arg<P>(a[kk], st.bias[kk], c2) : -INFINITY;
-        lse_group(a, m, s);
-      }
-    }
-  } else {
-    __shared__ Tile<D> t;
-    const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j0 = (int64_t)row_cols[k] * block_m;
-      for (int c0 = 0; c0 < block_m; c0 += kTile) {
-        const int n = min(kTile, block_m - c0);
-        __syncthreads();
-        load_tile<D>(t, y, h2, j0 + c0, n);
-        __syncthreads();
-        lse_tile<D, P>(r, t, n, c2, m, s);
-      }
-    }
+  for (int r = 0; r < kPairRows; ++r) {
+    m[r] = -INFINITY;
+    s[r] = 0.f;
   }
-  if (valid) out[i] = m + log2f(s);
+  const int t0 = blockIdx.z * span;
+  const int t1 = min(min(cnt[I], ck), t0 + span);
+  const int* row_cols = cols + (int64_t)I * ck + t0;
+  const int nv = max(0, t1 - t0) * block_m;  // virtual columns of the range
+  for (int v0 = 0; v0 < nv; v0 += kTile) {
+    const auto col = [=](int k) {
+      const int v = v0 + k;
+      return (int64_t)row_cols[v / block_m] * block_m + v % block_m;
+    };
+    lse_stage<P, KV>(sm, m, s, x, i0, rows, y, h, ld, D, kv, col, min(kTile, nv - v0), c2);
+  }
+  const float2 ms = block_lse_merge(sm, m, s);
+  const int64_t i = i0 + threadIdx.x;
+  if (threadIdx.x < rows) {
+    if (gridDim.z == 1) out[i] = lse_out(ms, x, i, ld, D, P, c2);
+    else part[(int64_t)blockIdx.z * N + i] = ms;
+  }
 }
 
 // -----------------------------------------------------------------------------
@@ -370,8 +372,8 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
 //    FFMAs, the MUFU.EX2 and CH FFMAs, 6 issue slots at CH = 1 (the MUFU
 //    rate binds) and 9 at CH = 4 (issue binds, just above the MUFU rate).
 //    Design: the register-tiled pair blocks with the row direction only.
-//    One block per (row tile, 256-row slice) keeps kernel 7's CSR
-//    indirection; a lane owns 8 rows (packed points and CH accumulators in
+//    One block per (row tile, 256-row slice) walks the row tile's kept
+//    tiles (a CSR indirection); a lane owns 8 rows (packed points and CH accumulators in
 //    registers). Each kept source tile goes through the row-contraction
 //    stage shared with kernel 4 (apply_stage, pair_common.cuh) kTile
 //    columns at a time, and each row is written once: no scratch, no
@@ -425,9 +427,10 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
 //    wrapper floors them and takes the log). No max pass: the annealing
 //    bounds the absorbed weights (block_sparse.py, "Single-pass absorbed
 //    sparse softmin"), and phi_i stays inside the exponent.
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 7's
-//    CSR indirection and staging (one thread per row) with the absorbed
-//    weight (absorbed_tile, pair_common.cuh), no V: one float32
+//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 8's
+//    CSR indirection with one thread per row, each kept tile staged in
+//    shared memory (Tile, pair_common.cuh), and the absorbed weight
+//    (absorbed_tile), no V: one float32
 //    accumulator per row taking one partial per staged tile. Each output row is written
 //    once: no scratch, no atomics, bitwise reproducible.
 // -----------------------------------------------------------------------------
@@ -563,18 +566,38 @@ int gl_gibbs_apply_tiles(const float* xv, const float* yv, const float* rb,
   return (int)cudaGetLastError();
 }
 
-// n_rows = N / block_n row tiles, ck the table width.
-int gl_lse_tiles(const float* x, const float* y, const float* h2, const int* cols,
-                 const int* cnt, float* out, int n_rows, int ck, int block_n,
-                 int block_m, int D, int p, float c2, void* stream) {
+// n_rows = N / block_n row tiles, ck the table width, n_split ranges of
+// span kept tiles; x (N, D) and y (M, D) with row stride ld floats (ld =
+// 4 kv above kStepStaged float4s), h (M,) in nats; part (n_split, N) (m, s)
+// pairs where n_split > 1.
+int gl_lse_tiles(const float* x, const float* y, const float* h, const int* cols, const int* cnt, float* out,
+                 float* part, int n_rows, int ck, int block_n, int block_m, int n_split, int span, int ld, int D,
+                 int kv, int p, float c2, void* stream) {
   if (n_rows == 0) return (int)cudaSuccess;
-  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  if ((p != 1 && p != 2) || kv < 1 || D < 1 || block_n < 1 || block_m < 1 || n_split < 1 ||
+      (kv > kStepStaged && ld != 4 * kv))
+    return (int)cudaErrorInvalidValue;
+  const int N = n_rows * block_n;
+  const dim3 grid(n_rows, cdiv(block_n, kThreads), n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  const int dw = D;
-  GL_DISPATCH_D8(D,
-    if (p == 2) tiles_lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, dw, c2);
-    else tiles_lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, cols, cnt, out, ck, block_n, block_m, dw, c2))
+  float2* part2 = reinterpret_cast<float2*>(part);
+#define GL_LSE(P, KV)                                                                                        \
+  tiles_lse_kernel<P, KV><<<grid, kThreads, 0, s>>>(x, y, h, cols, cnt, out, part2, N, ck, block_n, block_m, \
+                                                    span, ld, D, kv, c2)
+#define GL_LSE_KV(P)                                  \
+  switch (kv) {                                       \
+    case 1: GL_LSE(P, 1); break;                      \
+    case 2: GL_LSE(P, 2); break;                      \
+    case kStepStaged: GL_LSE(P, kStepStaged); break;  \
+    default: GL_LSE(P, 0); break;                     \
+  }
+  if (p == 2) GL_LSE_KV(2)
+  else GL_LSE_KV(1)
+#undef GL_LSE_KV
+#undef GL_LSE
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  launch_lse_merge(part2, x, out, N, n_split, ld, D, p, c2, s);
   return (int)cudaGetLastError();
 }
 

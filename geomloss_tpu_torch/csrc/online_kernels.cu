@@ -1,73 +1,80 @@
 // Streaming pair-interaction kernels of the online Sinkhorn path, for
 // Hopper (sm_90a). Plain C interface, loaded with ctypes by
 // geomloss_tpu_torch/ops/cuda_kernels.py, which also holds each kernel's
-// plain PyTorch twin and folds the biases (base-2 units) before launch.
-// The shared device code is in pair_common.cuh.
+// plain PyTorch twin and folds the biases (base-2 units) before launch
+// (kernel 1 reads the raw points and folds its biases itself). The shared
+// device code is in pair_common.cuh.
 //
 // What bounds these kernels on an H100: the exponential. At N = M = 1e5 a
 // sweep is 1e10 pairs and reads a few bytes per point, so memory traffic
 // is negligible; an SM issues 16 MUFU (ex2) results per clock against 128
 // FP32 lanes, so the few FFMAs of a pair fit under the one exp2 it needs
 // (p = 1 adds a sqrt, a second MUFU operation). The designs therefore
-// spend FFMAs to save exponentials: LSE recomputes each tile's scores for
-// a max pass instead of rescaling per pair, the fused step reads both
-// softmin directions off one exponential, and the symmetric step visits
-// each off-diagonal pair once. Kernels 2-4 run the register-tiled pair
-// blocks of pair_common.cuh over packed points: kernels 2 and 3 its
-// absorbed-sum stage (step_stage, shared with kernel 5), kernel 4 its row
-// contraction (apply_stage, shared with kernel 8). Kernel 1 keeps one
-// thread per row.
+// spend FFMAs to save exponentials: the LSE keeps a pass's scores in
+// registers for its max instead of rescaling per pair, the fused step
+// reads both softmin directions off one exponential, and the symmetric
+// step visits each off-diagonal pair once. All four run the register-tiled
+// pair blocks of pair_common.cuh: kernel 1 its online log-sum-exp
+// (lse_stage, shared with kernel 7), kernels 2 and 3 its absorbed-sum
+// stage (step_stage, shared with kernel 5), kernel 4 its row contraction
+// (apply_stage, shared with kernel 8).
 //
-// Each entry point returns cudaGetLastError() after its launch.
+// Each entry point returns cudaGetLastError() after its launches.
 
 #include "pair_common.cuh"
 
 namespace {
 
-// Coordinates per chunk of the wide instantiation (D above 16).
-constexpr int kWideChunk = 16;
-
 // -----------------------------------------------------------------------------
 // 1. Streaming LSE. Replaces geomloss_tpu/ops/pallas_kernels.py::lse_pallas
-//    (_lse_kernel). out_i = log2 sum_j exp2(h2_j + arg_ij) in base-2 units;
-//    the wrapper converts to nats and adds the p=2 row term.
-//    Bound: one exp2 per pair. Design: per tile, a max pass that only
-//    recomputes scores (FFMAs), then one exp2-sum pass against the running
-//    max (lse_tile, pair_common.cuh); the running sum is rescaled once per
-//    tile, not once per pair. The ragged edge is an explicit bound on the
-//    tile width, not padding.
+//    (_lse_kernel). out_i = log sum_j exp(h_j - C_p(x_i, y_j) / eps), in
+//    base 2 inside (pair_common.cuh's lse_stage for the scores).
+//    Bound: one exp2 per pair (MUFU: 16 per clock per SM); at p = 2, D = 3
+//    a pair also takes 4 FFMAs, its share of the row's max, the subtraction
+//    of the running max and the add, about 8 issue slots, which the MUFU
+//    rate just balances.
+//    Design: block (b, s) takes the 256 rows of row block b (raw points,
+//    loaded and scaled into registers, 8 rows a lane) against column slice
+//    s ([s width, min(M, (s + 1) width)), width a multiple of a 64-column
+//    pass) in stages of 256 columns through lse_stage: one ex2.approx per
+//    pair against a running max per row, rescaled only where a pass raises
+//    it. The slices let a launch of few row blocks (the coarse sweeps of the
+//    multiscale path: 4,096 points, 16 row blocks) fill the card. With one
+//    slice the block writes out_i itself (lse_out: ln 2 and the p = 2 row
+//    term); with more, each slice writes its rows' (m, s) to
+//    part[s, i] and lse_merge_kernel merges them in slice order:
+//    deterministic, no atomics, every entry written once. Points of up to
+//    kStepStaged float4s are staged; wider ones (KV = 0) are read packed
+//    from global memory per pass.
 // -----------------------------------------------------------------------------
-template <int D, int P>
-__global__ void __launch_bounds__(kThreads)
-lse_kernel(const float* __restrict__ x, const float* __restrict__ y,
-           const float* __restrict__ h2, float* __restrict__ out, int N, int M,
-           int dw, float c2) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = i < N;
-  float m = -INFINITY;
-  float s = 0.f;
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    for (int j0 = 0; j0 < M; j0 += kGroup) {
-      const int n = min(kGroup, M - j0);
-      float a[kGroup];
-      wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, h2, j0, n, dw, st, a);
+template <int P, int KV>
+__global__ void __launch_bounds__(kThreads, KV == 1 ? 2 : 1)
+lse_kernel(const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ h,
+           float* __restrict__ out, float2* __restrict__ part, int N, int M, int width, int ld, int D, int kv,
+           float c2) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ LseSmem<KS, WIDE> sm;
+  const int64_t i0 = (int64_t)blockIdx.x * kThreads;
+  const int64_t left = (int64_t)N - i0;
+  const int rows = left < kThreads ? (int)left : kThreads;
+  float m[kPairRows], s[kPairRows];
+  load_lse_rows<KS, WIDE>(sm, x, ld, D, i0, rows, P == 2 ? c2 : 1.f);
 #pragma unroll
-      for (int k = 0; k < kGroup; ++k) a[k] = k < n ? wide_arg<P>(a[k], st.bias[k], c2) : -INFINITY;
-      lse_group(a, m, s);
-    }
-  } else {
-    __shared__ Tile<D> t;
-    const Row<D> r = load_row<D>(x, nullptr, i, valid, P == 2 ? c2 : 1.f);
-    for (int j0 = 0; j0 < M; j0 += kTile) {
-      const int n = min(kTile, M - j0);
-      __syncthreads();
-      load_tile<D>(t, y, h2, j0, n);
-      __syncthreads();
-      lse_tile<D, P>(r, t, n, c2, m, s);
-    }
+  for (int r = 0; r < kPairRows; ++r) {
+    m[r] = -INFINITY;
+    s[r] = 0.f;
   }
-  if (valid) out[i] = m + log2f(s);
+  const int j_end = min(M, (int)(blockIdx.y + 1) * width);
+  for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile)
+    lse_stage<P, KV>(sm, m, s, x, i0, rows, y, h, ld, D, kv, [j0](int k) { return (int64_t)j0 + k; },
+                     min(kTile, j_end - j0), c2);
+  const float2 ms = block_lse_merge(sm, m, s);
+  const int64_t i = i0 + threadIdx.x;
+  if (threadIdx.x < rows) {
+    if (gridDim.y == 1) out[i] = lse_out(ms, x, i, ld, D, P, c2);
+    else part[(int64_t)blockIdx.y * N + i] = ms;
+  }
 }
 
 // -----------------------------------------------------------------------------
@@ -238,15 +245,32 @@ apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
 
 extern "C" {
 
-int gl_lse(const float* x, const float* y, const float* h2, float* out, int N,
-           int M, int D, int p, float c2, void* stream) {
-  const dim3 grid(cdiv(N, kThreads));
+// x (N, D) and y (M, D) with row stride ld floats (ld = 4 kv for kv above
+// kStepStaged: the wide form reads packed float4s), h (M,) in nats; the
+// columns in n_slices slices of `width` columns (a multiple of 64); part
+// (n_slices, N) (m, s) pairs where n_slices > 1.
+int gl_lse(const float* x, const float* y, const float* h, float* out, float* part, int N, int M,
+           int width, int n_slices, int ld, int D, int kv, int p, float c2, void* stream) {
+  if ((p != 1 && p != 2) || kv < 1 || D < 1 || width % kStepPass || (kv > kStepStaged && ld != 4 * kv))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(cdiv(N, kThreads), n_slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  const int dw = D;
-  GL_DISPATCH_D(D,
-    if (p == 2) lse_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, dw, c2);
-    else lse_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, h2, out, N, M, dw, c2))
+  float2* part2 = reinterpret_cast<float2*>(part);
+#define GL_LSE(P, KV) lse_kernel<P, KV><<<grid, kThreads, 0, s>>>(x, y, h, out, part2, N, M, width, ld, D, kv, c2)
+#define GL_LSE_KV(P)                                  \
+  switch (kv) {                                       \
+    case 1: GL_LSE(P, 1); break;                      \
+    case 2: GL_LSE(P, 2); break;                      \
+    case kStepStaged: GL_LSE(P, kStepStaged); break;  \
+    default: GL_LSE(P, 0); break;                     \
+  }
+  if (p == 2) GL_LSE_KV(2)
+  else GL_LSE_KV(1)
+#undef GL_LSE_KV
+#undef GL_LSE
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  launch_lse_merge(part2, x, out, N, n_slices, ld, D, p, c2, s);
   return (int)cudaGetLastError();
 }
 

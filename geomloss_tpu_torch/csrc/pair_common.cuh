@@ -1,10 +1,11 @@
 // Device code shared by the pair-interaction kernels of geomloss_tpu_torch
 // (online_kernels.cu, block_sparse_kernels.cu), for Hopper (sm_90a).
 //
-// Two designs. Kernels 2-6 and 8 (and 11, on kernel 8) run the
-// register-tiled pair blocks in the second half of this file, over points
-// packed by the wrapper (cuda_kernels._pair_vectors). Kernels 1, 7 and 12
-// keep one thread per row, in the first half:
+// Two designs. Kernels 1-8 (and 9 and 11, on kernels 7 and 8) run the
+// register-tiled pair blocks in the second half of this file: kernels 2-6
+// and 8 over points packed by the wrapper (cuda_kernels._pair_vectors),
+// kernels 1 and 7 (the LSE stage) over the raw points, packed as they are
+// loaded. Kernel 12 keeps one thread per row, in the first half:
 //
 // x is (N, D) and y is (M, D), float32, row-major, with D zero-padded to a
 // compiled width. One thread owns one row i and keeps its coordinates in
@@ -18,7 +19,7 @@
 //          so a near pair carries no cancellation noise, and
 //          arg = bias_i + bias_j - c2 d.
 // Above the compiled widths, D is padded to a multiple of the widest and
-// the kernels' wide instantiation (D = 0) builds the scores of a group of
+// the kernel's wide instantiation (D = 0) builds the scores of a group of
 // columns up over coordinate chunks (wide_scores).
 
 #pragma once
@@ -101,33 +102,6 @@ __device__ __forceinline__ float pair_arg(const Row<D>& r, const Tile<D>& t, int
   }
 }
 
-// One staged tile of n columns of an online LSE in base 2, against the
-// running max m and sum s (m = -inf, s = 0 before the first tile): a max
-// pass that only recomputes scores (FFMAs), then one exp2-sum pass against
-// the new running max; the running sum is rescaled once per tile, not
-// once per pair. A tile whose weights are all exactly 0 so far is skipped.
-// The tile's terms go into four partial sums, added to the running sum once
-// per tile: a row of many kept tiles (91k terms of a heavy p = 1 tail)
-// then carries a float32 rounding error that grows with its tiles, not
-// its terms.
-template <int D, int P>
-__device__ __forceinline__ void lse_tile(const Row<D>& r, const Tile<D>& t, int n, float c2,
-                                         float& m, float& s) {
-  float tmax = -INFINITY;
-  for (int k = 0; k < n; ++k) tmax = fmaxf(tmax, pair_arg<D, P>(r, t, k, c2));
-  const float m_new = fmaxf(m, tmax);
-  if (m_new == -INFINITY) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int k = 0;
-  for (; k + 4 <= n; k += 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += exp2f(pair_arg<D, P>(r, t, k + q, c2) - m_new);
-  }
-  for (; k < n; ++k) acc[0] += exp2f(pair_arg<D, P>(r, t, k, c2) - m_new);
-  s = s * exp2f(m - m_new) + ((acc[0] + acc[1]) + (acc[2] + acc[3]));
-  m = m_new;
-}
-
 // Row sums of exp2(arg) over one staged tile of n columns (kernel 12).
 template <int D, int P>
 __device__ __forceinline__ float absorbed_tile(const Row<D>& r, const Tile<D>& t, int n,
@@ -148,9 +122,8 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // 0 to dot products and to squared differences). The scores of a group of
 // kGroup columns build up in a per-thread buffer over the coordinate chunks
 // (wide_scores), each chunk of the group's columns staged in shared memory;
-// then the kernel's own epilogue runs on the buffer: the LSE max/sum pass
-// (lse_group) or the absorbed sums (wide_arg), with the same kSqdistFloor
-// rule.
+// then the absorbed sums run on the buffer (wide_arg), with the same
+// kSqdistFloor rule.
 // -----------------------------------------------------------------------------
 constexpr int kGroup = 32;
 
@@ -206,26 +179,8 @@ __device__ __forceinline__ float wide_arg(float s, float bias, float c2) {
   else return fmaf(-sqrtf(fmaxf(s, kSqdistFloor)), c2, bias);
 }
 
-// lse_tile's two passes over a group's log weights a[k] (-inf past the
-// group's columns).
-__device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, float& s) {
-  float tmax = -INFINITY;
-#pragma unroll
-  for (int k = 0; k < kGroup; ++k) tmax = fmaxf(tmax, a[k]);
-  const float m_new = fmaxf(m, tmax);
-  if (m_new == -INFINITY) return;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < kGroup; k += 4) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] += exp2f(a[k + q] - m_new);
-  }
-  s = s * exp2f(m - m_new) + ((acc[0] + acc[1]) + (acc[2] + acc[3]));
-  m = m_new;
-}
-
 // -----------------------------------------------------------------------------
-// Register-tiled pair blocks (kernels 2-6 and 8). A block's 256 threads
+// Register-tiled pair blocks (kernels 1-8). A block's 256 threads
 // form a 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l
 // owns rows l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C)
 // of each pass, so every shared-memory load of a column serves all rows of
@@ -241,9 +196,11 @@ __device__ __forceinline__ void lse_group(const float (&a)[kGroup], float& m, fl
 // to kStepStaged float4s are staged: a lane keeps its rows' vectors in
 // registers and the block stages kTile columns in shared memory. A wider
 // point (the wide instantiation, KV = 0) builds its R x C scores up in
-// registers over the kv chunks, read from global memory. Two stages serve
-// them: the absorbed sums (step_stage: kernels 2, 3 and 5) and the row
-// contraction with V (apply_stage: kernels 4 and 8).
+// registers over the kv chunks, read from global memory. Three stages serve
+// them: the absorbed sums (step_stage: kernels 2, 3 and 5), the row
+// contraction with V (apply_stage: kernels 4 and 8) and the online
+// log-sum-exp (lse_stage: kernels 1 and 7), which packs the raw points
+// itself (its column bias apart at either p).
 // -----------------------------------------------------------------------------
 constexpr int kPairRows = kThreads / 32;  // rows per lane: 8
 
@@ -640,28 +597,361 @@ __device__ __forceinline__ typename Chan<CH>::T block_apply_sum(ApplySmem<KS, CH
   return sum;
 }
 
+// -----------------------------------------------------------------------------
+// The online log-sum-exp of kernels 1 and 7: out_i = log sum_j exp2(arg_ij)
+// (in nats, times ln 2) for the lane's 8 rows against stages of n <= kTile
+// columns, in passes of kStepPass (kStepCols columns per lane and pass):
+//   p = 2: arg = cb_j + <c2 x_i, y_j>, cb_j = log2(e) h_j - c2 |y_j|^2 / 2;
+//   p = 1: arg = cb_j - c2 sqrt(max(|x_i - y_j|^2, 1e-8)), cb_j = log2(e) h_j;
+// the row term -c2 |x_i|^2 / 2 of p = 2 is added at the end (lse_out). A
+// lane keeps a running max m and sum s of each of its rows, the sum
+// relative to the max. A pass takes its rows in two halves of kLseHalf
+// rows: the half's scores (kLseHalf x kStepCols) stay in registers,
+// relative to the running max (arg - m), and each pair takes one
+// ex2.approx of its score at once, beside the row's max over the pass (a
+// tree of 7 FMNMX), so the max does not hold up the exponentials. The
+// block's rows are staged in shared memory with the columns, and each half
+// loads its 4 rows and 8 columns (lds4): registers, not loads, limit the
+// stage. At p = 2 the relative score costs nothing: a row's last float4
+// carries -m in its padding slot (set from the warp's own m as the half
+// loads it: every warp keeps its own maxima) and a staged column a 1 (kv =
+// cdiv(D + 1, 4) float4s a point); elsewhere m is subtracted. Where a pass
+// raises a row's max (the warp votes once a half-pass, so the common pass
+// takes no branch), the row is rebased: by up to 2^kLseLazy its pass's
+// terms were at most that, so the new sum is rescaled by one exp2; a
+// larger jump, or the row's first finite scores (while m = -inf the base
+// is 0 and the sum 0), computes the row's scores again against the new
+// max (lse_row_scores), so nothing overflows, no digits are lost to a
+// base far below the max, and no inf - inf or 0 x inf arises. The
+// stage packs the raw points as it loads them (load_point): coordinates
+// with row stride ld, the first D read, zeros after; the column bias is
+// staged apart. Points of up to kStepStaged float4s are staged (the rows
+// scaled by c2 for p = 2); a wider point (KV = 0) is read as packed
+// float4s from global memory per pass (the wrapper pads it to ld = 4 kv
+// floats), its scores built up over the chunks. The 8 warps' (m, s) of
+// each row merge in warp order through shared memory (block_lse_merge):
+// no atomics, bitwise reproducible.
+// -----------------------------------------------------------------------------
+constexpr int kLseHalf = kPairRows / 2;  // rows of a lane per half-pass: 4
+constexpr float kLseLazy = 64.f;  // largest rise of a max whose pass is rescaled, not recomputed
+constexpr float kLn2 = 0.69314718055994531f;
+constexpr float kLog2e = 1.44269504088896341f;
+
+// The first D coordinates of point j of p (row stride ld floats), times
+// `scale`, as KS float4s, zero-padded.
+template <int KS>
+__device__ __forceinline__ void load_point(float4 (&v)[KS], const float* __restrict__ p, int64_t j, int ld, int D,
+                                           float scale) {
+  const float* q = p + j * ld;
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    float a[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = 4 * k + c < D ? scale * q[4 * k + c] : 0.f;
+    v[k] = make_float4(a[0], a[1], a[2], a[3]);
+  }
+}
+
+__device__ __forceinline__ float4 scale4(float4 a, float s) { return make_float4(s * a.x, s * a.y, s * a.z, s * a.w); }
+
+// A float4 of shared memory, loaded where it stands: each half of a pass
+// loads its rows and columns, rather than keeping them live across the
+// pass (registers are what limits the stage).
+__device__ __forceinline__ float4 lds4(const float4* p) {
+  float4 v;
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a));
+  return v;
+}
+
+// Shared memory of the stage: the block's rows (KS float4s each, the
+// staged forms), and either kTile staged columns (KS float4s each, none
+// for the wide form; their indices for the wide form) and their biases,
+// or, after the last stage, the warps' (m, s) of each row.
+template <int KS, bool WIDE>
+struct LseSmem {
+  float4 xs[KS][WIDE ? 1 : kThreads];
+  union {
+    struct {
+      float4 ys[KS][WIDE ? 1 : kTile];
+      float ycb[kTile];
+      int yj[WIDE ? kTile : 1];
+    } st;
+    float2 red[kWarps * kThreads];
+  } u;
+};
+
+// The block's rows, of which the first `rows` from i0 are valid, staged
+// in shared memory (thread t's row t): raw points (ld, D) loaded as KS
+// float4s, scaled by `scale`, the -m slot of p = 2 (the last) at 0; zeros
+// past `rows`. The wide form reads its rows from global memory per pass.
+// The first stage's barrier orders these stores before the passes.
+template <int KS, bool WIDE>
+__device__ __forceinline__ void load_lse_rows(LseSmem<KS, WIDE>& sm, const float* __restrict__ x, int ld, int D,
+                                              int64_t i0, int rows, float scale) {
+  if constexpr (!WIDE) {
+    float4 v[KS];
+    if ((int)threadIdx.x < rows) {
+      load_point<KS>(v, x, i0 + threadIdx.x, ld, D, scale);
+    } else {
+#pragma unroll
+      for (int k = 0; k < KS; ++k) v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < KS; ++k) sm.xs[k][threadIdx.x] = v[k];
+  }
+}
+
+// The scores arg - base of the lane's row r (of kPairRows) against its
+// columns cb0 .. cb0 + kStepCols - 1 of the staged pass: the rebase's
+// recomputation, against the new max.
+template <int P, int KV>
+__device__ __forceinline__ void lse_row_scores(LseSmem<KV == 0 ? 1 : KV, KV == 0>& sm, float (&t)[kStepCols],
+                                               float base, int r, int cb0, const float* __restrict__ x,
+                                               const float* __restrict__ y, int64_t i0, int rows, int kv, float c2) {
+  constexpr int C = kStepCols;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;
+  constexpr bool FOLDED = P == 2 && !WIDE;
+  const int il = (threadIdx.x & 31) + 32 * r;
+#pragma unroll
+  for (int c = 0; c < C; ++c) t[c] = P == 2 ? sm.u.st.ycb[cb0 + c] : 0.f;
+  if constexpr (!WIDE) {
+    float4 xq[KS];
+#pragma unroll
+    for (int q = 0; q < KS; ++q) xq[q] = lds4(&sm.xs[q][il]);
+    if constexpr (FOLDED) xq[KS - 1].w = -base;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int q = 0; q < KS; ++q) t[c] = packed_acc<P>(xq[q], lds4(&sm.u.st.ys[q][cb0 + c]), t[c]);
+    }
+  } else {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* y4 = reinterpret_cast<const float4*>(y);
+    for (int q = 0; q < kv; ++q) {
+      const float4 xk = il < rows ? scale4(x4[(i0 + il) * kv + q], P == 2 ? c2 : 1.f) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int c = 0; c < C; ++c) t[c] = packed_acc<P>(xk, y4[(int64_t)sm.u.st.yj[cb0 + c] * kv + q], t[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if constexpr (P == 1) t[c] = fmaf(-sqrtf(fmaxf(t[c], kSqdistFloor)), c2, sm.u.st.ycb[cb0 + c]);
+    if constexpr (!FOLDED) t[c] -= base;
+  }
+}
+
+// One stage: the columns cols(k), k < n (1 <= n <= kTile; the stage is
+// padded to whole passes with bias -inf), against the lane's rows (staged
+// in sm.xs; WIDE: x's `rows` rows from i0, kv packed float4s each), folded into the
+// running (m, s). Every thread of the block calls it: it synchronises.
+template <int P, int KV, class Cols>
+__device__ __forceinline__ void lse_stage(LseSmem<KV == 0 ? 1 : KV, KV == 0>& sm, float (&m)[kPairRows],
+                                          float (&s)[kPairRows], const float* __restrict__ x, int64_t i0, int rows,
+                                          const float* __restrict__ y, const float* __restrict__ h, int ld, int D,
+                                          int kv, Cols cols, int n, float c2) {
+  constexpr int H = kLseHalf, C = kStepCols;
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  constexpr bool FOLDED = P == 2 && !WIDE;  // the score carries -m (the rows' last slot)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_pad = (n + kStepPass - 1) / kStepPass * kStepPass;
+  __syncthreads();  // the last stage's reads are done
+  for (int k = threadIdx.x; k < n_pad; k += kThreads) {
+    const bool ok = k < n;
+    const int64_t j = ok ? cols(k) : 0;
+    float sq = 0.f;
+    if constexpr (!WIDE) {
+      float4 v[KS];
+      load_point<KS>(v, y, j, ld, D, 1.f);
+#pragma unroll
+      for (int q = 0; q < KS; ++q) {
+        if constexpr (P == 2) sq = dot4(v[q], v[q], sq);
+        if (FOLDED && q == KS - 1) v[q].w = 1.f;  // the factor of the rows' -m slot
+        sm.u.st.ys[q][k] = v[q];
+      }
+    } else {
+      sm.u.st.yj[k] = (int)j;
+      if constexpr (P == 2) {
+        for (int d = 0; d < D; ++d) sq = fmaf(y[j * ld + d], y[j * ld + d], sq);
+      }
+    }
+    const float b = P == 2 ? fmaf(-0.5f * c2, sq, kLog2e * h[j]) : kLog2e * h[j];
+    sm.u.st.ycb[k] = ok ? b : -INFINITY;
+  }
+  __syncthreads();
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const float4* y4 = reinterpret_cast<const float4*>(y);
+  for (int b0 = 0; b0 < n_pad; b0 += kStepPass) {
+    const int cb0 = b0 + warp * C;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float bc[C], sc[H][C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        bc[c] = sm.u.st.ycb[cb0 + c];
+#pragma unroll
+        for (int r = 0; r < H; ++r) sc[r][c] = P == 2 ? bc[c] : 0.f;
+      }
+      if constexpr (!WIDE) {
+        float4 xh[H][KS];
+#pragma unroll
+        for (int r = 0; r < H; ++r) {
+#pragma unroll
+          for (int q = 0; q < KS; ++q) xh[r][q] = lds4(&sm.xs[q][lane + 32 * (hf * H + r)]);
+          // The warp's own base of the row (its warps keep their own maxima).
+          if constexpr (FOLDED) xh[r][KS - 1].w = m[hf * H + r] == -INFINITY ? 0.f : -m[hf * H + r];
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int q = 0; q < KS; ++q) {
+            const float4 yy = lds4(&sm.u.st.ys[q][cb0 + c]);
+#pragma unroll
+            for (int r = 0; r < H; ++r) sc[r][c] = packed_acc<P>(xh[r][q], yy, sc[r][c]);
+          }
+        }
+      } else {
+        for (int q = 0; q < kv; ++q) {
+          float4 xk[H];
+#pragma unroll
+          for (int r = 0; r < H; ++r) {
+            const int il = lane + 32 * (hf * H + r);
+            xk[r] = il < rows ? scale4(x4[(i0 + il) * kv + q], P == 2 ? c2 : 1.f) : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const float4 yy = y4[(int64_t)sm.u.st.yj[cb0 + c] * kv + q];
+#pragma unroll
+            for (int r = 0; r < H; ++r) sc[r][c] = packed_acc<P>(xk[r], yy, sc[r][c]);
+          }
+        }
+      }
+      // Each row's exponentials against its base, and their sum and max
+      // (two trees, side by side: the max does not hold up the exp2s). A
+      // row is rebased where the max is above 0, or finite while m = -inf.
+      float pm[H], sum[H];
+      bool up = false;
+#pragma unroll
+      for (int r = 0; r < H; ++r) {
+        const float mr = m[hf * H + r];
+        float e[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if constexpr (P == 1) sc[r][c] = fmaf(-sqrtf(fmaxf(sc[r][c], kSqdistFloor)), c2, bc[c]);
+          if constexpr (!FOLDED) sc[r][c] -= mr == -INFINITY ? 0.f : mr;
+          e[c] = fast_exp2(sc[r][c]);
+        }
+        sum[r] = ((e[0] + e[1]) + (e[2] + e[3])) + ((e[4] + e[5]) + (e[6] + e[7]));
+        pm[r] = fmaxf(fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3])),
+                      fmaxf(fmaxf(sc[r][4], sc[r][5]), fmaxf(sc[r][6], sc[r][7])));
+        up |= pm[r] > (mr == -INFINITY ? -INFINITY : 0.f);
+      }
+      if (__any_sync(kFullMask, up)) {  // rare after a row's first passes: one vote a half-pass
+#pragma unroll
+        for (int r = 0; r < H; ++r) {
+          float& mr = m[hf * H + r];
+          float& sr = s[hf * H + r];
+          if (!(pm[r] > (mr == -INFINITY ? -INFINITY : 0.f))) {
+            sr += sum[r];
+            continue;
+          }
+          // The new max as stored, and its rise over the base as the sum
+          // sees it: rescaling by the stored difference, not by pm, keeps
+          // the sum relative to the stored max (a max of a few hundred
+          // rounds by ~1e-5 at each rebase, which would add up).
+          const float base = mr == -INFINITY ? 0.f : mr;
+          const float m_new = base + pm[r];
+          const float rise = m_new - base;
+          if (mr != -INFINITY && rise <= kLseLazy) {
+            sr = (sr + sum[r]) * fast_exp2(-rise);  // the pass's terms were at most 2^kLseLazy
+          } else {
+            // The first finite scores, or a jump of the max: the row's
+            // scores again, against the new max (scores taken against a
+            // base far below it, such as that of a zero-weight column of
+            // log weight -1e5, keep none of their digits near it).
+            float t[C];
+            lse_row_scores<P, KV>(sm, t, m_new, hf * H + r, cb0, x, y, i0, rows, kv, c2);
+#pragma unroll
+            for (int c = 0; c < C; ++c) t[c] = fast_exp2(t[c]);
+            sr = (mr == -INFINITY ? 0.f : sr * fast_exp2(-rise)) +
+                 (((t[0] + t[1]) + (t[2] + t[3])) + ((t[4] + t[5]) + (t[6] + t[7])));
+          }
+          mr = m_new;
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < H; ++r) s[hf * H + r] += sum[r];
+      }
+    }
+  }
+}
+
+// The max and the sum rescaled to it of n partials (m, s) at p[0],
+// p[stride], ..., added in that order; (-inf, 0) where every m is -inf.
+__device__ __forceinline__ float2 merge_lse(const float2* p, int64_t stride, int n) {
+  float mm = -INFINITY;
+  for (int k = 0; k < n; ++k) mm = fmaxf(mm, p[k * stride].x);
+  float ss = 0.f;
+  if (mm != -INFINITY) {
+    for (int k = 0; k < n; ++k) {
+      const float2 q = p[k * stride];
+      ss += q.y * exp2f(q.x - mm);
+    }
+  }
+  return make_float2(mm, ss);
+}
+
+// (m, s) of the block's rows: the 8 warps' partials of each row merged in
+// warp order; thread t returns row t's. Every thread calls it.
+template <int KS, bool WIDE>
+__device__ __forceinline__ float2 block_lse_merge(LseSmem<KS, WIDE>& sm, const float (&m)[kPairRows],
+                                                  const float (&s)[kPairRows]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();  // the last stage's reads of st are done
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) sm.u.red[warp * kThreads + lane + 32 * r] = make_float2(m[r], s[r]);
+  __syncthreads();
+  return merge_lse(sm.u.red + threadIdx.x, kThreads, kWarps);
+}
+
+// Row i's LSE in nats from its (m, s): ln 2 (m + log2 s), minus
+// |x_i|^2 / (2 eps) = ln 2 c2 |x_i|^2 / 2 for p = 2; -inf where s = 0.
+__device__ __forceinline__ float lse_out(float2 ms, const float* __restrict__ x, int64_t i, int ld, int D, int p,
+                                         float c2) {
+  float v = kLn2 * (ms.x + log2f(ms.y));
+  if (p == 2) {
+    float sq = 0.f;
+    for (int d = 0; d < D; ++d) sq = fmaf(x[i * ld + d], x[i * ld + d], sq);
+    v = fmaf(-0.5f * kLn2 * c2, sq, v);
+  }
+  return v;
+}
+
+// Second pass of kernels 1 and 7 when their columns are split: out[i] =
+// lse_out of the S partials part[s, i] (s < S), merged in slice order. One
+// thread per row. Bound: reading the partials once.
+__global__ void __launch_bounds__(kThreads)
+lse_merge_kernel(const float2* __restrict__ part, const float* __restrict__ x, float* __restrict__ out, int N,
+                 int S, int ld, int D, int p, float c2) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < N) out[i] = lse_out(merge_lse(part + i, N, S), x, i, ld, D, p, c2);
+}
+
+// Launches lse_merge_kernel where `S` > 1.
+inline void launch_lse_merge(const float2* part, const float* x, float* out, int N, int S, int ld, int D, int p,
+                             float c2, cudaStream_t st) {
+  if (S > 1) lse_merge_kernel<<<cdiv(N, kThreads), kThreads, 0, st>>>(part, x, out, N, S, ld, D, p, c2);
+}
+
 }  // namespace
 
-// Template dispatch on the (padded) point dimension; D = 0 is the wide
-// instantiation, for a multiple of 16 above 16 (the kernel reads the
-// runtime width).
-#define GL_DISPATCH_D(D_RUNTIME, ...)                                    \
-  switch (D_RUNTIME) {                                                   \
-    case 1: { constexpr int D = 1; __VA_ARGS__; break; }                 \
-    case 2: { constexpr int D = 2; __VA_ARGS__; break; }                 \
-    case 3: { constexpr int D = 3; __VA_ARGS__; break; }                 \
-    case 4: { constexpr int D = 4; __VA_ARGS__; break; }                 \
-    case 8: { constexpr int D = 8; __VA_ARGS__; break; }                 \
-    case 16: { constexpr int D = 16; __VA_ARGS__; break; }               \
-    default:                                                             \
-      if ((D_RUNTIME) > 16 && (D_RUNTIME) % 16 == 0) {                   \
-        constexpr int D = 0; __VA_ARGS__; break;                         \
-      }                                                                  \
-      return (int)cudaErrorInvalidValue;                                 \
-  }
-
-// The same, for kernels compiled up to D = 8 (their shared memory holds
-// more per column); the wide instantiation takes multiples of 8 above 8.
+// Template dispatch on the (padded) point dimension of kernel 12, compiled
+// up to D = 8; D = 0 is the wide instantiation, for multiples of 8 above 8
+// (the kernel reads the runtime width).
 #define GL_DISPATCH_D8(D_RUNTIME, ...)                                   \
   switch (D_RUNTIME) {                                                   \
     case 1: { constexpr int D = 1; __VA_ARGS__; break; }                 \

@@ -49,9 +49,11 @@ launch the table's slots compacted on the device, the live ones first, in
 chunks whose partial sums stay under :data:`TILES_SCRATCH_BYTES`
 (:func:`_chunks`). Their CUDA kernels, and kernel 8's, are
 register-tiled pair blocks that read packed points
-(``cuda_kernels._pair_vectors``), so they take any point dimension;
-kernels 7 and 12 pad D to a compiled width, or above 8 to a multiple of 8
-(their wide instantiation).
+(``cuda_kernels._pair_vectors``), so they take any point dimension; so is
+kernel 7 (kernel 1's LSE stage, over the raw points and a row tile's
+kept tiles laid end to end, long rows split across blocks:
+:func:`lse_tiles_plan`); kernel 12 pads D to a compiled width, or above 8
+to a multiple of 8 (its wide instantiation).
 
 Each wrapper takes its plain PyTorch twin (``*_blocked``, same signature, a
 loop over row tiles in the input dtype) only for tensors that lie on the
@@ -65,7 +67,6 @@ import torch
 
 from . import cuda_kernels as ck
 from .cuda_kernels import (
-    LN2,
     LOG2E,
     _apply_weights_blk,
     _bias2,
@@ -89,6 +90,7 @@ __all__ = [
     "lse_tiles",
     "lse_tiles_blocked",
     "lse_sparse",
+    "lse_tiles_plan",
     "gibbs_apply_sparse",
     "gibbs_apply_sparse_blocked",
     "gibbs_apply_walk",
@@ -106,9 +108,8 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-#: Point dimensions kernels 7 and 12 are compiled for; above 8, D is padded
-#: to a multiple of 8 (their wide instantiation). Kernels 5, 6 and 8 take
-#: packed points of any D (``cuda_kernels._pair_vectors``).
+#: Point dimensions kernel 12 is compiled for; above 8, D is padded to a
+#: multiple of 8 (its wide instantiation). Kernels 5-8 take points of any D.
 _KERNEL_DIMS = (1, 2, 3, 4, 8)
 #: Rows per CUDA block.
 _ROWS = 256
@@ -118,6 +119,10 @@ _ROWS = 256
 #: slots one launch takes stay under it (one slot's are taken whatever
 #: their size).
 TILES_SCRATCH_BYTES = 256 << 20
+#: Blocks per launch kernel 7 aims for when it splits its rows' kept tiles
+#: into ranges: more than kernel 1's, since a range past a short row's
+#: count is an empty block, and the long rows' ranges must still be short.
+_LSE_TILES_BLOCKS = 4096
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts = {
@@ -147,9 +152,9 @@ _LIB = ck.KernelLibrary(
         # xv, yv, rb, cb, vy, vx, slot_i, slot_j, rowpart, colpart, nslots,
         # tile, kv, mode, tri, c2, stream
         "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 5 + [_F, _P],
-        # x, y, h2, cols, cnt, out, n_rows, ck, block_n, block_m, D, p, c2,
-        # stream
-        "gl_lse_tiles": [_P] * 6 + [_I] * 6 + [_F, _P],
+        # x, y, h, cols, cnt, out, part, n_rows, ck, block_n, block_m,
+        # n_split, span, ld, D, kv, p, c2, stream
+        "gl_lse_tiles": [_P] * 7 + [_I] * 10 + [_F, _P],
         # xv, yv, rb, cb, v, cols, row_start, cnt, out, n_rows, block_n,
         # block_m, kv, ch, mode, c2, stream
         "gl_gibbs_apply_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -670,26 +675,43 @@ def gibbs_apply_tiles(
     return R_row.to(Vy.dtype), R_col.to(Vx.dtype)
 
 
+def lse_tiles_plan(n_rows, block_n, width, N):
+    """Ranges of kept tiles of kernel 7 over a table of ``n_rows`` row
+    tiles of ``block_n`` points and ``width`` columns, ``N`` rows in all:
+    ``(S, span)``. Block ``(I, h, q)`` takes the kept tiles ``q span ..
+    (q + 1) span - 1`` of row tile ``I`` (those below its count), so a
+    launch holds about :data:`_LSE_TILES_BLOCKS` blocks where the width
+    allows and no block more than ``span`` kept tiles. With more than one
+    range, each writes its rows' (max, sum) pairs, ``8 S N`` bytes of
+    scratch, at most ``cuda_kernels.STEP_SCRATCH_BYTES``. Read from the
+    width alone: the host never waits for the counts."""
+    blocks = n_rows * _cdiv(block_n, _ROWS)
+    S = max(1, min(width, _cdiv(_LSE_TILES_BLOCKS, blocks), ck._MAX_GRID_Y, ck.STEP_SCRATCH_BYTES // (8 * N)))
+    span = max(1, _cdiv(width, S))
+    return max(1, _cdiv(width, span)), span
+
+
 def _lse_launch(x, y, h, eps, cols, cnt, block_n, block_m, p, count):
     _check_sparse_table(count, x, y, cols, cnt, block_n, block_m)
     if tuple(h.shape) != (y.shape[0],):
         raise ValueError(f"{count}: h must be (M,).")
     _check_cuda(count, x, y, h, cols, cnt)
     eps = float(eps)
-    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
-    h2 = _bias2(yf, h, eps, p)
+    (xf, yf), ld, kv = ck._lse_points(count, x, y, p=p)
+    hf = _f32(h)
     cols_i = cols.to(torch.int32).contiguous()
     cnt_i = cnt.to(torch.int32).contiguous()
-    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    N = xf.shape[0]
+    n_rows, width = cols.shape
+    S, span = lse_tiles_plan(n_rows, block_n, width, N)
+    out = torch.empty(N, dtype=torch.float32, device=x.device)
+    part = torch.empty((S, N, 2), dtype=torch.float32, device=x.device) if S > 1 else out
     with torch.cuda.device(x.device):
         _LIB.launch(
-            "lse_tiles", xf.data_ptr(), yf.data_ptr(), h2.data_ptr(), cols_i.data_ptr(),
-            cnt_i.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1], block_n, block_m,
-            Dk, p, LOG2E / eps, count=count,
+            "lse_tiles", xf.data_ptr(), yf.data_ptr(), hf.data_ptr(), cols_i.data_ptr(), cnt_i.data_ptr(),
+            out.data_ptr(), part.data_ptr(), n_rows, width, block_n, block_m, S, span, ld, x.shape[1], kv, p,
+            LOG2E / eps, count=count,
         )
-    out = out * LN2
-    if p == 2:
-        out = out - 0.5 * (xf * xf).sum(-1) / eps
     return out.to(x.dtype)
 
 

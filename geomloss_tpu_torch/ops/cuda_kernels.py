@@ -23,23 +23,27 @@ The library is compiled with ``nvcc`` at first use (a plain C interface,
 loaded with ``ctypes``) into :func:`build_dir`, keyed by a hash of its
 sources (the ``.cu`` file and the shared headers).
 
-The kernels take any point dimension. Kernels 2-4 are register-tiled
-pair blocks over points packed as float4 vectors (:func:`_pair_vectors`,
-shared with the block-sparse kernels 5, 6 and 8): up to three vectors a
-point are staged, wider ones read from global memory. Kernel 1 pads D to
-a compiled width (1, 2, 3, 4, 8 or 16), or above 16 to a multiple of 16,
-which runs its wide instantiation (scores built up over chunks of 16
-coordinates; ``csrc/pair_common.cuh``).
+The kernels take any point dimension. All four are register-tiled pair
+blocks over points as float4 vectors: kernels 2-4 over points packed by
+:func:`_pair_vectors` (shared with the block-sparse kernels 5, 6 and 8),
+kernel 1 over the raw points, which it packs as it loads them
+(:func:`_lse_points`, shared with kernel 7): up to three vectors a point
+are staged, wider ones read from global memory. Kernel 1 folds its biases
+itself, so that one :func:`lse` call of float32 points launches no
+PyTorch kernel, only its own and, where its columns are split
+(:func:`lse_plan`), their merge.
 
 Each wrapper adds one to its entry of :data:`launch_counts` where it
 launches its kernel, and nowhere else.
 
 The two step kernels write per-block partial sums that the wrappers add
 up in a fixed order (deterministic, no atomics), and so does the apply
-kernel when it cuts the columns into slices. Their scratch is bounded:
-row blocks are launched in chunks that keep it under
-:data:`STEP_SCRATCH_BYTES` plus ``O(N + M)`` (:func:`step_plan`,
-:func:`sym_step_plan`, :func:`apply_plan`). One :func:`gibbs_apply` call
+kernel when it cuts the columns into slices; the LSE kernel's slices
+write partial (max, sum) pairs that a second kernel merges in slice
+order. Their scratch is bounded: row blocks are launched in chunks that
+keep it under :data:`STEP_SCRATCH_BYTES` plus ``O(N + M)``
+(:func:`step_plan`, :func:`sym_step_plan`, :func:`apply_plan`; the LSE's
+slices shrink to fit, :func:`lse_plan`). One :func:`gibbs_apply` call
 is one launch wherever its scratch fits the budget: its channel groups
 are the grid's third axis.
 """
@@ -71,6 +75,7 @@ __all__ = [
     "padded_dim",
     "launch_counts",
     "reset_launch_counts",
+    "lse_plan",
     "step_plan",
     "sym_step_plan",
     "apply_plan",
@@ -79,7 +84,6 @@ __all__ = [
 ]
 
 LOG2E = math.log2(math.e)
-LN2 = math.log(2.0)
 
 #: Floor on the absorbed row/column sums: caps the per-iteration potential
 #: change at ~85*eps nats instead of producing an inf.
@@ -93,9 +97,10 @@ BLOCK_M = 2048
 #: Rows per CUDA block and columns per shared-memory tile; must match
 #: ``kThreads`` / ``kTile`` in the source.
 _CUDA_BLOCK = 256
-#: Point dimensions kernel 1 is compiled for; smaller D is zero-padded,
-#: larger D padded to a multiple of the last (the wide instantiation).
-_KERNEL_DIMS = (1, 2, 3, 4, 8, 16)
+#: Columns per pass of the register-tiled pair blocks (``kStepPass``), and
+#: the most float4 vectors of a point they stage (``kStepStaged``).
+_PASS = 64
+_STAGED = 3
 #: Channels of a group of the apply kernels (4, 6 and 8) when V has more
 #: than one.
 _CHANNELS = 4
@@ -109,6 +114,11 @@ STEP_SCRATCH_BYTES = 128 << 20
 #: slices to keep their work even.
 _STEP_BLOCKS = 1024
 _SYM_STEP_BLOCKS = 8192
+#: Blocks per launch the LSE kernel aims for with its column slices: about
+#: two waves of its two blocks an SM (132 SMs). More add merged partials
+#: and per-block set-up at the coarse sweeps' 4,096 points; fewer leave a
+#: short last wave.
+_LSE_BLOCKS = 512
 #: Largest gridDim.y of a launch.
 _MAX_GRID_Y = 65535
 
@@ -235,8 +245,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIB = KernelLibrary(
     "online_kernels",
     {
-        # x, y, h2, out, N, M, D, p, c2, stream
-        "gl_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # x, y, h, out, part, N, M, width, n_slices, ld, D, kv, p, c2, stream
+        "gl_lse": [_P] * 5 + [_I] * 8 + [_F, _P],
         # xv, yv, rb, cb, rowpart, colpart, N, M, row_blk0, n_blk, n_slices,
         # width, kv, p, c2, stream
         "gl_sinkhorn_step": [_P] * 6 + [_I] * 8 + [_F, _P],
@@ -271,7 +281,7 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: all tensors must lie on one CUDA device.")
 
 
-def padded_dim(D, dims=_KERNEL_DIMS):
+def padded_dim(D, dims):
     """The point dimension a kernel runs ``D`` at: the first compiled width
     that holds it, or a multiple of the widest (the wide instantiation);
     ``D`` itself for no ``dims``."""
@@ -280,7 +290,7 @@ def padded_dim(D, dims=_KERNEL_DIMS):
     return next((k for k in dims if D <= k), None) or _cdiv(D, dims[-1]) * dims[-1]
 
 
-def _points(name, *clouds, dims=_KERNEL_DIMS):
+def _points(name, *clouds, dims):
     """float32, contiguous, zero-padded to :func:`padded_dim`."""
     D = clouds[0].shape[-1]
     for c in clouds:
@@ -292,6 +302,26 @@ def _points(name, *clouds, dims=_KERNEL_DIMS):
         for c in clouds
     ]
     return out, Dk
+
+
+def _lse_points(name, *clouds, p=2):
+    """Points as the LSE kernels (1 and 7) read them: ``(clouds, ld,
+    kv)``, each float32 and contiguous with rows ``ld`` floats apart, ``kv
+    = ceil((D + 1) / 4)`` float4 vectors a point for p = 2 (a staged row
+    carries minus its running max in the last slot, a staged column a 1)
+    and ``ceil(D / 4)`` for p = 1. Up to :data:`_STAGED` vectors the
+    kernels stage the raw points (``ld = D``: no copy of float32 points);
+    wider ones they read as float4 vectors from global memory, so these are
+    zero-padded to ``ld = 4 kv`` unless they are already so laid out."""
+    D = clouds[0].shape[-1]
+    for c in clouds:
+        if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0 or D == 0:
+            raise ValueError(f"{name}: point clouds must be non-empty (N, D), D >= 1.")
+    kv = _cdiv(D + (p == 2), 4)
+    out = [_f32(c) for c in clouds]
+    if kv <= _STAGED or (D == 4 * kv and all(c.data_ptr() % 16 == 0 for c in out)):
+        return out, D, kv
+    return [torch.nn.functional.pad(c, (0, 4 * kv - D)).contiguous() for c in out], 4 * kv, kv
 
 
 def _pair_vectors(x, y, phi, psi, eps, p, cols_to=1):
@@ -334,6 +364,24 @@ def _even_chunks(n, most):
     """Chunk size of at most ``max(most, 1)`` that cuts ``n`` into chunks
     of equal size up to one."""
     return _cdiv(n, _cdiv(n, max(1, min(n, most))))
+
+
+def lse_plan(N, M):
+    """Column slices of :func:`lse`: ``(S, width)``.
+
+    The launch takes every row block of 256 rows against ``S`` slices of
+    ``width`` columns (a multiple of a 64-column pass), so that it holds
+    about :data:`_LSE_BLOCKS` blocks where M allows: at N = M = 4,096 (16
+    row blocks) 32 slices of two passes. With more than one slice, each
+    writes its rows' (max, sum) pairs, ``8 S N`` bytes of scratch, at most
+    :data:`STEP_SCRATCH_BYTES` (one slice, no scratch, where the budget
+    holds none).
+    """
+    nb = _cdiv(N, _CUDA_BLOCK)
+    passes = _cdiv(M, _PASS)
+    S = max(1, min(passes, _cdiv(_LSE_BLOCKS, nb), _MAX_GRID_Y, STEP_SCRATCH_BYTES // (8 * N)))
+    width = _cdiv(passes, S) * _PASS
+    return _cdiv(M, width), width
 
 
 def step_plan(N, M):
@@ -472,18 +520,17 @@ def lse_blocked(x, y, h, eps, p=2, block_m=BLOCK_M):
     x, y = x.to(dt), y.to(dt)
     h = _fold_norms(y, h.to(dt), eps, p)
     zero = torch.zeros(x.shape[0], dtype=dt, device=x.device)
-    m = s = None
+    m = torch.full_like(zero, -math.inf)
+    s = torch.zeros_like(zero)
     for j0 in range(0, y.shape[0], block_m):
         sl = slice(j0, j0 + block_m)
         arg = _log_weights_blk(x, zero, y[sl], h[sl], eps, p)
-        blk_max = arg.max(dim=1).values
-        if m is None:
-            m, s = blk_max, torch.zeros_like(blk_max)
-        else:
-            m_new = torch.maximum(m, blk_max)
-            s = s * torch.exp(m - m_new)
-            m = m_new
-        s = s + torch.exp(arg - m[:, None]).sum(1)
+        m_new = torch.maximum(m, arg.max(dim=1).values)
+        # A row whose weights are all 0 so far (bias -inf: zero-weight
+        # points) keeps m = -inf and s = 0, without an inf - inf.
+        base = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        s = s * torch.exp(m - base) + torch.exp(arg - base[:, None]).sum(1)
+        m = m_new
     # p=2: the row term -|x|^2/(2 eps) comes out of the LSE.
     out = _fold_norms(x, m + torch.log(s), eps, p)
     return out.to(x.dtype)
@@ -594,24 +641,27 @@ def lse(x, y, h, eps, p=2):
     """``out_i = log sum_j exp(h_j - C_p(x_i, y_j)/eps)``.
 
     Args: x ``(N, D)``, y ``(M, D)``, h ``(M,)``, eps scalar, p 1 or 2.
-    Returns ``(N,)`` in x's dtype.
+    Returns ``(N,)`` in x's dtype. One launch of kernel 1 over the column
+    slices of :func:`lse_plan`, which merges the slices itself where there
+    are several.
     """
     if not x.is_cuda:
         return lse_blocked(x, y, h, eps, p)
     _check_cuda("lse", x, y, h)
+    if tuple(h.shape) != (y.shape[0],):
+        raise ValueError("lse: h must be (M,).")
     eps = float(eps)
-    (xf, yf), Dk = _points("lse", x, y)
+    (xf, yf), ld, kv = _lse_points("lse", x, y, p=p)
+    hf = _f32(h)
     N, M = xf.shape[0], yf.shape[0]
-    h2 = _bias2(yf, h, eps, p)
+    S, width = lse_plan(N, M)
     out = torch.empty(N, dtype=torch.float32, device=x.device)
+    part = torch.empty((S, N, 2), dtype=torch.float32, device=x.device) if S > 1 else out
     with torch.cuda.device(x.device):
         _launch(
-            "lse", xf.data_ptr(), yf.data_ptr(), h2.data_ptr(), out.data_ptr(),
-            N, M, Dk, p, LOG2E / eps,
+            "lse", xf.data_ptr(), yf.data_ptr(), hf.data_ptr(), out.data_ptr(), part.data_ptr(),
+            N, M, width, S, ld, x.shape[1], kv, p, LOG2E / eps,
         )
-    out = out * LN2
-    if p == 2:
-        out = out - 0.5 * (xf * xf).sum(-1) / eps
     return out.to(x.dtype)
 
 

@@ -1,10 +1,11 @@
 """Build report and CUDA-event times of the register-tiled pair kernels of
-geomloss_tpu_torch on one GPU: kernels 2, 3 and 4 (``sinkhorn_step``,
-``sinkhorn_step_sym``, ``gibbs_apply``), kernels 5 and 6
-(``absorbed_sum_tiles``, ``gibbs_apply_tiles``) and kernel 8
+geomloss_tpu_torch on one GPU: kernel 1 (``lse``), kernels 2, 3 and 4
+(``sinkhorn_step``, ``sinkhorn_step_sym``, ``gibbs_apply``), kernels 5
+and 6 (``absorbed_sum_tiles``, ``gibbs_apply_tiles``), kernel 7
+(``lse_tiles``, and ``lse_sparse`` on it) and kernel 8
 (``gibbs_apply_sparse``).
 
-    python3 kernel_report.py [--root DIR] [--report tiles step sparse online] [--sizes 100000 2000000]
+    python3 kernel_report.py [--root DIR] [--report tiles step sparse online lse] [--sizes 100000 2000000]
                              [--dim 3] [--backend auto] [--reps 3] [--no-build-report] [--dump DIR]
 
 ``--root`` imports the package from another checkout (for example the
@@ -20,7 +21,7 @@ Prints, from the build of both libraries:
   MUFU instructions, by opcode class, and per pair (over its MUFU count:
   one exp2 per pair at these instantiations).
 
-Then each report of ``--report`` (all four by default):
+Then each report of ``--report`` (all five by default):
 
 - ``tiles``: for each of ``--sizes``, bench.py's call (``SamplesLoss(
   "sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)``, value and
@@ -48,7 +49,18 @@ Then each report of ``--report`` (all four by default):
   at 1e5 as in ``sparse``; then the energy, gaussian online and
   laplacian multiscale MMD calls at 1e5 (blur 0.1, truncate 3): host
   clock per call, and under ``torch.profiler`` the device busy time, the
-  idle share and the device time of each kernel.
+  idle share and the device time of each kernel;
+- ``lse``: bench.py's call at 1e5 and at the largest of ``--sizes`` (the
+  mid path) profiled (device busy and idle share, the device time of
+  kernels 1 and 7 in it); kernel 1 at each shape the call launches it
+  with (4,096 coarse points, the mid cloud), with their counts, and
+  at N = M = 1e5 and at 1e4 in D = 32; kernel 7 on the mid path's four
+  extrapolation tables; kernel 9 (``lse_sparse``) on ``softmin_sparse``'s
+  uncapped table at 1e5 (the gaussian MMD's geometry, blur 0.1, truncate
+  3): each beside its MUFU bound and issue floor, kernel 1 beside the
+  dense PyTorch composition ``logsumexp(h - cdist(x, y)^2 / 2 eps)``
+  where its matrix fits, and the device kernels one ``lse`` call
+  launches (``torch.profiler``), PyTorch's and its own.
 
 Times are CUDA events after a warm-up; each report ends with a JSON line
 holding them and the card's name and power limit. Needs a CUDA device.
@@ -85,6 +97,8 @@ SASS_CLASSES = ("MUFU", "SHFL", "LDS", "LDG", "LDL", "STL", "FFMA", "FADD", "FMU
                 "ISETP", "BAR", "STS")
 #: Kernels whose hot loop is read, at bench.py's instantiation (D = 3,
 #: p = 2; applies in mode 0, and in the energy and inv_dist modes 3 and 4).
+#: Kernels 1 and 7 were templated on <D, P> (one thread per row) before
+#: their register-tiled forms on <P, KV>.
 #: Kernels 2-6 and 8 were templated on <D, P> and <D, MODE> before their
 #: register-tiled forms; since, kernels 2, 3 and 5 on <P, KV> (KV float4s
 #: per packed point, 0 for the wide form), kernel 6 on <MODE, WIDE> and
@@ -93,7 +107,8 @@ SASS_CLASSES = ("MUFU", "SHFL", "LDS", "LDG", "LDL", "STL", "FFMA", "FADD", "FMU
 #: another instantiation (D = 2, p = 1), and so do <3,1> and <4,1> of the
 #: two-argument kernels (D = 3 and 4); kernel 4's first form in modes 3 and
 #: 4 is <3,3> and <3,4>.
-SASS_LABELS = ("tiles_step_kernel<3,2>", "tiles_apply_kernel<3,0>", "tiles_step_kernel<2,1>",
+SASS_LABELS = ("lse_kernel<3,2>", "tiles_lse_kernel<3,2>", "lse_kernel<2,1>", "tiles_lse_kernel<2,1>",
+               "tiles_step_kernel<3,2>", "tiles_apply_kernel<3,0>", "tiles_step_kernel<2,1>",
                "tiles_step_kernel<2,3>", "tiles_apply_kernel<0,0>", "step_kernel<3,2>", "step_kernel<2,1>",
                "sparse_apply_kernel<3,0>", "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>",
                "sparse_apply_kernel<3,1,1>", "sparse_apply_kernel<4,1,1>",
@@ -433,11 +448,115 @@ def online_report(torch, mods, args, card, clock):
     torch.cuda.empty_cache()
 
 
+def lse_report(torch, mods, args, card, clock):
+    """Kernel 1 at the shapes of bench.py's call, at 1e5 and in D = 32;
+    kernel 7 on the mid path's tables; kernel 9 at 1e5."""
+    SamplesLoss, ck, cbs, ks, tbs = mods["SamplesLoss"], mods["ck"], mods["cbs"], mods["ks"], mods["tbs"]
+    from geomloss_tpu_torch.solvers.sinkhorn_loop import log_weights
+
+    dev = torch.device("cuda")
+    res = {"root": args.root, "report": "lse", "card": card}
+    loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)
+    kv1 = math.ceil((args.dim + 1) / 4)  # p = 2: a row's last slot carries minus its running max
+
+    def timed(label, name, call, pairs, kv, dense=None):
+        """CUDA events around ``reps`` calls (the host's pace where a call
+        is short), and the device time of one call (``torch.profiler``:
+        its kernels alone, PyTorch's included)."""
+        t = event_ms(call, args.reps)
+        _, busy, n_launch, _ = profile_busy_ms(lambda: [call() for _ in range(args.reps)], top=None)
+        slots = pair_slots(name, kv)
+        e = {"ms": t, "device_ms": busy / args.reps, "device_launches": n_launch / args.reps, "pairs": pairs,
+             "mufu_bound_ms": 1e3 * pairs / (MUFU_PER_CLOCK * clock), "issue_floor_ms": issue_ms(slots, pairs, clock),
+             "slots": slots}
+        if dense is not None:
+            e["dense_pytorch_ms"] = event_ms(dense, args.reps)
+        res[label] = e
+        print(f"[lse] {label}: {t:.4f} ms (CUDA events, {args.reps} reps), device {e['device_ms']:.4f} ms in "
+              f"{e['device_launches']:g} launches (torch.profiler), MUFU bound {e['mufu_bound_ms']:.4f} ms, issue floor "
+              f"{e['issue_floor_ms']:.4f} ms ({slots} slots per pair)"
+              + (f", dense PyTorch logsumexp over cdist {e['dense_pytorch_ms']:.4f} ms" if dense else "")
+              + f"; card {card}", flush=True)
+
+    tables7 = []
+    for n in sorted({100_000, max(args.sizes)}):
+        x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+        y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+        value_and_grad(lambda x: loss(x, y0), x0)
+        with recording(ck, ("lse",)) as rec, recording(cbs, ("lse_tiles",)) as rec7:
+            value_and_grad(lambda x: loss(x, y0), x0)
+        torch.cuda.synchronize()
+        # Kernel 1's device time in one call (its kernels and merges), and
+        # the call's busy and idle share.
+        wall, busy, n_launch, rows = profile_busy_ms(lambda: value_and_grad(lambda x: loss(x, y0), x0), top=None)
+        k1 = {k: v for k, v in kernel_times(rows).items() if "lse" in k}
+        res[f"call_n{n}"] = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+                             "device_launches": n_launch, "lse_kernels": k1}
+        print(f"[lse] bench.py's call N=M={n} profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"{100 * (1 - busy / wall):.1f} %, {n_launch} launches; kernels 1 and 7 (ms, launches) "
+              f"{json.dumps(k1)}; card {card}", flush=True)
+        shapes = {}
+        for a, kw in rec["lse"]:
+            key = (a[0].shape[0], a[1].shape[0])
+            shapes.setdefault(key, [0, a, kw])[0] += 1
+        res[f"lse_calls_n{n}"] = {f"{k[0]}x{k[1]}": v[0] for k, v in shapes.items()}
+        print(f"[lse] bench.py's call N=M={n}: kernel-1 calls by shape {json.dumps(res[f'lse_calls_n{n}'])}, "
+              f"kernel-7 calls {len(rec7['lse_tiles'])}", flush=True)
+        for (N, M), (count, a, kw) in sorted(shapes.items()):
+            x, y, h, eps = a[:4]
+            p = a[4] if len(a) > 4 else kw.get("p", 2)
+            dense = None
+            if N * M <= 16384 * 16384:
+                dense = lambda x=x, y=y, h=h, eps=eps: torch.logsumexp(  # noqa: E731
+                    h[None, :] - torch.cdist(x, y).square() / (2 * eps), dim=1)
+            timed(f"lse_{N}x{M}_in_n{n}", "lse", lambda a=a, kw=kw: ck.lse(*a, **kw), N * M, kv1, dense)
+        if n == max(args.sizes):
+            tables7 = [a for a, _ in rec7["lse_tiles"]]
+        del x0, y0, rec, rec7
+        torch.cuda.empty_cache()
+    # Device kernels of one call at the coarse shape (PyTorch's and kernel 1's).
+    x = torch.from_numpy(sphere_cloud(4096, 0, args.dim)).to(dev)
+    y = torch.from_numpy(sphere_cloud(4096, 1, args.dim)).to(dev)
+    h = torch.full((4096,), -math.log(4096), device=dev)
+    for p in (2, 1):
+        _, _, n_launch, rows = profile_busy_ms(lambda: ck.lse(x, y, h, 0.05**p, p), top=None)
+        res[f"lse_device_launches_p{p}"] = {"launches": n_launch, "kernels": kernel_times(rows)}
+        print(f"[lse] one lse call N=M=4096 p={p}: {n_launch} device kernel launches: "
+              f"{json.dumps({k: v[1] for k, v in kernel_times(rows).items()})}", flush=True)
+    for n, dim in ((100_000, args.dim), (10_000, 32)):
+        x = torch.from_numpy(sphere_cloud(n, 0, dim)).to(dev)
+        y = torch.from_numpy(sphere_cloud(n, 1, dim)).to(dev)
+        h = torch.full((n,), -math.log(n), device=dev)
+        timed(f"lse_n{n}_d{dim}", "lse", lambda: ck.lse(x, y, h, 0.05**2, 2), n * n, math.ceil((dim + 1) / 4))
+    for k, a in enumerate(tables7):
+        kept = int(a[5].clamp(max=a[4].shape[1]).sum())
+        timed(f"lse_tiles_extrapolation{k}_n{max(args.sizes)}", "lse_tiles", lambda a=a: cbs.lse_tiles(*a),
+              kept * a[6] * a[7], kv1)
+    # Kernel 9: softmin_sparse's forward on the uncapped geometry table of
+    # the gaussian MMD's truncated route at 1e5.
+    n = 100_000
+    x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+    with recording(ks, ("kernel_matvec_sparse",)) as rec, torch.no_grad():
+        SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")(x0, y0)
+    (xs, ys, v, _, mask0), kw = rec["kernel_matvec_sparse"][2]
+    aw = rec["kernel_matvec_sparse"][0][0][2]
+    tile = kw["block"]
+    mask = tbs.masks_from_geometry(xs, ys, 0.3, tile, cap=ys.shape[0] // tile, w_x=aw, w_y=v)
+    kept = int(mask.counts.clamp(max=mask.cols.shape[1]).sum())
+    a9 = (xs, ys, log_weights(v), 0.01, mask.cols, mask.counts, 2, tile, tile)
+    res["lse_sparse_table"] = {"row_tiles": mask.cols.shape[0], "width": mask.cols.shape[1], "kept": kept,
+                               "row_max": int(mask.counts.max())}
+    timed(f"lse_sparse_n{n}", "lse_sparse", lambda: cbs.lse_sparse(*a9), kept * tile * tile, kv1)
+    print(json.dumps(res), flush=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse", "online"),
-                    default=["tiles", "step", "sparse", "online"])
+    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse", "online", "lse"),
+                    default=["tiles", "step", "sparse", "online", "lse"])
     ap.add_argument("--sizes", type=int, nargs="+", default=[100_000, 2_000_000])
     ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--backend", default="auto")
@@ -454,6 +573,7 @@ def main():
     from geomloss_tpu_torch import SamplesLoss
     from geomloss_tpu_torch.models import kernel_samples as ks
     from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as tbs
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
     from geomloss_tpu_torch.ops import cuda_kernels as ck
 
@@ -465,7 +585,7 @@ def main():
           flush=True)
     if not args.no_build_report:
         build_report(libs, args.dump)
-    mods = dict(SamplesLoss=SamplesLoss, ms=ms, ks=ks, cbs=cbs, ck=ck)
+    mods = dict(SamplesLoss=SamplesLoss, ms=ms, ks=ks, cbs=cbs, ck=ck, tbs=tbs)
     if "step" in args.report:
         step_report(torch, mods, args, card, clock)
     if "sparse" in args.report:
@@ -474,6 +594,8 @@ def main():
         online_report(torch, mods, args, card, clock)
     if "tiles" in args.report:
         tiles_report(torch, mods, args, card)
+    if "lse" in args.report:
+        lse_report(torch, mods, args, card, clock)
 
 
 if __name__ == "__main__":

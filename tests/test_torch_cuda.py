@@ -708,3 +708,143 @@ def test_energy_mmd_holds_its_tolerance(cuda_device):
     torch.testing.assert_close(v64, t_xx + t_yy - t_xy, rtol=1e-9, atol=1e-12)
     assert abs(v.double() - v64).item() <= 1e-5 * (abs(t_xx) + abs(t_yy) + abs(t_xy)).item()
     assert (g.double() - g64).norm().item() <= 1e-3 * max(g_self.norm().item(), g_cross.norm().item())
+
+
+# ------------------------------------------------------------------------------
+#  Kernels 1 and 7 (and 9, on 7) on the register-tiled LSE stage: column
+#  slices and kept-tile ranges merged by a second kernel, ragged shapes,
+#  every staged width and the wide form, columns of bias -inf
+# ------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 11, 12, 32])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("M", [1, 63, 65, 4096, 4099])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 4096, 4099])
+def test_lse_kernel_slices_and_point_dims(cuda_device, N, M, p, D):
+    """Kernel 1 at ragged N and M (one column slice or many: lse_plan),
+    staged points up to three float4s (D <= 12) and wide ones (D = 32):
+    one launch per call, within the twin's tolerance, two calls bitwise
+    equal."""
+    x, y, h = tensors(*problem(N, M, D=D, seed=N + M + D + p), device=cuda_device)
+    eps = 0.1 * D
+    before = ck.launch_counts["lse"]
+    got = ck.lse(x, y, h, eps, p)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["lse"] - before == 1
+    torch.testing.assert_close(got, ck.lse_blocked(x, y, h, eps, p), **VAL_TOL)
+    assert torch.equal(got, ck.lse(x, y, h, eps, p))
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_lse_kernel_column_slice_of_neg_inf_biases(cuda_device, p):
+    """Zero-weight columns (bias -inf) filling whole column slices of
+    kernel 1 and part of another: their partials are (-inf, 0) and the
+    merge gives the LSE of the other columns; rows against nothing but
+    such columns give -inf."""
+    N, M = 300, 4096
+    S, width = ck.lse_plan(N, M)
+    assert S > 3
+    x, y, h = problem(N, M, seed=p)
+    h[: 2 * width] = -np.inf
+    h[3 * width + 5 : 3 * width + 40] = -np.inf
+    x, y, h = tensors(x, y, h, device=cuda_device)
+    got = _counted("lse", lambda: ck.lse(x, y, h, 0.2, p))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ck.lse_blocked(x, y, h, 0.2, p), **VAL_TOL)
+    assert torch.isneginf(ck.lse(x, y, torch.full_like(h, -np.inf), 0.2, p)).all()
+
+
+@pytest.mark.parametrize("p", [1, 2])
+def test_lse_kernel_one_slice_against_many(cuda_device, p, monkeypatch):
+    """Kernel 1 with its slices merged (the plan at 4,096 points) and in
+    one slice (``_LSE_BLOCKS = 1``: the block writes the LSE itself)."""
+    N = M = 4096
+    x, y, h = tensors(*problem(N, M, seed=7 + p), device=cuda_device)
+    assert ck.lse_plan(N, M)[0] * -(-N // 256) >= 264
+    many = ck.lse(x, y, h, 0.05, p)
+    monkeypatch.setattr(ck, "_LSE_BLOCKS", 1)
+    assert ck.lse_plan(N, M)[0] == 1
+    torch.testing.assert_close(ck.lse(x, y, h, 0.05, p), many, **VAL_TOL)
+
+
+def _long_row_table(n_tiles, m_tiles, seed):
+    """A kept-tile table whose row 0 keeps every source tile while the
+    others keep one to three: the split path's case."""
+    cols, counts = kept_table(n_tiles, m_tiles, m_tiles, seed=seed)
+    rng = np.random.RandomState(seed)
+    cols[0] = rng.permutation(m_tiles)
+    counts[0] = m_tiles
+    counts[1:] = np.minimum(counts[1:], rng.randint(1, 4, n_tiles - 1))
+    return cols, counts
+
+
+@pytest.mark.parametrize("D", [3, 13])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("block_m", [128, 256, 512, 1024])
+def test_lse_tiles_kernel_splits_long_rows(cuda_device, block_m, p, D, monkeypatch):
+    """Kernel 7 at every block_m of its callers (128 on the mid path's
+    extrapolations: two kept tiles a stage; 512 for lse_sparse; 1024), over
+    a table with one long row among short ones: its kept tiles split into
+    ranges (lse_tiles_plan) merged by a second kernel, the same within the
+    twin's tolerance as one range per row, two calls bitwise equal."""
+    n_tiles, m_tiles, block_n = 4, 9, 256
+    x, y, h = problem(n_tiles * block_n, m_tiles * block_m, D=D, seed=block_m + p + D)
+    cols, counts = _long_row_table(n_tiles, m_tiles, seed=block_m + D)
+    args = (*tensors(x, y, h, device=cuda_device), 0.05 * D if p == 2 else 0.2,
+            *tensors(cols, counts, device=cuda_device), block_n, block_m, p)
+    assert cbs.lse_tiles_plan(n_tiles, block_n, m_tiles, x.shape[0])[0] > 1
+    got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
+    ref = cbs.lse_tiles_blocked(*args)
+    torch.testing.assert_close(got, ref, **VAL_TOL)
+    assert torch.equal(got, cbs.lse_tiles(*args))
+    monkeypatch.setattr(cbs, "_LSE_TILES_BLOCKS", 1)
+    assert cbs.lse_tiles_plan(n_tiles, block_n, m_tiles, x.shape[0])[0] == 1
+    torch.testing.assert_close(cbs.lse_tiles(*args), ref, **VAL_TOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("block_m", [128, 256, 512, 1024])
+def test_lse_sparse_splits_long_rows(cuda_device, block_m, p):
+    """Kernel 9 (lse_sparse, on kernel 7's CUDA kernel) over the long-row
+    table at every block_m: within the twin's tolerance, bitwise repeats,
+    counted under its own name."""
+    n_tiles, m_tiles = 3, 7
+    x, y, h = problem(n_tiles * 256, m_tiles * block_m, seed=block_m + 3 * p)
+    cols, counts = _long_row_table(n_tiles, m_tiles, seed=block_m + p)
+    x, y, h, cols, counts = tensors(x, y, h, cols, counts, device=cuda_device)
+    call = lambda: cbs.lse_sparse(x, y, h, 0.1, cols, counts, p, 256, block_m)  # noqa: E731
+    got = _counted("lse_sparse", call, cbs.launch_counts)
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(x, y, h, 0.1, cols, counts, 256, block_m, p), **VAL_TOL)
+    assert torch.equal(got, call())
+
+
+def _sphere(n, seed):
+    v = np.random.RandomState(seed).randn(n, 3)
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("blocks", [1, None])
+@pytest.mark.parametrize("p", [1, 2])
+def test_lse_kernels_after_zero_weight_columns(cuda_device, p, blocks, monkeypatch):
+    """Columns of log weight -1e5 (the multiscale path's zero-weight
+    blocks) met first by a row, at the mid path's eps on unit spheres: the
+    running max starts far below the true one, and the rebase must not
+    lose the digits of the pass that raises it (kernel 1 in one slice and
+    in the plan's slices; kernel 7 whose first kept tiles hold them)."""
+    if blocks:
+        monkeypatch.setattr(ck, "_LSE_BLOCKS", blocks)
+        monkeypatch.setattr(cbs, "_LSE_TILES_BLOCKS", blocks)
+    eps = 0.0039 if p == 2 else 0.05
+    x, y = _sphere(512, p), _sphere(1024, p + 1)
+    h = (0.1 * np.random.RandomState(p).randn(1024) - 7).astype(np.float32)
+    h[:64] = -99996.9
+    h[300:420] = -99996.9
+    xt, yt, ht = tensors(x, y, h, device=cuda_device)
+    got = _counted("lse", lambda: ck.lse(xt, yt, ht, eps, p))
+    torch.testing.assert_close(got, ck.lse_blocked(xt, yt, ht, eps, p), **VAL_TOL)
+    cols = np.tile(np.array([0, 2, 3, 5, 6, 7], np.int32), (2, 1))
+    counts = np.array([6, 4], np.int32)
+    args = (xt, yt, ht, eps, *tensors(cols, counts, device=cuda_device), 256, 128, p)
+    got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
+    torch.testing.assert_close(got, cbs.lse_tiles_blocked(*args), **VAL_TOL)

@@ -57,6 +57,26 @@ def test_lse_twin_matches_pallas(p, shape):
 
 
 @pytest.mark.parametrize("p", [1, 2])
+def test_lse_twin_zero_weight_columns_match_jax(p):
+    """Columns of bias -inf (zero-weight points: the padding of the coarse
+    and mid clouds) filling the twin's first column block and another one:
+    the JAX package's streaming LSE gives the LSE of the other columns, and
+    so does the twin (no inf - inf); rows whose every bias is -inf give
+    -inf in both."""
+    from geomloss_tpu.ops.softmin import lse_points
+
+    N, M = 70, 7 * SMALL_BLOCK + 13
+    x, y, h = problem(N, M, seed=5 + p)
+    h[:SMALL_BLOCK] = -np.inf
+    h[3 * SMALL_BLOCK : 4 * SMALL_BLOCK + 7] = -np.inf
+    for hh in (h, np.full_like(h, -np.inf)):
+        expected = np.asarray(lse_points(jnp.asarray(x), jnp.asarray(y), jnp.asarray(hh), 0.21, p, "scan"))
+        got = ck.lse_blocked(*tensors(x, y, hh), 0.21, p, block_m=SMALL_BLOCK).numpy()
+        assert not np.isnan(got).any()
+        np.testing.assert_allclose(got, expected, **VAL_TOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_sinkhorn_step_twin_matches_pallas(p, shape):
     N, M = shape

@@ -62,9 +62,10 @@ def test_gaussian_mmd_online_at_wide_dim_matches_jax():
     _close(tg, jg, GRAD_RTOL)
 
 
-# D -> (online width, block-sparse width): the compiled widths up to 16 and
-# 8, multiples of them above.
-PADDED = {1: (1, 1), 3: (3, 3), 9: (16, 16), 17: (32, 24), 64: (64, 64)}
+# D -> (row stride of the LSE kernels' points at p = 2: raw up to three
+# float4s, D + 1 floats, else padded to whole float4s; kernel 12's width:
+# the compiled widths up to 8, multiples of 8 above).
+PADDED = {1: (1, 1), 3: (3, 3), 9: (9, 16), 17: (20, 24), 64: (68, 64)}
 
 
 @pytest.mark.parametrize("D", sorted(PADDED))
@@ -72,13 +73,15 @@ def test_points_pad_any_dim(D):
     rng = np.random.RandomState(D)
     x = torch.tensor(rng.rand(5, D), dtype=torch.float64)
     y = torch.tensor(rng.rand(7, D), dtype=torch.float32)
-    for dims, width in zip((ck._KERNEL_DIMS, cbs._KERNEL_DIMS), PADDED[D]):
-        assert ck.padded_dim(D, dims) == width
-        (xp, yp), Dk = ck._points("test", x, y, dims=dims)
-        assert Dk == width
-        for got, src in ((xp, x), (yp, y)):
-            assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == (src.shape[0], width)
-            assert torch.equal(got[:, :D], src.float()) and not got[:, D:].any()
+    (xl, yl), ld, kv = ck._lse_points("test", x, y, p=2)
+    assert ld == PADDED[D][0] and kv == -(-(D + 1) // 4)
+    width = PADDED[D][1]
+    assert ck.padded_dim(D, cbs._KERNEL_DIMS) == width
+    (xp, yp), Dk = ck._points("test", x, y, dims=cbs._KERNEL_DIMS)
+    assert Dk == width
+    for got, src, w in ((xp, x, width), (yp, y, width), (xl, x, ld), (yl, y, ld)):
+        assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == (src.shape[0], w)
+        assert torch.equal(got[:, :D], src.float()) and not got[:, D:].any()
     # Kernels 5 and 6: p = 2 rows [c2 x, 0..., 1], columns [y, 0..., bias];
     # p = 1 the coordinates; zero-padded to kv float4 vectors.
     phi, psi = torch.zeros(5, dtype=torch.float64), torch.ones(7, dtype=torch.float64)
