@@ -18,11 +18,10 @@
 // What bounds these kernels on an H100: the exponential, as for the online
 // kernels (one exp2 per kept pair, 16 MUFU results per clock per SM), and,
 // once the few FFMAs of a pair come near it, instruction issue; a kept pair
-// reads nothing but the two tiles' coordinates and biases. Kernels 5-8 run
-// register-tiled pair blocks (pair_common.cuh) to stay near that bound:
-// kernels 5, 6 and 8 over packed points, kernel 7 over the raw points
-// (lse_stage, shared with kernel 1); kernel 12 keeps one thread per row
-// and, above D = 8, a wide instantiation in chunks of 8 coordinates.
+// reads nothing but the two tiles' coordinates and biases. Every kernel
+// here runs register-tiled pair blocks (pair_common.cuh) to stay near that
+// bound: kernels 5, 6, 8 and 12 over packed points, kernel 7 over the raw
+// points (lse_stage, shared with kernel 1).
 //
 // Kernels 5 and 6 serve square tiles of a symmetric tiling; kernels 7, 8
 // and 12 read a (cols, cnt) table directly, with row tiles of block_n
@@ -30,7 +29,8 @@
 // CSR form, row tile I visiting cols[row_start[I] + k] for k < cnt[I]:
 // the wrapper passes row_start = I * ck for a dense (nI, ck) table (with
 // cnt clamped at ck), or the row starts of a walk table it decoded on the
-// device (kernels 10 and 11 of the JAX package run on these two).
+// device (walk_rows_kernel; kernels 10 and 11 of the JAX package run on
+// these two).
 //
 // The TPU walked the kept pairs in order and carried the column sums in
 // VMEM from one grid step to the next, flushing them at band markers. CUDA
@@ -49,9 +49,6 @@
 #include "pair_common.cuh"
 
 namespace {
-
-// Coordinates per chunk of kernel 12's wide instantiation (D above 8).
-constexpr int kWideChunk = 8;
 
 // -----------------------------------------------------------------------------
 // 5. Absorbed sums over the kept tile pairs. Replaces
@@ -427,58 +424,125 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
 //    wrapper floors them and takes the log). No max pass: the annealing
 //    bounds the absorbed weights (block_sparse.py, "Single-pass absorbed
 //    sparse softmin"), and phi_i stays inside the exponent.
-//    Bound: one exp2 per kept pair (p = 1 adds a sqrt). Design: kernel 8's
-//    CSR indirection with one thread per row, each kept tile staged in
-//    shared memory (Tile, pair_common.cuh), and the absorbed weight
-//    (absorbed_tile), no V: one float32
-//    accumulator per row taking one partial per staged tile. Each output row is written
-//    once: no scratch, no atomics, bitwise reproducible.
+//    Bound: one exp2 per kept pair (MUFU: 16 per clock per SM); at p = 2,
+//    D = 3 a pair also takes D + 1 FFMAs and one add, about 6 issue slots,
+//    under the MUFU rate's 8.
+//    Design: kernel 5's register-tiled stage in its row-only form
+//    (step_stage<P, KV, false>, pair_common.cuh) over kernel 8's CSR
+//    indirection: packed float4 points, 8 rows a lane in registers, one
+//    ex2.approx and one add per pair, row sums in registers over the
+//    block's kept tiles, added over the 8 warps once at the end. A source
+//    tile of any block_m goes through in stages of kTile columns, the
+//    ragged last pass padded with columns of bias -inf. Block (I, h, q)
+//    takes the 256-row slice h of row tile I against its kept tiles
+//    floor(q cnt / S) .. floor((q + 1) cnt / S) - 1, S = gridDim.z: every
+//    row, long or short, is cut into S ranges of about equal length, so a
+//    table whose rows differ widely in length still keeps the card's SMs
+//    busy to the end. The ranges depend on the row's count alone, which a
+//    (cols, counts) table and its unclipped walk share, so the two forms
+//    give bitwise-equal sums. With S = 1 the block writes out_i itself;
+//    with more, each writes its rows' partial to part[q, i] (an empty range
+//    writes 0) and sum_merge_kernel adds the S partials in range order.
+//    Every entry written once, no atomics: bitwise reproducible. Points of
+//    up to kStepStaged float4s (D <= 11 at p = 2, D <= 12 at p = 1) are
+//    staged; wider ones (KV = 0) are read from global memory per pass. One
+//    float4 a point (D <= 3 at p = 2) is held to 85 registers, three blocks
+//    an SM: 80 registers, no spill, against 115 and two blocks unbounded,
+//    8 % faster on an H100 (PERF.md, PR 10); 64 registers (four) spill.
 // -----------------------------------------------------------------------------
-template <int D, int P>
-__global__ void __launch_bounds__(kThreads)
-sparse_sum_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  const float* __restrict__ phi, const float* __restrict__ psi,
+template <int P, int KV>
+__global__ void __launch_bounds__(kThreads, KV == 1 ? 3 : 1)
+sparse_sum_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
+                  const float* __restrict__ rb, const float* __restrict__ cb,
                   const int* __restrict__ cols, const int* __restrict__ row_start,
-                  const int* __restrict__ cnt, float* __restrict__ out, int block_n,
-                  int block_m, int dw, float c2) {
+                  const int* __restrict__ cnt, float* __restrict__ out, float* __restrict__ part,
+                  int N, int block_n, int block_m, int kv, float c2) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ StepSmem<P, KS, WIDE> sm;
+  const int lane = threadIdx.x & 31;
   const int I = blockIdx.x;
   const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
-  const bool valid = threadIdx.x < rows;
-  const int64_t i = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads + threadIdx.x;
-  const int* row_cols = cols + row_start[I];
-  const int n_kept = cnt[I];
-  float acc = 0.f;
-  if constexpr (D == 0) {
-    __shared__ WideStage<kWideChunk> st;
-    const float bi = valid ? phi[i] : 0.f;
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-      for (int g = 0; g < block_m; g += kGroup) {
-        const int n = min(kGroup, block_m - g);
-        float a[kGroup];
-        wide_scores<kWideChunk, P == 1>(x, i, valid, P == 2 ? c2 : 1.f, y, psi, j_tile + g, n, dw, st, a);
-        float part = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kGroup; ++kk)
-          part += (valid && kk < n) ? exp2f(wide_arg<P>(a[kk], bi + st.bias[kk], c2)) : 0.f;
-        acc += part;
-      }
-    }
-  } else {
-    __shared__ Tile<D> t;
-    const Row<D> r = load_row<D>(x, phi, i, valid, P == 2 ? c2 : 1.f);
-    for (int k = 0; k < n_kept; ++k) {
-      const int64_t j_tile = (int64_t)row_cols[k] * block_m;
-      for (int c0 = 0; c0 < block_m; c0 += kTile) {
-        const int n = min(kTile, block_m - c0);
-        __syncthreads();
-        load_tile<D>(t, y, psi, j_tile + c0, n);
-        __syncthreads();
-        acc += absorbed_tile<D, P>(r, t, n, valid, c2);
-      }
-    }
+  const int64_t i0 = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads;
+  const int S = gridDim.z;
+  const int64_t n_kept = cnt[I];
+  const int t0 = (int)(blockIdx.z * n_kept / S);
+  const int t1 = (int)((blockIdx.z + 1) * n_kept / S);
+  float* dst = (S == 1 ? out : part + (int64_t)blockIdx.z * N) + i0;
+  if (t1 <= t0) {  // an empty range (or row)
+    if (threadIdx.x < rows) dst[threadIdx.x] = 0.f;
+    return;
   }
-  if (valid) out[i] = acc;
+  float4 xr[kPairRows][KS];
+  float br[kPairRows], racc[kPairRows];
+  load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) racc[r] = 0.f;
+  const int* row_cols = cols + row_start[I];
+  for (int k = t0; k < t1; ++k) {
+    const int64_t j_tile = (int64_t)row_cols[k] * block_m;
+    for (int c0 = 0; c0 < block_m; c0 += kTile)
+      step_stage<P, KV, false>(sm, xr, br, racc, xv, i0, rows, kv, yv, cb, j_tile + c0,
+                               min(kTile, block_m - c0), 0, false, nullptr, c2);
+  }
+  const float sum = block_row_sum(sm, racc);
+  if (threadIdx.x < rows) dst[threadIdx.x] = sum;
+}
+
+// Second pass of kernel 12 when its rows are cut into S > 1 ranges: out[i]
+// = the S partials part[q, i], added in range order from 0. One thread per
+// row. Bound: reading the partials once.
+__global__ void __launch_bounds__(kThreads)
+sum_merge_kernel(const float* __restrict__ part, float* __restrict__ out, int N, int S) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= N) return;
+  float sum = 0.f;
+  for (int q = 0; q < S; ++q) sum += part[(int64_t)q * N + i];
+  out[i] = sum;
+}
+
+// -----------------------------------------------------------------------------
+// Decode of a walk table (cuda_block_sparse.walk_plan) into the CSR form of
+// kernels 8 and 12, for kernels 10 and 11: the flat column tiles, each row
+// tile's first step and its live steps. A step packs fl << 26 | row << 13
+// | jt (fl 1 a row's first step, 0 a continuation, 2 dead padding; row the
+// row tile within its chunk of rows_c rows and T_c steps). walk_plan lays
+// a chunk's steps out in row order, a row's live steps consecutive from
+// its first one, so thread I finds row tile I's first step by binary
+// search over its chunk's row fields and counts the live steps after it;
+// a row tile with no first step keeps nothing (start 0, count 0). Thread
+// t also writes flat column t. One launch, no atomics, no host read; the
+// same result as the PyTorch form (cuda_block_sparse._walk_rows_plain).
+// Bound: reading the table once.
+// -----------------------------------------------------------------------------
+constexpr int kWalkBits = 13;
+constexpr int kWalkMask = (1 << kWalkBits) - 1;
+
+__device__ __forceinline__ int walk_row(int w) { return (w >> kWalkBits) & kWalkMask; }
+__device__ __forceinline__ int walk_flag(int w) { return (w >> 26) & 3; }
+
+__global__ void __launch_bounds__(kThreads)
+walk_rows_kernel(const int* __restrict__ tbl, int* __restrict__ cols, int* __restrict__ start,
+                 int* __restrict__ cnt, int64_t steps, int T_c, int rows_c, int nI) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (t < steps) cols[t] = tbl[t] & kWalkMask;
+  if (t >= nI) return;
+  const int r = (int)(t % rows_c);
+  const int* ch = tbl + (t / rows_c) * T_c;
+  int lo = 0, hi = T_c;  // the first step of the chunk whose row field is >= r
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (walk_row(ch[mid]) < r) lo = mid + 1;
+    else hi = mid;
+  }
+  int s = 0, n = 0;
+  if (lo < T_c && walk_row(ch[lo]) == r && walk_flag(ch[lo]) == 1) {
+    s = (int)((t / rows_c) * T_c + lo);
+    n = 1;
+    while (lo + n < T_c && walk_row(ch[lo + n]) == r && walk_flag(ch[lo + n]) == 0) ++n;
+  }
+  start[t] = s;
+  cnt[t] = n;
 }
 
 // -----------------------------------------------------------------------------
@@ -647,19 +711,53 @@ int gl_gibbs_apply_sparse(const float* xv, const float* yv, const float* rb,
   return (int)cudaGetLastError();
 }
 
-// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt).
-int gl_absorbed_sum_sparse(const float* x, const float* y, const float* phi,
-                           const float* psi, const int* cols, const int* row_start,
-                           const int* cnt, float* out, int n_rows, int block_n, int block_m,
-                           int D, int p, float c2, void* stream) {
+// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt); xv
+// and yv the packed points (kv float4 each), rb and cb their biases (cb
+// read for p = 1 only); n_split ranges of each row's kept tiles, part
+// (n_split, N) where n_split > 1; out (N,).
+int gl_absorbed_sum_sparse(const float* xv, const float* yv, const float* rb,
+                           const float* cb, const int* cols, const int* row_start,
+                           const int* cnt, float* out, float* part, int n_rows, int block_n,
+                           int block_m, int n_split, int kv, int p, float c2, void* stream) {
   if (n_rows == 0) return (int)cudaSuccess;
-  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  if ((p != 1 && p != 2) || kv < 1 || block_n < 1 || block_m < 1 || n_split < 1 || n_split > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int N = n_rows * block_n;
+  const dim3 grid(n_rows, cdiv(block_n, kThreads), n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p != 1 && p != 2) return (int)cudaErrorInvalidValue;
-  const int dw = D;
-  GL_DISPATCH_D8(D,
-    if (p == 2) sparse_sum_kernel<D, 2><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, dw, c2);
-    else sparse_sum_kernel<D, 1><<<grid, kThreads, 0, s>>>(x, y, phi, psi, cols, row_start, cnt, out, block_n, block_m, dw, c2))
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+#define GL_SUM(P, KV)                                                                                       \
+  sparse_sum_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, cols, row_start, cnt, out, part, N, \
+                                                     block_n, block_m, kv, c2)
+#define GL_SUM_KV(P)                                  \
+  switch (kv) {                                       \
+    case 1: GL_SUM(P, 1); break;                      \
+    case 2: GL_SUM(P, 2); break;                      \
+    case kStepStaged: GL_SUM(P, kStepStaged); break;  \
+    default: GL_SUM(P, 0); break;                     \
+  }
+  if (p == 2) GL_SUM_KV(2)
+  else GL_SUM_KV(1)
+#undef GL_SUM_KV
+#undef GL_SUM
+  const int err = (int)cudaGetLastError();
+  if (err || n_split == 1) return err;
+  sum_merge_kernel<<<cdiv(N, kThreads), kThreads, 0, s>>>(part, out, N, n_split);
+  return (int)cudaGetLastError();
+}
+
+// tbl (nc, T_c) int32 walk steps of nI row tiles in chunks of rows_c;
+// cols (nc T_c,), start (nI,) and cnt (nI,) int32.
+int gl_walk_rows(const int* tbl, int* cols, int* start, int* cnt, int nc, int T_c, int rows_c, int nI,
+                 void* stream) {
+  const int64_t steps = (int64_t)nc * T_c;
+  const int64_t n = steps > nI ? steps : nI;
+  if (n == 0) return (int)cudaSuccess;
+  if (T_c < 1 || rows_c < 1 || (int64_t)cdiv(nI, rows_c) > nc) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  walk_rows_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(tbl, cols, start, cnt, steps, T_c,
+                                                                                  rows_c, nI);
   return (int)cudaGetLastError();
 }
 

@@ -1,26 +1,16 @@
 // Device code shared by the pair-interaction kernels of geomloss_tpu_torch
 // (online_kernels.cu, block_sparse_kernels.cu), for Hopper (sm_90a).
 //
-// Two designs. Kernels 1-8 (and 9 and 11, on kernels 7 and 8) run the
-// register-tiled pair blocks in the second half of this file: kernels 2-6
-// and 8 over points packed by the wrapper (cuda_kernels._pair_vectors),
-// kernels 1 and 7 (the LSE stage) over the raw points, packed as they are
-// loaded. Kernel 12 keeps one thread per row, in the first half:
-//
-// x is (N, D) and y is (M, D), float32, row-major, with D zero-padded to a
-// compiled width. One thread owns one row i and keeps its coordinates in
-// registers; the block stages kTile columns of y (coordinates and column
-// bias) in shared memory, where every thread of the block reads the same
-// address (broadcast, no bank conflicts). Pair scores are explicit float32
-// FFMAs, never TF32:
+// Every kernel (1-8 and 12; 9, 10 and 11 run on kernels 7, 12 and 8) is a
+// register-tiled pair block: kernels 2-6, 8 and 12 over points packed by
+// the wrapper (cuda_kernels._pair_vectors), kernels 1 and 7 (the LSE
+// stage) over the raw points, packed as they are loaded. Pair scores are
+// explicit float32 FFMAs, never TF32:
 //   p = 2: arg = bias_i + bias_j + <c2 x_i, y_j>, the squared norms being
-//          folded into the biases (D FFMAs and one add);
+//          folded into the biases;
 //   p = 1: d = sqrt(max(|x_i - y_j|^2, 1e-8)) from coordinate differences,
 //          so a near pair carries no cancellation noise, and
 //          arg = bias_i + bias_j - c2 d.
-// Above the compiled widths, D is padded to a multiple of the widest and
-// the kernel's wide instantiation (D = 0) builds the scores of a group of
-// columns up over coordinate chunks (wide_scores).
 
 #pragma once
 
@@ -30,7 +20,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // rows per block, one thread per row
+constexpr int kThreads = 256;  // rows per block
 constexpr int kTile = 256;     // columns per shared-memory tile (== kThreads)
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -38,149 +28,10 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kSqdistFloor = 1e-8f;  // clamp before sqrt
 constexpr float kGradCut = 1e-6f;      // distance-gradient weights vanish below
 
-// Row state: coordinates (scaled by c2 for p = 2) and base-2 row bias.
-template <int D>
-struct Row {
-  float x[D];
-  float bias;
-};
-
-template <int D>
-__device__ __forceinline__ Row<D> load_row(const float* __restrict__ x,
-                                           const float* __restrict__ bias,
-                                           int64_t i, bool valid, float scale) {
-  Row<D> r;
-#pragma unroll
-  for (int d = 0; d < D; ++d) r.x[d] = valid ? scale * x[i * D + d] : 0.f;
-  r.bias = (valid && bias != nullptr) ? bias[i] : 0.f;
-  return r;
-}
-
-// Column tile in shared memory.
-template <int D>
-struct Tile {
-  float y[D][kTile];
-  float bias[kTile];
-};
-
-template <int D>
-__device__ __forceinline__ void load_tile(Tile<D>& t, const float* __restrict__ y,
-                                          const float* __restrict__ bias, int64_t j0,
-                                          int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int64_t j = j0 + k;
-#pragma unroll
-    for (int d = 0; d < D; ++d) t.y[d][k] = y[j * D + d];
-    t.bias[k] = bias != nullptr ? bias[j] : 0.f;
-  }
-}
-
-// |x_i - y_j|^2 from coordinate differences.
-template <int D>
-__device__ __forceinline__ float pair_sq(const Row<D>& r, const Tile<D>& t, int k) {
-  float sq = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float diff = r.x[d] - t.y[d][k];
-    sq = fmaf(diff, diff, sq);
-  }
-  return sq;
-}
-
-// Base-2 log of the absorbed weight of pair (i, j).
-template <int D, int P>
-__device__ __forceinline__ float pair_arg(const Row<D>& r, const Tile<D>& t, int k,
-                                          float c2) {
-  if constexpr (P == 2) {
-    float a = r.bias + t.bias[k];
-#pragma unroll
-    for (int d = 0; d < D; ++d) a = fmaf(r.x[d], t.y[d][k], a);
-    return a;
-  } else {
-    const float dist = sqrtf(fmaxf(pair_sq<D>(r, t, k), kSqdistFloor));
-    return fmaf(-dist, c2, r.bias + t.bias[k]);
-  }
-}
-
-// Row sums of exp2(arg) over one staged tile of n columns (kernel 12).
-template <int D, int P>
-__device__ __forceinline__ float absorbed_tile(const Row<D>& r, const Tile<D>& t, int n,
-                                               bool valid, float c2) {
-  float rsum = 0.f;
-  if (valid) {
-#pragma unroll 4
-    for (int col = 0; col < n; ++col) rsum += exp2f(pair_arg<D, P>(r, t, col, c2));
-  }
-  return rsum;
-}
-
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // -----------------------------------------------------------------------------
-// Wide point dimensions. Above a library's compiled widths, D is zero-padded
-// to a multiple of a chunk of DW coordinates (the widest build; padding adds
-// 0 to dot products and to squared differences). The scores of a group of
-// kGroup columns build up in a per-thread buffer over the coordinate chunks
-// (wide_scores), each chunk of the group's columns staged in shared memory;
-// then the absorbed sums run on the buffer (wide_arg), with the same
-// kSqdistFloor rule.
-// -----------------------------------------------------------------------------
-constexpr int kGroup = 32;
-
-template <int DW>
-struct WideStage {
-  float y[DW][kGroup];
-  float bias[kGroup];
-};
-
-// s[k] = <scale x_i, y_j> (SQ false) or |x_i - y_j|^2 (SQ true) for the
-// columns j = j0 + k, k < n <= kGroup (s[k] = 0 past n), each point dw
-// floats (a multiple of DW); the group's column biases go to st.bias (0
-// without `bias`). Every thread of the block calls it: it synchronises.
-template <int DW, bool SQ>
-__device__ __forceinline__ void wide_scores(const float* __restrict__ x, int64_t i, bool valid,
-                                            float scale, const float* __restrict__ y,
-                                            const float* __restrict__ bias, int64_t j0, int n,
-                                            int dw, WideStage<DW>& st, float (&s)[kGroup]) {
-#pragma unroll
-  for (int k = 0; k < kGroup; ++k) s[k] = 0.f;
-  for (int d0 = 0; d0 < dw; d0 += DW) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < DW * kGroup; e += blockDim.x) {
-      const int k = e / DW, d = e % DW;
-      st.y[d][k] = k < n ? y[(j0 + k) * dw + d0 + d] : 0.f;
-    }
-    if (d0 == 0 && threadIdx.x < kGroup)
-      st.bias[threadIdx.x] = (bias != nullptr && (int)threadIdx.x < n) ? bias[j0 + threadIdx.x] : 0.f;
-    __syncthreads();
-    float xr[DW];
-#pragma unroll
-    for (int d = 0; d < DW; ++d) xr[d] = valid ? scale * x[i * dw + d0 + d] : 0.f;
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-#pragma unroll
-      for (int d = 0; d < DW; ++d) {
-        if constexpr (SQ) {
-          const float diff = xr[d] - st.y[d][k];
-          s[k] = fmaf(diff, diff, s[k]);
-        } else {
-          s[k] = fmaf(xr[d], st.y[d][k], s[k]);
-        }
-      }
-    }
-  }
-}
-
-// Base-2 log weight from a wide score: p = 2 (s = <c2 x, y>) or p = 1
-// (s = |x - y|^2), `bias` the sum of both biases.
-template <int P>
-__device__ __forceinline__ float wide_arg(float s, float bias, float c2) {
-  if constexpr (P == 2) return bias + s;
-  else return fmaf(-sqrtf(fmaxf(s, kSqdistFloor)), c2, bias);
-}
-
-// -----------------------------------------------------------------------------
-// Register-tiled pair blocks (kernels 1-8). A block's 256 threads
+// Register-tiled pair blocks (kernels 1-8 and 12). A block's 256 threads
 // form a 32 x 8 grid over its 256 rows and a pass of 8 C columns: lane l
 // owns rows l + 32 r (r < kPairRows) and warp w the columns w C + c (c < C)
 // of each pass, so every shared-memory load of a column serves all rows of
@@ -189,15 +40,16 @@ __device__ __forceinline__ float wide_arg(float s, float bias, float c2) {
 // point:
 //   p = 2: row [c2 x, 0..., 1], column [y, 0..., bias]: a score is the row
 //          bias plus D + 1 FFMAs (the column bias rides as a coordinate);
-//   p = 1: row [x, 0...], column [y, 0...], the column bias apart:
-//          sqrt(max(|x - y|^2, 1e-8)) as pair_arg's.
-// A column the wrapper pads (the ragged last stage of kernels 2 and 3) has
-// bias -inf, so its weights are 0; so has a row past the end. Points of up
+//   p = 1: row [x, 0...], column [y, 0...], the column bias apart.
+// A column the wrapper pads (the ragged last stage of kernels 2 and 3), or
+// the row-only stage pads (a ragged pass of kernel 12), has bias -inf, so
+// its weights are 0; so has a row past the end. Points of up
 // to kStepStaged float4s are staged: a lane keeps its rows' vectors in
 // registers and the block stages kTile columns in shared memory. A wider
 // point (the wide instantiation, KV = 0) builds its R x C scores up in
 // registers over the kv chunks, read from global memory. Three stages serve
-// them: the absorbed sums (step_stage: kernels 2, 3 and 5), the row
+// them: the absorbed sums (step_stage: kernels 2, 3 and 5; its row-only
+// form kernel 12), the row
 // contraction with V (apply_stage: kernels 4 and 8) and the online
 // log-sum-exp (lse_stage: kernels 1 and 7), which packs the raw points
 // itself (its column bias apart at either p).
@@ -300,7 +152,9 @@ __device__ __forceinline__ void load_pair_rows(float4 (&xr)[kPairRows][KS], floa
 // over the 8 warps once at the end (block_row_sum); column sums stay in
 // kStepCols registers over a lane's 8 rows and go to shared memory, where
 // the stage adds its 32 lanes once, in a fixed order. No shuffles, no
-// atomics: deterministic.
+// atomics: deterministic. The row-only form (COLS false, kernel 12) has no
+// column sums: per pair the FFMAs, the MUFU.EX2 and one add. It takes any
+// n: a ragged last pass is padded with columns of bias -inf.
 // -----------------------------------------------------------------------------
 constexpr int kStepCols = 8;
 constexpr int kStepPass = kWarps * kStepCols;  // columns per pass: 64
@@ -317,12 +171,13 @@ struct StepSmem {
   __align__(16) float red[32][kRedPitch];
 };
 
-// One stage: the columns j0 .. j0 + n of yv (n a multiple of kStepPass),
-// against the lane's rows (xr, br; WIDE: xv's `rows` rows from i0, kv
-// float4s each). Adds the row sums into racc; with `cols`, writes the
-// column sums of the first n_out columns to cp[0 .. n_out), else zeros.
-// Every thread of the block calls it: it synchronises.
-template <int P, int KV>
+// One stage: the columns j0 .. j0 + n of yv (COLS: n a multiple of
+// kStepPass), against the lane's rows (xr, br; WIDE: xv's `rows` rows from
+// i0, kv float4s each). Adds the row sums into racc; with COLS and `cols`,
+// writes the column sums of the first n_out columns to cp[0 .. n_out),
+// with COLS alone zeros there; without COLS, n_out, cols and cp are not
+// read. Every thread of the block calls it: it synchronises.
+template <int P, int KV, bool COLS = true>
 __device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0>& sm,
                                            const float4 (&xr)[kPairRows][KV == 0 ? 1 : KV],
                                            const float (&br)[kPairRows], float (&racc)[kPairRows],
@@ -336,16 +191,28 @@ __device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0
   constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int n_pad = COLS ? n : (n + kStepPass - 1) / kStepPass * kStepPass;
   __syncthreads();  // the last stage's reads of ys, ycb and red are done
-  for (int k = threadIdx.x; k < n; k += kThreads) {
-    if constexpr (!WIDE) {
+  for (int k = threadIdx.x; k < n_pad; k += kThreads) {
+    if (COLS || k < n) {
+      if constexpr (!WIDE) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) sm.ys[kk][k] = yv[(j0 + k) * KS + kk];
+        for (int kk = 0; kk < KS; ++kk) sm.ys[kk][k] = yv[(j0 + k) * KS + kk];
+      }
+      if constexpr (P == 1) sm.ycb[k] = cb[j0 + k];
+    } else {
+      // A padded column: coordinates 0 and bias -inf (at p = 2 the bias
+      // rides in the last slot, whose row factor is 1).
+      if constexpr (!WIDE) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          sm.ys[kk][k] = make_float4(0.f, 0.f, 0.f, (P == 2 && kk == KS - 1) ? -INFINITY : 0.f);
+      }
+      if constexpr (P == 1) sm.ycb[k] = -INFINITY;
     }
-    if constexpr (P == 1) sm.ycb[k] = cb[j0 + k];
   }
   __syncthreads();
-  for (int b = 0; b < n; b += kStepPass) {
+  for (int b = 0; b < n_pad; b += kStepPass) {
     const int cb0 = b + warp * C;
     float cacc[C];
     if constexpr (!WIDE) {
@@ -363,7 +230,7 @@ __device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0
           for (int kk = 0; kk < KS; ++kk) sc = packed_acc<P>(xr[r][kk], y[kk], sc);
           const float w = packed_weight<P, -1>(sc, br[r] + bc, c2);
           racc[r] += w;
-          cs += w;
+          if constexpr (COLS) cs += w;
         }
         cacc[c] = cs;
       }
@@ -383,7 +250,8 @@ __device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0
         }
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const float4 y = yv[(j0 + cb0 + c) * kv + k];
+          // A padded column of the row-only form reads the stage's last one.
+          const float4 y = yv[(j0 + (COLS ? cb0 + c : min(cb0 + c, n - 1))) * kv + k];
 #pragma unroll
           for (int r = 0; r < R; ++r) s[r][c] = packed_acc<P>(xk[r], y, s[r][c]);
         }
@@ -391,33 +259,40 @@ __device__ __forceinline__ void step_stage(StepSmem<P, KV == 0 ? 1 : KV, KV == 0
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float bc = P == 1 ? sm.ycb[cb0 + c] : 0.f;
+        // At p = 2 the bias rides in the packed point: a padded column's
+        // scores are set to -inf here (at p = 1 its staged bias is -inf).
+        const bool pad = !COLS && P == 2 && cb0 + c >= n;
         float cs = 0.f;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float w = packed_weight<P, -1>(s[r][c], br[r] + bc, c2);
+          const float w = packed_weight<P, -1>(pad ? -INFINITY : s[r][c], br[r] + bc, c2);
           racc[r] += w;
-          cs += w;
+          if constexpr (COLS) cs += w;
         }
         cacc[c] = cs;
       }
     }
-    if (cols) {
+    if constexpr (COLS) {
+      if (cols) {
 #pragma unroll
-      for (int c = 0; c < C; c += 4)
-        *reinterpret_cast<float4*>(&sm.red[lane][cb0 + c]) =
-            make_float4(cacc[c], cacc[c + 1], cacc[c + 2], cacc[c + 3]);
+        for (int c = 0; c < C; c += 4)
+          *reinterpret_cast<float4*>(&sm.red[lane][cb0 + c]) =
+              make_float4(cacc[c], cacc[c + 1], cacc[c + 2], cacc[c + 3]);
+      }
     }
   }
-  if (cols) {
-    __syncthreads();
-    if (threadIdx.x < n_out) {
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+  if constexpr (COLS) {
+    if (cols) {
+      __syncthreads();
+      if (threadIdx.x < n_out) {
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int l = 0; l < 32; ++l) sum[l & 3] += sm.red[l][threadIdx.x];
-      cp[threadIdx.x] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+        for (int l = 0; l < 32; ++l) sum[l & 3] += sm.red[l][threadIdx.x];
+        cp[threadIdx.x] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+      }
+    } else if (threadIdx.x < n_out) {
+      cp[threadIdx.x] = 0.f;
     }
-  } else if (threadIdx.x < n_out) {
-    cp[threadIdx.x] = 0.f;
   }
 }
 
@@ -948,20 +823,3 @@ inline void launch_lse_merge(const float2* part, const float* x, float* out, int
 }
 
 }  // namespace
-
-// Template dispatch on the (padded) point dimension of kernel 12, compiled
-// up to D = 8; D = 0 is the wide instantiation, for multiples of 8 above 8
-// (the kernel reads the runtime width).
-#define GL_DISPATCH_D8(D_RUNTIME, ...)                                   \
-  switch (D_RUNTIME) {                                                   \
-    case 1: { constexpr int D = 1; __VA_ARGS__; break; }                 \
-    case 2: { constexpr int D = 2; __VA_ARGS__; break; }                 \
-    case 3: { constexpr int D = 3; __VA_ARGS__; break; }                 \
-    case 4: { constexpr int D = 4; __VA_ARGS__; break; }                 \
-    case 8: { constexpr int D = 8; __VA_ARGS__; break; }                 \
-    default:                                                             \
-      if ((D_RUNTIME) > 8 && (D_RUNTIME) % 8 == 0) {                     \
-        constexpr int D = 0; __VA_ARGS__; break;                         \
-      }                                                                  \
-      return (int)cudaErrorInvalidValue;                                 \
-  }

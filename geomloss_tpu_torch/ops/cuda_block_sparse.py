@@ -36,7 +36,8 @@ matvecs, the public sparse Sinkhorn steps). :func:`gibbs_apply_walk` and
 :func:`walk_plan` table, the JAX package's packed step lists: the wrapper
 decodes it on the device into the same CSR form (:func:`_walk_rows`), so
 a walk differs from a ``(cols, cnt)`` table only by the tiles its
-per-chunk budget clipped.
+per-chunk budget clipped. On the card the decode is one kernel launch;
+its PyTorch form (:func:`_walk_rows_plain`) is the CPU path.
 
 The other two visit the kept tile pairs of a truncation table given as
 CSR lists: row tile ``I`` (``tile`` consecutive sorted points) visits the
@@ -52,8 +53,9 @@ register-tiled pair blocks that read packed points
 (``cuda_kernels._pair_vectors``), so they take any point dimension; so is
 kernel 7 (kernel 1's LSE stage, over the raw points and a row tile's
 kept tiles laid end to end, long rows split across blocks:
-:func:`lse_tiles_plan`); kernel 12 pads D to a compiled width, or above 8
-to a multiple of 8 (its wide instantiation).
+:func:`lse_tiles_plan`); and so is kernel 12 (kernel 5's stage without
+column sums, each row's kept tiles cut into :func:`sum_rows_plan`'s
+ranges).
 
 Each wrapper takes its plain PyTorch twin (``*_blocked``, same signature, a
 loop over row tiles in the input dtype) only for tensors that lie on the
@@ -69,7 +71,6 @@ from . import cuda_kernels as ck
 from .cuda_kernels import (
     LOG2E,
     _apply_weights_blk,
-    _bias2,
     _cdiv,
     _check_cuda,
     _even_chunks,
@@ -78,7 +79,6 @@ from .cuda_kernels import (
     _group_channels,
     _log_weights_blk,
     _pair_vectors,
-    _points,
     _ungroup_channels,
 )
 
@@ -91,6 +91,7 @@ __all__ = [
     "lse_tiles_blocked",
     "lse_sparse",
     "lse_tiles_plan",
+    "sum_rows_plan",
     "gibbs_apply_sparse",
     "gibbs_apply_sparse_blocked",
     "gibbs_apply_walk",
@@ -108,9 +109,6 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-#: Point dimensions kernel 12 is compiled for; above 8, D is padded to a
-#: multiple of 8 (its wide instantiation). Kernels 5-8 take points of any D.
-_KERNEL_DIMS = (1, 2, 3, 4, 8)
 #: Rows per CUDA block.
 _ROWS = 256
 
@@ -123,6 +121,9 @@ TILES_SCRATCH_BYTES = 256 << 20
 #: into ranges: more than kernel 1's, since a range past a short row's
 #: count is an empty block, and the long rows' ranges must still be short.
 _LSE_TILES_BLOCKS = 4096
+#: Blocks per launch kernel 12 aims for when it cuts each row's kept tiles
+#: into ranges (:func:`sum_rows_plan`).
+_SUM_BLOCKS = 4096
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts = {
@@ -134,6 +135,7 @@ launch_counts = {
     "gibbs_apply_walk": 0,
     "absorbed_sum_sparse": 0,
     "absorbed_sum_walk": 0,
+    "walk_rows": 0,
 }
 
 
@@ -158,9 +160,11 @@ _LIB = ck.KernelLibrary(
         # xv, yv, rb, cb, v, cols, row_start, cnt, out, n_rows, block_n,
         # block_m, kv, ch, mode, c2, stream
         "gl_gibbs_apply_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
-        # x, y, phi, psi, cols, row_start, cnt, out, n_rows, block_n,
-        # block_m, D, p, c2, stream
-        "gl_absorbed_sum_sparse": [_P] * 8 + [_I] * 5 + [_F, _P],
+        # xv, yv, rb, cb, cols, row_start, cnt, out, part, n_rows, block_n,
+        # block_m, n_split, kv, p, c2, stream
+        "gl_absorbed_sum_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
+        # tbl, cols, start, cnt, nc, T_c, rows_c, nI, stream
+        "gl_walk_rows": [_P] * 4 + [_I] * 4 + [_P],
         # parts, order, offsets, out, nseg, L, nsub, stream
         "gl_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
     },
@@ -349,13 +353,14 @@ def walk_plan(cols, counts, t_mean):
     return ((fl << 26) | (row << _WALK_BITS) | jt).to(torch.int32)
 
 
-def _walk_rows(tbl, nI):
-    """CSR form of a :func:`walk_plan` table of ``nI`` row tiles, on the
-    table's device and without a device-to-host read: the flat column
-    tiles, each row's first step (``fl == 1``) and its live steps (``fl !=
-    2``), whose steps must be consecutive, as :func:`walk_plan` lays them
-    out. The padded rows of the last chunk are left out; a row with no
-    step keeps nothing."""
+def _walk_rows_plain(tbl, nI):
+    """CSR form of a :func:`walk_plan` table of ``nI`` row tiles, in
+    PyTorch on the table's device, without a device-to-host read: the flat
+    column tiles, each row's first step (``fl == 1``) and its live steps
+    (``fl != 2``), whose steps must be consecutive, as :func:`walk_plan`
+    lays them out. The padded rows of the last chunk are left out; a row
+    with no step keeps nothing. The CPU path of :func:`_walk_rows` and the
+    reference of its kernel."""
     nc, T_c = tbl.shape
     rows_c = min(nI, MAX_WALK_ROWS)
     w = tbl.reshape(-1).to(torch.int32)
@@ -368,6 +373,24 @@ def _walk_rows(tbl, nI):
     start = torch.zeros(nI + 1, dtype=torch.long, device=w.device)
     start.scatter_(0, torch.where(live & (fl == 1), row, nI), step)
     return (w & _WALK_MASK).contiguous(), start[:nI].to(torch.int32).contiguous(), cnt[:nI].contiguous()
+
+
+def _walk_rows(tbl, nI):
+    """:func:`_walk_rows_plain`'s CSR form of a walk table: on a CUDA
+    table one launch of the decode kernel (counted under
+    ``"walk_rows"``), else the PyTorch form."""
+    if not tbl.is_cuda:
+        return _walk_rows_plain(tbl, nI)
+    nc, T_c = tbl.shape
+    w = tbl.to(torch.int32).contiguous()
+    i32 = dict(dtype=torch.int32, device=tbl.device)
+    cols, start, cnt = torch.empty(nc * T_c, **i32), torch.empty(nI, **i32), torch.empty(nI, **i32)
+    with torch.cuda.device(tbl.device):
+        _LIB.launch(
+            "walk_rows", w.data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), nc, T_c,
+            min(nI, MAX_WALK_ROWS), nI, count="walk_rows",
+        )
+    return cols, start, cnt
 
 
 # ==============================================================================
@@ -802,18 +825,37 @@ def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count):
     return _ungroup_channels(out, V.shape[1]).to(V.dtype)
 
 
+def sum_rows_plan(n_rows, block_n, N):
+    """Ranges of kernel 12 over a table of ``n_rows`` row tiles of
+    ``block_n`` points, ``N`` rows in all: ``S``. Block ``(I, h, q)`` takes
+    the kept tiles ``floor(q c / S) .. floor((q + 1) c / S) - 1`` of row
+    tile ``I``, ``c`` its count, so a launch holds about
+    :data:`_SUM_BLOCKS` blocks where the rows are short of it and every
+    row is cut into ``S`` ranges of about equal length. With ``S > 1``,
+    each range writes its rows' partial sums, ``4 S N`` bytes of scratch,
+    at most ``cuda_kernels.STEP_SCRATCH_BYTES``. Read from the shapes
+    alone, which a ``(cols, counts)`` table and its walk share: the host
+    never waits for the counts, and the two forms cut their rows alike."""
+    blocks = n_rows * _cdiv(block_n, _ROWS)
+    return max(1, min(_cdiv(_SUM_BLOCKS, max(blocks, 1)), ck._MAX_GRID_Y, ck.STEP_SCRATCH_BYTES // (4 * max(N, 1))))
+
+
 def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):
-    """Kernel 12 over a CSR table: raw absorbed row sums, float32."""
+    """Kernel 12 over a CSR table: raw absorbed row sums, float32, one
+    launch and, where :func:`sum_rows_plan` cuts the rows into ranges,
+    their merge."""
     eps = float(eps)
-    (xf, yf), Dk = _points(count, x, y, dims=_KERNEL_DIMS)
-    phi2, psi2 = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
+    xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, p)
     cols, start, cnt = rows
-    out = torch.empty(xf.shape[0], dtype=torch.float32, device=x.device)
+    N, n_rows = x.shape[0], cnt.shape[0]
+    S = sum_rows_plan(n_rows, block_n, N)
+    out = torch.empty(N, dtype=torch.float32, device=x.device)
+    part = torch.empty((S, N), dtype=torch.float32, device=x.device) if S > 1 else out
     with torch.cuda.device(x.device):
         _LIB.launch(
-            "absorbed_sum_sparse", xf.data_ptr(), yf.data_ptr(), phi2.data_ptr(), psi2.data_ptr(),
-            cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(), cnt.shape[0],
-            block_n, block_m, Dk, p, LOG2E / eps, count=count,
+            "absorbed_sum_sparse", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
+            cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(), part.data_ptr(), n_rows,
+            block_n, block_m, S, kv, p, LOG2E / eps, count=count,
         )
     return out.to(phi.dtype)
 
@@ -828,7 +870,8 @@ def absorbed_sum_sparse(x, y, phi, psi, eps, cols, counts, p=2, block=512):
     floored at 1e-37).
 
     Args: x ``(N, D)``, y ``(M, D)``, phi ``(N,)``, psi ``(M,)``; cols
-    ``(N / block, ck)`` and counts ``(N / block,)``.
+    ``(N / block, ck)`` and counts ``(N / block,)``; any point dimension
+    and any ``block`` that divides N and M.
     Returns ``(N,)`` in phi's dtype.
     """
     _check_biases("absorbed_sum_sparse", x, y, phi, psi)

@@ -72,7 +72,6 @@ __all__ = [
     "gibbs_apply_blocked",
     "build",
     "build_dir",
-    "padded_dim",
     "launch_counts",
     "reset_launch_counts",
     "lse_plan",
@@ -281,27 +280,13 @@ def _check_cuda(name, *tensors):
             raise ValueError(f"{name}: all tensors must lie on one CUDA device.")
 
 
-def padded_dim(D, dims):
-    """The point dimension a kernel runs ``D`` at: the first compiled width
-    that holds it, or a multiple of the widest (the wide instantiation);
-    ``D`` itself for no ``dims``."""
-    if not dims:
-        return D
-    return next((k for k in dims if D <= k), None) or _cdiv(D, dims[-1]) * dims[-1]
-
-
-def _points(name, *clouds, dims):
-    """float32, contiguous, zero-padded to :func:`padded_dim`."""
+def _points(name, *clouds):
+    """The clouds as float32, contiguous, and their point dimension."""
     D = clouds[0].shape[-1]
     for c in clouds:
         if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0 or D == 0:
             raise ValueError(f"{name}: point clouds must be non-empty (N, D), D >= 1.")
-    Dk = padded_dim(D, dims)
-    out = [
-        torch.nn.functional.pad(c.detach().float(), (0, Dk - D)).contiguous()
-        for c in clouds
-    ]
-    return out, Dk
+    return [_f32(c) for c in clouds], D
 
 
 def _lse_points(name, *clouds, p=2):
@@ -313,12 +298,8 @@ def _lse_points(name, *clouds, p=2):
     kernels stage the raw points (``ld = D``: no copy of float32 points);
     wider ones they read as float4 vectors from global memory, so these are
     zero-padded to ``ld = 4 kv`` unless they are already so laid out."""
-    D = clouds[0].shape[-1]
-    for c in clouds:
-        if c.ndim != 2 or c.shape[-1] != D or c.shape[0] == 0 or D == 0:
-            raise ValueError(f"{name}: point clouds must be non-empty (N, D), D >= 1.")
+    out, D = _points(name, *clouds)
     kv = _cdiv(D + (p == 2), 4)
-    out = [_f32(c) for c in clouds]
     if kv <= _STAGED or (D == 4 * kv and all(c.data_ptr() % 16 == 0 for c in out)):
         return out, D, kv
     return [torch.nn.functional.pad(c, (0, 4 * kv - D)).contiguous() for c in out], 4 * kv, kv
@@ -340,7 +321,7 @@ def _pair_vectors(x, y, phi, psi, eps, p, cols_to=1):
     biases in base 2 (:func:`_bias2`; the kernels read ``cb`` for p = 1
     only).
     """
-    (xf, yf), D = _points("pair_vectors", x, y, dims=())
+    (xf, yf), D = _points("pair_vectors", x, y)
     rb, cb = _bias2(xf, phi, eps, p), _bias2(yf, psi, eps, p)
     kv = _cdiv(D + 1 if p == 2 else D, 4)
     f = torch.nn.functional.pad

@@ -3,9 +3,12 @@ geomloss_tpu_torch on one GPU: kernel 1 (``lse``), kernels 2, 3 and 4
 (``sinkhorn_step``, ``sinkhorn_step_sym``, ``gibbs_apply``), kernels 5
 and 6 (``absorbed_sum_tiles``, ``gibbs_apply_tiles``), kernel 7
 (``lse_tiles``, and ``lse_sparse`` on it) and kernel 8
-(``gibbs_apply_sparse``).
+(``gibbs_apply_sparse``), kernel 12 (``absorbed_sum_sparse``, and
+``absorbed_sum_walk`` on it) and kernel 11 (``gibbs_apply_walk``, on
+kernel 8).
 
-    python3 kernel_report.py [--root DIR] [--report tiles step sparse online lse] [--sizes 100000 2000000]
+    python3 kernel_report.py [--root DIR] [--report tiles step sparse online lse sums]
+                             [--sizes 100000 2000000]
                              [--dim 3] [--backend auto] [--reps 3] [--no-build-report] [--dump DIR]
 
 ``--root`` imports the package from another checkout (for example the
@@ -21,7 +24,7 @@ Prints, from the build of both libraries:
   MUFU instructions, by opcode class, and per pair (over its MUFU count:
   one exp2 per pair at these instantiations).
 
-Then each report of ``--report`` (all five by default):
+Then each report of ``--report`` (all six by default):
 
 - ``tiles``: for each of ``--sizes``, bench.py's call (``SamplesLoss(
   "sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)``, value and
@@ -60,7 +63,15 @@ Then each report of ``--report`` (all five by default):
   3): each beside its MUFU bound and issue floor, kernel 1 beside the
   dense PyTorch composition ``logsumexp(h - cdist(x, y)^2 / 2 eps)``
   where its matrix fits, and the device kernels one ``lse`` call
-  launches (``torch.profiler``), PyTorch's and its own.
+  launches (``torch.profiler``), PyTorch's and its own;
+- ``sums``: for each of ``--sizes``, bench.py's call (``backend="auto"``)
+  is run once with its first fine step recorded; on that step's xy table,
+  kernel 12 (``absorbed_sum_sparse``), kernel 10 (``absorbed_sum_walk``
+  on its unclipped walk), kernel 11 (``gibbs_apply_walk``, V = [1, y])
+  and the walk table's decode (``_walk_rows``), each timed with CUDA
+  events and under ``torch.profiler`` (the device time of one call and
+  its device launches by kernel, PyTorch's and the library's), beside its
+  MUFU bound and issue floor, with the table's kept tiles per row.
 
 Times are CUDA events after a warm-up; each report ends with a JSON line
 holding them and the card's name and power limit. Needs a CUDA device.
@@ -77,9 +88,11 @@ import sys
 import time
 
 from chip_smoke import (
+    FINE_CALLS,
     MUFU_PER_CLOCK,
     card_line,
     event_ms,
+    first_step_state,
     issue_ms,
     kernel_label,
     pair_slots,
@@ -106,7 +119,9 @@ SASS_CLASSES = ("MUFU", "SHFL", "LDS", "LDG", "LDL", "STL", "FFMA", "FADD", "FMU
 #: D = 8 (KV = 3) is read too. In a build of the first forms, <2,1> names
 #: another instantiation (D = 2, p = 1), and so do <3,1> and <4,1> of the
 #: two-argument kernels (D = 3 and 4); kernel 4's first form in modes 3 and
-#: 4 is <3,3> and <3,4>.
+#: 4 is <3,3> and <3,4>. Kernel 12 was templated on <D, P> (one thread per
+#: row) before its register-tiled form on <P, KV>: <3,2> is the first
+#: form's D = 3, p = 2, <2,1> and <2,3> the second's p = 2, D = 3 and 8.
 SASS_LABELS = ("lse_kernel<3,2>", "tiles_lse_kernel<3,2>", "lse_kernel<2,1>", "tiles_lse_kernel<2,1>",
                "tiles_step_kernel<3,2>", "tiles_apply_kernel<3,0>", "tiles_step_kernel<2,1>",
                "tiles_step_kernel<2,3>", "tiles_apply_kernel<0,0>", "step_kernel<3,2>", "step_kernel<2,1>",
@@ -114,7 +129,8 @@ SASS_LABELS = ("lse_kernel<3,2>", "tiles_lse_kernel<3,2>", "lse_kernel<2,1>", "t
                "sparse_apply_kernel<3,1,1>", "sparse_apply_kernel<4,1,1>",
                "sym_step_kernel<3,2>", "sym_step_kernel<2,1>", "apply_kernel<3,0>", "apply_kernel<3,3>",
                "apply_kernel<3,4>", "apply_kernel<0,1,1>", "apply_kernel<0,1,4>", "apply_kernel<3,1,1>",
-               "apply_kernel<4,1,1>", "apply_kernel<3,1,4>", "apply_kernel<4,1,4>")
+               "apply_kernel<4,1,1>", "apply_kernel<3,1,4>", "apply_kernel<4,1,4>",
+               "sparse_sum_kernel<3,2>", "sparse_sum_kernel<2,1>", "sparse_sum_kernel<2,3>")
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -552,11 +568,68 @@ def lse_report(torch, mods, args, card, clock):
     torch.cuda.empty_cache()
 
 
+def sums_report(torch, mods, args, card, clock):
+    """Kernels 12, 10 and 11 and the walk decode on the first fine step's
+    xy table of bench.py's call at each size."""
+    SamplesLoss, ms, cbs, tbs = mods["SamplesLoss"], mods["ms"], mods["cbs"], mods["tbs"]
+    dev = torch.device("cuda")
+    loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5)
+    for n in args.sizes:
+        x0 = torch.from_numpy(sphere_cloud(n, 0, args.dim)).to(dev)
+        y0 = torch.from_numpy(sphere_cloud(n, 1, args.dim)).to(dev)
+        with recording(ms, FINE_CALLS) as rec, torch.no_grad():
+            loss(x0, y0)
+        st = first_step_state(rec)
+        del rec, x0, y0
+        e, p, tile, xy = st["e"], st["p"], st["tile"], st["xy"]
+        xs, ys = st["xs"], st["ys"]
+        phi, psi = st["la"] + st["f"] / e, st["lb"] + st["g"] / e
+        width = xy.cols.shape[1]
+        tbl = tbs.walk_plan(xy.cols, xy.counts, width)
+        nI = xy.cols.shape[0]
+        V = torch.cat([torch.ones_like(ys[:, :1]), ys], 1)
+        kept, mean, most, at_cap = table_stats(xy.cols, xy.counts)
+        pairs = kept * tile * tile
+        kv = math.ceil((xs.shape[1] + 1) / 4)
+        res = {"root": args.root, "report": "sums", "n": n, "dim": args.dim, "tile": tile, "row_tiles": nI,
+               "width": width, "kept_tiles": kept, "row_mean": mean, "row_max": most, "rows_at_width": at_cap,
+               "pairs": pairs, "mufu_bound_ms": 1e3 * pairs / (MUFU_PER_CLOCK * clock), "card": card}
+        print(f"[sums] N=M={n}: first fine xy table {nI} row tiles of {tile} x width {width}, {kept} kept tiles, "
+              f"per row mean {mean:.2f} max {most}, {at_cap} rows at the width; {pairs:.4g} pairs", flush=True)
+        calls = {
+            "absorbed_sum_sparse": (lambda: cbs.absorbed_sum_sparse(xs, ys, phi, psi, e, xy.cols, xy.counts, p, tile),
+                                    pair_slots("absorbed_sum_sparse", kv)),
+            "absorbed_sum_walk": (lambda: cbs.absorbed_sum_walk(xs, ys, phi, psi, e, tbl, p, tile),
+                                  pair_slots("absorbed_sum_walk", kv)),
+            "gibbs_apply_walk": (lambda: cbs.gibbs_apply_walk(xs, ys, phi, psi, V, e, tbl, p, "gibbs", tile, tile),
+                                 pair_slots("gibbs_apply_sparse", kv, 4)),
+            "walk_rows": (lambda: cbs._walk_rows(tbl, nI), None),
+        }
+        for name, (call, slots) in calls.items():
+            t = event_ms(call, args.reps)
+            _, busy, n_launch, rows = profile_busy_ms(lambda: [call() for _ in range(args.reps)], top=None)
+            by_kernel = kernel_times(rows)
+            entry = {"ms": t, "device_ms": busy / args.reps, "device_launches": n_launch / args.reps,
+                     "device_ms_by_kernel": {k: round(v[0] / args.reps, 4) for k, v in by_kernel.items()},
+                     "device_launches_by_kernel": {k: v[1] / args.reps for k, v in by_kernel.items()}}
+            if slots is not None:
+                entry.update(slots=slots, issue_floor_ms=issue_ms(slots, pairs, clock))
+            res[name] = entry
+            floor = f", issue floor {entry['issue_floor_ms']:.3f} ms ({slots} slots per pair)" if slots else ""
+            print(f"[sums] {name} N=M={n}: {t:.4f} ms (CUDA events, {args.reps} reps), device {entry['device_ms']:.4f} "
+                  f"ms in {entry['device_launches']:g} launches per call (torch.profiler): "
+                  f"{json.dumps(entry['device_launches_by_kernel'])}; MUFU bound {res['mufu_bound_ms']:.3f} ms{floor}; "
+                  f"card {card}", flush=True)
+        print(json.dumps(res), flush=True)
+        del st, xs, ys, phi, psi, tbl, V, calls
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse", "online", "lse"),
-                    default=["tiles", "step", "sparse", "online", "lse"])
+    ap.add_argument("--report", nargs="*", choices=("tiles", "step", "sparse", "online", "lse", "sums"),
+                    default=["tiles", "step", "sparse", "online", "lse", "sums"])
     ap.add_argument("--sizes", type=int, nargs="+", default=[100_000, 2_000_000])
     ap.add_argument("--dim", type=int, default=3)
     ap.add_argument("--backend", default="auto")
@@ -596,6 +669,8 @@ def main():
         tiles_report(torch, mods, args, card)
     if "lse" in args.report:
         lse_report(torch, mods, args, card, clock)
+    if "sums" in args.report:
+        sums_report(torch, mods, args, card, clock)
 
 
 if __name__ == "__main__":

@@ -328,33 +328,116 @@ def test_gibbs_apply_sparse_wrapper_raises_on_what_it_cannot_launch(cuda_device)
     assert_apply_close(got, cbs.gibbs_apply_sparse_blocked(*args).cpu(), **tol)
 
 
-def _sum_problem(D, p, block, seed, n_tiles=3, m_tiles=5, cap=4):
+def _sum_problem(D, p, block, seed, n_tiles=3, m_tiles=5, cap=4, eps=None):
     """Kernel 12's inputs: absorbed biases, a ragged table with a row whose
     count lies above the table's width (clamped to it) and one keeping a
     single tile."""
     N, M = n_tiles * block, m_tiles * block
     x, y, _ = problem(N, M, D=D, seed=seed)
     f, g, la, lb = potentials(N, M, seed=seed + 1)
-    eps = 0.05 if p == 2 else 0.2
+    if eps is None:
+        eps = 0.05 if p == 2 else 0.2
     cols, counts = kept_table(n_tiles, m_tiles, cap, seed=seed + 2)
     counts[0], counts[1] = cap + 3, 1
     return x, y, la + f / eps, lb + g / eps, eps, cols, counts
 
 
-@pytest.mark.parametrize("block", [128, 512])
-@pytest.mark.parametrize("p", [1, 2])
-@pytest.mark.parametrize("D", [1, 2, 3])
-def test_absorbed_sum_sparse_kernel_matches_twin(cuda_device, D, p, block):
-    """Kernel 12 (``_absorbed_sum``): raw absorbed row sums, compared as the
-    Sinkhorn step reads them (``f + eps (loga - log r)``)."""
-    x, y, phi, psi, eps, cols, counts = _sum_problem(D, p, block, seed=D + 10 * p + block)
-    args = (*tensors(x, y, phi, psi, device=cuda_device), eps, *tensors(cols, counts, device=cuda_device), p, block)
-    got = _counted("absorbed_sum_sparse", lambda: cbs.absorbed_sum_sparse(*args), cbs.launch_counts)
-    ref = cbs.absorbed_sum_sparse_blocked(*args)
+def _check_sums(got, ref, eps):
+    """Raw absorbed sums compared as the Sinkhorn step reads them
+    (``f + eps (loga - log r)``)."""
     zero = torch.zeros_like(got)
     torch.testing.assert_close(ck._absorbed_update(zero, zero, eps, got), ck._absorbed_update(zero, zero, eps, ref),
                                **VAL_TOL)
+
+
+def _device_kernels(fn):
+    """``{kernel name: launches}`` of the device kernels one call of ``fn``
+    runs (torch.profiler), and its result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}, out
+
+
+def _launches_of(kernels, name):
+    return sum(n for key, n in kernels.items() if name in key)
+
+
+@pytest.mark.parametrize("block", [96, 128, 256, 512, 1024])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 8, 9, 12, 13, 17, 64])
+def test_absorbed_sum_sparse_kernel_matches_twin(cuda_device, D, p, block):
+    """Kernel 12 (``_absorbed_sum``): raw absorbed row sums, compared as the
+    Sinkhorn step reads them (``f + eps (loga - log r)``), at every staged
+    width (one to three float4s: D <= 11 at p = 2, D <= 12 at p = 1) and
+    the wide form, any block (96: a ragged pass; 1024: four stages a
+    tile), over a table with a count above its width (clamped), a row of
+    one tile and a row of none, whose first kept tile opens with columns
+    of bias -1e5 and -inf; two calls bitwise equal."""
+    eps = (0.05 if p == 2 else 0.2) * max(1.0, D / 3)
+    x, y, phi, psi, eps, cols, counts = _sum_problem(D, p, block, seed=D + 10 * p + block, eps=eps)
+    counts[2] = 0
+    first = cols[:, 0].astype(np.int64) * block
+    psi = psi.copy()
+    for j in first:
+        psi[j : j + 8] = -1e5
+        psi[j + 8 : j + 16] = -np.inf
+    args = (*tensors(x, y, phi, psi, device=cuda_device), eps, *tensors(cols, counts, device=cuda_device), p, block)
+    got = _counted("absorbed_sum_sparse", lambda: cbs.absorbed_sum_sparse(*args), cbs.launch_counts)
+    _check_sums(got, cbs.absorbed_sum_sparse_blocked(*args), eps)
+    assert torch.equal(got[2 * block : 3 * block], torch.zeros(block, device=cuda_device))
     assert torch.equal(got, cbs.absorbed_sum_sparse(*args))
+
+
+@pytest.mark.parametrize("D", [3, 13])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("block", [128, 512])
+def test_absorbed_sum_sparse_splits_long_rows(cuda_device, block, p, D, monkeypatch):
+    """Kernel 12 over a table with one long row among short ones: cut into
+    ranges (sum_rows_plan) and merged by a second kernel, and in one range
+    with no merge (one device launch of the library), each within the
+    twin's tolerance, bitwise repeatable and bitwise equal to kernel 10 on
+    the unclipped walk of the same table."""
+    n_tiles, m_tiles = 4, 9
+    eps = (0.05 if p == 2 else 0.2) * max(1.0, D / 3)
+    x, y, _ = problem(n_tiles * block, m_tiles * block, D=D, seed=block + p + D)
+    f, g, la, lb = potentials(x.shape[0], y.shape[0], seed=block + D)
+    cols, counts = _long_row_table(n_tiles, m_tiles, seed=block + D)
+    table = tensors(cols, counts, device=cuda_device)
+    args = (*tensors(x, y, la + f / eps, lb + g / eps, device=cuda_device), eps, *table, p, block)
+    tbl = cbs.walk_plan(*table, m_tiles)
+    wargs = (*args[:5], tbl, p, block)
+    ref = cbs.absorbed_sum_sparse_blocked(*args)
+    for target, split in ((cbs._SUM_BLOCKS, True), (1, False)):
+        monkeypatch.setattr(cbs, "_SUM_BLOCKS", target)
+        assert (cbs.sum_rows_plan(n_tiles, block, x.shape[0]) > 1) == split
+        kernels, got = _device_kernels(lambda: cbs.absorbed_sum_sparse(*args))
+        assert _launches_of(kernels, "sparse_sum_kernel") == 1
+        assert _launches_of(kernels, "sum_merge_kernel") == (1 if split else 0)
+        _check_sums(got, ref, eps)
+        assert torch.equal(got, cbs.absorbed_sum_sparse(*args))
+        assert torch.equal(got, cbs.absorbed_sum_walk(*wargs))
+
+
+@pytest.mark.parametrize("t_mean", [4, 2, 1])
+@pytest.mark.parametrize("rows_per_chunk", [2, 3, 1024])
+def test_walk_decode_is_one_launch_equal_to_plain(cuda_device, rows_per_chunk, t_mean, monkeypatch):
+    """The CUDA decode of a walk table (one or several chunks, the last
+    padded; rows of no kept tile; clipped or not) is one device launch and
+    equals the PyTorch form on the CPU bit for bit."""
+    monkeypatch.setattr(cbs, "MAX_WALK_ROWS", rows_per_chunk)
+    cols, counts = kept_table(7, 6, 4, seed=rows_per_chunk + t_mean)
+    counts[3], counts[6] = 0, 0
+    tbl = cbs.walk_plan(*tensors(cols, counts, device=cuda_device), t_mean)
+    before = cbs.launch_counts["walk_rows"]
+    kernels, got = _device_kernels(lambda: cbs._walk_rows(tbl, 7))
+    assert cbs.launch_counts["walk_rows"] == before + 1
+    assert _launches_of(kernels, "walk_rows_kernel") == 1 and sum(kernels.values()) == 1
+    for a, b in zip(got, cbs._walk_rows_plain(tbl.cpu(), 7)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("p,kind", APPLY_KINDS)
@@ -372,26 +455,32 @@ def test_gibbs_apply_sparse_row_start_form(cuda_device, p, kind):
     assert torch.equal(got, cbs.gibbs_apply_sparse(*clamped))
 
 
+@pytest.mark.parametrize("D", [3, 13])
 @pytest.mark.parametrize("t_mean", [4, 2])
 @pytest.mark.parametrize("p", [1, 2])
-def test_walk_kernels_match_twins_on_a_multi_chunk_table(cuda_device, p, t_mean, monkeypatch):
+def test_walk_kernels_match_twins_on_a_multi_chunk_table(cuda_device, p, t_mean, D, monkeypatch):
     """Kernels 10 and 11 over a walk table of three chunks of two rows (the
-    last padded), unclipped (t_mean = 4) and clipped (t_mean = 2): the CUDA
-    decode equals the CPU one, and each kernel its twin."""
+    last padded), unclipped (t_mean = 4) and clipped (t_mean = 2), staged
+    and wide points (D = 13 at p = 2): the CUDA decode equals the CPU one,
+    each kernel its twin, two calls bitwise equal, and kernel 10 on the
+    unclipped walk kernel 12 on its table, bit for bit."""
     monkeypatch.setattr(cbs, "MAX_WALK_ROWS", 2)
     block = 256
-    x, y, phi, psi, eps, cols, counts = _sum_problem(3, p, block, seed=7 * p + t_mean, n_tiles=5, m_tiles=6)
+    eps = (0.05 if p == 2 else 0.2) * max(1.0, D / 3)
+    x, y, phi, psi, eps, cols, counts = _sum_problem(D, p, block, seed=7 * p + t_mean, n_tiles=5, m_tiles=6, eps=eps)
     counts[0] = 4
-    tbl = cbs.walk_plan(*tensors(cols, counts, device=cuda_device), t_mean)
+    table = tensors(cols, counts, device=cuda_device)
+    tbl = cbs.walk_plan(*table, t_mean)
     assert tbl.shape[0] == 3
     for a, b in zip(cbs._walk_rows(tbl, 5), cbs._walk_rows(tbl.cpu(), 5)):
         assert torch.equal(a.cpu(), b)
     t = tensors(x, y, phi, psi, device=cuda_device)
     args = (*t, eps, tbl, p, block)
     got = _counted("absorbed_sum_walk", lambda: cbs.absorbed_sum_walk(*args), cbs.launch_counts)
-    zero = torch.zeros_like(got)
-    torch.testing.assert_close(ck._absorbed_update(zero, zero, eps, got),
-                               ck._absorbed_update(zero, zero, eps, cbs.absorbed_sum_walk_blocked(*args)), **VAL_TOL)
+    _check_sums(got, cbs.absorbed_sum_walk_blocked(*args), eps)
+    assert torch.equal(got, cbs.absorbed_sum_walk(*args))
+    if t_mean == 4:
+        assert torch.equal(got, cbs.absorbed_sum_sparse(*t, eps, *table, p, block))
     V = np.concatenate([np.ones((y.shape[0], 1), np.float32), y], 1)
     kind = "gibbs" if p == 2 else "gibbs_grad"
     phi0 = phi - phi.max()
@@ -477,8 +566,8 @@ def test_gibbs_apply_wide_dims_matches_twin(cuda_device, D, p, kind):
 @pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("D", [9, 17])
 def test_block_sparse_kernels_wide_dims_match_twins(cuda_device, D, p):
-    """Kernels 7, 8 (every weight kind of this p) and 12 at D = 9 and 17
-    (padded to 16 and 24: the wide instantiation, in chunks of 8)."""
+    """Kernels 7, 8 (every weight kind of this p) and 12 at D = 9 and 17:
+    three staged float4s (D = 9) and the wide form (D = 17)."""
     block_n, block_m = 256, 128
     x, y, h = problem(3 * block_n, 7 * block_m, D=D, seed=D + p)
     cols, counts = kept_table(3, 7, 5, seed=D + p)

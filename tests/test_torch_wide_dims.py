@@ -4,10 +4,10 @@ kernels are built.
 ``SamplesLoss`` on the online backend at D = 32 (the auto route sends
 D > 3 above 5000^2 pairs there), Sinkhorn and the gaussian MMD, against
 the JAX package in float64 with the tolerances of
-``test_torch_sinkhorn_samples.py``; the zero padding that takes a point
-dimension to the width a kernel runs at (the wide instantiation above 16
-for the online kernels, above 8 for the block-sparse ones) and the packed
-points of kernels 5 and 6; and the choice of the build directory.
+``test_torch_sinkhorn_samples.py``; the points as the kernels read them
+(raw for the LSE kernels, packed float4 vectors for the others, kernel 12
+among them: staged up to three vectors a point, read from global memory
+above); and the choice of the build directory.
 """
 
 import numpy as np
@@ -63,9 +63,9 @@ def test_gaussian_mmd_online_at_wide_dim_matches_jax():
 
 
 # D -> (row stride of the LSE kernels' points at p = 2: raw up to three
-# float4s, D + 1 floats, else padded to whole float4s; kernel 12's width:
-# the compiled widths up to 8, multiples of 8 above).
-PADDED = {1: (1, 1), 3: (3, 3), 9: (9, 16), 17: (20, 24), 64: (68, 64)}
+# float4s, D + 1 floats, else padded to whole float4s; the float4 vectors
+# of kernel 12's packed points at p = 2 and at p = 1: staged up to three).
+PADDED = {1: (1, 1, 1), 3: (3, 1, 1), 9: (9, 3, 3), 17: (20, 5, 5), 64: (68, 17, 16)}
 
 
 @pytest.mark.parametrize("D", sorted(PADDED))
@@ -75,19 +75,19 @@ def test_points_pad_any_dim(D):
     y = torch.tensor(rng.rand(7, D), dtype=torch.float32)
     (xl, yl), ld, kv = ck._lse_points("test", x, y, p=2)
     assert ld == PADDED[D][0] and kv == -(-(D + 1) // 4)
-    width = PADDED[D][1]
-    assert ck.padded_dim(D, cbs._KERNEL_DIMS) == width
-    (xp, yp), Dk = ck._points("test", x, y, dims=cbs._KERNEL_DIMS)
-    assert Dk == width
-    for got, src, w in ((xp, x, width), (yp, y, width), (xl, x, ld), (yl, y, ld)):
-        assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == (src.shape[0], w)
+    for got, src in ((xl, x), (yl, y)):
+        assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == (src.shape[0], ld)
         assert torch.equal(got[:, :D], src.float()) and not got[:, D:].any()
-    # Kernels 5 and 6: p = 2 rows [c2 x, 0..., 1], columns [y, 0..., bias];
-    # p = 1 the coordinates; zero-padded to kv float4 vectors.
+    # Kernels 2-6, 8 and 12: p = 2 rows [c2 x, 0..., 1], columns [y, 0...,
+    # bias]; p = 1 the coordinates; zero-padded to kv float4 vectors, which
+    # kernel 12 stages up to kStepStaged (3) and reads wider from global
+    # memory (its wide form), as the wrapper's kv selects.
     phi, psi = torch.zeros(5, dtype=torch.float64), torch.ones(7, dtype=torch.float64)
     for p, width in ((2, D + 1), (1, D)):
         xv, yv, rb, cb, kv = cbs._pair_vectors(x, y, phi, psi, 0.5, p)
-        assert kv == -(-width // 4) and xv.shape == (5, 4 * kv) and yv.shape == (7, 4 * kv)
+        assert kv == PADDED[D][3 - p] == -(-width // 4)
+        assert xv.dtype == yv.dtype == torch.float32 and xv.is_contiguous() and yv.is_contiguous()
+        assert xv.shape == (5, 4 * kv) and yv.shape == (7, 4 * kv)
         end = 4 * kv - (p == 2)
         assert not xv[:, D:end].any() and not yv[:, D:end].any()
         if p == 2:
