@@ -2,9 +2,10 @@
 against its plain PyTorch twin, drives the online and the multiscale
 Sinkhorn paths at N = M = 100,000, the multiscale mid path at
 N = M = 2,000,000, 4,000,000 and 10,000,000 (tile 2048), the online path
-in D = 32, the kernel (MMD) losses at 100,000 and 1,000,000 points, and
-the public sparse and walk Sinkhorn ops on the multiscale path's tables,
-and times them.
+in D = 32, the kernel (MMD) losses at 100,000 and 1,000,000 points, the
+public sparse and walk Sinkhorn ops on the multiscale path's tables, and
+the grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
+``ImagesBarycenter``), and times them.
 
     python3 chip_smoke.py
 
@@ -103,6 +104,19 @@ phase fails. Phases, one line each:
     instantiations) against the same solve through the float64 twins;
     kernels 1, 3 and 4 against their twins and kernels 1-4 timed at
     D = 32 beside their bound.
+14. ``[grid]`` (run after ``[wide-d]``): the grid path, which reaches no
+    kernel of the port (the JAX package runs it in XLA, outside Pallas):
+    ``softmin_grid`` at (8, 256, 256) and (2, 64, 64, 64), p in {1, 2},
+    at eps = 1 and one pixel^p, against float64, and again with
+    ``allow_tf32`` set by the caller (bitwise the same, the setting kept);
+    ``ImagesLoss`` between two batches of 8 images of 256^2 and
+    ``VolumesLoss`` between two batches of 2 volumes of 64^3 (sums of
+    Gaussian bumps), p = 2, p = 1, reach 0.1 and potentials, and
+    ``ImagesBarycenter`` of 4 shapes of 256^2 (defaults), value and
+    gradient in float32 against the same calls in float64; for each of the
+    three calls with its gradient, the median of 5 timed runs (host clock
+    and CUDA events), the device launches and idle share of one call
+    (``torch.profiler``) and its peak memory.
 
 Each phase prints its seconds.
 
@@ -1473,6 +1487,172 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
     print(f"[wide-d] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: [grid]: ImagesLoss between two batches of 8 images of 256^2 and
+#: VolumesLoss between two batches of 2 volumes of 64^3 (BASELINE.json's
+#: "256² images and 64³ volumes"), ImagesBarycenter of 4 shapes of 256^2.
+GRID_IMAGES = (8, 256, 256)
+GRID_VOLUMES = (2, 64, 64, 64)
+GRID_BARYCENTER = (1, 4, 256, 256)
+GRID_WEIGHTS = (0.4, 0.3, 0.2, 0.1)
+
+
+def grid_densities(shape, seed, D):
+    """float32 sums of three Gaussian bumps (centres in [0.2, 0.8]^D,
+    widths 0.04-0.12) on the unit grid of the last D axes, one per leading
+    entry, normalized."""
+    rng = np.random.RandomState(seed)
+    lead, grid = shape[: len(shape) - D], shape[len(shape) - D :]
+    axes = np.meshgrid(*[(np.arange(n) + 0.5) / n for n in grid], indexing="ij")
+    out = np.zeros(shape)
+    for idx in np.ndindex(*lead):
+        for _ in range(3):
+            c, w = 0.2 + 0.6 * rng.rand(D), 0.04 + 0.08 * rng.rand()
+            out[idx] += (0.5 + rng.rand()) * np.exp(-sum((x - ci) ** 2 for x, ci in zip(axes, c)) / (2 * w * w))
+        out[idx] /= out[idx].sum()
+    return out.astype(np.float32)
+
+
+def timed_call(fn, reps=5):
+    """Medians over ``reps`` calls after a warm-up, in ms: the host clock
+    around each call ending in a synchronize, and CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return float(np.median(host)), float(np.median(events))
+
+
+def grid_phase(dev, card):
+    """The grid path: ``softmin_grid`` at 256^2 and 64^3 against float64
+    (and with TF32 enabled by the caller); ``ImagesLoss`` (8 x 256^2),
+    ``VolumesLoss`` (2 x 64^3) and ``ImagesBarycenter`` (4 x 256^2), value
+    and gradient in float32 against the same calls in float64; the three
+    calls timed, with their device launches, idle share and peak memory."""
+    from geomloss_tpu_torch import ImagesBarycenter, ImagesLoss, VolumesLoss
+    from geomloss_tpu_torch.ops.grid import softmin_grid
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+
+    # --- softmin_grid, and the caller's TF32 setting -----------------------------------
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    for shape in (GRID_IMAGES, GRID_VOLUMES):
+        N = shape[-1]
+        h = torch.from_numpy(np.random.RandomState(N).randn(*shape).astype(np.float32)).to(dev)
+        for p in (1, 2):
+            for eps in (1.0, (1 / N) ** p):
+                got = softmin_grid(eps, p, h)
+                ref = softmin_grid(eps, p, h.to(f64))
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    got_tf32 = softmin_grid(eps, p, h)
+                    kept = torch.backends.cuda.matmul.allow_tf32
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+                err = (got.to(f64) - ref).abs()
+                excess = (err - (VAL_ATOL + VAL_RTOL * ref.abs())).max().item()
+                print(f"[grid] softmin_grid {tuple(shape)} p={p} eps={eps:.4g}: max_abs_err {err.max().item():.3e} "
+                      f"against float64 (tol {VAL_ATOL:g} + {VAL_RTOL:g}|ref|); with allow_tf32 set by the caller: "
+                      f"{'bitwise equal' if torch.equal(got_tf32, got) else 'DIFFERENT'}, setting kept {kept}",
+                      flush=True)
+                if not excess <= 0:
+                    fail(f"softmin_grid {tuple(shape)} p={p} eps={eps:g} misses its tolerance by {excess:.3e}")
+                if not torch.equal(got_tf32, got) or kept is not True:
+                    fail(f"softmin_grid {tuple(shape)} p={p}: the caller's TF32 setting changed the result or was lost")
+    del h, got, ref, got_tf32
+
+    # --- ImagesLoss and VolumesLoss -------------------------------------------------------
+    def value_grad(loss, a, b):
+        a = a.detach().clone().requires_grad_(True)
+        v = loss(a, b)
+        (g,) = torch.autograd.grad(v.sum(), a)
+        return v.detach(), g
+
+    calls = {}
+    for tag, cls, shape in (("images", ImagesLoss, GRID_IMAGES), ("volumes", VolumesLoss, GRID_VOLUMES)):
+        a = torch.from_numpy(grid_densities(shape, 0, len(shape) - 1)).to(dev)
+        b = torch.from_numpy(grid_densities(shape, 1, len(shape) - 1)).to(dev)
+        a64, b64 = a.to(f64), b.to(f64)
+        for label, kw in (("p=2", dict(p=2)), ("p=1", dict(p=1)), ("p=2 reach=0.1", dict(p=2, reach=0.1))):
+            loss = cls(scaling=0.5, **kw)
+            v, g = value_grad(loss, a, b)
+            v_r, g_r = value_grad(loss, a64, b64)
+            if v.shape != (shape[0],) or not (torch.isfinite(v).all() and torch.isfinite(g).all()):
+                fail(f"{cls.__name__} {label}: non-finite or misshapen output")
+            rel_v = ((v.to(f64) - v_r).abs() / v_r.abs()).max().item()
+            rel_g = ((g.to(f64) - g_r).norm() / g_r.norm()).item()
+            print(f"[grid] {cls.__name__}(scaling=0.5, {label}) {tuple(shape)}: losses {v.tolist()} (float64 "
+                  f"{v_r.tolist()}), largest loss rel err {rel_v:.3e}, grad rel L2 err {rel_g:.3e} (tol {PATH_TOL:g})",
+                  flush=True)
+            if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
+                fail(f"{cls.__name__} {label} misses its tolerance")
+        loss = cls(scaling=0.5, p=2, potentials=True)
+        pots, pots_r = loss(a, b), loss(a64, b64)
+        rel_p = [((u.to(f64) - r).norm() / r.norm()).item() for u, r in zip(pots, pots_r)]
+        print(f"[grid] {cls.__name__}(potentials=True) {tuple(shape)}: rel L2 err of F, G against float64 "
+              f"{rel_p[0]:.3e}, {rel_p[1]:.3e} (tol {PATH_TOL:g})", flush=True)
+        if not (pots[0].shape == a.shape and max(rel_p) <= PATH_TOL):
+            fail(f"{cls.__name__} potentials miss their tolerance")
+        calls[f"{cls.__name__} loss+grad {tuple(shape)} p=2"] = (
+            lambda loss=cls(scaling=0.5, p=2), a=a, b=b: value_grad(loss, a, b))
+
+    # --- ImagesBarycenter -------------------------------------------------------------------
+    m = torch.from_numpy(grid_densities(GRID_BARYCENTER, 2, 2)).to(dev)
+    w = torch.tensor([GRID_WEIGHTS], dtype=torch.float32, device=dev)
+    cot = torch.from_numpy(np.random.RandomState(3).rand(1, 1, *GRID_BARYCENTER[2:]).astype(np.float32)).to(dev)
+
+    def bar_grad(m, w):
+        w = w.detach().clone().requires_grad_(True)
+        bar = ImagesBarycenter(m, w)
+        (g,) = torch.autograd.grad(bar, w, cot.to(bar.dtype))
+        return bar.detach(), g
+
+    bar, g_w = bar_grad(m, w)
+    bar_r, g_w_r = bar_grad(m.to(f64), w.to(f64))
+    rel_l1 = ((bar.to(f64) - bar_r).abs().sum() / bar_r.abs().sum()).item()
+    rel_g = ((g_w.to(f64) - g_w_r).norm() / g_w_r.norm()).item()
+    # The mass is held to the float64 run's, not to 1: with the default
+    # iteration counts the debiased barycenter has not converged in mass at
+    # 256^2, in float64 too (the float64 mass is printed).
+    mass, mass_r = bar.sum().item(), bar_r.sum().item()
+    rel_m = abs(mass - mass_r) / mass_r
+    print(f"[grid] ImagesBarycenter {tuple(GRID_BARYCENTER)} weights {GRID_WEIGHTS} (scaling_N=10, "
+          f"backward_iterations=5): rel L1 err {rel_l1:.3e}, weights' grad rel L2 err {rel_g:.3e}, mass {mass:.6f} "
+          f"rel err {rel_m:.3e} against float64 (mass {mass_r:.6f}; tol {PATH_TOL:g})", flush=True)
+    if not (bar.shape == (1, 1) + GRID_BARYCENTER[2:] and torch.isfinite(bar).all() and torch.isfinite(g_w).all()):
+        fail("ImagesBarycenter: non-finite or misshapen output")
+    if not (rel_l1 <= PATH_TOL and rel_g <= PATH_TOL and rel_m <= PATH_TOL):
+        fail("ImagesBarycenter misses its tolerance against float64")
+    calls[f"ImagesBarycenter+grad {tuple(GRID_BARYCENTER)}"] = lambda: bar_grad(m, w)
+    del bar_r, g_w_r
+
+    # --- Times, launches, idle share, peak memory ------------------------------------
+    for name, fn in calls.items():
+        host_ms, event_ms_ = timed_call(fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        wall, busy, n_launch, top = profile_busy_ms(fn, top=4)
+        print(f"[time] {name}: median of 5 after a warm-up, host clock {host_ms:.3f} ms, CUDA events "
+              f"{event_ms_:.3f} ms; one call under torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches; peak memory beyond its "
+              f"inputs {peak / 1e9:.3f} GB; card {card}", flush=True)
+        for dev_ms, n_calls, key in top:
+            print(f"[time]   {dev_ms:9.3f} ms {n_calls:5d} x {key[:90]}", flush=True)
+    print(f"[grid] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     # --- 1. Device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1929,6 +2109,7 @@ def main():
 
     # --- 10. MMD losses, 12. the public sparse and walk ops, 11. the auto route at 4e6 --
     wide_dim_phase(dev, card, clock)
+    grid_phase(dev, card)
     kernels += mmd_phase(dev, card, clock)
     kernels += sparse_phase(dev, card, clock)
     auto_route_phase(dev, card, N_4M, "4m", reps=2)

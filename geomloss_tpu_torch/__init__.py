@@ -9,13 +9,36 @@ The pair-interaction kernels are hand-written CUDA for Hopper
 
 Ported so far: ``SamplesLoss`` on point clouds, every loss
 (``sinkhorn``, ``gaussian``, ``laplacian``, ``energy``, ``hausdorff``) with
-the ``tensorized``, ``online`` and ``multiscale`` backends, and the
+the ``tensorized``, ``online`` and ``multiscale`` backends, the
 block-sparse operators of :mod:`.ops` (``softmin_sparse``,
-``gibbs_apply_sparse``, ``lse_sparse``). This package never imports JAX.
+``gibbs_apply_sparse``, ``lse_sparse``), and the grid path:
+``sinkhorn_divergence``, ``ImagesLoss``, ``VolumesLoss`` and
+``ImagesBarycenter``. This package never imports JAX.
 """
 
 __version__ = "0.3.1"
 
 from .models.samples_loss import SamplesLoss
 
-__all__ = ["SamplesLoss", "__version__"]
+
+def __getattr__(name):
+    # Lazy imports keep the base import light:
+    if name == "ImagesBarycenter":
+        from .models.barycenter_images import ImagesBarycenter
+
+        return ImagesBarycenter
+    if name in ("sinkhorn_divergence", "ImagesLoss", "VolumesLoss"):
+        from .models import sinkhorn_images
+
+        return getattr(sinkhorn_images, name)
+    raise AttributeError(f"module 'geomloss_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = [
+    "SamplesLoss",
+    "ImagesBarycenter",
+    "sinkhorn_divergence",
+    "ImagesLoss",
+    "VolumesLoss",
+    "__version__",
+]

@@ -1,4 +1,5 @@
-"""Costs, softmin operators, block-sparse truncation and their kernels."""
+"""Costs, softmin operators, block-sparse truncation and their kernels,
+clustering and grid operators."""
 
 from .block_sparse import (
     TileMask,
@@ -7,7 +8,9 @@ from .block_sparse import (
     lse_sparse,
     softmin_sparse,
 )
+from .clustering import cluster_ranges_centroids, clusterize, grid_cluster
 from .costs import SQDIST_FLOOR, cost_routines, distances, halved_sqdist, squared_distances
+from .grid import C_transform, log_dens, pyramid, softmin_grid, upsample
 from .softmin import (
     gibbs_apply,
     gibbs_matvec,
@@ -40,4 +43,12 @@ __all__ = [
     "gibbs_apply_sparse",
     "lse_sparse",
     "softmin_sparse",
+    "grid_cluster",
+    "cluster_ranges_centroids",
+    "clusterize",
+    "log_dens",
+    "pyramid",
+    "upsample",
+    "softmin_grid",
+    "C_transform",
 ]

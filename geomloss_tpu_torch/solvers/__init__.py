@@ -1,6 +1,7 @@
-"""Annealing schedules and the Sinkhorn loop."""
+"""Annealing schedules, the Sinkhorn loop and the barycenter loop."""
 
 from .annealing import dampening, epsilon_schedule, max_diameter, scaling_parameters
+from .barycenters import barycenter_iteration, sinkhorn_barycenter_loop
 from .sinkhorn_loop import (
     log_weights,
     scal,
@@ -14,6 +15,8 @@ __all__ = [
     "epsilon_schedule",
     "max_diameter",
     "scaling_parameters",
+    "barycenter_iteration",
+    "sinkhorn_barycenter_loop",
     "log_weights",
     "scal",
     "sinkhorn_cost",

@@ -4,10 +4,8 @@ Counterpart of :mod:`geomloss_tpu.solvers.sinkhorn_loop`. The annealing
 schedule is a Python list; the iterations run as a Python loop under
 ``torch.no_grad()`` (the envelope theorem: no autograd through the loop),
 followed by one differentiable last extrapolation with detached duals.
-
-Its multiscale jumps and kernel truncation serve the grid path and
-``ot.solve_sample``, which are not ported yet (ROADMAP, queue 1 items
-10-11): passing them raises ``NotImplementedError``. The multiscale
+Multiscale jumps (the grid path) are Python-level events between
+iterations, with truncation and extrapolation hooks. The multiscale
 backend of ``SamplesLoss`` runs its own loop (``models/multiscale.py``).
 """
 
@@ -121,26 +119,41 @@ def _detach(C):
 
 def sinkhorn_loop(
     softmin: Callable,
-    a_log,
-    b_log,
-    C_xx,
-    C_yy,
-    C_xy,
-    C_yx,
+    a_logs,
+    b_logs,
+    C_xxs,
+    C_yys,
+    C_xys,
+    C_yxs,
     eps_list: Sequence[float],
     rho: Optional[float],
     jumps: Sequence[int] = (),
     kernel_truncation: Optional[Callable] = None,
+    truncate: float = 5,
+    cost=None,
+    extrapolate: Optional[Callable] = None,
     debias: bool = True,
+    last_extrapolation: bool = True,
     init_potentials=None,
     fused_step: Optional[Callable] = None,
     fused_last: Optional[Callable] = None,
 ):
-    r"""Symmetric Sinkhorn loop with annealing (single scale).
+    r"""(Possibly multiscale) symmetric Sinkhorn loop with annealing.
 
     Returns the four optimal dual potentials ``(f_aa, g_bb, g_ab, f_ba)``
     (``None`` for the first two when ``debias=False``). Gradients only flow
     through the final extrapolation.
+
+    The log weights and costs are per-scale lists, coarsest first (a bare
+    tensor or cost is one scale). Iteration ``jumps[i]`` runs at scale
+    ``i`` and is followed by a jump to scale ``i + 1``:
+    ``kernel_truncation(C_xy, C_yx, C_xy_fine, C_yx_fine, f_ba, g_ab, eps,
+    truncate=, cost=)`` gives the fine costs (for ``xy``, ``xx`` and
+    ``yy``), then ``extrapolate(f_ba, g_ab, eps, damping, C_xy, b_log,
+    C_xy_fine)`` carries each potential to the fine scale, all four from
+    the previous iterates. A jump at the last iteration extrapolates with
+    autograd on, from the attached coarse log weights onto the attached fine
+    costs, and takes the place of the last extrapolation.
 
     ``softmin(eps, C, h)`` is the softmin of the backend. ``fused_step(eps,
     C_ab, C_ba, a_log, b_log, f, g, sym=False)``, when given, replaces the
@@ -153,16 +166,27 @@ def sinkhorn_loop(
     ``init_potentials`` warm-starts the loop with a ``(f_ba, g_ab[, f_aa,
     g_bb])`` tuple from a previous solve.
     """
-    if list(jumps) or kernel_truncation is not None:
-        raise NotImplementedError(
-            "Multiscale jumps and kernel truncation of the single-scale loop "
-            "are not ported yet (ROADMAP.md, queue 1 items 10-11)."
-        )
+    if not isinstance(a_logs, list):
+        a_logs, b_logs = [a_logs], [b_logs]
+        C_xys, C_yxs = [C_xys], [C_yxs]
+        if debias:
+            C_xxs, C_yys = [C_xxs], [C_yys]
+
+    Nits = len(eps_list)
+    jumps = sorted(j for j in jumps if 0 <= j < Nits)
 
     with torch.no_grad():
-        a_log_d, b_log_d = a_log.detach(), b_log.detach()
-        C_xy_d, C_yx_d = _detach(C_xy), _detach(C_yx)
-        C_xx_d, C_yy_d = (_detach(C_xx), _detach(C_yy)) if debias else (None, None)
+        a_logs_d = [v.detach() for v in a_logs]
+        b_logs_d = [v.detach() for v in b_logs]
+        C_xys_d = [_detach(C) for C in C_xys]
+        C_yxs_d = [_detach(C) for C in C_yxs]
+        C_xxs_d = [_detach(C) for C in C_xxs] if debias else None
+        C_yys_d = [_detach(C) for C in C_yys] if debias else None
+
+        k = 0  # scale index
+        a_log_d, b_log_d = a_logs_d[0], b_logs_d[0]
+        C_xy_d, C_yx_d = C_xys_d[0], C_yxs_d[0]
+        C_xx_d, C_yy_d = (C_xxs_d[0], C_yys_d[0]) if debias else (None, None)
 
         eps = eps_list[0]
         damping = dampening(eps, rho)
@@ -195,7 +219,7 @@ def sinkhorn_loop(
             f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
 
         # --- Main descent: Jacobi-style updates, then averaging --------------
-        for eps in eps_list:
+        for it, eps in enumerate(eps_list):
             damp = dampening(eps, rho)
             if fused_step is not None:
                 S_xy, S_yx = fused_step(
@@ -221,25 +245,81 @@ def sinkhorn_loop(
                 f_aa = 0.5 * (f_aa + ft_aa)
                 g_bb = 0.5 * (g_bb + gt_bb)
 
+            if it not in jumps:
+                continue
+            # --- Jump to the next scale ---------------------------------------
+            if it == Nits - 1:
+                # Extrapolate with autograd on, from the attached coarse log
+                # weights onto the attached fine costs, and skip the last
+                # extrapolation:
+                with torch.enable_grad():
+                    f_ba, g_ab, f_aa, g_bb = _extrapolate_all(
+                        extrapolate, eps, damp, debias, f_ba, g_ab, f_aa, g_bb,
+                        (C_xy_d, C_yx_d, C_xx_d, C_yy_d), a_logs[k], b_logs[k],
+                        (C_xys[k + 1], C_yxs[k + 1],
+                         C_xxs[k + 1] if debias else None, C_yys[k + 1] if debias else None),
+                    )
+                last_extrapolation = False
+            else:
+                C_xy_f, C_yx_f = kernel_truncation(
+                    C_xy_d, C_yx_d, C_xys_d[k + 1], C_yxs_d[k + 1], f_ba, g_ab, eps,
+                    truncate=truncate, cost=cost,
+                )
+                C_xx_f = C_yy_f = None
+                if debias:
+                    C_xx_f, _ = kernel_truncation(
+                        C_xx_d, C_xx_d, C_xxs_d[k + 1], C_xxs_d[k + 1], f_aa, f_aa, eps,
+                        truncate=truncate, cost=cost,
+                    )
+                    C_yy_f, _ = kernel_truncation(
+                        C_yy_d, C_yy_d, C_yys_d[k + 1], C_yys_d[k + 1], g_bb, g_bb, eps,
+                        truncate=truncate, cost=cost,
+                    )
+                f_ba, g_ab, f_aa, g_bb = _extrapolate_all(
+                    extrapolate, eps, damp, debias, f_ba, g_ab, f_aa, g_bb,
+                    (C_xy_d, C_yx_d, C_xx_d, C_yy_d), a_log_d, b_log_d,
+                    (C_xy_f, C_yx_f, C_xx_f, C_yy_f),
+                )
+                C_xy_d, C_yx_d, C_xx_d, C_yy_d = C_xy_f, C_yx_f, C_xx_f, C_yy_f
+            k += 1
+            a_log_d, b_log_d = a_logs_d[k], b_logs_d[k]
+
     # After the loop, the temperature is the final schedule value:
     eps = eps_list[-1]
     damping = dampening(eps, rho)
 
     # --- Differentiable last extrapolation ----------------------------------
-    if fused_last is not None:
-        f_ba, g_ab, f_aa, g_bb = fused_last(
-            eps, damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log,
-            f_ba, g_ab, f_aa, g_bb,
-        )
-    else:
-        f_ba, g_ab = (
-            damping * softmin(eps, C_xy, (b_log + g_ab / eps).detach()),
-            damping * softmin(eps, C_yx, (a_log + f_ba / eps).detach()),
-        )
-        if debias:
-            f_aa = damping * softmin(eps, C_xx, (a_log + f_aa / eps).detach())
-            g_bb = damping * softmin(eps, C_yy, (b_log + g_bb / eps).detach())
+    if last_extrapolation:
+        a_log, b_log = a_logs[k], b_logs[k]
+        C_xy, C_yx = C_xys[k], C_yxs[k]
+        C_xx, C_yy = (C_xxs[k], C_yys[k]) if debias else (None, None)
+        if fused_last is not None:
+            f_ba, g_ab, f_aa, g_bb = fused_last(
+                eps, damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log,
+                f_ba, g_ab, f_aa, g_bb,
+            )
+        else:
+            f_ba, g_ab = (
+                damping * softmin(eps, C_xy, (b_log + g_ab / eps).detach()),
+                damping * softmin(eps, C_yx, (a_log + f_ba / eps).detach()),
+            )
+            if debias:
+                f_aa = damping * softmin(eps, C_xx, (a_log + f_aa / eps).detach())
+                g_bb = damping * softmin(eps, C_yy, (b_log + g_bb / eps).detach())
 
     if debias:
         return f_aa, g_bb, g_ab, f_ba
     return None, None, g_ab, f_ba
+
+
+def _extrapolate_all(extrapolate, eps, damping, debias, f_ba, g_ab, f_aa, g_bb, C, a_log, b_log, C_fine):
+    """The four potentials of a jump carried to the fine scale, each from
+    the previous iterates (the cross terms in parallel)."""
+    C_xy, C_yx, C_xx, C_yy = C
+    C_xy_f, C_yx_f, C_xx_f, C_yy_f = C_fine
+    f_new = extrapolate(f_ba, g_ab, eps, damping, C_xy, b_log, C_xy_f)
+    g_new = extrapolate(g_ab, f_ba, eps, damping, C_yx, a_log, C_yx_f)
+    if debias:
+        f_aa = extrapolate(f_aa, f_aa, eps, damping, C_xx, a_log, C_xx_f)
+        g_bb = extrapolate(g_bb, g_bb, eps, damping, C_yy, b_log, C_yy_f)
+    return f_new, g_new, f_aa, g_bb

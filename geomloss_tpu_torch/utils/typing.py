@@ -1,15 +1,28 @@
 """Typed containers shared across the library.
 
 PyTorch counterpart of :mod:`geomloss_tpu.utils.typing`: the same
-NamedTuple data contracts, holding ``torch.Tensor`` fields. Only the
-containers of the online Sinkhorn path are ported so far.
+NamedTuple data contracts, holding ``torch.Tensor`` fields.
 """
 
-from typing import NamedTuple, Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 
 Tensor = torch.Tensor
+
+
+class CostMatrices(NamedTuple):
+    """The four (explicit or implicit) cost structures of a Sinkhorn solver.
+
+    Each field is whatever the paired ``softmin`` understands: a dense
+    ``(..., N, M)`` tensor, a tuple of point clouds ``(x, y)``, or a grid
+    descriptor.
+    """
+
+    xy: Any  # C(x_i, y_j)
+    yx: Any  # C(y_j, x_i)
+    xx: Optional[Any] = None  # C(x_i, x_j), only used when debiasing
+    yy: Optional[Any] = None  # C(y_i, y_j), only used when debiasing
 
 
 class SinkhornPotentials(NamedTuple):

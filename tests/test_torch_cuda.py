@@ -392,6 +392,42 @@ def test_absorbed_sum_sparse_kernel_matches_twin(cuda_device, D, p, block):
     assert torch.equal(got, cbs.absorbed_sum_sparse(*args))
 
 
+#: A weight below 2^-126 flushes to zero on the card (ex2.approx.ftz).
+FLUSH_WEIGHT = 2.0**-126
+
+
+@pytest.mark.parametrize("block", [128, 512])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("D", [5, 8, 13])
+def test_absorbed_sum_sparse_kernel_at_unscaled_eps(cuda_device, D, p, block):
+    """Kernel 12 at the eps a D > 3 solve reaches (0.05 at p = 2, 0.2 at
+    p = 1, not scaled by D/3), where weights below 2^-126 flush on the
+    card and not in the twin: no row whose twin sum is positive comes out
+    zero (its log would be -inf); a sum that flushed weights could move by
+    more than 1e-6 of itself is compared raw, within its kept pairs x
+    2^-126 plus what the potentials' tolerance allows, every other one as
+    the Sinkhorn step reads it (``chip_smoke.py::check_sums``). Prints the
+    smallest twin sum over its kept pairs x 2^-126 (with ``-s``)."""
+    eps = 0.05 if p == 2 else 0.2
+    x, y, phi, psi, eps, cols, counts = _sum_problem(D, p, block, seed=D + 10 * p + block, eps=eps)
+    args = (*tensors(x, y, phi, psi, device=cuda_device), eps, *tensors(cols, counts, device=cuda_device), p, block)
+    got = _counted("absorbed_sum_sparse", lambda: cbs.absorbed_sum_sparse(*args), cbs.launch_counts)
+    ref = cbs.absorbed_sum_sparse_blocked(*args)
+    assert not ((got == 0) & (ref > 0)).any()
+    kept = torch.tensor(np.minimum(counts, cols.shape[1]) * block, device=cuda_device).repeat_interleave(block)
+    flush = kept.to(ref) * FLUSH_WEIGHT
+    near = (ref > 0) & (flush > 1e-6 * ref)
+    zero = torch.zeros_like(ref)
+    s_got, s_ref = (ck._absorbed_update(zero, zero, eps, v) for v in (got, ref))
+    torch.testing.assert_close(s_got[~near], s_ref[~near], **VAL_TOL)
+    tol = VAL_TOL["atol"] + VAL_TOL["rtol"] * s_ref[near].abs()
+    assert ((got[near] - ref[near]).abs() <= flush[near] + ref[near] * torch.expm1(tol / eps)).all()
+    live = ref > 0
+    margin = (ref[live] / flush[live]).min().item()
+    print(f"D={D} p={p} block={block} eps={eps}: {int(near.sum())} of {int(live.sum())} sums compared raw; "
+          f"smallest twin sum / (kept pairs x 2^-126) {margin:.3e}")
+
+
 @pytest.mark.parametrize("D", [3, 13])
 @pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("block", [128, 512])
@@ -937,3 +973,50 @@ def test_lse_kernels_after_zero_weight_columns(cuda_device, p, blocks, monkeypat
     args = (xt, yt, ht, eps, *tensors(cols, counts, device=cuda_device), 256, 128, p)
     got = _counted("lse_tiles", lambda: cbs.lse_tiles(*args), cbs.launch_counts)
     torch.testing.assert_close(got, cbs.lse_tiles_blocked(*args), **VAL_TOL)
+
+
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("shape", [(8, 256, 256), (2, 64, 64, 64)])
+def test_softmin_grid_float32_with_tf32_enabled_by_the_caller(cuda_device, shape, p):
+    """The grid softmin in float32 on the card against its float64 form, at
+    eps = 1 and at one pixel^p, with ``allow_tf32`` set by the caller: the
+    same floats as without it, and the caller's setting kept."""
+    from geomloss_tpu_torch.ops.grid import softmin_grid
+
+    h = torch.tensor(np.random.RandomState(p).randn(*shape), dtype=torch.float32, device=cuda_device)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    for eps in (1.0, shape[-1] ** -p):
+        got = softmin_grid(eps, p, h)
+        torch.testing.assert_close(got.double(), softmin_grid(eps, p, h.double()), **VAL_TOL)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            assert torch.equal(softmin_grid(eps, p, h), got)
+            assert torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("kw", [dict(p=2), dict(p=1), dict(p=2, reach=0.1)])
+def test_images_loss_on_the_card_matches_cpu_float64(cuda_device, kw):
+    """``ImagesLoss`` at 64^2 (a batch of 2) in float32 on the card against
+    the same call in float64 on the CPU: losses and the gradient within
+    1e-3 relative."""
+    from geomloss_tpu_torch import ImagesLoss
+
+    rng = np.random.RandomState(0)
+    grid = np.meshgrid(*[(np.arange(64) + 0.5) / 64] * 2, indexing="ij")
+    dens = []
+    for _ in range(4):
+        c, s = 0.2 + 0.6 * rng.rand(3, 2), 0.04 + 0.08 * rng.rand(3)
+        d = sum(np.exp(-((grid[0] - ci[0]) ** 2 + (grid[1] - ci[1]) ** 2) / (2 * si * si)) for ci, si in zip(c, s))
+        dens.append(d / d.sum())
+    a, b = np.stack(dens[:2]), np.stack(dens[2:])
+    out = []
+    for dev, dt in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        at = torch.tensor(a, dtype=dt, device=dev, requires_grad=True)
+        v = ImagesLoss(**kw)(at, torch.tensor(b, dtype=dt, device=dev))
+        (g,) = torch.autograd.grad(v.sum(), at)
+        out.append((v.detach().cpu().double(), g.cpu().double()))
+    (v, g), (v_ref, g_ref) = out
+    assert ((v - v_ref).abs() <= 1e-3 * v_ref.abs()).all()
+    assert (g - g_ref).norm() <= 1e-3 * g_ref.norm()

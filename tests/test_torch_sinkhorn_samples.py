@@ -25,6 +25,7 @@ from geomloss_tpu.models.sinkhorn_samples import sinkhorn_online as jax_online
 from geomloss_tpu.solvers.sinkhorn_loop import unbalanced_weight as jax_uw
 from geomloss_tpu_torch import SamplesLoss
 from geomloss_tpu_torch.models.sinkhorn_samples import sinkhorn_online
+from geomloss_tpu_torch.ops.softmin import softmin_dense
 from geomloss_tpu_torch.solvers.sinkhorn_loop import sinkhorn_loop, unbalanced_weight
 from geomloss_tpu_torch.ops.block_sparse import TileMask
 from geomloss_tpu_torch.utils import from_numpy, tile_mask_from_numpy, to_numpy
@@ -228,18 +229,27 @@ def test_multiscale_routes_run(monkeypatch, route):
     assert len(mid_runs) == (route == "mid_phase")
 
 
-def test_labels_and_jumps_not_ported_raise():
+def test_labels_form_and_loop_jumps_run():
     """The labels form runs the multiscale backend, with a custom cost too
-    (``|x-y|^2 / 2`` gives the built-in p = 2 value); the single-scale loop
-    takes no jumps."""
+    (``|x-y|^2 / 2`` gives the built-in p = 2 value); the loop takes a jump:
+    two scales (pooled pairs, then the cloud) with ``jumps=[0]`` return
+    finite potentials of the fine scale."""
     x = torch.rand(20, 3, dtype=torch.float64)
     w = torch.full((20,), 1 / 20, dtype=torch.float64)
     lab = torch.zeros(20, dtype=torch.int64)
     custom = SamplesLoss("sinkhorn", cost=_half_sqdist)(lab, w, x, lab, w, x.flip(0) + 0.1)
     builtin = SamplesLoss("sinkhorn")(lab, w, x, lab, w, x.flip(0) + 0.1)
     _close(custom, builtin.detach().numpy(), VAL_RTOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sinkhorn_loop(None, w, w, None, None, None, None, [1.0], None, jumps=[0])
+    y = x.flip(0) + 0.1
+    xs, ys = [x.reshape(10, 2, 3).mean(1), x], [y.reshape(10, 2, 3).mean(1), y]
+    logs = [torch.log(w.reshape(10, 2).sum(1)), torch.log(w)]
+    C = {k: [_half_sqdist(p[None], q[None])[0] for p, q in zip(P, Q)] for k, P, Q in (("xy", xs, ys), ("yx", ys, xs), ("xx", xs, xs), ("yy", ys, ys))}
+    out = sinkhorn_loop(
+        softmin_dense, logs, logs, C["xx"], C["yy"], C["xy"], C["yx"], [1.0, 0.1], None, jumps=[0],
+        kernel_truncation=lambda C_xy, C_yx, C_xy_f, C_yx_f, *a, **k: (C_xy_f, C_yx_f),
+        extrapolate=lambda f, g, eps, damping, C, b_log, C_f: f.repeat_interleave(2),
+    )
+    assert all(v.shape == (20,) and torch.isfinite(v).all() for v in out)
 
 
 @pytest.mark.parametrize(
