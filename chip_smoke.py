@@ -3,9 +3,10 @@ against its plain PyTorch twin, drives the online and the multiscale
 Sinkhorn paths at N = M = 100,000, the multiscale mid path at
 N = M = 2,000,000, 4,000,000 and 10,000,000 (tile 2048), the online path
 in D = 32, the kernel (MMD) losses at 100,000 and 1,000,000 points, the
-public sparse and walk Sinkhorn ops on the multiscale path's tables, and
-the grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
-``ImagesBarycenter``), and times them.
+public sparse and walk Sinkhorn ops on the multiscale path's tables, the
+grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
+``ImagesBarycenter``) and the ``ot`` API (``ot.solve_sample``'s streaming
+route at 100,000 points), and times them.
 
     python3 chip_smoke.py
 
@@ -117,6 +118,25 @@ phase fails. Phases, one line each:
     three calls with its gradient, the median of 5 timed runs (host clock
     and CUDA events), the device launches and idle share of one call
     (``torch.profiler``) and its peak memory.
+15. ``[ot]`` (run after ``[grid]``): the ``ot`` API. ``ot.solve_sample(
+    blur=0.05, max_iter=25, debias=True)`` between two 100,000-point
+    sphere clouds (the streaming route: no cost matrix), its value,
+    gradient in ``X_a``, marginals, ``a_to_b``, ``value_linear`` and
+    ``lazy_plan @ V`` (C = 1 and 3): kernel 1's launches against the
+    schedule (4 an iteration, 4 in the last extrapolation) and kernel 4's
+    against the recorded calls; kernel 1's first and last call and kernel
+    4's first call at C = 1 and C = 3 against their twins, kernel 4 timed
+    at both beside its bound; loss + gradient timed (median of 3, host
+    clock and CUDA events), its idle share and launches under
+    ``torch.profiler`` and its peak memory. Then, float32 against the same
+    calls through the float64 twins (``plain_twins``): ``solve_sample`` at
+    20,000 points (value, gradient, potentials, ``a_to_b``,
+    ``marginal_a``), ``solve_sample_batch`` (4 x 10,000),
+    ``barycenter_sample`` (3 clouds of 10,000, ``SamplesLoss``'s online
+    route: kernels 2-4), ``solve``, ``solve_batch`` and ``barycenter`` on
+    4,096 x 4,096 costs (no kernel), ``solve_grid`` at 8 x 256^2 (the
+    pyramid) and 2 x 128^2 (``axes=``, ``periodic=True``) and
+    ``barycenter_grid`` at 4 x 128^2, each timed, within ``PATH_TOL``.
 
 Each phase prints its seconds.
 
@@ -1653,6 +1673,300 @@ def grid_phase(dev, card):
     print(f"[grid] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+#: [ot]: ot.solve_sample's streaming route (above 5000^2 cost entries) at
+#: N = M = 1e5 in float32 (25 iterations, debias: 4 softmins an iteration
+#: and 4 in the last extrapolation, each one launch of kernel 1; the eps =
+#: inf initialization is a closed form), and against the float64 twins at
+#: 2e4; solve_sample_batch (B = 4) at 1e4; barycenter_sample (K = 3 clouds
+#: of 1e4 in D = 3, SamplesLoss's online route); ot.solve, solve_batch and
+#: barycenter on dense 4,096 x 4,096 costs; solve_grid at 8 x 256^2 (the
+#: pyramid), 2 x 128^2 (axes= / periodic=) and barycenter_grid at 4 x 128^2.
+OT_POINTS = 100_000
+OT_PARITY_POINTS = 20_000
+OT_BATCH = (4, 10_000)
+OT_BARYCENTER = (3, 10_000)
+OT_DENSE = 4096
+OT_ITERS = 25
+#: The grid calls run at blur 0.1: a float32 marginal carries the error of
+#: f + g - C over eps (one ulp of the potentials is 6e-8 x their size), so
+#: eps = 0.01 keeps it near 1e-5, where one pixel of 256 (eps 1.5e-5)
+#: would put it at the percent in float32 whatever the solver.
+OT_GRID_BLUR = 0.1
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """Every kernel wrapper of ``ops/cuda_kernels.py`` and
+    ``ops/cuda_block_sparse.py`` swapped for its ``_blocked`` twin (the
+    same math in the input dtype, on the card): the float64 reference runs
+    of the ``ot`` phase."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    saved = []
+    for mod in (ck, cbs):
+        for name in dir(mod):
+            if not name.startswith("_") and hasattr(mod, name + "_blocked"):
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, getattr(mod, name + "_blocked"))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def rel_l2(got, ref):
+    ref = ref.detach().double()
+    return ((got.detach().double() - ref).norm() / ref.norm()).item()
+
+
+def check_rel(tag, label, errs, tol=PATH_TOL):
+    """Print relative errors ``{name: err}`` against float64; fail above
+    ``tol``."""
+    text = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[{tag}] {label}: relative errors against float64: {text} (tol {tol:g})", flush=True)
+    bad = [k for k, v in errs.items() if not v <= tol]
+    if bad:
+        fail(f"{label}: {', '.join(bad)} miss the tolerance {tol:g}")
+
+
+def ot_phase(dev, card, clock):
+    """The ``ot`` API on the card: ``solve_sample``'s streaming route at
+    1e5 (kernels 1 and 4, launches against the schedule, both kernels
+    against their twins at the route's shapes, loss + gradient time, idle
+    share, peak memory), float32 against the float64 twins at 2e4,
+    ``solve_sample_batch``, ``barycenter_sample`` (kernels 2-4), the dense
+    solvers and the grid solvers, each float32 against float64."""
+    from geomloss_tpu_torch import ot
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+    from geomloss_tpu_torch.solvers.annealing import annealing_parameters, max_diameter
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    kw = dict(blur=BLUR, max_iter=OT_ITERS, debias=True)
+
+    def apply_launches(args):
+        """Launches of one kernel 4 call: one per chunk of row blocks."""
+        N, M, C = args[0].shape[0], args[1].shape[0], args[4].shape[1]
+        return -(-(-(-N // 256)) // ck.apply_plan(N, M, C)[0])
+
+    # --- solve_sample's streaming route at 1e5 ------------------------------------------
+    xa = torch.from_numpy(sphere_cloud(OT_POINTS, 0)).to(dev).requires_grad_()
+    xb = torch.from_numpy(sphere_cloud(OT_POINTS, 1)).to(dev)
+    V1 = torch.from_numpy(np.random.RandomState(5).randn(OT_POINTS).astype(np.float32)).to(dev)
+    V3 = torch.from_numpy(np.random.RandomState(6).randn(OT_POINTS, 3).astype(np.float32)).to(dev)
+
+    def route():
+        res = ot.solve_sample(xa, xb, **kw)
+        (g,) = torch.autograd.grad(res.value, xa)
+        outs = (res.value, g, res.marginal_a, res.marginal_b, res.a_to_b, res.value_linear,
+                res.lazy_plan @ V1, res.lazy_plan @ V3)
+        return res, outs
+
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording(ck, ("lse", "gibbs_apply")) as rec:
+        res, outs = route()
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {**ck.launch_counts, **{k: v for k, v in cbs.launch_counts.items() if v}}
+    n_sched = len(annealing_parameters(maxmin_cost=max_diameter(xa.detach(), xb) ** 2, eps=2 * BLUR**2,
+                                       n_iter=OT_ITERS).eps_list)
+    want_lse = 4 * n_sched + 4
+    want_apply = sum(apply_launches(a) for a, _ in rec["gibbs_apply"])
+    widths = sorted({a[4].shape[1] for a, _ in rec["gibbs_apply"]})
+    print(f"[ot] solve_sample(blur={BLUR}, max_iter={OT_ITERS}, debias=True) N=M={OT_POINTS} streaming, value, "
+          f"grad in X_a, marginal_a/b, a_to_b, value_linear, lazy_plan @ V (C = 1, 3): {first_s:.2f} s (first "
+          f"call), launches {json.dumps(launches)}; schedule {n_sched} iterations -> kernel 1 expected {want_lse} "
+          f"({len(rec['lse'])} lse calls), kernel 4 expected {want_apply} ({len(rec['gibbs_apply'])} calls, "
+          f"channels {widths})", flush=True)
+    if not (launches["lse"] == want_lse == len(rec["lse"]) and launches["gibbs_apply"] == want_apply > 0):
+        fail(f"ot.solve_sample at N=M={OT_POINTS}: launches {launches} do not match the schedule "
+             f"(kernel 1 {want_lse}, kernel 4 {want_apply})")
+    if any(n for k, n in launches.items() if k not in ("lse", "gibbs_apply")):
+        fail(f"ot.solve_sample launched a kernel off its route: {launches}")
+    v, g = outs[0], outs[1]
+    shapes_ok = (v.shape == () and g.shape == (OT_POINTS, 3) and outs[4].shape == (OT_POINTS, 3)
+                 and outs[7].shape == (OT_POINTS, 3))
+    if not (shapes_ok and all(bool(torch.isfinite(t).all()) for t in outs)):
+        fail("ot.solve_sample at 1e5: non-finite or misshapen outputs")
+    mass = (outs[2].sum().item(), outs[3].sum().item())
+    print(f"[ot] value {v.item():.9e}, value_linear {outs[5].item():.9e}, marginal masses {mass[0]:.6f} / "
+          f"{mass[1]:.6f}; card {card}", flush=True)
+    if not all(abs(m - 1) <= 1e-2 for m in mass):
+        fail(f"ot.solve_sample at 1e5: the plan's marginals carry mass {mass}, not 1")
+
+    # Kernels 1 and 4 against their twins at the route's shapes (not counted):
+    # kernel 1's first call (the first iteration) and last (the last
+    # extrapolation, at the final eps), kernel 4's first at C = 1 and 3.
+    for which, (args, _) in (("first", rec["lse"][0]), ("last", rec["lse"][-1])):
+        check_val("lse", f"ot.solve_sample route, {which} call {args[0].shape[0]}x{args[1].shape[0]} "
+                  f"eps={args[3]:.4g}", ck.lse(*args), ck.lse_blocked(*args))
+    N = OT_POINTS
+    k_ms = event_ms(lambda: ck.lse(*args), 5)
+    b_ms, b_by = bound(N * N, nbytes(*args[:3]) + 4 * N, clock)
+    print(f"[time] lse                ot route N=M={N}: kernel {k_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) (CUDA "
+          f"events); card {card}", flush=True)
+    timed = {}
+    for C in (1, 3):
+        a = next(a for a, _ in rec["gibbs_apply"] if a[4].shape[1] == C)
+        scale = ck.gibbs_apply_blocked(*a[:4], a[4].abs(), *a[5:]).abs().max().item()
+        check_apply("gibbs_apply", f"ot.solve_sample route {a[0].shape[0]}x{a[1].shape[0]} {a[7]} C={C}",
+                    ck.gibbs_apply(*a), ck.gibbs_apply_blocked(*a), scale)
+        timed[C] = a
+    del rec, args
+    for C, a in timed.items():
+        k_ms = event_ms(lambda: ck.gibbs_apply(*a), 10)
+        t_ms = event_ms(lambda: ck.gibbs_apply_blocked(*a), 2)
+        b_ms, b_by = bound(N * N, nbytes(*a[:5]) + 4 * N * C, clock)
+        slots = pair_slots("gibbs_apply", ch=ck._channel_groups(C)[0])
+        print(f"[time] gibbs_apply        ot route N=M={N} C={C}: kernel {k_ms:.3f} ms, twin {t_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}), issue floor {issue_ms(slots, N * N, clock):.3f} ms ({slots} slots per pair) "
+              f"(CUDA events); card {card}", flush=True)
+    del timed, a
+
+    def loss_grad():
+        r = ot.solve_sample(xa, xb, **kw)
+        return torch.autograd.grad(r.value, xa)
+
+    host_ms, ev_ms = timed_call(loss_grad, reps=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss_grad()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    wall, busy, n_launch, top = profile_busy_ms(loss_grad, top=4)
+    print(f"[time] ot.solve_sample loss+grad N=M={OT_POINTS} (streaming, {n_sched} iterations, debias): median of 3 "
+          f"after a warm-up, host clock {host_ms:.3f} ms, CUDA events {ev_ms:.3f} ms; one call under "
+          f"torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} "
+          f"%, {n_launch} kernel launches; peak memory beyond its inputs {peak / 1e9:.3f} GB; card {card}",
+          flush=True)
+    for dev_ms, n_calls, key in top:
+        print(f"[time]   {dev_ms:9.3f} ms {n_calls:5d} x {key[:90]}", flush=True)
+    del res, outs, xa, xb, V1, V3
+    torch.cuda.empty_cache()
+
+    # --- float32 kernels against the float64 twins at 2e4 (still streaming) -----------
+    def sample_outputs(x, y):
+        x = x.detach().clone().requires_grad_()
+        r = ot.solve_sample(x, y, **kw)
+        (g,) = torch.autograd.grad(r.value, x)
+        return {"value": r.value, "grad": g, "potential_a": r.potential_a, "potential_b": r.potential_b,
+                "a_to_b": r.a_to_b, "marginal_a": r.marginal_a}
+
+    x = torch.from_numpy(sphere_cloud(OT_PARITY_POINTS, 2)).to(dev)
+    y = torch.from_numpy(sphere_cloud(OT_PARITY_POINTS, 3)).to(dev)
+    ck.reset_launch_counts()
+    got = sample_outputs(x, y)
+    n1, n4 = ck.launch_counts["lse"], ck.launch_counts["gibbs_apply"]
+    with plain_twins():
+        ref = sample_outputs(x.to(f64), y.to(f64))
+    if not (n1 and n4) or ck.launch_counts["lse"] != n1:
+        fail(f"solve_sample at 2e4: kernels 1/4 launched {n1}/{n4} times, or a twin run launched a kernel")
+    check_rel("ot", f"solve_sample N=M={OT_PARITY_POINTS} float32 kernels (kernel 1 x {n1}, kernel 4 x {n4}); "
+              f"loss, then relative L2", {k: rel_l2(got[k], ref[k]) for k in got})
+
+    # --- solve_sample_batch at B = 4 x 1e4 (streaming) ----------------------------------
+    B, n = OT_BATCH
+    X = torch.from_numpy(np.stack([sphere_cloud(n, 10 + i) for i in range(B)])).to(dev)
+    Y = torch.from_numpy(np.stack([sphere_cloud(n, 20 + i) for i in range(B)])).to(dev)
+
+    def batch_outputs(X, Y):
+        rs = ot.solve_sample_batch(X, Y, **kw)
+        return {"values": torch.stack([r.value for r in rs]), "potential_a": torch.stack([r.potential_a for r in rs]),
+                "marginal_b": torch.stack([r.marginal_b for r in rs])}
+
+    ck.reset_launch_counts()
+    host_ms, ev_ms = timed_call(lambda: batch_outputs(X, Y), reps=1)
+    got = batch_outputs(X, Y)
+    n1 = ck.launch_counts["lse"]
+    with plain_twins():
+        ref = batch_outputs(X.to(f64), Y.to(f64))
+    errs = {"values (largest)": ((got["values"].double() - ref["values"]).abs() / ref["values"].abs()).max().item(),
+            "potential_a": rel_l2(got["potential_a"], ref["potential_a"]),
+            "marginal_b": rel_l2(got["marginal_b"], ref["marginal_b"])}
+    check_rel("ot", f"solve_sample_batch B={B} N=M={n} (kernel 1 x {n1} over 3 calls; one call {host_ms:.1f} ms "
+              f"host, {ev_ms:.1f} ms events; card {card})", errs)
+    del X, Y
+
+    # --- barycenter_sample: K = 3 clouds of 1e4, SamplesLoss online (kernels 2-4) -------
+    K, n = OT_BARYCENTER
+    rng = np.random.RandomState(7)
+    xs = np.stack([sphere_cloud(n, 30 + k) * (0.5 + 0.5 * k) + rng.randn(3) for k in range(K)]).astype(np.float32)
+    xs = torch.from_numpy(xs).to(dev)
+    w = torch.tensor([0.5, 0.3, 0.2], device=dev)
+    bkw = dict(blur=BLUR, n_iter=3)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    bar = ot.barycenter_sample(xs, weights=w, **bkw)
+    torch.cuda.synchronize()
+    bar_s = time.perf_counter() - t0
+    bl = dict(ck.launch_counts)
+    with plain_twins():
+        bar_r = ot.barycenter_sample(xs.to(f64), weights=w.to(f64), **bkw)
+    if not all(bl[k] > 0 for k in ("sinkhorn_step", "sinkhorn_step_sym", "gibbs_apply")):
+        fail(f"barycenter_sample did not run the online route's kernels 2-4: {bl}")
+    if bar.samples.shape != (n, 3) or not bool(torch.isfinite(bar.samples).all()):
+        fail("barycenter_sample: non-finite or misshapen support")
+    check_rel("ot", f"barycenter_sample K={K} N={n} n_iter=3 ({bar_s:.2f} s, launches {json.dumps(bl)}; card "
+              f"{card})", {"samples": rel_l2(bar.samples, bar_r.samples)})
+    del xs, bar, bar_r
+
+    # --- Dense solvers: 4,096 x 4,096 costs (no kernel) ---------------------------------
+    def sqd(u, v):
+        return ((u[:, None, :] - v[None, :, :]) ** 2).sum(-1)
+
+    pts = [torch.from_numpy(sphere_cloud(OT_DENSE, 40 + i)).to(dev) for i in range(4)]
+    C = sqd(pts[0], pts[1])
+    Cb = torch.stack([C, sqd(pts[2], pts[3])])
+    cost = torch.stack([sqd(pts[1], pts[0]), sqd(pts[2], pts[0])])  # (K, N, M) onto pts[0]
+    cost_bar = sqd(pts[0], pts[0])
+    dense = {
+        "solve": lambda dt: (lambda r: {"value": r.value, "plan": r.plan, "potential_a": r.potential_a})(
+            ot.solve(C.to(dt), reg=0.01, max_iter=100)),
+        "solve_batch": lambda dt: (lambda r: {"values": r.value, "marginal_a": r.marginal_a})(
+            ot.solve_batch(Cb.to(dt), reg=0.01, max_iter=100)),
+        "barycenter": lambda dt: {"masses": ot.barycenter(cost.to(dt), reg=0.01, max_iter=100,
+                                                          cost_bar=cost_bar.to(dt)).masses},
+    }
+    ck.reset_launch_counts()
+    for name, fn in dense.items():
+        host_ms, ev_ms = timed_call(lambda: fn(torch.float32), reps=1)
+        got, ref = fn(torch.float32), fn(f64)
+        check_rel("ot", f"{name} {OT_DENSE}x{OT_DENSE} ({host_ms:.1f} ms host, {ev_ms:.1f} ms events; card {card})",
+                  {k: rel_l2(got[k], ref[k]) for k in got})
+    if any(ck.launch_counts.values()):
+        fail(f"the dense solvers launched a kernel: {ck.launch_counts}")
+    del pts, C, Cb, cost, cost_bar, got, ref
+
+    # --- Grid solvers ---------------------------------------------------------------------
+    a8 = torch.from_numpy(grid_densities(GRID_IMAGES, 0, 2)).to(dev)
+    b8 = torch.from_numpy(grid_densities(GRID_IMAGES, 1, 2)).to(dev)
+    a2 = torch.from_numpy(grid_densities((2, 128, 128), 2, 2)).to(dev)
+    b2 = torch.from_numpy(grid_densities((2, 128, 128), 3, 2)).to(dev)
+    m4 = torch.from_numpy(grid_densities((1, 4, 128, 128), 4, 2)).to(dev)
+    grid = {
+        f"solve_grid pyramid {tuple(a8.shape)}": lambda dt: (lambda r: {"values": r.value, "marginal_a": r.marginal_a})(
+            ot.solve_grid(a8.to(dt), b8.to(dt), blur=OT_GRID_BLUR)),
+        f"solve_grid axes=(0, 2), periodic {tuple(a2.shape)}": lambda dt: (
+            lambda r: {"values": r.value, "marginal_a": r.marginal_a, "potential_a": r.potential_a})(
+            ot.solve_grid(a2.to(dt), b2.to(dt), axes=(0.0, 2.0), periodic=True, blur=2 * OT_GRID_BLUR)),
+        f"barycenter_grid {tuple(m4.shape)}": lambda dt: {"barycenter": ot.barycenter_grid(
+            m4.to(dt), torch.tensor([GRID_WEIGHTS], dtype=dt, device=dev))},
+    }
+    for name, fn in grid.items():
+        host_ms, ev_ms = timed_call(lambda: fn(torch.float32), reps=1)
+        got, ref = fn(torch.float32), fn(f64)
+        errs = {k: (((got[k].double() - ref[k]).abs() / ref[k].abs()).max().item() if k == "values"
+                    else rel_l2(got[k], ref[k])) for k in got}
+        check_rel("ot", f"{name} ({host_ms:.1f} ms host, {ev_ms:.1f} ms events; card {card})", errs)
+    print(f"[ot] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     # --- 1. Device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2110,6 +2424,7 @@ def main():
     # --- 10. MMD losses, 12. the public sparse and walk ops, 11. the auto route at 4e6 --
     wide_dim_phase(dev, card, clock)
     grid_phase(dev, card)
+    ot_phase(dev, card, clock)
     kernels += mmd_phase(dev, card, clock)
     kernels += sparse_phase(dev, card, clock)
     auto_route_phase(dev, card, N_4M, "4m", reps=2)

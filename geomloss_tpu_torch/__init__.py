@@ -13,7 +13,11 @@ the ``tensorized``, ``online`` and ``multiscale`` backends, the
 block-sparse operators of :mod:`.ops` (``softmin_sparse``,
 ``gibbs_apply_sparse``, ``lse_sparse``), and the grid path:
 ``sinkhorn_divergence``, ``ImagesLoss``, ``VolumesLoss`` and
-``ImagesBarycenter``. This package never imports JAX.
+``ImagesBarycenter``; and the ``ot`` API (:mod:`.ot`: ``solve``,
+``solve_batch``, ``solve_sample``, ``solve_sample_batch``, ``solve_grid``,
+the barycenters ``barycenter``, ``barycenter_sample`` and
+``barycenter_grid``, and the ``OTResult`` family), whose streaming
+``solve_sample`` runs kernels 1 and 4. This package never imports JAX.
 """
 
 __version__ = "0.3.1"
@@ -31,6 +35,10 @@ def __getattr__(name):
         from .models import sinkhorn_images
 
         return getattr(sinkhorn_images, name)
+    if name == "ot":
+        import importlib
+
+        return importlib.import_module("geomloss_tpu_torch.ot")
     raise AttributeError(f"module 'geomloss_tpu_torch' has no attribute {name!r}")
 
 
@@ -40,5 +48,6 @@ __all__ = [
     "sinkhorn_divergence",
     "ImagesLoss",
     "VolumesLoss",
+    "ot",
     "__version__",
 ]

@@ -5,16 +5,19 @@ plain Python list of floats, computed before the loop starts.
 """
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
+
+from ..utils.typing import DescentParameters
 
 __all__ = [
     "dampening",
     "max_diameter",
     "epsilon_schedule",
     "scaling_parameters",
+    "annealing_parameters",
 ]
 
 
@@ -59,3 +62,71 @@ def scaling_parameters(x, y, p, blur, reach, diameter, scaling):
     rho = None if reach is None else reach**p
     eps_list = epsilon_schedule(p, diameter, blur, scaling)
     return diameter, eps, eps_list, rho
+
+
+def annealing_parameters(
+    *,
+    maxmin_cost: float,
+    eps: float,
+    rho: Optional[float] = None,
+    n_iter: Optional[int] = None,
+    scaling: Optional[float] = None,
+    eps_scales: Optional[List[float]] = None,
+) -> DescentParameters:
+    r"""Schedule of the ``ot.solve*`` loop:
+    ``DescentParameters(scale_list, eps_list, rho_list)``.
+
+    * ``n_iter`` given: a constant (``scaling=1``), geomspace
+      (``scaling=None``) or geometric-with-floor schedule;
+    * ``scaling`` given alone: ``floor((log eps - log maxmin) / log
+      scaling) + 2`` iterations of geometric-with-floor cooling;
+    * ``scale_list`` puts each iteration on the coarsest scale whose
+      resolution is still finer than its temperature, the last one on the
+      finest scale.
+    """
+    if n_iter is not None and n_iter <= 0:
+        raise ValueError(
+            f"The number of iterations should be >= 1. Received n_iter={n_iter}."
+        )
+    if scaling is not None and (scaling <= 0 or scaling > 1):
+        raise ValueError(
+            f"The scaling factor should be in (0,1]. Received scaling={scaling}."
+        )
+    if n_iter is None and scaling is None:
+        raise ValueError(
+            "Please specify a number of iterations using either "
+            "the n_iter or scaling parameters."
+        )
+
+    maxmin_cost = max(float(maxmin_cost), eps)
+
+    if n_iter is None:
+        if scaling == 1:
+            raise ValueError(
+                "If n_iter is not specified, the scaling coefficient should be < 1."
+            )
+        n_iter = int(np.floor((np.log(eps) - np.log(maxmin_cost)) / np.log(scaling))) + 2
+
+    if scaling == 1:
+        eps_list = [eps] * n_iter
+    elif scaling is None:
+        eps_list = [eps] if n_iter == 1 else list(np.geomspace(maxmin_cost, eps, n_iter))
+    else:
+        log_eps = np.log(maxmin_cost) + np.arange(n_iter) * np.log(scaling)
+        eps_list = list(np.exp(np.maximum(log_eps, np.log(eps))))
+
+    eps_list = [float(e) for e in eps_list]
+    rho_list = [rho] * len(eps_list)
+
+    if eps_scales is None or len(eps_scales) < 2:
+        scale_list = [0] * len(eps_list)
+    else:
+        scale_list = []
+        scale = 0
+        for e in eps_list:
+            while scale + 1 < len(eps_scales) and e < eps_scales[scale]:
+                scale += 1
+            scale_list.append(scale)
+        scale_list[-1] = len(eps_scales) - 1
+
+    return DescentParameters(scale_list=scale_list, eps_list=eps_list, rho_list=rho_list)

@@ -110,10 +110,13 @@ def sinkhorn_cost(
 
 
 def _detach(C):
+    """``C`` with every tensor detached: tuples keep their type (a
+    ``CostMatrices`` stays one), ``None`` and other leaves pass through."""
     if isinstance(C, torch.Tensor):
         return C.detach()
     if isinstance(C, tuple):
-        return tuple(_detach(c) for c in C)
+        detached = (_detach(c) for c in C)
+        return type(C)(*detached) if hasattr(C, "_fields") else tuple(detached)
     return C
 
 

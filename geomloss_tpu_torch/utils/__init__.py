@@ -1,4 +1,4 @@
-"""Typed containers and numpy interop."""
+"""Typed containers, numpy interop, validation, caching and profiling."""
 
 from .interop import from_numpy, tile_mask_from_numpy, to_numpy
 from .typing import CostMatrices, DescentParameters, SinkhornPotentials

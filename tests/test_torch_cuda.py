@@ -1020,3 +1020,60 @@ def test_images_loss_on_the_card_matches_cpu_float64(cuda_device, kw):
     (v, g), (v_ref, g_ref) = out
     assert ((v - v_ref).abs() <= 1e-3 * v_ref.abs()).all()
     assert (g - g_ref).norm() <= 1e-3 * g_ref.norm()
+
+
+def test_solve_sample_streaming_on_the_card_matches_cpu_float64(cuda_device):
+    """``ot.solve_sample`` between two clouds of 20,000 points (4e8 cost
+    entries: the streaming route, kernel 1 for every softmin) in float32 on
+    the card against the same call in float64 on the CPU: the value within
+    1e-3 relative, its gradient in ``X_a``, the potentials, ``a_to_b`` and
+    ``marginal_a`` (kernel 4 on the card) within 1e-3 relative L2."""
+    from geomloss_tpu_torch import ot
+
+    rng = np.random.RandomState(0)
+    pts = [rng.randn(20_000, 3) for _ in range(2)]
+    pts = [p / np.linalg.norm(p, axis=1, keepdims=True) for p in pts]
+    out = []
+    for dev, dt in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        xa = torch.tensor(pts[0], dtype=dt, device=dev, requires_grad=True)
+        res = ot.solve_sample(xa, torch.tensor(pts[1], dtype=dt, device=dev), blur=0.05, max_iter=5, debias=True)
+        before = dict(ck.launch_counts)
+        (g,) = torch.autograd.grad(res.value, xa)
+        extra = (res.potential_a, res.potential_b, res.a_to_b, res.marginal_a)
+        if dev == cuda_device:
+            assert ck.launch_counts["gibbs_apply"] > before["gibbs_apply"]
+        out.append([t.detach().cpu().double() for t in (res.value, g, *extra)])
+    (v, *rest), (v_ref, *rest_ref) = out
+    assert abs(v - v_ref) <= 1e-3 * abs(v_ref)
+    for got, ref in zip(rest, rest_ref):
+        assert (got - ref).norm() <= 1e-3 * ref.norm()
+
+
+def test_a_to_b_through_kernel_4_matches_twin(cuda_device, monkeypatch):
+    """The barycentric map of a streaming result applies kernel 4 at
+    C = 1 and C = 3: each apply within the apply tolerance of its twin, and
+    the map within 1e-4 relative L2 of the one through the twins."""
+    from geomloss_tpu_torch import ot
+
+    rng = np.random.RandomState(1)
+    x, y = (torch.tensor(rng.rand(n, 3), dtype=torch.float32, device=cuda_device) for n in (6000, 5000))
+    res = ot.solve_sample(x, y, blur=0.05, max_iter=10)
+    calls = []
+    kernel = ck.gibbs_apply
+
+    def recorded(*args):
+        out = kernel(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(ck, "gibbs_apply", recorded)
+    got = _counted("gibbs_apply", lambda: res.a_to_b)
+    assert sorted(args[4].shape[1] for args, _ in calls) == [1, 3]
+    for args, out in calls:
+        ref = ck.gibbs_apply_blocked(*args)
+        scale = ck.gibbs_apply_blocked(*args[:4], args[4].abs(), *args[5:]).abs().max()
+        assert ((out - ref).abs() <= 3e-5 * scale + 2e-3 * ref.abs()).all()
+    res.cache_clear()
+    monkeypatch.setattr(ck, "gibbs_apply", ck.gibbs_apply_blocked)
+    ref = res.a_to_b
+    assert (got - ref).norm() <= 1e-4 * ref.norm()

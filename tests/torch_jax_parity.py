@@ -23,7 +23,7 @@ def close(got, expected, rtol):
     np.testing.assert_allclose(got, expected, rtol=rtol, atol=rtol * np.abs(expected).max())
 
 
-def assert_solve_parity(jax_fn, torch_fn, inputs, *, rtol, grad_rtol=None, argnums=(), seed=0):
+def assert_solve_parity(jax_fn, torch_fn, inputs, *, rtol, grad_rtol=None, argnums=(), seed=0, jit=True):
     """Run ``inputs`` through both functions and compare.
 
     Args:
@@ -34,14 +34,17 @@ def assert_solve_parity(jax_fn, torch_fn, inputs, *, rtol, grad_rtol=None, argnu
         grad_rtol: gradient tolerance; defaults to ``rtol``.
         argnums: indices of the inputs to differentiate in.
         seed: seed of the cotangent.
+        jit: run the JAX function under ``jax.jit`` (False for one that
+            reads concrete values of its inputs).
 
     Returns:
         The port's output, detached.
     """
     jin = [jnp.asarray(v) for v in inputs]
+    wrap = jax.jit if jit else (lambda f: f)
     leaves = [torch.tensor(v, requires_grad=i in argnums) for i, v in enumerate(inputs)]
     if not argnums:
-        jout = jax.jit(jax_fn)(*jin)
+        jout = wrap(jax_fn)(*jin)
         with torch.no_grad():
             tout = torch_fn(*leaves)
         tl, jl = (o if isinstance(o, tuple) else (o,) for o in (tout, jout))
@@ -56,7 +59,7 @@ def assert_solve_parity(jax_fn, torch_fn, inputs, *, rtol, grad_rtol=None, argnu
             args[i] = v
         return jax_fn(*args)
 
-    jout, vjp = jax.vjp(jax.jit(j_of), *(jin[i] for i in argnums))
+    jout, vjp = jax.vjp(wrap(j_of), *(jin[i] for i in argnums))
     cot = np.random.RandomState(seed).uniform(0.5, 1.5, np.shape(jout))
     jgrads = vjp(jnp.asarray(cot))
     tout = torch_fn(*leaves)
