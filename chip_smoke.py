@@ -5,8 +5,10 @@ N = M = 2,000,000, 4,000,000 and 10,000,000 (tile 2048), the online path
 in D = 32, the kernel (MMD) losses at 100,000 and 1,000,000 points, the
 public sparse and walk Sinkhorn ops on the multiscale path's tables, the
 grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
-``ImagesBarycenter``) and the ``ot`` API (``ot.solve_sample``'s streaming
-route at 100,000 points), and times them.
+``ImagesBarycenter``), the ``ot`` API (``ot.solve_sample``'s streaming
+route at 100,000 points) and the ``parallel`` package (the ring at 100,000
+points and the row-sharded multiscale solve at 2,000,000, on one rank
+and on ranks that share the card), and times them.
 
     python3 chip_smoke.py
 
@@ -137,8 +139,30 @@ phase fails. Phases, one line each:
     4,096 x 4,096 costs (no kernel), ``solve_grid`` at 8 x 256^2 (the
     pyramid) and 2 x 128^2 (``axes=``, ``periodic=True``) and
     ``barycenter_grid`` at 4 x 128^2, each timed, within ``PATH_TOL``.
+16. ``[parallel]`` (run after ``[ot]``): ``geomloss_tpu_torch.parallel``.
+    (a) One rank on NCCL (a world-size-1 group through a ``FileStore``
+    under ``build/``): ``sinkhorn_multiscale_sharded`` at N = M = 2e6
+    (bench.py's call: the mid path, kernels 1, 7, 5 and 6) against
+    ``SamplesLoss()`` at the same clouds, bitwise (the gap printed and
+    explained otherwise), and at 1e5; ``sinkhorn_ring`` (kernels 1 and 4)
+    and the gaussian ``kernel_ring`` (kernel 4) at 1e5 against the online
+    route within ``PATH_TOL`` and the MMD's term-scaled bounds. (b) Four
+    ranks on the one card through gloo, each this script run again as a
+    child process (``python chip_smoke.py --parallel-rank ...``) (NCCL refuses two ranks on
+    one device; ranks that share a card give no scaling figure): the
+    sharded solve at 2e6 and the ring calls on the first two ranks, the
+    sharded solve at 1e5 and the ring calls on all four, each against (a)
+    within 1e-5 (value) and 1e-4 (gradient, relative L2); a rank that
+    raises, dies or overruns ``PARALLEL_DEADLINE`` fails the phase. For
+    every run: the backend, R, each rank's calls and launches of kernels
+    1, 4, 5, 6 and 7 against the schedule, loss + gradient (median of 3,
+    host clock and CUDA events), peak memory and rank 0's idle share.
+    (c) Kernels 5 and 6 with a row offset: on shard 1 of 4 of the 1e5
+    multiscale triangle tables (p in {1, 2}) against their twins, and the
+    four shards' sums added up against the whole table.
 
-Each phase prints its seconds.
+Each phase prints its seconds. Before the last lines the run fails if a
+process it started (nvcc, nvidia-smi, a [parallel] rank) is still there.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -233,6 +257,22 @@ N_FINE_FORCED = 1 << 16
 #: Row tiles of the kernel 5 and 6 parity checks on the 2e6 tables (the
 #: twin's time grows with them).
 MID_PARITY_TILES = 64
+#: [parallel]: the ring calls and the sharded solve at 1e5 on R = 4 ranks,
+#: the sharded solve at 2e6 on R = 2; ranks of one card share it through
+#: gloo (NCCL refuses two ranks on one device), the run on one rank takes
+#: NCCL. The runs on R ranks hold the run on one to a value within 1e-5
+#: relative (the MMD: within MMD_LOSS_TOL of its terms, as against the
+#: online route) and a gradient within 1e-4 relative L2 (the JAX package's
+#: sharded tests pin 1e-4 against one device); each spawn of ranks has
+#: PARALLEL_DEADLINE seconds.
+N_RING = 100_000
+PARALLEL_VAL_RTOL, PARALLEL_GRAD_RTOL = 1e-5, 1e-4
+PARALLEL_DEADLINE = 420
+#: The first argument that makes this script run one [parallel] rank.
+PARALLEL_RANK_ARG = "--parallel-rank"
+#: Ranks and row offset of [parallel]'s kernel 5 and 6 parity on one shard
+#: of the 1e5 triangle tables.
+OFFSET_SHARDS, OFFSET_SHARD = 4, 1
 
 # Least time of a kernel on this card: the larger of its bytes over the
 # memory rate and its exponentials over the MUFU rate (16 exp2 results per
@@ -460,6 +500,34 @@ def phase_took(tag, t0):
     now = time.perf_counter()
     print(f"[{tag}] phase took {now - t0:.1f} s", flush=True)
     return now
+
+
+def child_processes(pid=None):
+    """``(pid, command line)`` of every process that descends from ``pid``
+    (this one by default) and has not been reaped, read from /proc."""
+    pid = os.getpid() if pid is None else pid
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                pass  # the process ended while /proc was read
+    found, todo = [], [pid]
+    while todo:
+        top = todo.pop()
+        kids = [c for c, pp in parent.items() if pp == top]
+        found += kids
+        todo += kids
+    cmds = []
+    for c in found:
+        try:
+            with open(f"/proc/{c}/cmdline", "rb") as f:
+                cmds.append((c, f.read().replace(b"\0", b" ").decode(errors="replace").strip()))
+        except OSError:
+            pass
+    return cmds
 
 
 def card_line():
@@ -1967,6 +2035,388 @@ def ot_phase(dev, card, clock):
     print(f"[ot] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------------------------
+#  16. parallel: the ring and the row-sharded multiscale solve
+# ------------------------------------------------------------------------------
+
+#: The calls of [parallel] and their points; each runs on one rank, then on
+#: the spawned ranks of PARALLEL_RUNS (call, ranks), the first two first.
+PARALLEL_CALLS = {"sharded 2e6": N_MID, "sharded 1e5": N_POINTS, "ring 1e5": N_RING, "mmd ring 1e5": N_RING}
+PARALLEL_RUNS = [("sharded 2e6", 2), ("ring 1e5", 2), ("mmd ring 1e5", 2), ("sharded 1e5", 4), ("ring 1e5", 4),
+                 ("mmd ring 1e5", 4)]
+
+
+def parallel_fn(name, mesh, dev):
+    """``(x0, loss of x)`` of one [parallel] call on ``mesh``: bench.py's
+    clouds and Sinkhorn settings (the gaussian MMD at MMD_BLUR)."""
+    from geomloss_tpu_torch import parallel as par
+
+    n = PARALLEL_CALLS[name]
+    x0 = torch.from_numpy(sphere_cloud(n, 0)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(n, 1)).to(dev)
+    w = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+    kw = dict(p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+    if name.startswith("sharded"):
+        return x0, lambda x: par.sinkhorn_multiscale_sharded(w, x, w, y0, mesh=mesh, **kw)
+    if name.startswith("ring"):
+        return x0, lambda x: par.sinkhorn_ring(w, x, w, y0, mesh=mesh, **kw)
+    return x0, lambda x: par.kernel_ring(w, x, w, y0, name="gaussian", blur=MMD_BLUR, mesh=mesh)
+
+
+def run_parallel_call(name, mesh, dev, profile):
+    """One [parallel] call on this rank, as every rank of ``mesh`` runs it:
+    value and gradient with the launches and the calls of kernels 1, 4, 5,
+    6 and 7 counted from zero and the peak memory, then the median of 3
+    timed calls (host clock and CUDA events) and, where ``profile``, the
+    idle share of one call under torch.profiler (the other ranks run it
+    plainly)."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    x0, fn = parallel_fn(name, mesh, dev)
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(cbs, tuple(MID_CALLS)) as rec_cbs, recording(ck, ("lse", "gibbs_apply")) as rec_ck:
+        v, g = value_and_grad(fn, x0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out = {
+        "value": v.item(), "grad": g.cpu(), "first_s": first_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {k: n for k, n in {**ck.launch_counts, **cbs.launch_counts}.items()
+                     if k in ("lse", "gibbs_apply", *MID_CALLS)},
+        "calls": {k: len(c) for k, c in {**rec_ck, **rec_cbs}.items()},
+    }
+    del rec_cbs, rec_ck
+    out["host_ms"], out["event_ms"] = timed_call(lambda: value_and_grad(fn, x0), reps=3)
+    if profile:
+        wall, busy, n_launch, _ = profile_busy_ms(lambda: value_and_grad(fn, x0))
+        out["idle"] = (wall, busy, n_launch)
+    else:
+        value_and_grad(fn, x0)
+        torch.cuda.synchronize()
+    return out
+
+
+def _parallel_rank(rank, world, store, out_path, dev):
+    """A [parallel] rank on the card ``dev``, run as ``python chip_smoke.py
+    PARALLEL_RANK_ARG rank world store out_path dev``: gloo, the groups of
+    the first two ranks and of all four, every run of PARALLEL_RUNS on its
+    group; pickles ``("ok", results)`` or ``("error", traceback)`` to
+    ``out_path`` and returns whether it ran."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    dev = torch.device(dev)
+    try:
+        from geomloss_tpu_torch import parallel as par
+
+        dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=PARALLEL_DEADLINE))
+        groups = {2: dist.new_group([0, 1]), world: None}
+        out = {}
+        for size in sorted(groups):
+            dist.barrier()  # the other ranks stay off the card while a group runs
+            if rank >= size:
+                continue
+            mesh = par.points_mesh(groups[size], device=dev, backend="gloo")
+            for name, r in PARALLEL_RUNS:
+                if r == size:
+                    res = run_parallel_call(name, mesh, dev, profile=rank == 0)
+                    grad = res.pop("grad")
+                    res["grad_sum"] = grad.double().sum().item()
+                    if rank == 0:
+                        res["grad"] = grad.numpy()
+                    out[name, r] = res
+        dist.barrier()
+        result = ("ok", out)
+    except BaseException:
+        result = ("error", traceback.format_exc())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(out_path + ".part", "wb") as f:
+        pickle.dump(result, f)
+    os.replace(out_path + ".part", out_path)
+    return result[0] == "ok"
+
+
+def spawn_parallel_ranks(world, store, dev):
+    """Run ``world`` ranks of :func:`_parallel_rank`, each a child process
+    of this script (``subprocess``: no helper process of ``multiprocessing``
+    outlives the phase), and collect their results within
+    PARALLEL_DEADLINE; fails if a rank raises, dies or overruns. Every rank
+    has exited, or been terminated and waited for, when this returns."""
+    import pickle
+
+    outs = [f"{store}_rank{r}.pkl" for r in range(world)]
+    for path in outs:
+        if os.path.exists(path):
+            os.remove(path)
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen([sys.executable, script, PARALLEL_RANK_ARG, str(r), str(world), store, outs[r],
+                               str(dev)]) for r in range(world)]
+    t0 = time.perf_counter()
+
+    def errors():
+        """The tracebacks that the ranks wrote."""
+        found = []
+        for r, path in enumerate(outs):
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    status, out = pickle.load(f)
+                if status != "ok":
+                    found.append(f"rank {r}: {out}")
+        return found
+
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > PARALLEL_DEADLINE:
+                fail(f"[parallel] the {world} ranks did not finish within {PARALLEL_DEADLINE} s")
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        codes = [p.returncode for p in procs]
+        if any(c != 0 for c in codes):
+            fail(f"[parallel] ranks exited with codes {codes}:\n" + "\n".join(errors()))
+        got = {}
+        for r, path in enumerate(outs):
+            with open(path, "rb") as f:
+                got[r] = pickle.load(f)[1]
+        for out in got[0].values():
+            out["grad"] = torch.from_numpy(out["grad"])
+        return got
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def report_parallel(name, R, backend, res, schedule, card):
+    """Print one [parallel] run of rank 0 (launches and calls per rank
+    against the schedule, times, peak memory, idle share); fails where a
+    rank's calls differ from the schedule."""
+    r0 = res[0]
+    print(f"[parallel] {name} backend {backend} R={R}: loss {r0['value']:.9e}; loss+grad median of 3 "
+          f"{r0['host_ms']:.3f} ms host clock, {r0['event_ms']:.3f} ms CUDA events (first call "
+          f"{r0['first_s']:.2f} s), peak device memory {r0['peak_gb']:.3f} GB (rank 0's process); card {card}",
+          flush=True)
+    if "idle" in r0:
+        wall, busy, n_launch = r0["idle"]
+        print(f"[parallel] {name} R={R} rank 0 under torch.profiler: wall {wall:.3f} ms, its device busy "
+              f"{busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches", flush=True)
+    for rank, rr in sorted(res.items()):
+        print(f"[parallel] {name} R={R} rank {rank}: launches {json.dumps(rr['launches'])}, calls "
+              f"{json.dumps(rr['calls'])} (schedule: calls {json.dumps(schedule)})", flush=True)
+        if any(rr["calls"].get(k, 0) != n for k, n in schedule.items()):
+            fail(f"[parallel] {name} R={R} rank {rank}: calls {rr['calls']} differ from the schedule {schedule}")
+        if any(rr["launches"][k] < n for k, n in schedule.items()):
+            fail(f"[parallel] {name} R={R} rank {rank}: launches {rr['launches']} below the schedule {schedule}")
+        if rr["value"] != r0["value"] or rr.get("grad_sum", 0.0) != r0.get("grad_sum", 0.0):
+            fail(f"[parallel] {name} R={R}: rank {rank}'s loss or gradient differs from rank 0's")
+
+
+def ring_schedule(name, R):
+    """Calls of kernels 1 and 4 on each rank of a ring call with the
+    gradient in x: a softmin is R kernel-1 calls, 4 at eps0, 4 an
+    iteration and 4 in the last extrapolation; its backward takes R kernel-4
+    calls for each of the two softmins of x (f_ba, f_aa). The MMD: three
+    matvecs of R calls, two of them differentiated in x."""
+    from geomloss_tpu_torch.solvers.annealing import epsilon_schedule
+
+    if name.startswith("mmd"):
+        return {"lse": 0, "gibbs_apply": 5 * R}
+    n_softmin = 4 * (len(epsilon_schedule(2, DIAMETER, BLUR, SCALING)) + 2)
+    return {"lse": n_softmin * R, "gibbs_apply": 2 * R}
+
+
+def check_offset_kernels(state, card):
+    """Kernels 5 and 6 on shard OFFSET_SHARD of OFFSET_SHARDS of a fine
+    step's triangle table (row offset > 0, against the whole cloud) against
+    their twins; then every shard's sums added up against the whole
+    table's, kernels only."""
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+
+    e, xs, _, la, _, _, _, _, _, p, tile, _ = state["xy"]
+    f_aa, cols, cnt = state["xx"][3:6]
+    nI = cols.shape[0]
+    n_l = nI // OFFSET_SHARDS
+    phx = la + f_aa / e
+
+    def shard_args(r):
+        """Kernel 5's arguments as rank ``r`` makes them."""
+        rows, pts = slice(r * n_l, (r + 1) * n_l), slice(r * n_l * tile, (r + 1) * n_l * tile)
+        return (xs[pts], xs, phx[pts], phx, e, cols[rows], cnt[rows], p, tile, True, r * n_l)
+
+    args = shard_args(OFFSET_SHARD)
+    x_l, _, ph_l, _, _, c_l, n_cnt, _, _, _, off = args
+    pts = slice(off * tile, (off + n_l) * tile)
+    label = f"N=M={N_POINTS} p={p} triangle shard {OFFSET_SHARD} of {OFFSET_SHARDS} (row offset {off} of {nI} tiles)"
+    got, ref = cbs.absorbed_sum_tiles(*args), cbs.absorbed_sum_tiles_blocked(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, cbs.absorbed_sum_tiles(*args))):
+        fail(f"absorbed_sum_tiles {label}: two calls differ")
+    slot_j = cbs.kept_pairs(c_l, n_cnt, True, off).view(c_l.shape).long()
+    row_pairs = ((slot_j >= 0).sum(1) * tile).repeat_interleave(tile)
+    diag = slot_j == (off + torch.arange(n_l, device=slot_j.device))[:, None]
+    off_diag = slot_j[(slot_j >= 0) & ~diag]
+    col_pairs = (torch.bincount(off_diag, minlength=nI) * tile).repeat_interleave(tile)
+    check_sums("absorbed_sum_tiles", f"{label} rows", got[0], ref[0], f_aa[pts], la[pts], e, row_pairs)
+    check_sums("absorbed_sum_tiles", f"{label} cols", got[1], ref[1], f_aa, la, e, col_pairs)
+    kind = "gibbs" if p == 2 else "gibbs_grad"
+    V_f = torch.cat([torch.ones_like(xs[:, :1]), xs], 1)
+    a_args = (x_l, xs, ph_l, phx, V_f, V_f[pts], e, c_l, n_cnt, p, kind, tile, True, off)
+    got, ref = cbs.gibbs_apply_tiles(*a_args), cbs.gibbs_apply_tiles_blocked(*a_args)
+    if not all(torch.equal(a, b) for a, b in zip(got, cbs.gibbs_apply_tiles(*a_args))):
+        fail(f"gibbs_apply_tiles {label}: two calls differ")
+    scales = cbs.gibbs_apply_tiles_blocked(*a_args[:4], V_f.abs(), V_f[pts].abs(), *a_args[6:])
+    for d in range(2):
+        check_apply("gibbs_apply_tiles", f"{label} {'rows' if d == 0 else 'cols'} C=4", got[d], ref[d],
+                    scales[d].abs().max().item())
+    # The shards' row sums laid end to end plus their column sums added up
+    # are the whole table's r + c (kernels only, each call as a rank makes it).
+    whole = sum(cbs.absorbed_sum_tiles(xs, xs, phx, phx, e, cols, cnt, p, tile, True))
+    parts = [cbs.absorbed_sum_tiles(*shard_args(r)) for r in range(OFFSET_SHARDS)]
+    summed = torch.cat([r for r, _ in parts]) + sum(c for _, c in parts)
+    slot_all = cbs.kept_pairs(cols, cnt, True).view(cols.shape).long()
+    all_pairs = ((slot_all >= 0).sum(1) * tile).repeat_interleave(tile) + (
+        torch.bincount(slot_all[slot_all >= 0], minlength=nI) * tile).repeat_interleave(tile)
+    check_sums("absorbed_sum_tiles", f"N=M={N_POINTS} p={p} {OFFSET_SHARDS} triangle shards summed against the "
+               f"whole table", summed, whole, f_aa, la, e, all_pairs)
+    print(f"[parallel] kernels 5 and 6 with a row offset: parity on {label}; card {card}", flush=True)
+
+
+def parallel_phase(dev, card):
+    """[parallel]: (a) on one rank (NCCL), ``sinkhorn_multiscale_sharded``
+    at 2e6 against ``SamplesLoss()`` (the same solve: bitwise), and at 1e5,
+    ``sinkhorn_ring`` and the gaussian ``kernel_ring`` at 1e5 against the
+    online route; (b) the same calls on 2 and 4 ranks that share the card
+    (gloo) against (a); (c) kernels 5 and 6 with a row offset against their
+    twins. Every run's launches per rank against the schedule, times, peak
+    memory and rank 0's idle share."""
+    import torch.distributed as dist
+
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch import parallel as par
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    print(f"[parallel] ranks that share one card take turns on it: these runs check the ring and sharded paths "
+          f"and time them, and give no scaling figure; card {card}", flush=True)
+    kw = dict(p=2, blur=BLUR, diameter=DIAMETER, scaling=SCALING)
+
+    # --- (a) one rank, NCCL ------------------------------------------------------
+    store = os.path.join(build, "parallel_store_r1")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    one = {}
+    try:
+        mesh = par.points_mesh()
+        print(f"[parallel] (a) backend {dist.get_backend()} R={mesh.size} on {mesh.device}", flush=True)
+        for name in PARALLEL_CALLS:
+            one[name] = run_parallel_call(name, mesh, dev, profile=True)
+        # The sharded solve on one rank is SamplesLoss()'s solve: the same floats.
+        x0, _ = parallel_fn("sharded 2e6", mesh, dev)
+        y0 = torch.from_numpy(sphere_cloud(N_MID, 1)).to(dev)
+        with recording(ck, ("lse", "gibbs_apply")) as rec_ck, recording(cbs, tuple(MID_CALLS)) as rec_cbs:
+            v_a, g_a = value_and_grad(lambda x: SamplesLoss("sinkhorn", **kw)(x, y0), x0)
+        calls_auto = {k: len(c) for k, c in {**rec_ck, **rec_cbs}.items()}
+        del rec_ck, rec_cbs, x0, y0
+        sh = one["sharded 2e6"]
+        same = v_a.item() == sh["value"] and torch.equal(g_a.cpu(), sh["grad"])
+        rel_v, rel_g = rel_errs(torch.tensor(sh["value"]), sh["grad"], v_a.cpu(), g_a.cpu())
+        print(f"[parallel] sharded 2e6 R=1 against SamplesLoss(backend='auto') (sinkhorn_multiscale): bitwise "
+              f"equal {same} (loss rel err {rel_v:.3e}, grad rel L2 err {rel_g:.3e}); calls {json.dumps(calls_auto)}",
+              flush=True)
+        if not same:
+            print("[parallel] why: the sharded solve on one rank runs multiscale_prologue and the single-device "
+                  "fine steps' operations in their order; a gap means an operation differs", flush=True)
+            if not (rel_v <= PARALLEL_VAL_RTOL and rel_g <= PARALLEL_GRAD_RTOL):
+                fail("sharded 2e6 on one rank misses SamplesLoss()")
+        del g_a
+        report_parallel("sharded 2e6", 1, "nccl", {0: sh}, calls_auto, card)
+        report_parallel("sharded 1e5", 1, "nccl", {0: one["sharded 1e5"]}, one["sharded 1e5"]["calls"], card)
+        for name in ("ring 1e5", "mmd ring 1e5"):
+            report_parallel(name, 1, "nccl", {0: one[name]}, ring_schedule(name, 1), card)
+        # The ring against the online route (kernels 2-4), the MMD to the
+        # bounds of its terms.
+        xr = torch.from_numpy(sphere_cloud(N_RING, 0)).to(dev)
+        yr = torch.from_numpy(sphere_cloud(N_RING, 1)).to(dev)
+        v_o, g_o = value_and_grad(lambda x: SamplesLoss("sinkhorn", backend="online", **kw)(x, yr), xr)
+        rel_v, rel_g = rel_errs(torch.tensor(one["ring 1e5"]["value"]), one["ring 1e5"]["grad"], v_o.cpu(),
+                                g_o.cpu())
+        print(f"[parallel] ring 1e5 R=1 against SamplesLoss(backend='online'): loss rel err {rel_v:.3e}, grad rel "
+              f"L2 err {rel_g:.3e} (tol {PATH_TOL:g})", flush=True)
+        if not (rel_v <= PATH_TOL and rel_g <= PATH_TOL):
+            fail("ring 1e5 misses the online route")
+        v_m, g_m, mmd_terms, g_part = mmd_reference(
+            lambda x: SamplesLoss("gaussian", blur=MMD_BLUR, backend="online")(x, yr), xr)
+        mm = one["mmd ring 1e5"]
+        err_v, err_g = abs(mm["value"] - v_m.item()), (mm["grad"] - g_m.cpu()).norm().item()
+        tol_v, tol_g = mmd_tolerance(mmd_terms), MMD_GRAD_TOL * g_part
+        print(f"[parallel] mmd ring 1e5 R=1 against SamplesLoss('gaussian', backend='online'): loss err "
+              f"{err_v:.3e} (tol {tol_v:.3e}), grad L2 err {err_g:.3e} (tol {tol_g:.3e})", flush=True)
+        if not (err_v <= tol_v and err_g <= tol_g):
+            fail("mmd ring 1e5 misses the online route")
+        del xr, yr, g_o, g_m
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # --- (b) 2 and 4 ranks on the one card, gloo -----------------------------------
+    store = os.path.join(build, "parallel_store_r4")
+    if os.path.exists(store):
+        os.remove(store)
+    t0 = time.perf_counter()
+    res = spawn_parallel_ranks(4, store, dev)
+    print(f"[parallel] (b) 4 spawned ranks on the one card, backend gloo (tensors staged through host memory), "
+          f"groups of 2 and 4 ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, R in PARALLEL_RUNS:
+        runs = {r: out[name, R] for r, out in res.items() if (name, R) in out}
+        ref = one[name]
+        sched = ring_schedule(name, R) if "ring" in name else ref["calls"]
+        report_parallel(name, R, "gloo", runs, sched, card)
+        rel_v, rel_g = rel_errs(torch.tensor(runs[0]["value"]), runs[0]["grad"], torch.tensor(ref["value"]),
+                                ref["grad"])
+        # The MMD is a difference of three terms that nearly cancel (the loss
+        # ~1e-3 of their sum here): its float32 runs are held to the bound
+        # scaled by the terms, as in (a); a relative bound on the loss would
+        # lie below the rounding of the terms.
+        err_v, tol_v = abs(runs[0]["value"] - ref["value"]), (
+            mmd_tolerance(mmd_terms) if name.startswith("mmd") else PARALLEL_VAL_RTOL * abs(ref["value"]))
+        bound = "the terms' bound" if name.startswith("mmd") else f"{PARALLEL_VAL_RTOL:g} relative"
+        print(f"[parallel] {name} R={R} against R=1: loss err {err_v:.3e} (tol {tol_v:.3e}, {bound}), loss rel err "
+              f"{rel_v:.3e}, grad rel L2 err {rel_g:.3e} (tol {PARALLEL_GRAD_RTOL:g})", flush=True)
+        if not (err_v <= tol_v and rel_g <= PARALLEL_GRAD_RTOL):
+            fail(f"[parallel] {name} on {R} ranks misses the run on one rank")
+    del res, one
+
+    # --- (c) kernels 5 and 6 with a row offset ------------------------------------
+    w = torch.full((N_POINTS,), 1.0 / N_POINTS, dtype=torch.float32, device=dev)
+    x0 = torch.from_numpy(sphere_cloud(N_POINTS, 0)).to(dev)
+    y0 = torch.from_numpy(sphere_cloud(N_POINTS, 1)).to(dev)
+    for p in (1, 2):
+        kwp = dict(kw, p=p)
+        state = capture_fine_state(ms, lambda: ms.sinkhorn_multiscale(w, x0, w, y0, **kwp))
+        check_offset_kernels(state, card)
+    phase_took("parallel", t_phase)
+
+
 def main():
     # --- 1. Device ---------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2425,17 +2875,27 @@ def main():
     wide_dim_phase(dev, card, clock)
     grid_phase(dev, card)
     ot_phase(dev, card, clock)
+    parallel_phase(dev, card)
     kernels += mmd_phase(dev, card, clock)
     kernels += sparse_phase(dev, card, clock)
     auto_route_phase(dev, card, N_4M, "4m", reps=2)
     auto_route_phase(dev, card, N_TILE2048, "tile2048", reps=1, blur=TILE2048_BLUR, tile=2048,
                      parity_rows=TILE2048_PARITY_TILES)
 
+    card = card_line()
+    # Every process this run started (nvcc, nvidia-smi, the [parallel]
+    # ranks) has ended and been waited for.
+    left = child_processes()
+    if left:
+        fail(f"processes started by this run are still there: {left}")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(card_line(), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PARALLEL_RANK_ARG]:
+        rank, world, store, out_path, dev = sys.argv[2:7]
+        sys.exit(0 if _parallel_rank(int(rank), int(world), store, out_path, dev) else 1)
     main()
     sys.exit(0)

@@ -17,7 +17,10 @@ block-sparse operators of :mod:`.ops` (``softmin_sparse``,
 ``solve_batch``, ``solve_sample``, ``solve_sample_batch``, ``solve_grid``,
 the barycenters ``barycenter``, ``barycenter_sample`` and
 ``barycenter_grid``, and the ``OTResult`` family), whose streaming
-``solve_sample`` runs kernels 1 and 4. This package never imports JAX.
+``solve_sample`` runs kernels 1 and 4; and :mod:`.parallel` (the ring
+Sinkhorn and kernel losses, and the multiscale solve with its fine phase
+cut into row shards, over ``torch.distributed``). This package never
+imports JAX.
 """
 
 __version__ = "0.3.1"
@@ -35,10 +38,10 @@ def __getattr__(name):
         from .models import sinkhorn_images
 
         return getattr(sinkhorn_images, name)
-    if name == "ot":
+    if name in ("ot", "parallel"):
         import importlib
 
-        return importlib.import_module("geomloss_tpu_torch.ot")
+        return importlib.import_module(f"geomloss_tpu_torch.{name}")
     raise AttributeError(f"module 'geomloss_tpu_torch' has no attribute {name!r}")
 
 

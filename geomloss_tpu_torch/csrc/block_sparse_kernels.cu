@@ -44,6 +44,11 @@
 // and the column partials of each column tile, in slot order, into the
 // outputs: deterministic, no atomics, scratch bounded by the chunk.
 //
+// A triangle table may be one rank's shard of its symmetric problem's
+// (parallel/multiscale_sharded.py): its row tile I is then the global tile
+// row_off + I against the whole cloud, and the diagonal is J == row_off + I
+// (row_off is 0 for a whole table).
+//
 // Each entry point returns cudaGetLastError() after its launches.
 
 #include "pair_common.cuh"
@@ -78,7 +83,7 @@ tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
                   const float* __restrict__ rb, const float* __restrict__ cb,
                   const int* __restrict__ slot_i, const int* __restrict__ slot_j,
                   float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
-                  int tri, int kv, float c2) {
+                  int tri, int row_off, int kv, float c2) {
   constexpr bool WIDE = KV == 0;
   constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
   __shared__ StepSmem<P, KS, WIDE> sm;
@@ -92,7 +97,7 @@ tiles_step_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
   const int64_t i0 = (int64_t)I * tile + h * kThreads;
   float* rp = rowpart + q * tile + h * kThreads;
   float* cp = colpart + (q * gridDim.y + h) * tile;
-  const bool cols = !(tri && I == J);
+  const bool cols = !(tri && I + row_off == J);
   float4 xr[kPairRows][KS];
   float br[kPairRows], racc[kPairRows];
   load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
@@ -141,7 +146,7 @@ tiles_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
                    const float4* __restrict__ vy, const float4* __restrict__ vx,
                    const int* __restrict__ slot_i, const int* __restrict__ slot_j,
                    float* __restrict__ rowpart, float* __restrict__ colpart, int tile,
-                   int tri, int kv, float c2) {
+                   int tri, int row_off, int kv, float c2) {
   constexpr int P = MODE == 0 ? 2 : 1;
   constexpr int R = kPairRows, C = kApplyCols;
   __shared__ float4 ys[WIDE ? 1 : kTile];
@@ -159,7 +164,7 @@ tiles_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
   const int64_t i0 = (int64_t)I * tile + h * kThreads;
   float4* rp = reinterpret_cast<float4*>(rowpart) + q * tile + h * kThreads;
   float* cp = colpart + (q * gridDim.y + h) * 4 * tile;
-  const bool cols = !(tri && I == J);
+  const bool cols = !(tri && I + row_off == J);
   // Column reduction: lane l stores its pass partials at red[buf][l][warp C
   // ..]; thread t then adds column o / 4, channel o % 4 (o = t / 2) over
   // the lanes of its half (t % 2).
@@ -580,7 +585,7 @@ extern "C" {
 int gl_absorbed_sum_tiles(const float* xv, const float* yv, const float* rb,
                           const float* cb, const int* slot_i, const int* slot_j,
                           float* rowpart, float* colpart, int nslots, int tile, int kv,
-                          int p, int tri, float c2, void* stream) {
+                          int p, int tri, int row_off, float c2, void* stream) {
   if (nslots == 0) return (int)cudaSuccess;
   if ((p != 1 && p != 2) || kv < 1 || tile % 128) return (int)cudaErrorInvalidValue;
   const dim3 grid(nslots, cdiv(tile, kThreads));
@@ -588,7 +593,7 @@ int gl_absorbed_sum_tiles(const float* xv, const float* yv, const float* rb,
   const float4* x4 = reinterpret_cast<const float4*>(xv);
   const float4* y4 = reinterpret_cast<const float4*>(yv);
 #define GL_STEP(P, KV) \
-  tiles_step_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, slot_i, slot_j, rowpart, colpart, tile, tri, kv, c2)
+  tiles_step_kernel<P, KV><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, slot_i, slot_j, rowpart, colpart, tile, tri, row_off, kv, c2)
 #define GL_STEP_KV(P)                                  \
   switch (kv) {                                        \
     case 1: GL_STEP(P, 1); break;                      \
@@ -608,7 +613,7 @@ int gl_gibbs_apply_tiles(const float* xv, const float* yv, const float* rb,
                          const float* cb, const float* vy, const float* vx,
                          const int* slot_i, const int* slot_j, float* rowpart,
                          float* colpart, int nslots, int tile, int kv, int mode,
-                         int tri, float c2, void* stream) {
+                         int tri, int row_off, float c2, void* stream) {
   if (nslots == 0) return (int)cudaSuccess;
   if (mode < 0 || mode > 2 || kv < 1 || tile % 128) return (int)cudaErrorInvalidValue;
   const dim3 grid(nslots, cdiv(tile, kThreads));
@@ -619,7 +624,7 @@ int gl_gibbs_apply_tiles(const float* xv, const float* yv, const float* rb,
   const float4* vx4 = reinterpret_cast<const float4*>(vx);
 #define GL_APPLY(MODE, WIDE)                                                                  \
   tiles_apply_kernel<MODE, WIDE><<<grid, kThreads, 0, s>>>(x4, y4, rb, cb, vy4, vx4, slot_i, \
-                                                           slot_j, rowpart, colpart, tile, tri, kv, c2)
+                                                           slot_j, rowpart, colpart, tile, tri, row_off, kv, c2)
   const bool wide = kv > 1;
   switch (mode) {
     case 0: if (wide) GL_APPLY(0, true); else GL_APPLY(0, false); break;

@@ -31,6 +31,7 @@ extrapolation runs under ``torch.no_grad()`` (envelope theorem).
 
 import math
 from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,6 +59,7 @@ from ..solvers.sinkhorn_loop import log_weights, sinkhorn_cost
 
 __all__ = [
     "sinkhorn_multiscale",
+    "multiscale_prologue",
     "spatial_sort_blocks",
     "default_cluster_scale",
     "jump_index",
@@ -316,43 +318,55 @@ def run_mid_phase(sm, carry, x_c, y_c, a_log_c, b_log_c, a_s, b_s, x_sd, y_sd, e
     return carry, x_m, y_m, a_log_m, b_log_m
 
 
-def sinkhorn_multiscale(
-    a,
-    x,
-    b,
-    y,
-    p=2,
-    blur=0.05,
-    reach=None,
-    diameter=None,
-    scaling=0.5,
-    truncate=5,
-    cost=None,
-    cluster_scale=None,
-    debias=True,
-    potentials=False,
-    labels_x=None,
-    labels_y=None,
-    verbose=False,
-    impl="auto",
-    block_size="auto",
-    cap=None,
-    target_clusters=2000,
-    tile="auto",
-    **kwargs,
-):
-    """Two-scale Sinkhorn divergence on unbatched clouds ``x (N,D)``, ``y (M,D)``.
+class Prologue(NamedTuple):
+    """What :func:`multiscale_prologue` hands the fine phase: the sorted
+    padded clouds and their user order, the schedule, the coarse (or mid)
+    state at the jump, the four potentials extrapolated onto the fine
+    clouds and, for the truncated fine phase, its tables."""
 
-    ``truncate`` controls the block-sparse pruning margin (reference
-    default 5); ``truncate=None`` disables pruning (exact fine phase).
-    ``cap`` bounds the number of visited column tiles per row tile
-    (default: an eighth of the column tiles, between 32 and 128; on the
-    mid path, :func:`mid_cap`). ``cost``: a callable ``(B, N, D), (B, M,
-    D) -> (B, N, M)`` replacing the built-in ``|x-y|^p / p``.
-    ``impl`` selects the streaming implementation of the coarse phase and
-    the exact fine phase (:mod:`..ops.softmin`), and, as ``"blocked"``, the
-    plain twins of the block-sparse kernels.
-    """
+    a_s: torch.Tensor
+    x_s: torch.Tensor
+    perm_x: torch.Tensor
+    b_s: torch.Tensor
+    y_s: torch.Tensor
+    perm_y: torch.Tensor
+    a_log_f: torch.Tensor
+    b_log_f: torch.Tensor
+    eps: float
+    rho: object
+    eps_list: list
+    #: The fine temperatures, warm-up included (empty on a last-iteration jump).
+    eps_fine: list
+    last_is_jump: bool
+    tile: int
+    block_size: int
+    sm: object
+    #: The coarse state at the jump: centroids, weights, potential carry and
+    #: temperature (the custom-cost fine phase builds its tables from it).
+    x_c: torch.Tensor
+    y_c: torch.Tensor
+    aw_c: torch.Tensor
+    bw_c: torch.Tensor
+    coarse: tuple
+    eps_j: float
+    #: ``(f_ba, g_ab, f_aa, g_bb)`` on the fine clouds, differentiable on a
+    #: last-iteration jump.
+    fine: tuple
+    #: ``(mask_xy, mask_xx, mask_yy)`` of the truncated fine phase (built-in
+    #: costs only), else ``None``, and the temperature they were built at.
+    masks: object
+    eps_m: float
+
+
+def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate, cost, cluster_scale, debias,
+                        labels_x, labels_y, verbose, impl, block_size, cap, target_clusters, tile, shards=1):
+    """Everything of :func:`sinkhorn_multiscale` before the fine iterations:
+    the spatial sort (padded to ``tile * shards * 2^k`` points), the coarse
+    phase, the mid phase, the extrapolation onto the fine clouds and the
+    truncation tables. The row-sharded solve
+    (:mod:`geomloss_tpu_torch.parallel.multiscale_sharded`) runs the same
+    function on every rank, with ``shards`` its ranks so that each takes a
+    whole number of row tiles. Arguments as :func:`sinkhorn_multiscale`."""
     N, D = x.shape
     M = y.shape[0]
 
@@ -375,10 +389,10 @@ def sinkhorn_multiscale(
             block_size *= 2
 
     (aw_c, a_s), (x_c, x_s), perm_x = spatial_sort_blocks(
-        a, x, cluster_scale, diameter, block_size, pad_multiple=tile, labels=labels_x
+        a, x, cluster_scale, diameter, block_size, pad_multiple=tile * shards, labels=labels_x
     )
     (bw_c, b_s), (y_c, y_s), perm_y = spatial_sort_blocks(
-        b, y, cluster_scale, diameter, block_size, pad_multiple=tile, labels=labels_y
+        b, y, cluster_scale, diameter, block_size, pad_multiple=tile * shards, labels=labels_y
     )
 
     if verbose:
@@ -443,17 +457,14 @@ def sinkhorn_multiscale(
             extrap, eps_j, damp_j, x_e, y_e, src_x, src_y, src_la, src_lb, coarse, debias
         )
 
+    masks, eps_m = None, eps_j
+    eps_fine = []
     if not last_is_jump:
         eps_fine = list(eps_list[jump + 1 :])
         # Tiny blurs resolve far below the cluster scale: extra iterations
         # at the entry temperature wash out the coarse warm-start bias.
         eps_fine = [eps_fine[0]] * fine_warmup(cluster_scale, p, eps) + eps_fine
-        if cost is not None:
-            fine_step, fused_extrap = _custom_fine_phase(
-                x_c, y_c, aw_c, bw_c, coarse, x_s, y_s, a_log_f, b_log_f, eps_j, p, truncate,
-                tile, block_size, cap, debias, cost, sm,
-            )
-        elif truncate is not None:
+        if cost is None and truncate is not None:
             with torch.no_grad():
                 if n_delay > 0:
                     # Tables from the extrapolated fine potentials, built
@@ -465,13 +476,69 @@ def sinkhorn_multiscale(
                         cap if cap is not None else mid_cap(x_sd.shape[0], tile), debias, verbose,
                     )
                 else:
-                    eps_m = eps_j
                     masks = _coarse_tables(
-                        x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, tile // block_size, cap,
-                        debias,
+                        x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, tile // block_size, cap, debias,
                     )
+    return Prologue(
+        a_s, x_s, perm_x, b_s, y_s, perm_y, a_log_f, b_log_f, eps, rho, eps_list, eps_fine, last_is_jump, tile,
+        block_size, sm, x_c, y_c, aw_c, bw_c, coarse, eps_j, fine, masks, eps_m,
+    )
+
+
+def sinkhorn_multiscale(
+    a,
+    x,
+    b,
+    y,
+    p=2,
+    blur=0.05,
+    reach=None,
+    diameter=None,
+    scaling=0.5,
+    truncate=5,
+    cost=None,
+    cluster_scale=None,
+    debias=True,
+    potentials=False,
+    labels_x=None,
+    labels_y=None,
+    verbose=False,
+    impl="auto",
+    block_size="auto",
+    cap=None,
+    target_clusters=2000,
+    tile="auto",
+    **kwargs,
+):
+    """Two-scale Sinkhorn divergence on unbatched clouds ``x (N,D)``, ``y (M,D)``.
+
+    ``truncate`` controls the block-sparse pruning margin (reference
+    default 5); ``truncate=None`` disables pruning (exact fine phase).
+    ``cap`` bounds the number of visited column tiles per row tile
+    (default: an eighth of the column tiles, between 32 and 128; on the
+    mid path, :func:`mid_cap`). ``cost``: a callable ``(B, N, D), (B, M,
+    D) -> (B, N, M)`` replacing the built-in ``|x-y|^p / p``.
+    ``impl`` selects the streaming implementation of the coarse phase and
+    the exact fine phase (:mod:`..ops.softmin`), and, as ``"blocked"``, the
+    plain twins of the block-sparse kernels.
+    """
+    pro = multiscale_prologue(
+        a, x, b, y, p, blur, reach, diameter, scaling, truncate, cost, cluster_scale, debias, labels_x,
+        labels_y, verbose, impl, block_size, cap, target_clusters, tile,
+    )
+    fine, last_is_jump, eps_fine = pro.fine, pro.last_is_jump, pro.eps_fine
+    x_s, y_s, a_s, b_s, a_log_f, b_log_f = pro.x_s, pro.y_s, pro.a_s, pro.b_s, pro.a_log_f, pro.b_log_f
+    eps, rho, eps_list = pro.eps, pro.rho, pro.eps_list
+
+    if not last_is_jump:
+        if cost is not None:
+            fine_step, fused_extrap = _custom_fine_phase(
+                pro.x_c, pro.y_c, pro.aw_c, pro.bw_c, pro.coarse, x_s, y_s, a_log_f, b_log_f, pro.eps_j, p,
+                truncate, pro.tile, pro.block_size, cap, debias, cost, pro.sm,
+            )
+        elif truncate is not None:
             fine_step, fused_extrap = _truncated_fine_phase(
-                masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate, tile, debias, impl,
+                pro.masks, pro.eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate, pro.tile, debias, impl,
             )
         else:
             fine_step, fused_extrap = _exact_fine_phase(
@@ -506,7 +573,7 @@ def sinkhorn_multiscale(
     if potentials:
         # De-sort back to the user's point order; pad slots map past N.
         F_x, G_y = out
-        return _desort(F_x, perm_x, N), _desort(G_y, perm_y, M)
+        return _desort(F_x, pro.perm_x, x.shape[0]), _desort(G_y, pro.perm_y, y.shape[0])
     return out
 
 
@@ -558,6 +625,20 @@ def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, deb
     return mask_xy, mask_xx, mask_yy
 
 
+def fine_tables(mask_xy, eps_m, eps_fine, truncate):
+    """``table(mask, e)``: the first ``ck`` columns of a table built at
+    ``eps_m`` and its counts re-thresholded at the fine temperature ``e``,
+    ``ck`` the width :func:`fine_cap_schedule` gives ``e``."""
+    ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_m, mask_xy.cols.shape[1]) for e in es}
+
+    def table(mask, e):
+        ck = ck_of[e]
+        cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_m)), max=ck)
+        return mask.cols[:, :ck].contiguous(), cnt
+
+    return table
+
+
 def _truncated_fine_phase(masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate, tile, debias, impl):
     """Kernel truncation over the tables ``masks = (mask_xy, mask_xx,
     mask_yy)`` built at temperature ``eps_m``. Returns ``(step, extrap)``
@@ -570,13 +651,7 @@ def _truncated_fine_phase(masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p,
     """
     mask_xy, mask_xx, mask_yy = masks
     x_sd, y_sd = x_s.detach(), y_s.detach()
-    ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_m, mask_xy.cols.shape[1]) for e in es}
-
-    def table(mask, e):
-        """The first ``ck`` columns of a table and its counts at ``e``."""
-        ck = ck_of[e]
-        cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_m)), max=ck)
-        return mask.cols[:, :ck].contiguous(), cnt
+    table = fine_tables(mask_xy, eps_m, eps_fine, truncate)
 
     def step(e, f_ba, g_ab, f_aa, g_bb):
         S_xy, S_yx = sinkhorn_step_walk_banded(

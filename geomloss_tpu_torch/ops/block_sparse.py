@@ -379,14 +379,17 @@ def lse_sparse_custom(x, y, h, eps, cols, counts, cost, block):
 # ==============================================================================
 
 
-def _absorbed_sums(x, y, phi, psi, eps, cols, cnt, p, tile, tri, impl):
+def _absorbed_sums(x, y, phi, psi, eps, cols, cnt, p, tile, tri, impl, row_offset=0):
+    """Kernel 5 (its plain twin for ``impl`` blocked or dense); a
+    ``row_offset`` places a shard of a triangle table's rows."""
     fn = cbs.absorbed_sum_tiles_blocked if impl in ("blocked", "dense") else cbs.absorbed_sum_tiles
-    return fn(x, y, phi, psi, eps, cols, cnt, p, tile, tri)
+    return fn(x, y, phi, psi, eps, cols, cnt, p, tile, tri, row_offset)
 
 
-def _gibbs_apply(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri, impl):
+def _gibbs_apply(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri, impl, row_offset=0):
+    """Kernel 6, as :func:`_absorbed_sums` runs kernel 5."""
     fn = cbs.gibbs_apply_tiles_blocked if impl in ("blocked", "dense") else cbs.gibbs_apply_tiles
-    return fn(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri)
+    return fn(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri, row_offset)
 
 
 def sinkhorn_step_walk_banded(eps, x, y, a_log, b_log, f, g, cols, cnt, p=2, tile=512, impl="auto"):

@@ -149,11 +149,11 @@ _LIB = ck.KernelLibrary(
     "block_sparse_kernels",
     {
         # xv, yv, rb, cb, slot_i, slot_j, rowpart, colpart, nslots, tile, kv,
-        # p, tri, c2, stream
-        "gl_absorbed_sum_tiles": [_P] * 8 + [_I] * 5 + [_F, _P],
+        # p, tri, row_off, c2, stream
+        "gl_absorbed_sum_tiles": [_P] * 8 + [_I] * 6 + [_F, _P],
         # xv, yv, rb, cb, vy, vx, slot_i, slot_j, rowpart, colpart, nslots,
-        # tile, kv, mode, tri, c2, stream
-        "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 5 + [_F, _P],
+        # tile, kv, mode, tri, row_off, c2, stream
+        "gl_gibbs_apply_tiles": [_P] * 10 + [_I] * 6 + [_F, _P],
         # x, y, h, cols, cnt, out, part, n_rows, ck, block_n, block_m,
         # n_split, span, ld, D, kv, p, c2, stream
         "gl_lse_tiles": [_P] * 7 + [_I] * 10 + [_F, _P],
@@ -182,19 +182,24 @@ def build():
 # ==============================================================================
 
 
-def _check_table(name, x, y, cols, cnt, tile, tri):
+def _check_table(name, x, y, cols, cnt, tile, tri, row_offset=0):
     N, M = x.shape[0], y.shape[0]
     if N % tile or M % tile:
         raise ValueError(f"{name}: point counts ({N}, {M}) must be multiples of the tile ({tile}).")
     if cols.ndim != 2 or cols.shape[0] != N // tile or tuple(cnt.shape) != (N // tile,):
         raise ValueError(f"{name}: cols must be (N / tile, ck) and cnt (N / tile,).")
-    if tri and N != M:
-        raise ValueError(f"{name}: a triangle table needs a symmetric problem.")
+    if row_offset < 0 or (tri and row_offset + N // tile > M // tile):
+        raise ValueError(
+            f"{name}: a triangle table's row tiles (offset {row_offset}, {N // tile} tiles) must lie within "
+            f"the {M // tile} column tiles of its symmetric problem."
+        )
 
 
-def kept_pairs(cols, cnt, tri=False):
+def kept_pairs(cols, cnt, tri=False, row_offset=0):
     """Column tile of each slot ``I * ck + k`` of a table, ``-1`` where the
-    slot is dead: ``k >= cnt[I]``, or ``cols[I, k] < I`` with ``tri``.
+    slot is dead: ``k >= cnt[I]``, or ``cols[I, k] < row_offset + I`` with
+    ``tri`` (the table's rows are the global row tiles ``row_offset + I``
+    of a symmetric problem, a shard of its triangle table).
 
     Returns an ``(nI * ck,)`` int32 tensor on the table's device.
     """
@@ -202,7 +207,7 @@ def kept_pairs(cols, cnt, tri=False):
     k = torch.arange(ck_, device=cols.device)
     live = k[None, :] < cnt.to(cols.device)[:, None]
     if tri:
-        live &= cols >= torch.arange(nI, device=cols.device)[:, None]
+        live &= cols >= row_offset + torch.arange(nI, device=cols.device)[:, None]
     return torch.where(live, cols, -1).to(torch.int32).reshape(-1).contiguous()
 
 
@@ -211,13 +216,13 @@ def kept_pairs(cols, cnt, tri=False):
 _DEAD_ROW = torch.iinfo(torch.int32).max
 
 
-def _live_slots(cols, cnt, tri):
+def _live_slots(cols, cnt, tri, row_offset=0):
     """The table's slots with the live ones first, in table (row-major)
-    order: their row and column tiles, two ``(nI * ck,)`` int32 tensors,
-    the dead slots behind them as row ``_DEAD_ROW`` and column ``-1``.
-    Compacted on the device (a stable sort), so that the host never waits
-    for the live count."""
-    slot_j = kept_pairs(cols, cnt, tri)
+    order: their (local) row and column tiles, two ``(nI * ck,)`` int32
+    tensors, the dead slots behind them as row ``_DEAD_ROW`` and column
+    ``-1``. Compacted on the device (a stable sort), so that the host never
+    waits for the live count."""
+    slot_j = kept_pairs(cols, cnt, tri, row_offset)
     order = torch.sort((slot_j < 0).to(torch.uint8), stable=True).indices
     sj = slot_j[order]
     si = torch.where(sj >= 0, order // cols.shape[1], _DEAD_ROW)
@@ -230,14 +235,14 @@ def _offsets(keys, n):
     return torch.searchsorted(keys, torch.arange(n + 1, device=keys.device, dtype=keys.dtype)).to(torch.int32)
 
 
-def _column_index(si, sj, nJ, tri):
+def _column_index(si, sj, nJ, tri, row_offset=0):
     """Slots of a chunk grouped by column tile, in slot order: ``(order,
     offsets)``. Column tile ``J`` sums the partials of
-    ``order[offsets[J]:offsets[J+1]]``; dead and (``tri``) diagonal slots
-    are left out."""
+    ``order[offsets[J]:offsets[J+1]]``; dead and (``tri``) diagonal slots,
+    ``J == row_offset + I``, are left out."""
     out = sj < 0
     if tri:
-        out |= sj == si
+        out |= sj - row_offset == si
     key = torch.where(out, nJ, sj.long())
     key, order = torch.sort(key, stable=True)
     return order.to(torch.int32).contiguous(), _offsets(key, nJ).contiguous()
@@ -253,7 +258,7 @@ def _segment_sum(parts, index, out, L, nsub):
     )
 
 
-def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes):
+def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes, row_offset=0):
     """The launches of kernel 5 or 6 over the slots of :func:`_live_slots`:
     ``(R, chunks)``, ``R`` slots of scratch and, for each chunk, ``(q0, n,
     row index, column index)``. The row index sums a chunk's row partials
@@ -276,7 +281,7 @@ def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes):
     out = []
     for q0 in range(0, n, R):
         si, sj = slot_i[q0 : min(q0 + R, n)], slot_j[q0 : min(q0 + R, n)]
-        out.append((q0, si.shape[0], (ident, _offsets(si, nI)), _column_index(si, sj, nJ, tri)))
+        out.append((q0, si.shape[0], (ident, _offsets(si, nI)), _column_index(si, sj, nJ, tri, row_offset)))
     return R, out
 
 
@@ -398,43 +403,43 @@ def _walk_rows(tbl, nI):
 # ==============================================================================
 
 
-def _row_tiles(cols, cnt, tri):
-    """``(I, J)`` for each row tile with kept tiles: ``J`` the kept column
-    tiles (a long tensor on the CPU, in table order)."""
-    slot_j = kept_pairs(cols.cpu(), cnt.cpu(), tri).view(cols.shape).long()
+def _row_tiles(cols, cnt, tri, row_offset=0):
+    """``(I, J)`` for each (local) row tile with kept tiles: ``J`` the kept
+    column tiles (a long tensor on the CPU, in table order)."""
+    slot_j = kept_pairs(cols.cpu(), cnt.cpu(), tri, row_offset).view(cols.shape).long()
     for I in range(cols.shape[0]):
         J = slot_j[I][slot_j[I] >= 0]
         if J.numel():
             yield I, J
 
 
-def absorbed_sum_tiles_blocked(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False):
+def absorbed_sum_tiles_blocked(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False, row_offset=0):
     """Plain twin of :func:`absorbed_sum_tiles`."""
-    _check_table("absorbed_sum_tiles", x, y, cols, cnt, tile, tri)
+    _check_table("absorbed_sum_tiles", x, y, cols, cnt, tile, tri, row_offset)
     dt = ck._acc(x, y, phi, psi)
     x, y = x.to(dt), y.to(dt)
     phi = _fold_norms(x, phi.to(dt), eps, p)
     psi = _fold_norms(y, psi.to(dt), eps, p)
     r = torch.zeros_like(phi).view(-1, tile)
     c = torch.zeros_like(psi).view(-1, tile)
-    for I, J in _row_tiles(cols, cnt, tri):
+    for I, J in _row_tiles(cols, cnt, tri, row_offset):
         rows = slice(I * tile, (I + 1) * tile)
         idx = (J.to(x.device)[:, None] * tile + torch.arange(tile, device=x.device)).view(-1)
         W = torch.exp(_log_weights_blk(x[rows], phi[rows], y[idx], psi[idx], eps, p))
         r[I] += W.sum(1)
         cs = W.sum(0).view(-1, tile)
         if tri:
-            cs = torch.where((J == I).to(x.device)[:, None], 0.0, cs)
+            cs = torch.where((J == row_offset + I).to(x.device)[:, None], 0.0, cs)
         # Distinct column tiles within a row tile: a plain indexed update.
         c[J.to(x.device)] += cs
     return r.view(-1).to(phi.dtype), c.view(-1).to(psi.dtype)
 
 
 def gibbs_apply_tiles_blocked(
-    x, y, phi, psi, Vy, Vx, eps, cols, cnt, p=2, kind="gibbs", tile=512, tri=False
+    x, y, phi, psi, Vy, Vx, eps, cols, cnt, p=2, kind="gibbs", tile=512, tri=False, row_offset=0
 ):
     """Plain twin of :func:`gibbs_apply_tiles`."""
-    _check_table("gibbs_apply_tiles", x, y, cols, cnt, tile, tri)
+    _check_table("gibbs_apply_tiles", x, y, cols, cnt, tile, tri, row_offset)
     _check_kind(kind)
     dt = ck._acc(x, y, phi, psi, Vy, Vx)
     x, y, phi, psi, Vy, Vx = (t.to(dt) for t in (x, y, phi, psi, Vy, Vx))
@@ -443,14 +448,14 @@ def gibbs_apply_tiles_blocked(
     C = Vy.shape[1]
     Rr = torch.zeros((x.shape[0] // tile, tile, C), dtype=dt, device=x.device)
     Rc = torch.zeros((y.shape[0] // tile, tile, C), dtype=dt, device=x.device)
-    for I, J in _row_tiles(cols, cnt, tri):
+    for I, J in _row_tiles(cols, cnt, tri, row_offset):
         rows = slice(I * tile, (I + 1) * tile)
         idx = (J.to(x.device)[:, None] * tile + torch.arange(tile, device=x.device)).view(-1)
         w = _apply_weights_blk(x[rows], phi[rows], y[idx], psi[idx], eps, p, kind)
         Rr[I] += w @ Vy[idx]
         cs = (w.T @ Vx[rows]).view(-1, tile, C)
         if tri:
-            cs = torch.where((J == I).to(x.device)[:, None, None], 0.0, cs)
+            cs = torch.where((J == row_offset + I).to(x.device)[:, None, None], 0.0, cs)
         Rc[J.to(x.device)] += cs
     return Rr.view(-1, C).to(Vy.dtype), Rc.view(-1, C).to(Vx.dtype)
 
@@ -588,17 +593,17 @@ def _check_walk(name, x, y, tbl, block_n, block_m):
 # ==============================================================================
 
 
-def _tables(name, x, y, cols, cnt, tile, tri):
+def _tables(name, x, y, cols, cnt, tile, tri, row_offset):
     """Checks, and the launch geometry: ``(slot_i, slot_j, nI, nJ, nsub)``."""
-    _check_table(name, x, y, cols, cnt, tile, tri)
+    _check_table(name, x, y, cols, cnt, tile, tri, row_offset)
     if tile % 128:
         raise NotImplementedError(f"{name}: the tile must be a multiple of 128 (got {tile}).")
     _check_cuda(name, x, y, cols, cnt)
-    slot_i, slot_j = _live_slots(cols, cnt, tri)
+    slot_i, slot_j = _live_slots(cols, cnt, tri, row_offset)
     return slot_i, slot_j, cols.shape[0], y.shape[0] // tile, _cdiv(tile, _ROWS)
 
 
-def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False):
+def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False, row_offset=0):
     """Absorbed row and column sums over the kept tile pairs of a table:
 
     ``r_i = sum_{j kept for i} W_ij``, ``c_j = sum_{i kept for j} W_ij``,
@@ -608,16 +613,20 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False)
     ``tile``; phi ``(N,)``, psi ``(M,)``; cols ``(N/tile, ck)`` and cnt
     ``(N/tile,)`` the kept-tile table; ``tri`` a triangle table of a
     symmetric problem (``y`` is ``x``; ``r + c`` is then the full sum).
+    ``row_offset``: the rows are the global row tiles ``row_offset + I`` of
+    the symmetric problem (a shard of its triangle table, against the
+    whole cloud ``y``): kept entries ``cols[I, k] >= row_offset + I``, the
+    diagonal ``J == row_offset + I``. It changes nothing without ``tri``.
     Returns ``(r, c)`` in phi's and psi's dtype.
     """
     if not x.is_cuda:
-        return absorbed_sum_tiles_blocked(x, y, phi, psi, eps, cols, cnt, p, tile, tri)
-    slot_i, slot_j, nI, nJ, nsub = _tables("absorbed_sum_tiles", x, y, cols, cnt, tile, tri)
+        return absorbed_sum_tiles_blocked(x, y, phi, psi, eps, cols, cnt, p, tile, tri, row_offset)
+    slot_i, slot_j, nI, nJ, nsub = _tables("absorbed_sum_tiles", x, y, cols, cnt, tile, tri, row_offset)
     _check_cuda("absorbed_sum_tiles", x, phi, psi)
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, p)
     f32 = dict(dtype=torch.float32, device=x.device)
-    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub))
+    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub), row_offset)
     # Partials of one chunk of live slots, added into r and c in slot order
     # before the next chunk (deterministic, bounded):
     rowpart = torch.empty((R, 1, tile), **f32)
@@ -629,7 +638,7 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False)
             _LIB.launch(
                 "absorbed_sum_tiles", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(),
                 cb.data_ptr(), slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(),
-                rowpart.data_ptr(), colpart.data_ptr(), n, tile, kv, p, int(tri), LOG2E / eps,
+                rowpart.data_ptr(), colpart.data_ptr(), n, tile, kv, p, int(tri), row_offset, LOG2E / eps,
                 count="absorbed_sum_tiles",
             )
             _segment_sum(rowpart, rows, r, tile, 1)
@@ -641,7 +650,7 @@ _APPLY_MODES = {("gibbs", 2): 0, ("gibbs_grad", 2): 0, ("gibbs", 1): 1, ("gibbs_
 
 
 def gibbs_apply_tiles(
-    x, y, phi, psi, Vy, Vx, eps, cols, cnt, p=2, kind="gibbs", tile=512, tri=False
+    x, y, phi, psi, Vy, Vx, eps, cols, cnt, p=2, kind="gibbs", tile=512, tri=False, row_offset=0
 ):
     """Both contractions of the raw absorbed weights over the kept pairs:
 
@@ -651,14 +660,15 @@ def gibbs_apply_tiles(
     divided by ``|x_i - y_j|`` for p=1 ``kind='gibbs_grad'`` (zero below
     a squared distance of 1e-6).
 
-    Args: as :func:`absorbed_sum_tiles`, plus Vy ``(M, C)`` and Vx
-    ``(N, C)``; channels go through the kernel in groups of four.
+    Args: as :func:`absorbed_sum_tiles` (``row_offset`` included), plus
+    Vy ``(M, C)`` and Vx ``(N, C)``; channels go through the kernel in
+    groups of four.
     Returns ``(R_row (N, C), R_col (M, C))`` in Vy's and Vx's dtype.
     """
     _check_kind(kind)
     if not x.is_cuda:
-        return gibbs_apply_tiles_blocked(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri)
-    slot_i, slot_j, nI, nJ, nsub = _tables("gibbs_apply_tiles", x, y, cols, cnt, tile, tri)
+        return gibbs_apply_tiles_blocked(x, y, phi, psi, Vy, Vx, eps, cols, cnt, p, kind, tile, tri, row_offset)
+    slot_i, slot_j, nI, nJ, nsub = _tables("gibbs_apply_tiles", x, y, cols, cnt, tile, tri, row_offset)
     _check_cuda("gibbs_apply_tiles", x, phi, psi, Vy, Vx)
     C = Vy.shape[1]
     if Vx.shape != (x.shape[0], C) or Vy.shape[0] != y.shape[0]:
@@ -671,7 +681,7 @@ def gibbs_apply_tiles(
     Vyp = torch.nn.functional.pad(_f32(Vy), (0, Cp - C))
     Vxp = torch.nn.functional.pad(_f32(Vx), (0, Cp - C))
     f32 = dict(dtype=torch.float32, device=x.device)
-    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub))
+    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub), row_offset)
     rowpart = torch.empty((R, 1, tile * G), **f32)
     colpart = torch.empty((R, nsub, G * tile), **f32)
     rows_out, cols_out = [], []
@@ -686,7 +696,7 @@ def gibbs_apply_tiles(
                     "gibbs_apply_tiles", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(),
                     cb.data_ptr(), vy.data_ptr(), vx.data_ptr(),
                     slot_i[q0:].data_ptr(), slot_j[q0:].data_ptr(), rowpart.data_ptr(),
-                    colpart.data_ptr(), n, tile, kv, mode, int(tri), LOG2E / eps,
+                    colpart.data_ptr(), n, tile, kv, mode, int(tri), row_offset, LOG2E / eps,
                     count="gibbs_apply_tiles",
                 )
                 _segment_sum(rowpart, rows, r, tile * G, 1)

@@ -203,6 +203,50 @@ def test_gibbs_apply_tiles_kernel_matches_twin(cuda_device, case, p, kind, tri):
         assert torch.equal(a, b)
 
 
+def _offset_shard(tile, n_tiles, shards, shard, seed, p):
+    """One shard of a symmetric problem's triangle table: the rows of row
+    tiles ``shard * n_l ..`` against the whole cloud, with their offset."""
+    x, _, f, _, la, _ = _tile_problem(tile, n_tiles, n_tiles, seed=seed, tri=True)
+    cols, counts = kept_table(n_tiles, n_tiles, n_tiles, seed=p, sym=True)
+    n_l = n_tiles // shards
+    rows, pts = slice(shard * n_l, (shard + 1) * n_l), slice(shard * n_l * tile, (shard + 1) * n_l * tile)
+    phi = la + f / 0.05
+    return x, phi, rows, pts, cols, counts, shard * n_l
+
+
+@pytest.mark.parametrize("shard", [1, 3])
+@pytest.mark.parametrize("p", [1, 2])
+@pytest.mark.parametrize("tile", [128, 512])
+def test_absorbed_sum_tiles_kernel_with_row_offset(cuda_device, tile, p, shard):
+    """Kernel 5 on one shard (offset > 0) of a triangle table, as a rank of
+    the row-sharded multiscale solve calls it: against its twin."""
+    x, phi, rows, pts, cols, counts, off = _offset_shard(tile, 8, 4, shard, seed=tile + p, p=p)
+    t = tensors(x[pts], x, phi[pts], phi, device=cuda_device)
+    table = tensors(cols[rows], counts[rows], device=cuda_device)
+    args = (*t, 0.05, *table, p, tile, True, off)
+    got = _counted("absorbed_sum_tiles", lambda: cbs.absorbed_sum_tiles(*args), cbs.launch_counts)
+    for a, b in zip(got, cbs.absorbed_sum_tiles_blocked(*args)):
+        torch.testing.assert_close(a, b, **VAL_TOL)
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("shard", [1, 3])
+@pytest.mark.parametrize("p,kind", [(2, "gibbs"), (1, "gibbs"), (1, "gibbs_grad")])
+def test_gibbs_apply_tiles_kernel_with_row_offset(cuda_device, p, kind, shard, C):
+    """Kernel 6 on one shard (offset > 0) of a triangle table, C = 1 and 4
+    channels: against its twin."""
+    tile = 128
+    x, phi, rows, pts, cols, counts, off = _offset_shard(tile, 8, 4, shard, seed=7 * shard + p, p=p)
+    V = np.concatenate([np.ones((x.shape[0], 1), np.float32), x], 1)[:, :C]
+    t = tensors(x[pts], x, phi[pts], phi, V, V[pts], device=cuda_device)
+    table = tensors(cols[rows], counts[rows], device=cuda_device)
+    args = (*t, 0.05, *table, p, kind, tile, True, off)
+    got = _counted("gibbs_apply_tiles", lambda: cbs.gibbs_apply_tiles(*args), cbs.launch_counts)
+    ref = cbs.gibbs_apply_tiles_blocked(*args)
+    assert_apply_close(got[0], ref[0].cpu(), **apply_tolerance(x[pts], x, phi[pts], phi, V, 0.05, p, kind))
+    assert_apply_close(got[1], ref[1].cpu(), **apply_tolerance(x, x[pts], phi, phi[pts], V[pts], 0.05, p, kind))
+
+
 @pytest.mark.parametrize("block_n,block_m", [(256, 128), (256, 512), (1024, 128), (1024, 512)])
 @pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("D", [1, 2, 3])

@@ -137,3 +137,39 @@ def test_samples_loss_routes_to_multiscale(monkeypatch, backend, n):
     v = SamplesLoss("sinkhorn", backend=backend, p=2, blur=0.05, diameter=2.0)(torch.tensor(x), torch.tensor(y))
     assert seen == dict(shapes=((n,), (n, 3), (n,), (n, 3)), p=2)
     assert v.ndim == 0 and torch.isfinite(v)
+
+
+#: (N_FINE_OK, N, M, seed) -> (loss as float.hex, the first 16 hex digits of
+#: the SHA-256 of the float64 gradient's bytes, the mid phase's runs),
+#: recorded before the prologue of sinkhorn_multiscale moved into
+#: multiscale_prologue (shared with the row-sharded solve).
+PROLOGUE_FLOATS = {
+    (1 << 20, 1500, 1700, 0): ("0x1.ef869a650aeacp-7", "af535b13920e6f1b", 0),
+    (512, 2000, 1900, 2): ("0x1.23fc6a108d58ap-6", "9c35f9b31829ff85", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(PROLOGUE_FLOATS))
+def test_prologue_refactor_changes_no_float(monkeypatch, case):
+    """SamplesLoss("sinkhorn", backend="multiscale"), classic and with the
+    mid path forced (N_FINE_OK lowered), p = 2: bitwise the loss and the
+    gradient recorded on the tree before the refactor."""
+    import hashlib
+
+    from geomloss_tpu_torch.models import multiscale as tms
+
+    n_fine_ok, n, m, seed = case
+    monkeypatch.setattr(tms, "N_FINE_OK", n_fine_ok)
+    mid_runs = []
+    run_mid = tms.run_mid_phase
+    monkeypatch.setattr(tms, "run_mid_phase", lambda *a, **k: mid_runs.append(1) or run_mid(*a, **k))
+    rng = np.random.RandomState(seed)
+    x, y = rng.rand(n, 3), rng.rand(m, 3) + 0.1
+    a, b = rng.rand(n) + 0.5, rng.rand(m) + 0.5
+    a, x, b, y = (torch.tensor(v) for v in (a / a.sum(), x, b / b.sum(), y))
+    x.requires_grad_(True)
+    v = SamplesLoss("sinkhorn", p=2, blur=0.05, scaling=0.5, backend="multiscale")(a, x, b, y)
+    (g,) = torch.autograd.grad(v, x)
+    value, digest, mids = PROLOGUE_FLOATS[case]
+    assert (v.item().hex(), hashlib.sha256(g.numpy().tobytes()).hexdigest()[:16], len(mid_runs)) == (
+        value, digest, mids)
