@@ -8,12 +8,17 @@ grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
 ``ImagesBarycenter``), the ``ot`` API (``ot.solve_sample``'s streaming
 route at 100,000 points) and the ``parallel`` package (the ring at 100,000
 points and the row-sharded multiscale solve at 2,000,000, on one rank
-and on ranks that share the card), and times them.
+and on ranks that share the card), and the benchmark twins
+(``bench_torch.py``, legs of ``bench_suite_torch.py``,
+``tools/profile_phases_torch.py``), and times them.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them, or if any
-phase fails. Phases, one line each:
+phase fails. An idle share is one minus the device's kernel time in one
+call under ``torch.profiler`` over the host clock of the same call
+unprofiled (the profiler slows the host's side of a call). Phases, one
+line each:
 
 1. device: the card's name, the device count and its power limit;
 2. build: compiles ``geomloss_tpu_torch/csrc/online_kernels.cu`` and
@@ -160,6 +165,17 @@ phase fails. Phases, one line each:
     (c) Kernels 5 and 6 with a row offset: on shard 1 of 4 of the 1e5
     multiscale triangle tables (p in {1, 2}) against their twins, and the
     four shards' sums added up against the whole table.
+17. ``[bench]`` (last): the benchmark twins, called as functions.
+    ``bench_torch.headline`` (bench.py's call at N = M = 1e5) with the
+    kernel launches counted from zero (kernels 1, 5 and 6 must run), every
+    key of its line, and its loss within ``PATH_TOL`` of the same call
+    through the float64 twins (the loss against the online
+    ``truncate=None`` value is printed: on the multiscale route it measures
+    the gap between the two descents, not the kernels);
+    ``bench_suite_torch.py``'s tensorized legs at 1e2 and 1e3 and its
+    multiscale blur .05 leg at 1e4, each within its bound against float64;
+    ``tools/profile_phases_torch.py`` at 1e6: every phase of the classic
+    path once, finite, each re-run phase bitwise as in the solve.
 
 Each phase prints its seconds. Before the last lines the run fails if a
 process it started (nvcc, nvidia-smi, a [parallel] rank) is still there.
@@ -175,6 +191,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -182,6 +199,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from bench_torch import PATH_TOL, card_line, plain_twins, profile_busy_ms
 
 N_POINTS = 100_000
 N_REPAIR = 1_000_000
@@ -193,7 +212,7 @@ BLUR, DIAMETER, SCALING = 0.05, 2.0, 0.5
 # step values rtol = atol = 2e-5; applies rtol 2e-3, atol 3e-5 x scale with
 # scale = max_i sum_j |w_ij| |V_j|). Main path: float32 kernels against the
 # float64 twins, relative error of the loss and relative L2 error of the
-# gradient, each <= 1e-3.
+# gradient, each <= PATH_TOL (1e-3, bench_torch.py's).
 VAL_RTOL = VAL_ATOL = 2e-5
 #: Kernels 5 and 6 take one ex2.approx.ftz per pair, which flushes weights
 #: below 2^-126 to zero: a sum of n kept pairs may lose up to n x 2^-126.
@@ -205,7 +224,6 @@ VAL_RTOL = VAL_ATOL = 2e-5
 FLUSH_WEIGHT = 2.0**-126
 FLUSH_SHARE = 1e-6
 APPLY_RTOL, APPLY_ATOL_SCALE = 2e-3, 3e-5
-PATH_TOL = 1e-3
 #: Extra device memory one step call may take beyond its inputs at 1e6.
 REPAIR_BYTES = 256e6
 #: Calls of the 2e6 mid path (bench.py's settings): one fine iteration
@@ -530,14 +548,6 @@ def child_processes(pid=None):
     return cmds
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def sync_ms(fn, reps):
     """Host clock around ``reps`` calls ending in a synchronize, in ms."""
     fn()
@@ -560,31 +570,6 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def profile_busy_ms(fn, top=8):
-    """Wall time of one call, the device's kernel time in it (ms) and its
-    number of kernel launches (torch.profiler), with the ``top`` kernels
-    that took the most (all for None) as ``(ms, launches, name)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # the ops that launched them
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:top]
 
 
 #: Largest error of each kernel against its twin over the parity checks.
@@ -1059,8 +1044,8 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
     if profile:
         wall, busy, n_launch, top = profile_busy_ms(lambda: value_and_grad(lambda x: gauss_ms(x, yl), xl))
         print(f"[time] gaussian multiscale loss+grad N=M={n_large} under torch.profiler: wall {wall:.3f} ms, device "
-              f"busy {busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches; "
-              f"card {card}", flush=True)
+              f"busy {busy:.3f} ms, idle share {100 * (1 - busy / statistics.median(times)):.1f} % of the median "
+              f"host clock, {n_launch} kernel launches; card {card}", flush=True)
         for dev_ms, calls, key in top:
             print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
     for key, (args, kwargs) in zip(("xx", "yy", "xy"), rec["kernel_matvec_sparse"]):
@@ -1734,7 +1719,8 @@ def grid_phase(dev, card):
         wall, busy, n_launch, top = profile_busy_ms(fn, top=4)
         print(f"[time] {name}: median of 5 after a warm-up, host clock {host_ms:.3f} ms, CUDA events "
               f"{event_ms_:.3f} ms; one call under torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-              f"idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches; peak memory beyond its "
+              f"idle share {100 * (1 - busy / host_ms):.1f} % of the host clock, {n_launch} kernel launches; peak "
+              f"memory beyond its "
               f"inputs {peak / 1e9:.3f} GB; card {card}", flush=True)
         for dev_ms, n_calls, key in top:
             print(f"[time]   {dev_ms:9.3f} ms {n_calls:5d} x {key[:90]}", flush=True)
@@ -1760,28 +1746,6 @@ OT_ITERS = 25
 #: eps = 0.01 keeps it near 1e-5, where one pixel of 256 (eps 1.5e-5)
 #: would put it at the percent in float32 whatever the solver.
 OT_GRID_BLUR = 0.1
-
-
-@contextlib.contextmanager
-def plain_twins():
-    """Every kernel wrapper of ``ops/cuda_kernels.py`` and
-    ``ops/cuda_block_sparse.py`` swapped for its ``_blocked`` twin (the
-    same math in the input dtype, on the card): the float64 reference runs
-    of the ``ot`` phase."""
-    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
-    from geomloss_tpu_torch.ops import cuda_kernels as ck
-
-    saved = []
-    for mod in (ck, cbs):
-        for name in dir(mod):
-            if not name.startswith("_") and hasattr(mod, name + "_blocked"):
-                saved.append((mod, name, getattr(mod, name)))
-                setattr(mod, name, getattr(mod, name + "_blocked"))
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def rel_l2(got, ref):
@@ -1910,8 +1874,9 @@ def ot_phase(dev, card, clock):
     wall, busy, n_launch, top = profile_busy_ms(loss_grad, top=4)
     print(f"[time] ot.solve_sample loss+grad N=M={OT_POINTS} (streaming, {n_sched} iterations, debias): median of 3 "
           f"after a warm-up, host clock {host_ms:.3f} ms, CUDA events {ev_ms:.3f} ms; one call under "
-          f"torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} "
-          f"%, {n_launch} kernel launches; peak memory beyond its inputs {peak / 1e9:.3f} GB; card {card}",
+          f"torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share {100 * (1 - busy / host_ms):.1f} "
+          f"% of the host clock, {n_launch} kernel launches; peak memory beyond its inputs {peak / 1e9:.3f} GB; card "
+          f"{card}",
           flush=True)
     for dev_ms, n_calls, key in top:
         print(f"[time]   {dev_ms:9.3f} ms {n_calls:5d} x {key[:90]}", flush=True)
@@ -2215,7 +2180,8 @@ def report_parallel(name, R, backend, res, schedule, card):
     if "idle" in r0:
         wall, busy, n_launch = r0["idle"]
         print(f"[parallel] {name} R={R} rank 0 under torch.profiler: wall {wall:.3f} ms, its device busy "
-              f"{busy:.3f} ms, idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches", flush=True)
+              f"{busy:.3f} ms, idle share {100 * (1 - busy / r0['host_ms']):.1f} % of the host clock, {n_launch} "
+              f"kernel launches", flush=True)
     for rank, rr in sorted(res.items()):
         print(f"[parallel] {name} R={R} rank {rank}: launches {json.dumps(rr['launches'])}, calls "
               f"{json.dumps(rr['calls'])} (schedule: calls {json.dumps(schedule)})", flush=True)
@@ -2417,13 +2383,92 @@ def parallel_phase(dev, card):
     phase_took("parallel", t_phase)
 
 
+#: [bench]: the legs of bench_suite_torch.py it runs, and the size of its
+#: phase profile (tools/profile_phases_torch.py).
+BENCH_SUITE_LEGS = {"sinkhorn_tensorized_blur.05": [100, 1_000], "sinkhorn_multiscale_blur.05": [10_000]}
+BENCH_PROFILE_N = 1_000_000
+#: Keys of bench_torch.py's line (bench.py's, and the CUDA timing fields).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "events_ms", "busy_ms", "profiled_wall_ms", "idle_share",
+              "launches", "peak_mem_gb", "loss_value", "loss_exact", "loss_rel_err_vs_exact", "loss_float64",
+              "loss_rel_err_vs_float64", "device")
+
+
+def bench_phase(dev, card):
+    """[bench]: the benchmark twins, as functions. bench_torch.py's call
+    (bench.py's, at 1e5: the multiscale route) with its launches counted
+    from zero, its line's keys, and its loss within PATH_TOL of the same
+    call through the float64 twins (``loss_rel_err_vs_exact`` printed: it
+    measures the multiscale scheme against the online one); the suite's
+    BENCH_SUITE_LEGS, each within its bound; the phase profile at
+    BENCH_PROFILE_N, every phase once, each re-run bitwise as in the
+    solve."""
+    import importlib.util
+
+    import bench_suite_torch
+    import bench_torch
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.perf_counter()
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    line = bench_torch.headline(N_POINTS, dev.type)
+    launches = {k: n for k, n in {**ck.launch_counts, **cbs.launch_counts}.items() if n}
+    print(f"[bench] bench_torch.py N={N_POINTS}: launches {json.dumps(launches)}; median {line['value']:.3f} ms, "
+          f"events {line['events_ms']:.3f} ms, idle share {100 * line['idle_share']:.1f} %; loss rel err against "
+          f"the float64 twins {line['loss_rel_err_vs_float64']:.3e} (tol {PATH_TOL:g}), against the online "
+          f"truncate=None value {line['loss_rel_err_vs_exact']:.3e} (the multiscale scheme's gap, for "
+          f"information); card {card}", flush=True)
+    missing = [k for k in BENCH_KEYS if k not in line or line[k] is None]
+    if missing:
+        fail(f"bench_torch.py's line lacks {missing}")
+    if not all(launches.get(k, 0) > 0 for k in ("lse", "absorbed_sum_tiles", "gibbs_apply_tiles")):
+        fail(f"a kernel of the multiscale path was never launched by bench_torch.py's call: {launches}")
+    if not line["loss_rel_err_vs_float64"] <= PATH_TOL:
+        fail("bench_torch.py's loss misses the float64 twins")
+
+    results = {}
+    for name, kw, _ in bench_suite_torch.CONFIGS:
+        if name in BENCH_SUITE_LEGS:
+            for leg in bench_suite_torch.run_config(name, kw, BENCH_SUITE_LEGS[name], dev, card, results):
+                if not leg["within_bound"]:
+                    fail(f"{leg['metric']}: loss error {leg['err_vs_float64']:.3e} (bound "
+                         f"{leg['bound_vs_float64']:.3e}) or gradient error {leg['grad_err_vs_float64']:.3e} (bound "
+                         f"{leg['grad_bound_vs_float64']:.3e}) against float64 over its bound")
+    print(f"[bench] suite legs within their bounds: {json.dumps(results)} (median ms)", flush=True)
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_phases_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                             "profile_phases_torch.py"))
+    profile_phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile_phases)
+    rows = []
+
+    def emit(**row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    profile_phases.profile(BENCH_PROFILE_N, dev, card, emit)
+    phases = [r["phase"] for r in rows]
+    # The classic path at this size (no mid scale):
+    expected = [p for p in profile_phases.PHASES if p not in profile_phases.MID_ONLY]
+    if phases != expected:
+        fail(f"the phase profile at N={BENCH_PROFILE_N} gave {phases}, not {expected}")
+    if not (math.isfinite(rows[0]["loss"]) and rows[0]["grad_finite"]):
+        fail("the phase profile's full call is not finite")
+    differ = [r["phase"] for r in rows if r.get("same_as_solve") is False]
+    if differ:
+        fail(f"re-run phases {differ} differ from the solve's own")
+    phase_took("bench", t_phase)
+
+
 def main():
     # --- 1. Device ---------------------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    card = card_line()
+    card = card_line(dev)
     clock = sm_clock_hz()
     print(f"[device] {kind} x{count}; nvidia-smi: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -2645,16 +2690,19 @@ def main():
         "multiscale": (lambda: value_and_grad(lambda x: auto(x, y0), x0),
                        lambda: value_and_grad(ms_plain, x0)),
     }
+    host = {}
     for name, (kern, twin) in path.items():
         ms_path = sync_ms(kern, reps)
         ms_twin = sync_ms(twin, 2)
         ms_path2 = sync_ms(kern, reps)
         print(f"[time] loss+grad N=M={N_POINTS} {name}, host clock, {reps} reps: kernels {ms_path:.3f} / "
               f"{ms_path2:.3f} ms, plain float32 twins {ms_twin:.3f} ms (2 reps); card {card}", flush=True)
+        host[name] = ms_path2
 
     wall, busy, n_launch, top = profile_busy_ms(path["multiscale"][0])
     print(f"[time] multiscale loss+grad under torch.profiler: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
-          f"idle share {100 * (1 - busy / wall):.1f} %, {n_launch} kernel launches; card {card}", flush=True)
+          f"idle share {100 * (1 - busy / host['multiscale']):.1f} % of the host clock, {n_launch} kernel launches; "
+          f"card {card}", flush=True)
     for dev_ms, calls, key in top:
         print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
 
@@ -2761,7 +2809,8 @@ def main():
           f"{', '.join(f'{t:.3f}' for t in wall)} ms; card {card}", flush=True)
     wall_p, busy, n_launch, top = profile_busy_ms(lambda: value_and_grad(lambda x: auto(x, ym), xm))
     print(f"[time] mid path loss+grad N=M={N_MID} under torch.profiler: wall {wall_p:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {100 * (1 - busy / wall_p):.1f} %, {n_launch} kernel launches; card {card}",
+          f"{busy:.3f} ms, idle share {100 * (1 - busy / statistics.median(wall)):.1f} % of the median host clock, "
+          f"{n_launch} kernel launches; card {card}",
           flush=True)
     for dev_ms, calls, key in top:
         print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
@@ -2881,8 +2930,9 @@ def main():
     auto_route_phase(dev, card, N_4M, "4m", reps=2)
     auto_route_phase(dev, card, N_TILE2048, "tile2048", reps=1, blur=TILE2048_BLUR, tile=2048,
                      parity_rows=TILE2048_PARITY_TILES)
+    bench_phase(dev, card)
 
-    card = card_line()
+    card = card_line(dev)
     # Every process this run started (nvcc, nvidia-smi, the [parallel]
     # ranks) has ended and been waited for.
     left = child_processes()

@@ -5,6 +5,8 @@ otherwise. The file imports no JAX, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1121,3 +1123,18 @@ def test_a_to_b_through_kernel_4_matches_twin(cuda_device, monkeypatch):
     monkeypatch.setattr(ck, "gibbs_apply", ck.gibbs_apply_blocked)
     ref = res.a_to_b
     assert (got - ref).norm() <= 1e-4 * ref.norm()
+
+
+def test_bench_torch_headline_at_1e4_on_the_card(cuda_device, capsys):
+    """bench_torch.py's call at 1e4 points (the online route: N M = 1e8 is
+    not above 1e8): its line's device fields measured, its loss within
+    1e-3 of the exact online value and of the float64 twins."""
+    import bench_torch
+
+    ck.reset_launch_counts()
+    line = bench_torch.headline(10_000, "cuda", reps=2)
+    assert json.loads(capsys.readouterr().out.strip()) == line
+    assert line["loss_rel_err_vs_exact"] <= 1e-3 and line["loss_rel_err_vs_float64"] <= 1e-3
+    assert line["events_ms"] > 0 and line["busy_ms"] > 0 and 0 <= line["idle_share"] < 1
+    assert line["launches"] > 0 and line["peak_mem_gb"] > 0 and line["device"] not in ("", "cpu")
+    assert ck.launch_counts["sinkhorn_step"] > 0 and ck.launch_counts["sinkhorn_step_sym"] > 0
