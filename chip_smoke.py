@@ -8,9 +8,11 @@ grid path (``ImagesLoss`` at 256^2, ``VolumesLoss`` at 64^3,
 ``ImagesBarycenter``), the ``ot`` API (``ot.solve_sample``'s streaming
 route at 100,000 points) and the ``parallel`` package (the ring at 100,000
 points and the row-sharded multiscale solve at 2,000,000, on one rank
-and on ranks that share the card), and the benchmark twins
-(``bench_torch.py``, legs of ``bench_suite_torch.py``,
-``tools/profile_phases_torch.py``), and times them.
+and on ranks that share the card), the examples gallery
+(``examples_torch/``: every script at its full size, the label transfer
+at 1,000,000 points) and the benchmark twins (``bench_torch.py``, legs of
+``bench_suite_torch.py``, ``tools/profile_phases_torch.py``), and times
+them.
 
     python3 chip_smoke.py
 
@@ -165,7 +167,24 @@ line each:
     (c) Kernels 5 and 6 with a row offset: on shard 1 of 4 of the 1e5
     multiscale triangle tables (p in {1, 2}) against their twins, and the
     four shards' sums added up against the whole table.
-17. ``[bench]`` (last): the benchmark twins, called as functions.
+17. ``[gallery]`` (before ``[bench]``): every script of
+    ``examples_torch/`` once on the card, at its JAX example's full size
+    (``plot_profile`` at 1e5), ``plot=False``: its seconds, result, kernel
+    launches counted from zero, peak memory and the property it prints
+    (``_example_utils_torch.PROPERTIES``; a script that raises or misses
+    it fails the run); the steps of ``gradient_flow`` and
+    ``model_fitting`` (median host-clock ms a step, device launches and
+    idle share of one step under ``torch.profiler``); the label transfer
+    at 36,000 points, its potentials and votes (C = 3) against the same
+    call through the float64 twins (``PATH_TOL``), then at 1,000,020
+    points (``n_fibers=16_667``: the multiscale potentials on the classic
+    tile-1024 path, kernel 4 over 1e12 pairs at C = 3, held against its
+    float64 twin on 2,048 rows and timed beside its bound), both
+    accuracies, and
+    its xy truncation table: width, kept tiles a row, and the rows that
+    the tables' former widths (the build cap, ``fine_cap_schedule``)
+    would have clipped.
+18. ``[bench]`` (last): the benchmark twins, called as functions.
     ``bench_torch.headline`` (bench.py's call at N = M = 1e5) with the
     kernel launches counted from zero (kernels 1, 5 and 6 must run), every
     key of its line, and its loss within ``PATH_TOL`` of the same call
@@ -179,6 +198,8 @@ line each:
 
 Each phase prints its seconds. Before the last lines the run fails if a
 process it started (nvcc, nvidia-smi, a [parallel] rank) is still there.
+The gallery's ``plot_profile`` writes its traces under the checkout's
+``examples_torch/output/``.
 
 The line before the last two is a JSON object ``{"kernels": [...]}``; the
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -2383,6 +2404,186 @@ def parallel_phase(dev, card):
     phase_took("parallel", t_phase)
 
 
+#: [gallery]: the gallery's scripts in the order of its README (those that
+#: reach the kernels first), each at its JAX example's full size (its
+#: ``main()`` defaults) except where GALLERY_SIZES says; the label transfer
+#: again at GALLERY_FIBERS_1E6 fibers a bundle (3 x 20 points a fiber:
+#: 1,000,020 points), kernel 4's call there held against its float64 twin
+#: on GALLERY_APPLY_ROWS rows; the steps of the training loops of
+#: GALLERY_STEPS timed.
+GALLERY_ORDER = ("transfer_labels_tractograms", "plot_optimal_transport_labels", "plot_optimal_transport_cluster",
+                 "plot_kernel_truncation", "plot_interpolation_3D", "plot_profile", "gradient_flow",
+                 "plot_gradient_flows_1D", "plot_gradient_flows_2D", "track_barycenter", "model_fitting",
+                 "plot_optimal_transport_2D", "plot_optimal_transport_color", "plot_barycenter_samples",
+                 "plot_epsilon_scaling", "plot_transport_blur", "plot_wasserstein_barycenters_1D",
+                 "plot_wasserstein_barycenters_2D")
+GALLERY_SIZES = {"plot_profile": dict(N=100_000)}
+GALLERY_FIBERS_1E6 = 16_667
+GALLERY_APPLY_ROWS = 2048
+GALLERY_STEPS = {"gradient_flow": "flow_step", "model_fitting": "train_step"}
+
+
+def _gallery_result(out):
+    if isinstance(out, dict):
+        return "{" + ", ".join(f"{k}: {float(v):.6g}" for k, v in out.items()) + "}"
+    return "None" if out is None else f"{float(out):.9g}"
+
+
+def gallery_script(gallery, name, dev, card, prepare=None, **sizes):
+    """One gallery script on the card (``prepare`` gets its module first),
+    its output kept and printed only if it misses its property: prints its
+    seconds, result, kernel launches counted from zero and peak memory,
+    and for a script of GALLERY_STEPS its steps' median time, device
+    launches, idle share. Returns ``(out, launches)``."""
+    import contextlib
+    import inspect
+    import io
+
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    mod = gallery.load(name)
+    if prepare is not None:
+        prepare(mod)
+    kw = dict(GALLERY_SIZES.get(name, {}), **sizes)
+    sizes_txt = ", ".join(f"{k}={v}" for k, v in kw.items()) or "full size"
+    kw["device"] = dev.type
+    if "plot" in inspect.signature(mod.main).parameters:
+        kw["plot"] = False
+    steps, step_args = [], []
+    if name in GALLERY_STEPS:
+        step = getattr(mod, GALLERY_STEPS[name])
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = step(*args)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+            step_args[:] = [args]
+            return r
+
+        setattr(mod, GALLERY_STEPS[name], timed)
+    ck.reset_launch_counts()
+    cbs.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, text, values = gallery.run(mod, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: n for k, n in {**ck.launch_counts, **cbs.launch_counts}.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok, what = gallery.check(name, out, text, values)
+    print(f"[gallery] {name} ({sizes_txt}): {secs:.2f} s, result {_gallery_result(out)}, kernel launches "
+          f"{json.dumps(launches)}, peak memory {peak:.3f} GB; {what}: {ok}; card {card}", flush=True)
+    if not ok:
+        print(text, flush=True)
+        fail(f"gallery script {name} misses its property: {what}")
+    if steps:
+        _, busy, n_dev, _ = profile_busy_ms(lambda: step(*step_args[0]))
+        med = statistics.median(steps)
+        print(f"[gallery] {name}: {len(steps)} steps, median {med:.3f} ms a step (host clock, synchronized); one step "
+              f"under torch.profiler: {n_dev} device launches, busy {busy:.3f} ms, idle share "
+              f"{100 * (1 - busy / med):.1f} %; peak memory {peak:.3f} GB; card {card}", flush=True)
+    return out, launches
+
+
+def gallery_phase(dev, card, clock):
+    """[gallery]: every script of examples_torch/ once on the card (its
+    JAX example's full size; plot_profile at 1e5), each with its seconds,
+    result, kernel launches counted from zero and property (a script that
+    raises or misses it fails the run); the steps of gradient_flow and
+    model_fitting timed; the label transfer's potentials and votes at
+    36,000 points against the same call through the float64 twins; then
+    the label transfer at 1e6 points (the multiscale potentials on the
+    classic tile-1024 path, kernel 4 over 1e12 pairs at C = 3, held
+    against its float64 twin on GALLERY_APPLY_ROWS rows and timed beside
+    its bound)."""
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+    from geomloss_tpu_torch.ops.block_sparse import retighten_counts
+
+    t_phase = time.perf_counter()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch"))
+    import _example_utils_torch as gallery
+
+    if sorted(GALLERY_ORDER) != sorted(gallery.SMOKE):
+        fail("GALLERY_ORDER does not list the gallery's scripts")
+    labels = "transfer_labels_tractograms"
+    for name in GALLERY_ORDER:
+        if name != labels:
+            gallery_script(gallery, name, dev, card)
+            continue
+        # At 36,000 points, the script's transfer() kept for the float64 twins:
+        calls = []
+
+        def keep(mod):
+            transfer = mod.transfer
+
+            def kept(*args):
+                calls.append((args, transfer(*args)))
+                return calls[-1][1]
+
+            mod.transfer = kept
+
+        acc, _ = gallery_script(gallery, name, dev, card, prepare=keep)
+        (x, y, lab_y), got = calls[0]
+        n_small = x.shape[0]
+        mod = gallery.load(name)
+        with plain_twins():
+            ref = mod.transfer(x.double(), y.double(), lab_y)
+        errs = {k: rel_l2(g, r) for k, g, r in zip(("F", "G", "votes"), got, ref)}
+        same = (got[2].argmax(-1) == ref[2].argmax(-1)).double().mean().item()
+        check_rel("gallery", f"{name} at {x.shape[0]:,} points: the potentials and votes (C = 3) against the float64 "
+                  f"twins (pointwise labels equal to the float64 ones: {100 * same:.3f} %)", errs)
+        del calls, x, y, lab_y, got, ref
+
+        # At 1e6 points, kernel 4's call and the truncation tables recorded:
+        with recording(ck, ["gibbs_apply"]) as rec, recording(ms, ["_truncated_fine_phase"]) as rec_ms:
+            acc_1e6, launches = gallery_script(gallery, name, dev, card, n_fibers=GALLERY_FIBERS_1E6)
+        args = next(a for a, _ in rec["gibbs_apply"] if a[4].shape[1] == 3)  # the votes
+        N, M, C = args[0].shape[0], args[1].shape[0], args[4].shape[1]
+        print(f"[gallery] {name}: fiber-vote accuracy {acc_1e6:.6f} at {N:,} points, {acc:.6f} at {n_small:,} "
+              f"points; card {card}", flush=True)
+        # The rows that the tables' former widths (the build cap, an eighth
+        # of the column tiles up to 128, and fine_cap_schedule's slices)
+        # would have clipped:
+        masks, eps_m, _, _, _, _, eps_fine, _, truncate = rec_ms["_truncated_fine_phase"][0][0][:9]
+        mask = masks[0]
+        nI, width = mask.cols.shape
+        old_cap = max(32, min(mask.colsT.shape[0] // 8, 128))
+        over = []
+        for ck_e, es in ms.fine_cap_schedule(eps_fine, eps_m, old_cap):
+            for e in es:
+                over.append((int((retighten_counts(mask.vals, truncate * (e - eps_m)) > ck_e).sum()), ck_e))
+        print(f"[gallery] {name} at {N:,} points, the xy truncation table: {nI} row tiles, width {width}, kept tiles a "
+              f"row mean {mask.counts.float().mean().item():.1f}, max {int(mask.counts.max())}; "
+              f"{int((mask.counts > old_cap).sum())} rows keep more than the former build cap {old_cap}; at the "
+              f"{len(eps_fine)} fine temperatures {min(o for o, _ in over)}-{max(o for o, _ in over)} rows keep "
+              f"more than fine_cap_schedule's width ({min(c for _, c in over)}-{max(c for _, c in over)}): "
+              f"both widths now grow to the largest count", flush=True)
+        del rec_ms, masks, mask
+
+        if not (launches.get("gibbs_apply") and launches.get("absorbed_sum_tiles") and launches.get("lse")):
+            fail(f"the label transfer at {N:,} points did not run kernels 1, 4 and 5: {launches}")
+        # Its rows of kernel 4's call against the float64 twin on those rows:
+        rows = torch.linspace(0, N - 1, GALLERY_APPLY_ROWS, device=dev).round().long()
+        sub = (args[0][rows].double(), args[1].double(), args[2][rows].double(), args[3].double(),
+               args[4].double(), *args[5:])
+        scale = ck.gibbs_apply_blocked(*sub[:4], sub[4].abs(), *sub[5:]).abs().max().item()
+        check_apply("gibbs_apply", f"label transfer {N:,} x {M:,} {args[7]} C={C}, {GALLERY_APPLY_ROWS} rows against "
+                    f"the float64 twin", ck.gibbs_apply(*args)[rows], ck.gibbs_apply_blocked(*sub), scale)
+        k_ms = event_ms(lambda: ck.gibbs_apply(*args), 2)
+        b_ms, b_by = bound(N * M, nbytes(*args[:5]) + 4 * N * C, clock)
+        print(f"[time] gibbs_apply        label transfer N={N:,} M={M:,} C={C}: kernel {k_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}) (CUDA events); card {card}", flush=True)
+        del rec, args, sub
+        torch.cuda.empty_cache()
+    phase_took("gallery", t_phase)
+
+
 #: [bench]: the legs of bench_suite_torch.py it runs, and the size of its
 #: phase profile (tools/profile_phases_torch.py).
 BENCH_SUITE_LEGS = {"sinkhorn_tensorized_blur.05": [100, 1_000], "sinkhorn_multiscale_blur.05": [10_000]}
@@ -2930,6 +3131,7 @@ def main():
     auto_route_phase(dev, card, N_4M, "4m", reps=2)
     auto_route_phase(dev, card, N_TILE2048, "tile2048", reps=1, blur=TILE2048_BLUR, tile=2048,
                      parity_rows=TILE2048_PARITY_TILES)
+    gallery_phase(dev, card, clock)
     bench_phase(dev, card)
 
     card = card_line(dev)

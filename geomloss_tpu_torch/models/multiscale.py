@@ -627,12 +627,32 @@ def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, deb
 
 def fine_tables(mask_xy, eps_m, eps_fine, truncate):
     """``table(mask, e)``: the first ``ck`` columns of a table built at
-    ``eps_m`` and its counts re-thresholded at the fine temperature ``e``,
-    ``ck`` the width :func:`fine_cap_schedule` gives ``e``."""
+    ``eps_m`` and its counts re-thresholded at the fine temperature ``e``.
+
+    ``ck`` is the width :func:`fine_cap_schedule` gives ``e``, widened (in
+    multiples of 8, up to the table's width) to the largest re-thresholded
+    count of the table's rows, so that the slice drops no kept tile. The
+    schedule assumes that the kept tiles shrink at least linearly in eps,
+    which holds on surfaces and volumes, not on data along curves: on
+    fiber bundles it clipped 977 of 1,024 row tiles at 1e6 points, and
+    the potentials it gave made the label votes NaN
+    (``examples_torch/transfer_labels_tractograms.py``). Where no row
+    exceeds the schedule's width, the tables are the JAX package's. One
+    host read per table gives every temperature's largest count.
+    """
     ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_m, mask_xy.cols.shape[1]) for e in es}
+    widths = {}
+
+    def width(mask, e):
+        if id(mask) not in widths:
+            need = torch.stack([retighten_counts(mask.vals, truncate * (f - eps_m)).max() for f in ck_of]).tolist()
+            full = mask.cols.shape[1]
+            # (the mask is kept beside its widths, so that its id stays its own)
+            widths[id(mask)] = mask, {f: min(full, max(ck_of[f], -(-n // 8) * 8)) for f, n in zip(ck_of, need)}
+        return widths[id(mask)][1][e]
 
     def table(mask, e):
-        ck = ck_of[e]
+        ck = width(mask, e)
         cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_m)), max=ck)
         return mask.cols[:, :ck].contiguous(), cnt
 

@@ -194,8 +194,12 @@ def masks_from_coarse(
         f_c, g_c: coarse dual potentials on the centroids.
         w_x, w_y: coarse block weights (zero = padding, never kept).
         blocks_per_tile: tile // block_size.
-        cap: bound on kept column tiles per row tile (default: an eighth of
-            the column tiles, between 32 and 128).
+        cap: bound on kept column tiles per row tile; a row that keeps
+            more keeps its best-scored ``cap`` (default: an eighth of the
+            column tiles, between 32 and 128, or, where a row or column
+            keeps more, its count rounded up to a multiple of 8: data
+            along curves keeps many more tiles a row than surfaces do, and
+            clipping them gave wrong potentials, as ``fine_tables`` says).
         sym: the problem is symmetric (``cy is cx``, ``g_c is f_c``): the
             transposed table is the same table.
 
@@ -210,7 +214,9 @@ def masks_from_coarse(
     nI, nJ = Kx // blocks_per_tile, Ky // blocks_per_tile
     score_t = score.reshape(nI, blocks_per_tile, nJ, blocks_per_tile).amax(dim=(1, 3))
     if cap is None:
-        cap = max(32, min(nJ // 8, 128))
+        kept = score_t > 0
+        need = int(torch.stack([kept.sum(1).max(), kept.sum(0).max()]).max())
+        cap = max(32, min(nJ // 8, 128), -(-need // 8) * 8)
     cols, counts, vals = _cols_from_score(score_t, cap)
     if sym:
         colsT, countsT, valsT = cols, counts, vals
