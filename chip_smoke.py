@@ -67,23 +67,31 @@ line each:
    kernel 1 as in phase 6 at each shape of that run (the coarse sweeps,
    the mid cloud); kernel 7 against its twin on the run's four
    extrapolation tables, and
-   kernels 5 and 6 on the first 64 row tiles of its first fine tables; for
-   information, how many rows JAX's walk budget would have clipped and the
-   value against ``truncate=None`` (the exact fine phase, kernels 2 and 3);
+   kernels 5 and 6 on the first 64 row tiles of its first fine tables; its
+   default tables (fine and extrapolation) against the tables of every
+   column tile, and whether they kept their former widths (``mid_cap``,
+   ``extrap_cap``); for information, how many rows JAX's walk budget
+   would have clipped and the value against ``truncate=None`` (the exact
+   fine phase, kernels 2 and 3);
 9. the mid path forced at N = M = 1e5 (``N_FINE_OK`` lowered for the
    call), p in {1, 2}, and one custom-cost multiscale solve at 1e5, each
    against the same call through the float64 twins;
-10. MMD (``[mmd]``): kernel 8 (``gibbs_apply_sparse``) against its twin on
-    the tables of the gaussian multiscale route (``truncate=3``, blur
-    0.1) at 1e5 and on the first 64 row tiles at 1e6, modes 0-4, C in
-    {1, 4}, each with its time and bound; ``softmin_sparse`` at 1e5, p in
-    {1, 2} (kernel 7's CUDA kernel forward as ``lse_sparse``, kernel 8
+10. MMD (``[mmd]``): the default tables of the gaussian multiscale route
+    (``truncate=3``, blur 0.1) at 1e5 and 1e6 against the tables of every
+    column tile (a table that drops a kept tile fails the run); kernel 8
+    (``gibbs_apply_sparse``) against its twin on those tables at 1e5 and
+    on the first 64 row tiles at 1e6, modes 0-4, C in {1, 4}, each with
+    its time and bound, and timed at the former default width beside;
+    ``softmin_sparse`` at 1e5 on the route's xy table, p in {1, 2}
+    (kernel 7's CUDA kernel forward as ``lse_sparse``, kernel 8
     backward); kernel 4's energy and inv_dist modes timed at 1e5, C in
     {1, 4}, beside their bound and issue floor; the
     gaussian (online, multiscale), energy and laplacian (multiscale)
     losses at 1e5 through ``SamplesLoss``, value and gradient against the
     float64 plain versions to bounds scaled by the MMD's terms, with
-    their times, launches and peak memory; a user gaussian callable
+    their times, launches and peak memory; the gaussian multiscale value
+    against the online float64 one (within ``MMD_GAP_TOL``), and on
+    tables clipped at the former widths; a user gaussian callable
     against the named route; the gaussian multiscale route at 1e6 (kernel
     8 parity, time, idle share);
 11. the auto route at N = M = 4e6 (``[4m]``) and 1e7 (``[tile2048]``:
@@ -183,7 +191,10 @@ line each:
     accuracies, and
     its xy truncation table: width, kept tiles a row, and the rows that
     the tables' former widths (the build cap, ``fine_cap_schedule``)
-    would have clipped.
+    would have clipped; then at 2,100,000 points (``n_fibers=35_000``:
+    the mid path), accuracy >= 0.99 and finite votes, and its default
+    tables (fine and extrapolation) against the tables of every column
+    tile, beside their former widths.
 18. ``[bench]`` (last): the benchmark twins, called as functions.
     ``bench_torch.headline`` (bench.py's call at N = M = 1e5) with the
     kernel launches counted from zero (kernels 1, 5 and 6 must run), every
@@ -446,6 +457,24 @@ def capturing(module, name):
     setattr(module, name, call)
     try:
         yield out
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def calls_of(module, name):
+    """Record every call to ``module.<name>`` with what it returned: yields
+    ``[(args, kwargs, result), ...]``."""
+    calls = []
+    saved = getattr(module, name)
+
+    def call(*args, **kwargs):
+        calls.append((args, kwargs, saved(*args, **kwargs)))
+        return calls[-1][2]
+
+    setattr(module, name, call)
+    try:
+        yield calls
     finally:
         setattr(module, name, saved)
 
@@ -855,6 +884,93 @@ def sparse_floor(V, p, kind, kept, clock):
     return f", issue floor {issue_ms(slots * (Cp // G), kept, clock):.3f} ms ({slots} slots per pair)"
 
 
+#: [mmd]: the largest relative gap of the gaussian multiscale value at 1e5
+#: (truncate 3) to the online float64 one; 5.1e-5 on the card with the
+#: tables that keep every kept tile, 77.6 % with the former widths.
+MMD_GAP_TOL = 1e-3
+
+
+def former_geometry_width(nJ):
+    """The default width of a ``masks_from_geometry`` table before it grew
+    to the largest kept count (the JAX package's, without its SMEM
+    clamp)."""
+    return max(8, min(nJ // 8, 128))
+
+
+@contextlib.contextmanager
+def former_geometry_widths(ks):
+    """``kernel_samples``' tables at the former default width, for the
+    value they gave."""
+    build = ks.masks_from_geometry
+
+    def clipped(x, y, radius, block, cap=None, **kw):
+        return build(x, y, radius, block, cap=former_geometry_width(y.shape[0] // block) if cap is None else cap, **kw)
+
+    ks.masks_from_geometry = clipped
+    try:
+        yield
+    finally:
+        ks.masks_from_geometry = build
+
+
+def check_unclipped(tag, label, counts, full, former):
+    """Fails the phase unless a default table's counts (each direction's)
+    equal those of the same table built with every column tile allowed;
+    prints its width and kept tiles a row beside the former default width
+    ``former``."""
+    for got, ref in zip(counts, full):
+        if not torch.equal(got, ref):
+            fail(f"{label}: the default table drops kept tiles ({int((ref - got).sum())} in "
+                 f"{int((got != ref).sum())} rows)")
+    c = counts[0].double()
+    print(f"[{tag}] {label}: {c.numel()} row tiles, kept tiles a row mean {c.mean().item():.2f} max "
+          f"{int(c.max())}, {int((c > former).sum())} rows over the former default width {former}; the same counts "
+          f"as the table of every column tile", flush=True)
+
+
+def check_mid_tables(tag, label, tables, extraps):
+    """The mid path's default tables of one solve (``build_tile_masks``'
+    and ``extrap_cols``' calls as ``(args, kwargs, result)``) against the
+    tables of every column tile, beside their former widths (``mid_cap``,
+    ``extrap_cap``). Returns whether every table kept its former width."""
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    same = True
+    for k, (args, kwargs, mask) in enumerate(tables):
+        tile = args[7]
+        nJ, former = args[1].shape[0] // tile, ms.mid_cap(args[0].shape[0], tile)
+        with torch.no_grad():
+            full = tbs.build_tile_masks(*args, **dict(kwargs, cap=nJ))
+        check_unclipped(tag, f"{label} fine table {k} (width {mask.cols.shape[1]})", (mask.counts, mask.countsT),
+                        (full.counts, full.countsT), former)
+        same &= mask.cols.shape[1] == min(former, nJ)
+        del full
+    for k, ((x_rows, y_src, h, eps, truncate, bn, bm, *_), kwargs, (cols, counts)) in enumerate(extraps):
+        n_src = y_src.shape[0] // bm
+        with torch.no_grad():
+            full = tbs.extrap_cols(x_rows, y_src, h, eps, truncate, bn, bm, n_src, **kwargs)[1]
+        check_unclipped(tag, f"{label} extrapolation table {k} ({n_src} source tiles of {bm}, width {cols.shape[1]})",
+                        (counts,), (full,), tbs.extrap_cap(n_src))
+        same &= cols.shape[1] == tbs.extrap_cap(n_src)
+    return same
+
+
+def check_geometry_tables(label, calls, tabs):
+    """Each ``masks_from_geometry`` table of an MMD solve (``calls``, the
+    order of ``kernel_samples``: xy, xx, yy) against the table of every
+    column tile."""
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    for key, (args, kwargs) in zip(("xy", "xx", "yy"), calls):
+        mask = tabs[key][3]
+        nJ = args[1].shape[0] // args[3]
+        with torch.no_grad():
+            full = tbs.masks_from_geometry(*args, **dict(kwargs, cap=nJ))
+        check_unclipped("mmd", f"gaussian multiscale {label} mask_{key} (width {mask.cols.shape[1]})",
+                        (mask.counts, mask.countsT), (full.counts, full.countsT), former_geometry_width(nJ))
+
+
 def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_rows=MID_PARITY_TILES,
               profile=True):
     """Kernel 8 on the real tables, ``softmin_sparse``, and the MMD
@@ -886,12 +1002,14 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
     def tables(fn, x, y):
         """The three kernel_matvec_sparse calls of one multiscale MMD
         solve: ``{"xx": ..., "yy": ..., "xy": ...}`` as ``(x_s, y_s, v,
-        mask, tile)``."""
-        with recording(ks, ("kernel_matvec_sparse",)) as rec, torch.no_grad():
+        mask, tile)``, each default table checked against the table of
+        every column tile."""
+        with recording(ks, ("kernel_matvec_sparse", "masks_from_geometry")) as rec, torch.no_grad():
             fn(x, y)
         out = {}
         for key, (args, kwargs) in zip(("xx", "yy", "xy"), rec["kernel_matvec_sparse"]):
             out[key] = (args[0].detach(), args[1].detach(), args[2].detach(), args[4], kwargs["block"])
+        check_geometry_tables(f"N=M={x.shape[0]}", rec["masks_from_geometry"], out)
         return out
 
     def print_table(label, mask):
@@ -914,14 +1032,12 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
                 check_sparse_apply(f"N=M={n_small} mask_{key} p={p} {kind} C={C}", args, clock, card)
 
     # --- softmin_sparse: kernel 7 forward (lse_sparse), kernel 8 backward ---------
-    # Its backward reads the transposed table; a table whose width holds
-    # every positive score keeps the same pairs both ways (a capped one may
-    # keep (J, I) and not (I, J): the backward would then meet pairs the
-    # forward LSE left out, with weights above 1).
-    xs, ys, v, _, tile = tab["xy"]
-    aw = tab["xx"][2]
-    mask = tbs.masks_from_geometry(xs, ys, MMD_TRUNCATE * MMD_BLUR, tile, cap=ys.shape[0] // tile, w_x=aw, w_y=v)
-    print_table(f"softmin_sparse N=M={n_small} (geometry, radius {MMD_TRUNCATE * MMD_BLUR:g}, uncapped)", mask)
+    # On the route's own xy table. Its backward reads the transposed table;
+    # a default table, which keeps every kept tile (checked above), keeps
+    # the same pairs both ways (a clipped one may keep (J, I) and not
+    # (I, J): the backward would then meet pairs the forward LSE left out,
+    # with weights above 1).
+    xs, ys, v, mask, tile = tab["xy"]
     h = log_weights(v)
     sm_entry = {}
     for p in (2, 1):
@@ -1021,10 +1137,15 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
         refs[label] = mmd_reference(fn64, x0.to(f64))
         compare_mmd(f"{label} N=M={n_small} against the float64 plain versions", v, g, refs[label])
         values[label] = v
-    rel = abs(values["gaussian multiscale"].item() - refs["gaussian online"][0].item()) / abs(
-        refs["gaussian online"][0].item())
-    print(f"[mmd] for information, gaussian multiscale (truncate={MMD_TRUNCATE}) against the online float64 value "
-          f"at N=M={n_small}: loss rel err {rel:.3e} (the truncation's error, not the kernels')", flush=True)
+    exact = refs["gaussian online"][0].item()
+    rel = abs(values["gaussian multiscale"].item() - exact) / abs(exact)
+    with former_geometry_widths(ks), torch.no_grad():
+        clipped = gauss_ms(x0, y0).item()
+    print(f"[mmd] gaussian multiscale (truncate={MMD_TRUNCATE}) against the online float64 value at N=M={n_small}: "
+          f"loss rel err {rel:.3e} (the truncation's error, not the kernels'); on tables clipped at the former "
+          f"default widths {abs(clipped - exact) / abs(exact):.3e}", flush=True)
+    if not rel <= MMD_GAP_TOL:
+        fail(f"gaussian multiscale at N=M={n_small} is {rel:.3e} from the online value, over {MMD_GAP_TOL:g}")
 
     # A user kernel over the same kept tiles, against the named route.
     def gauss(X, Y, blur=0.05):
@@ -1051,11 +1172,14 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with recording(ks, ("kernel_matvec_sparse",)) as rec:
+    with recording(ks, ("kernel_matvec_sparse", "masks_from_geometry")) as rec:
         v_l, g_l = value_and_grad(lambda x: gauss_ms(x, yl), xl)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     launches = counts()
+    check_geometry_tables(f"N=M={n_large}", rec["masks_from_geometry"], {
+        key: (args[0], args[1], None, args[4], kwargs["block"])
+        for key, (args, kwargs) in zip(("xx", "yy", "xy"), rec["kernel_matvec_sparse"])})
     if g_l.shape != (n_large, 3) or not (torch.isfinite(v_l) and torch.isfinite(g_l).all()):
         fail(f"gaussian multiscale N=M={n_large}: non-finite or misshapen output")
     times = [sync_ms(lambda: value_and_grad(lambda x: gauss_ms(x, yl), xl), 1) for _ in range(3)]
@@ -1088,14 +1212,34 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
                 check_sparse_apply(f"N=M={n_large} mask_{key} first {large_rows} row tiles p={p} {kind} C={C}",
                                    args8, clock, card, time_it=False)
         if key == "xy":
-            kept = table_stats(mask.cols, mask.counts)[0] * tile * tile
+            geo_args, geo_kwargs = rec["masks_from_geometry"][0]
+            former = former_geometry_width(ys.shape[0] // tile)
+            clipped = tbs.masks_from_geometry(*geo_args, **dict(geo_kwargs, cap=former))
             for V in (v[:, None], v[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys], 1)):
-                full = (xs, ys, zx, zy, V, MMD_BLUR**2, mask.cols, mask.counts, 2, "gibbs", tile, tile)
-                b_ms, b_by = bound(kept, nbytes(*full[:5], mask.cols, mask.counts) + 4 * V.numel(), clock,
-                                   flops=2 * (4 + V.shape[1]) * kept)
-                print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy full table p=2 gibbs C={V.shape[1]}: kernel "
-                      f"{event_ms(lambda: cbs.gibbs_apply_sparse(*full), 3):.3f} ms, bound {b_ms:.3f} ms ({b_by})"
-                      f"{sparse_floor(V, 2, 'gibbs', kept, clock)} (CUDA events); card {card}", flush=True)
+                for what, m in (("default table", mask), ("table at the former default width", clipped)):
+                    kept = table_stats(m.cols, m.counts)[0] * tile * tile
+                    full = (xs, ys, zx, zy, V, MMD_BLUR**2, m.cols, m.counts, 2, "gibbs", tile, tile)
+                    b_ms, b_by = bound(kept, nbytes(*full[:5], m.cols, m.counts) + 4 * V.numel(), clock,
+                                       flops=2 * (4 + V.shape[1]) * kept)
+                    t_k = event_ms(lambda: cbs.gibbs_apply_sparse(*full), 3)
+                    print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy {what} (width {m.cols.shape[1]}, "
+                          f"{kept:.4g} kept pairs) p=2 gibbs C={V.shape[1]}: kernel {t_k:.3f} ms, "
+                          f"{1e9 * t_k / kept:.4f} ps a kept pair, bound {b_ms:.3f} ms ({b_by})"
+                          f"{sparse_floor(V, 2, 'gibbs', kept, clock)} (CUDA events); card {card}", flush=True)
+                # The row tiles longest first (the wrapper's order) against their
+                # own order, in turns: what the order does to the seam rows' tail.
+                rows8 = cbs._dense_rows(mask.cols, mask.counts)
+                own = torch.arange(rows8[2].shape[0], dtype=torch.int32, device=dev)
+                turns = {"longest first": [], "row order": []}
+                for _ in range(2):
+                    for label, order in (("longest first", None), ("row order", own)):
+                        turns[label].append(event_ms(lambda: cbs._apply_rows(
+                            xs, ys, zx, zy, V, MMD_BLUR**2, rows8, 2, "gibbs", tile, tile, "gibbs_apply_sparse",
+                            order=order), 3))
+                print(f"[time] gibbs_apply_sparse N=M={n_large} mask_xy default table C={V.shape[1]}, in turns: "
+                      + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in ts)} ms" for k, ts in turns.items())
+                      + f" (CUDA events); card {card}", flush=True)
+            del clipped
     del xl, yl, g_l, rec
     torch.cuda.empty_cache()
 
@@ -1107,9 +1251,14 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
     k8_bound = bound(kept, nbytes(*fwd[:5], mask.cols, mask.counts) + 4 * xs.shape[0], clock)
     k8 = dict(ms=event_ms(lambda: cbs.gibbs_apply_sparse(*fwd), 10),
               plain_ms=event_ms(lambda: cbs.gibbs_apply_sparse_blocked(*fwd), 1))
-    print(f"[time] gibbs_apply_sparse gaussian multiscale forward N=M={n_small} mask_xy C=1: kernel {k8['ms']:.3f} ms, "
-          f"twin {k8['plain_ms']:.3f} ms, bound {k8_bound[0]:.3f} ms ({k8_bound[1]}) (CUDA events); card {card}",
-          flush=True)
+    clipped = tbs.masks_from_geometry(xs, ys, MMD_TRUNCATE * MMD_BLUR, tile,
+                                      cap=former_geometry_width(ys.shape[0] // tile), w_x=tab["xx"][2], w_y=v)
+    kept_c = table_stats(clipped.cols, clipped.counts)[0] * tile * tile
+    t_c = event_ms(lambda: cbs.gibbs_apply_sparse(*fwd[:6], clipped.cols, clipped.counts, *fwd[8:]), 10)
+    print(f"[time] gibbs_apply_sparse gaussian multiscale forward N=M={n_small} mask_xy C=1: kernel {k8['ms']:.3f} ms "
+          f"(default table, width {mask.cols.shape[1]}, {kept:.4g} kept pairs; at the former default width "
+          f"{clipped.cols.shape[1]}, {kept_c:.4g} kept pairs: {t_c:.3f} ms), twin {k8['plain_ms']:.3f} ms, bound "
+          f"{k8_bound[0]:.3f} ms ({k8_bound[1]}) (CUDA events); card {card}", flush=True)
     src = "geomloss_tpu_torch/csrc/block_sparse_kernels.cu"
     entries = [
         {"name": "gibbs_apply_sparse", "route": "cuda", "source": src, "replaces": REPLACES["gibbs_apply_sparse"],
@@ -2419,6 +2568,9 @@ GALLERY_ORDER = ("transfer_labels_tractograms", "plot_optimal_transport_labels",
                  "plot_wasserstein_barycenters_2D")
 GALLERY_SIZES = {"plot_profile": dict(N=100_000)}
 GALLERY_FIBERS_1E6 = 16_667
+#: ... and at GALLERY_FIBERS_MID fibers a bundle (2,100,000 points: the
+#: mid path, whose default tables are checked to keep every kept tile).
+GALLERY_FIBERS_MID = 35_000
 GALLERY_APPLY_ROWS = 2048
 GALLERY_STEPS = {"gradient_flow": "flow_step", "model_fitting": "train_step"}
 
@@ -2500,8 +2652,11 @@ def gallery_phase(dev, card, clock):
     the label transfer at 1e6 points (the multiscale potentials on the
     classic tile-1024 path, kernel 4 over 1e12 pairs at C = 3, held
     against its float64 twin on GALLERY_APPLY_ROWS rows and timed beside
-    its bound)."""
+    its bound) and at 2.1e6 points (the mid path: its accuracy, finite
+    votes, and its default tables against the tables of every column
+    tile)."""
     from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as tbs
     from geomloss_tpu_torch.ops import cuda_kernels as ck
     from geomloss_tpu_torch.ops.block_sparse import retighten_counts
 
@@ -2580,6 +2735,34 @@ def gallery_phase(dev, card, clock):
         print(f"[time] gibbs_apply        label transfer N={N:,} M={M:,} C={C}: kernel {k_ms:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by}) (CUDA events); card {card}", flush=True)
         del rec, args, sub
+        torch.cuda.empty_cache()
+
+        # At 2.1e6 points, the mid path: its default tables and the votes.
+        votes = []
+
+        def keep_votes(mod):
+            transfer = mod.transfer
+
+            def kept(*args):
+                out = transfer(*args)
+                votes.append(out[2])
+                return out
+
+            mod.transfer = kept
+
+        with calls_of(ms, "build_tile_masks") as mid_tables, calls_of(tbs, "extrap_cols") as extraps:
+            acc_mid, launches = gallery_script(gallery, name, dev, card, prepare=keep_votes,
+                                               n_fibers=GALLERY_FIBERS_MID)
+        n_mid, finite = votes[0].shape[0], bool(torch.isfinite(votes[0]).all())
+        print(f"[gallery] {name}: fiber-vote accuracy {acc_mid:.6f} at {n_mid:,} points (the mid path), votes finite: "
+              f"{finite}; card {card}", flush=True)
+        if not (finite and acc_mid >= 0.99):
+            fail(f"the label transfer at {n_mid:,} points: accuracy {acc_mid:.6f}, votes finite {finite}")
+        if not (mid_tables and launches.get("lse_tiles") and launches.get("absorbed_sum_tiles")
+                and launches.get("gibbs_apply")):
+            fail(f"the label transfer at {n_mid:,} points did not take the mid path on kernels 4, 5 and 7: {launches}")
+        check_mid_tables("gallery", f"{name} at {n_mid:,} points", mid_tables, extraps)
+        del votes, mid_tables, extraps
         torch.cuda.empty_cache()
     phase_took("gallery", t_phase)
 
@@ -2985,7 +3168,7 @@ def main():
     t0 = time.perf_counter()
     with recording(cbs, tuple(MID_CALLS)) as rec_cbs, recording(ck, ("lse",)) as rec_ck, recording(
         ms, ("run_mid_phase", "sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")
-    ) as rec_ms:
+    ) as rec_ms, calls_of(ms, "build_tile_masks") as mid_tables, calls_of(tbs, "extrap_cols") as extraps:
         v_2m, g_2m = value_and_grad(lambda x: auto(x, ym), xm)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -3015,6 +3198,9 @@ def main():
           flush=True)
     for dev_ms, calls, key in top:
         print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
+    same = check_mid_tables("mid", f"N=M={N_MID}", mid_tables, extraps)
+    print(f"[mid] the sphere tables at N=M={N_MID} kept the former widths (mid_cap, extrap_cap): {same}", flush=True)
+    del mid_tables, extraps
 
     # Kernel 7 on the four extrapolation tables of that run.
     tables = [args for args, _ in rec_cbs["lse_tiles"]]

@@ -376,10 +376,22 @@ tiles_lse_kernel(const float* __restrict__ x, const float* __restrict__ y, const
 //    Design: the register-tiled pair blocks with the row direction only.
 //    One block per (row tile, 256-row slice) walks the row tile's kept
 //    tiles (a CSR indirection); a lane owns 8 rows (packed points and CH accumulators in
-//    registers). Each kept source tile goes through the row-contraction
-//    stage shared with kernel 4 (apply_stage, pair_common.cuh) kTile
-//    columns at a time, and each row is written once: no scratch, no
-//    atomics, bitwise reproducible. Points of up to kStepStaged float4s are
+//    registers). Block (slot, h, q) takes the 256-row slice h of row tile
+//    I = order[slot] against its kept tiles floor(q cnt / S) ..
+//    floor((q + 1) cnt / S) - 1, S = gridDim.y: kernel 12's ranges
+//    (cuda_block_sparse.sum_rows_plan), so that a table whose seam rows
+//    keep six to ten times the mean count (the gaussian MMD's) does not
+//    end on a few long blocks. The row tiles go out in the order `order`
+//    gives (the wrapper's: decreasing kept count), the slices of a row
+//    tile side by side, so that where the launch is wide enough for S = 1
+//    the longest rows start first. Each kept source tile goes through the
+//    row-contraction stage shared with kernel 4 (apply_stage,
+//    pair_common.cuh) kTile columns at a time. With S = 1 each row is
+//    written once; with more, each range writes its rows' partial to
+//    part[q, i] (an empty range writes 0) and sum_merge_kernel adds the S
+//    partials in range order: no atomics, bitwise reproducible, and the
+//    same for a (cols, counts) table and its unclipped walk, whose rows
+//    keep the same counts. Points of up to kStepStaged float4s are
 //    staged; wider ones (KV = 0) are read from global memory per pass, as
 //    kernel 5's. The TPU's bf16 split of wide V (the mxu path, C >= 9) has
 //    no counterpart: every channel is an exact float32 FFMA.
@@ -390,17 +402,31 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
                     const float* __restrict__ rb, const float* __restrict__ cb,
                     const typename Chan<CH>::T* __restrict__ v, const int* __restrict__ cols,
                     const int* __restrict__ row_start, const int* __restrict__ cnt,
-                    typename Chan<CH>::T* __restrict__ out, int block_n, int block_m, int kv,
-                    float c2) {
+                    const int* __restrict__ order, typename Chan<CH>::T* __restrict__ out,
+                    typename Chan<CH>::T* __restrict__ part, int64_t N, int block_n, int block_m,
+                    int kv, float c2) {
   using VT = typename Chan<CH>::T;
   constexpr int P = MODE == 0 ? 2 : 1;
   constexpr bool WIDE = KV == 0;
   constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
   __shared__ ApplySmem<KS, CH, WIDE> sm;
   const int lane = threadIdx.x & 31;
-  const int I = blockIdx.x;
-  const int rows = min(kThreads, block_n - (int)blockIdx.y * kThreads);
-  const int64_t i0 = (int64_t)I * block_n + (int64_t)blockIdx.y * kThreads;
+  const int slices = (block_n + kThreads - 1) / kThreads;
+  const int I = order[blockIdx.x / slices];
+  const int h = blockIdx.x % slices;
+  const int rows = min(kThreads, block_n - h * kThreads);
+  const int64_t i0 = (int64_t)I * block_n + (int64_t)h * kThreads;
+  const int S = gridDim.y;
+  const int64_t n_kept = cnt[I];
+  const int t0 = (int)(blockIdx.y * n_kept / S);
+  const int t1 = (int)((blockIdx.y + 1) * n_kept / S);
+  VT* dst = (S == 1 ? out : part + (int64_t)blockIdx.y * N) + i0;
+  if (t1 <= t0) {  // an empty range (or row)
+    VT zero;
+    chan_zero(zero);
+    if (threadIdx.x < rows) dst[threadIdx.x] = zero;
+    return;
+  }
   float4 xr[kPairRows][KS];
   float br[kPairRows];
   load_pair_rows<P, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
@@ -408,15 +434,14 @@ sparse_apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv
 #pragma unroll
   for (int r = 0; r < kPairRows; ++r) chan_zero(acc[r]);
   const int* row_cols = cols + row_start[I];
-  const int n_kept = cnt[I];
-  for (int k = 0; k < n_kept; ++k) {
+  for (int k = t0; k < t1; ++k) {
     const int64_t j_tile = (int64_t)row_cols[k] * block_m;
     for (int c0 = 0; c0 < block_m; c0 += kTile)
       apply_stage<MODE, KV, CH>(sm, xr, br, acc, xv, i0, rows, kv, yv, cb, v, j_tile + c0,
                                 min(kTile, block_m - c0), c2);
   }
   const VT sum = block_apply_sum(sm, acc);
-  if (threadIdx.x < rows) out[i0 + threadIdx.x] = sum;
+  if (threadIdx.x < rows) dst[threadIdx.x] = sum;
 }
 
 // -----------------------------------------------------------------------------
@@ -670,26 +695,33 @@ int gl_lse_tiles(const float* x, const float* y, const float* h, const int* cols
   return (int)cudaGetLastError();
 }
 
-// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt); xv
-// and yv the packed points (kv float4 each), rb and cb their biases (cb
-// read for modes 1 and 2), v (M, ch) one channel group of V, ch 1 or 4;
-// out (N, ch).
+// n_rows = N / block_n row tiles of a CSR table (cols, row_start, cnt),
+// visited in the order of `order` (a permutation of the row tiles); xv and
+// yv the packed points (kv float4 each), rb and cb their biases (cb read
+// for modes 1 and 2), v (M, ch) one channel group of V, ch 1 or 4; n_split
+// ranges of each row's kept tiles, part (n_split, N, ch) where n_split >
+// 1; out (N, ch).
 int gl_gibbs_apply_sparse(const float* xv, const float* yv, const float* rb,
                           const float* cb, const float* v, const int* cols,
-                          const int* row_start, const int* cnt, float* out, int n_rows,
-                          int block_n, int block_m, int kv, int ch, int mode, float c2,
-                          void* stream) {
+                          const int* row_start, const int* cnt, const int* order, float* out,
+                          float* part, int n_rows, int block_n, int block_m, int n_split, int kv,
+                          int ch, int mode, float c2, void* stream) {
   if (n_rows == 0) return (int)cudaSuccess;
-  if (mode < 0 || mode > 4 || kv < 1 || (ch != 1 && ch != 4) || block_n < 1 || block_m < 1)
+  if (mode < 0 || mode > 4 || kv < 1 || (ch != 1 && ch != 4) || block_n < 1 || block_m < 1 ||
+      n_split < 1 || n_split > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_rows, cdiv(block_n, kThreads));
+  const int64_t blocks = (int64_t)n_rows * cdiv(block_n, kThreads);
+  const int64_t N = (int64_t)n_rows * block_n;
+  if (blocks > INT32_MAX || N * ch > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, n_split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* x4 = reinterpret_cast<const float4*>(xv);
   const float4* y4 = reinterpret_cast<const float4*>(yv);
 #define GL_SPARSE(MODE, KV, CH)                                                             \
   sparse_apply_kernel<MODE, KV, CH><<<grid, kThreads, 0, s>>>(                              \
-      x4, y4, rb, cb, reinterpret_cast<const Chan<CH>::T*>(v), cols, row_start, cnt,        \
-      reinterpret_cast<Chan<CH>::T*>(out), block_n, block_m, kv, c2)
+      x4, y4, rb, cb, reinterpret_cast<const Chan<CH>::T*>(v), cols, row_start, cnt, order, \
+      reinterpret_cast<Chan<CH>::T*>(out), reinterpret_cast<Chan<CH>::T*>(part), N, block_n,  \
+      block_m, kv, c2)
 #define GL_SPARSE_KV(MODE, CH)                             \
   switch (kv) {                                            \
     case 1: GL_SPARSE(MODE, 1, CH); break;                 \
@@ -713,6 +745,10 @@ int gl_gibbs_apply_sparse(const float* xv, const float* yv, const float* rb,
 #undef GL_SPARSE_CH
 #undef GL_SPARSE_KV
 #undef GL_SPARSE
+  const int err = (int)cudaGetLastError();
+  if (err || n_split == 1) return err;
+  const int n_out = (int)(N * ch);
+  sum_merge_kernel<<<cdiv(n_out, kThreads), kThreads, 0, s>>>(part, out, n_out, n_split);
   return (int)cudaGetLastError();
 }
 

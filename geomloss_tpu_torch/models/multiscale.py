@@ -86,8 +86,12 @@ _B_MID_OVERRIDE = None
 
 
 def mid_cap(n_pad, tile):
-    """Table width of the mid path's fine tables: the kept tiles per row
-    scale with the column tiles, so ``nJ / 16`` between 96 and 224."""
+    """Floor of the width of the mid path's fine tables: the kept tiles per
+    row scale with the column tiles, so ``nJ / 16`` between 96 and 224.
+    A table whose rows keep more grows to their largest count
+    (``build_tile_masks``), where the JAX package's keep their best-scored
+    ``mid_cap``: on data along curves half the rows or more keep more (the
+    gallery's fiber bundles, ``tests/test_torch_table_widths.py``)."""
     nJ = n_pad // tile
     return min(224, max(96, nJ // 16))
 
@@ -446,9 +450,8 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
         ns = src.shape[0]
         if (truncate is not None and not last_is_jump and n_delay > 0
                 and ns % EXTRAP_BM == 0 and ns // EXTRAP_BM >= 64):
-            cap_e = max(8, min(64, -(-(ns // EXTRAP_BM) // 4 // 8) * 8))
             return softmin_extrap_truncated(
-                rows, src, h, eps_j, truncate, tile, p=p, block_m=EXTRAP_BM, cap=cap_e, impl=impl
+                rows, src, h, eps_j, truncate, tile, p=p, block_m=EXTRAP_BM, cap=None, impl=impl
             )
         return sm(eps_j, (rows, src), h)
 
@@ -472,8 +475,7 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
                     # fine iterations).
                     eps_m = eps_list[jump + 1]
                     masks = _mid_tables(
-                        x_sd, y_sd, a_s.detach(), b_s.detach(), fine, eps_m, p, truncate, tile,
-                        cap if cap is not None else mid_cap(x_sd.shape[0], tile), debias, verbose,
+                        x_sd, y_sd, a_s.detach(), b_s.detach(), fine, eps_m, p, truncate, tile, cap, debias, verbose,
                     )
                 else:
                     masks = _coarse_tables(
@@ -515,9 +517,10 @@ def sinkhorn_multiscale(
     ``truncate`` controls the block-sparse pruning margin (reference
     default 5); ``truncate=None`` disables pruning (exact fine phase).
     ``cap`` bounds the number of visited column tiles per row tile
-    (default: an eighth of the column tiles, between 32 and 128; on the
-    mid path, :func:`mid_cap`). ``cost``: a callable ``(B, N, D), (B, M,
-    D) -> (B, N, M)`` replacing the built-in ``|x-y|^p / p``.
+    (default: as many as the row keeps, and at least an eighth of the
+    column tiles, between 32 and 128; on the mid path, :func:`mid_cap`).
+    ``cost``: a callable ``(B, N, D), (B, M, D) -> (B, N, M)`` replacing
+    the built-in ``|x-y|^p / p``.
     ``impl`` selects the streaming implementation of the coarse phase and
     the exact fine phase (:mod:`..ops.softmin`), and, as ``"blocked"``, the
     plain twins of the block-sparse kernels.
@@ -602,25 +605,25 @@ def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, d
 
 def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, debias, verbose):
     """Tables of the mid path: the keep rule on tile-pooled fine potentials
-    (:func:`build_tile_masks`) at the first fine temperature ``eps_b``,
-    ``cap_m`` wide. Under ``verbose``, prints how many rows fill the
-    table (their overflow degrades to best-score top-k)."""
+    (:func:`build_tile_masks`) at the first fine temperature ``eps_b``, at
+    most ``cap_m`` wide, or with ``cap_m=None`` :func:`mid_cap` wide and
+    wider where a row keeps more. Under ``verbose``, prints how many rows
+    fill the table (with ``cap_m``, their overflow degrades to best-score
+    top-k)."""
     f_ba, g_ab, f_aa, g_bb = fine
-    mask_xy = build_tile_masks(x_sd, y_sd, f_ba, g_ab, eps_b, p, truncate, tile, cap=cap_m, w_x=a_w, w_y=b_w)
+    kw = dict(cap=cap_m, floor=mid_cap(x_sd.shape[0], tile))
+    mask_xy = build_tile_masks(x_sd, y_sd, f_ba, g_ab, eps_b, p, truncate, tile, w_x=a_w, w_y=b_w, **kw)
     mask_xx = mask_yy = None
     if debias:
-        mask_xx = build_tile_masks(
-            x_sd, x_sd, f_aa, f_aa, eps_b, p, truncate, tile, cap=cap_m, w_x=a_w, w_y=a_w, sym=True
-        )
-        mask_yy = build_tile_masks(
-            y_sd, y_sd, g_bb, g_bb, eps_b, p, truncate, tile, cap=cap_m, w_x=b_w, w_y=b_w, sym=True
-        )
+        mask_xx = build_tile_masks(x_sd, x_sd, f_aa, f_aa, eps_b, p, truncate, tile, w_x=a_w, w_y=a_w, sym=True, **kw)
+        mask_yy = build_tile_masks(y_sd, y_sd, g_bb, g_bb, eps_b, p, truncate, tile, w_x=b_w, w_y=b_w, sym=True, **kw)
     if verbose:
         ov = int((mask_xy.vals[:, -1] > 0).sum())
         print(
-            f"Fine tables: cap={cap_m}, kept tiles/row mean {float(mask_xy.counts.float().mean()):.1f} "
-            f"/ max {int(mask_xy.counts.max())}; {ov} of {mask_xy.counts.shape[0]} rows at capacity"
-            + (" (top-k clipping active)." if ov else ".")
+            f"Fine tables: width {mask_xy.cols.shape[1]}, kept tiles/row mean "
+            f"{float(mask_xy.counts.float().mean()):.1f} / max {int(mask_xy.counts.max())}; {ov} of "
+            f"{mask_xy.counts.shape[0]} rows at the width"
+            + (" (top-k clipping active)." if ov and cap_m is not None else ".")
         )
     return mask_xy, mask_xx, mask_yy
 

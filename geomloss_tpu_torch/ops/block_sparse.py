@@ -25,7 +25,9 @@ limits on the tables (``MAX_TABLE_ROWS`` and the SMEM clamps on ``cap`` of
 ``build_tile_masks`` and ``masks_from_geometry``). On the multiscale
 paths every kept tile is visited: the per-chunk step budget of
 ``walk_plan``, which clips kept tiles when a chunk of rows keeps more than
-its mean budget, has no counterpart there.
+its mean budget, has no counterpart there, and a table built with no
+``cap`` is as wide as its largest kept count (:func:`kept_width`), where
+the JAX package's default widths keep each row's best-scored tiles.
 
 The public block-sparse Sinkhorn ops of the JAX package have their
 counterparts too (kernels 10-12): ``sinkhorn_step_sparse`` and the
@@ -58,6 +60,8 @@ __all__ = [
     "masks_from_coarse",
     "build_tile_masks",
     "extrap_cols",
+    "extrap_cap",
+    "kept_width",
     "softmin_extrap_truncated",
     "lse_sparse_custom",
     "sinkhorn_step_walk_banded",
@@ -132,6 +136,27 @@ def _cols_from_score(score, cap):
     return cols, counts.to(torch.int32), vals
 
 
+def kept_width(score, floor, transposed=True):
+    """Default width of a table over the keep scores ``score`` (``> 0``:
+    kept): ``floor``, or, where a row (or, with ``transposed``, a column)
+    keeps more tiles, that count rounded up to a multiple of 8, so that no
+    kept tile is dropped. One host read.
+
+    The JAX package's default widths are the floors alone, and a row that
+    keeps more keeps its best-scored tiles. Dropping the others gave wrong
+    values: data along curves keeps many more tiles a row than surfaces do
+    (the gallery's fiber bundles), and the gaussian MMD's geometry tables,
+    clipped at their floor of 8 on two spheres of 8,192 points, put the
+    loss 148 % off the exact one (``tests/test_torch_table_widths.py``).
+    Where every row fits the floor, the tables are the JAX package's.
+    """
+    kept = score > 0
+    most = kept.sum(1).max()
+    if transposed:
+        most = torch.maximum(most, kept.sum(0).max())
+    return max(floor, -(-int(most) // 8) * 8)
+
+
 def retighten_counts(vals, delta):
     """Per-row kept-tile counts after shifting every keep score by ``delta``.
 
@@ -196,10 +221,8 @@ def masks_from_coarse(
         blocks_per_tile: tile // block_size.
         cap: bound on kept column tiles per row tile; a row that keeps
             more keeps its best-scored ``cap`` (default: an eighth of the
-            column tiles, between 32 and 128, or, where a row or column
-            keeps more, its count rounded up to a multiple of 8: data
-            along curves keeps many more tiles a row than surfaces do, and
-            clipping them gave wrong potentials, as ``fine_tables`` says).
+            column tiles, between 32 and 128, widened by
+            :func:`kept_width` to the largest kept count).
         sym: the problem is symmetric (``cy is cx``, ``g_c is f_c``): the
             transposed table is the same table.
 
@@ -214,9 +237,7 @@ def masks_from_coarse(
     nI, nJ = Kx // blocks_per_tile, Ky // blocks_per_tile
     score_t = score.reshape(nI, blocks_per_tile, nJ, blocks_per_tile).amax(dim=(1, 3))
     if cap is None:
-        kept = score_t > 0
-        need = int(torch.stack([kept.sum(1).max(), kept.sum(0).max()]).max())
-        cap = max(32, min(nJ // 8, 128), -(-need // 8) * 8)
+        cap = kept_width(score_t, max(32, min(nJ // 8, 128)))
     cols, counts, vals = _cols_from_score(score_t, cap)
     if sym:
         colsT, countsT, valsT = cols, counts, vals
@@ -227,7 +248,7 @@ def masks_from_coarse(
     )
 
 
-def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_y=None, sym=False):
+def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_y=None, sym=False, floor=None):
     """Both traversal directions of the truncation pattern of the mid path,
     from the fine potentials.
 
@@ -239,14 +260,15 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
     pure-padding tiles are never kept. ``sym``: the problem is symmetric
     (``y is x``, ``g is f``), the transposed table is the same table.
 
-    The JAX package also clamps ``cap`` to its SMEM budget (at most 219
-    tiles per row at 1024-row chunks); the CSR tables of the CUDA kernels
-    have no such budget, so above 2^22 points at tile 1024 this keeps up
-    to ``mid_cap``'s 224 tiles where the JAX package keeps 219.
+    ``cap`` bounds the kept tiles per row tile, a row that keeps more
+    keeping its best-scored ``cap``. With no ``cap``, the width is
+    ``floor`` (default an eighth of the column tiles, between 32 and 128;
+    the mid path's ``mid_cap``) widened by :func:`kept_width` to the
+    largest kept count. The JAX package also clamps ``cap`` to its SMEM
+    budget (at most 219 tiles per row at 1024-row chunks); the CSR tables
+    of the CUDA kernels have no such budget.
     """
     nJ = y.shape[0] // block
-    if cap is None:
-        cap = max(32, min(nJ // 8, 128))
     sb = _stat_block(max(x.shape[0], y.shape[0]), block)
     bpt = block // sb
 
@@ -271,6 +293,8 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
     score = torch.where(x_mass[:, None] & y_mass[None, :], score, NEG_INF)
     score = _tile_maxpool(score, bpt)
 
+    if cap is None:
+        cap = kept_width(score, floor if floor is not None else max(32, min(nJ // 8, 128)))
     cols, counts, vals = _cols_from_score(score, cap)
     if sym:
         colsT, countsT, valsT = cols, counts, vals
@@ -281,7 +305,13 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
     )
 
 
-def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap, p=2):
+def extrap_cap(n_src_tiles):
+    """Floor of the width of an :func:`extrap_cols` table: a quarter of the
+    source tiles, rounded up to a multiple of 8, between 8 and 64."""
+    return max(8, min(64, -(-(n_src_tiles // 4) // 8) * 8))
+
+
+def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap=None, p=2):
     """Kept source tiles of a one-direction truncated softmin onto a fine
     cloud: ``S_i = -eps log sum_j exp(h_j - C_ij/eps)`` over a small source
     cloud (pooled mid blocks), for row tiles of ``block_n`` fine points and
@@ -293,11 +323,15 @@ def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap, p=2):
     (any sub-block's best ``h`` at the worst-case distance, centroid
     distance plus both radii; the weakest sub-block of the tile).
 
-    Returns ``(cols, counts)``: ``(N / block_n, min(cap, M / block_m))``
+    ``cap`` bounds the kept source tiles per row tile, a row that keeps
+    more keeping its best-scored ``cap``; with no ``cap``, the width is
+    :func:`extrap_cap` widened by :func:`kept_width` to the largest kept
+    count.
+
+    Returns ``(cols, counts)``: ``(N / block_n, min(width, M / block_m))``
     int32 and ``(N / block_n,)`` int32, every count at least 1.
     """
     N, M = x_rows.shape[0], y_src.shape[0]
-    cap = min(cap, M // block_m)
     sbx = _stat_block(N, block_n)
     bpt = block_n // sbx
     sby = min(32, block_m)
@@ -322,6 +356,8 @@ def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap, p=2):
         # Valid for every row of the tile: the weakest sub-block.
         thr = thr.reshape(-1, bpt).amin(dim=1)
     score = U - thr[:, None] + truncate
+    if cap is None:
+        cap = kept_width(score, extrap_cap(M // block_m), transposed=False)
     cols, counts, _ = _cols_from_score(score, cap)
     return cols, counts
 
@@ -330,8 +366,9 @@ def softmin_extrap_truncated(rows_pts, src_pts, h, eps, truncate, block_n, p=2, 
                              impl="auto"):
     """Detached truncated one-direction softmin onto a fine cloud,
     ``-eps lse`` over the source tiles :func:`extrap_cols` keeps for each
-    row tile (kernel 7, :func:`.cuda_block_sparse.lse_tiles`). ``impl``:
-    ``"blocked"`` runs the plain twin."""
+    row tile (kernel 7, :func:`.cuda_block_sparse.lse_tiles`); ``cap=None``
+    widens the table to the largest kept count. ``impl``: ``"blocked"``
+    runs the plain twin."""
     cols, counts = extrap_cols(rows_pts, src_pts, h, eps, truncate, block_n, block_m, cap, p=p)
     fn = cbs.lse_tiles_blocked if impl in ("blocked", "dense") else cbs.lse_tiles
     return -eps * fn(rows_pts, src_pts, h, eps, cols, counts, block_n, block_m, p)
@@ -541,8 +578,10 @@ def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=F
     radii, on sub-blocks of :func:`_stat_block` points, max-pooled to tiles
     of ``block``) lies below ``radius``. Zero-weight (padding) sub-blocks
     are never kept; ``sym``: ``y`` is ``x``, the transposed table is the
-    same table. ``cap`` bounds the kept tiles per row (default an eighth of
-    the column tiles, between 8 and 128).
+    same table. ``cap`` bounds the kept tiles per row, a row that keeps
+    more keeping its best-scored ``cap`` (default: an eighth of the column
+    tiles, between 8 and 128, widened by :func:`kept_width` to the largest
+    kept count; the forward and backward passes then read the same pairs).
 
     The JAX package also clamps ``cap`` to its SMEM budget,
     ``400_000 // (4 min(max(nI, nJ), 1024))``: it binds from 1024 row
@@ -550,8 +589,6 @@ def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=F
     no such budget.
     """
     nJ = y.shape[0] // block
-    if cap is None:
-        cap = max(8, min(nJ // 8, 128))
     sb = stat_block if stat_block is not None else _stat_block(max(x.shape[0], y.shape[0]), block)
     cx, rx = tile_stats(x, sb)
     cy, ry = tile_stats(y, sb)
@@ -565,6 +602,8 @@ def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=F
 
     valid = blk_mass(w_x, x)[:, None] & blk_mass(w_y, y)[None, :]
     score = _tile_maxpool(torch.where(valid, score, NEG_INF), block // sb)
+    if cap is None:
+        cap = kept_width(score, max(8, min(nJ // 8, 128)))
     cols, counts, vals = _cols_from_score(score, cap)
     if sym:
         colsT, countsT, valsT = cols, counts, vals

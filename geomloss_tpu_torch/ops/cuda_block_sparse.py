@@ -157,9 +157,9 @@ _LIB = ck.KernelLibrary(
         # x, y, h, cols, cnt, out, part, n_rows, ck, block_n, block_m,
         # n_split, span, ld, D, kv, p, c2, stream
         "gl_lse_tiles": [_P] * 7 + [_I] * 10 + [_F, _P],
-        # xv, yv, rb, cb, v, cols, row_start, cnt, out, n_rows, block_n,
-        # block_m, kv, ch, mode, c2, stream
-        "gl_gibbs_apply_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
+        # xv, yv, rb, cb, v, cols, row_start, cnt, order, out, part, n_rows,
+        # block_n, block_m, n_split, kv, ch, mode, c2, stream
+        "gl_gibbs_apply_sparse": [_P] * 11 + [_I] * 7 + [_F, _P],
         # xv, yv, rb, cb, cols, row_start, cnt, out, part, n_rows, block_n,
         # block_m, n_split, kv, p, c2, stream
         "gl_absorbed_sum_sparse": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -814,40 +814,50 @@ def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512
     return _apply_rows(x, y, phi, psi, V, eps, _walk_rows(tbl, nI), p, kind, block_n, block_m, "gibbs_apply_walk")
 
 
-def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count):
+def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count, order=None):
     """Kernel 8 over a CSR table, one launch per channel group
-    (``cuda_kernels._group_channels``)."""
+    (``cuda_kernels._group_channels``), each row's kept tiles cut into
+    :func:`sum_rows_plan`'s ranges (merged in the launch), the row tiles in
+    order of decreasing kept count (a sort on the device), or in
+    ``order``."""
     mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
     v = _group_channels(V)
     ng, _, G = v.shape
     cols, start, cnt = rows
+    N, n_rows = x.shape[0], cnt.shape[0]
+    if order is None:
+        order = torch.argsort(cnt, descending=True, stable=True).to(torch.int32)
+    S = sum_rows_plan(n_rows, block_n, N, G)
     c2 = LOG2E / eps if mode <= 2 else 0.0
-    out = torch.empty((ng, x.shape[0], G), dtype=torch.float32, device=x.device)
+    out = torch.empty((ng, N, G), dtype=torch.float32, device=x.device)
+    part = torch.empty((S, N, G), dtype=torch.float32, device=x.device) if S > 1 else out
     with torch.cuda.device(x.device):
         for g in range(ng):
             _LIB.launch(
                 "gibbs_apply_sparse", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
-                v[g].data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out[g].data_ptr(),
-                cnt.shape[0], block_n, block_m, kv, G, mode, c2, count=count,
+                v[g].data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), order.data_ptr(),
+                out[g].data_ptr(), part.data_ptr(), n_rows, block_n, block_m, S, kv, G, mode, c2, count=count,
             )
     return _ungroup_channels(out, V.shape[1]).to(V.dtype)
 
 
-def sum_rows_plan(n_rows, block_n, N):
-    """Ranges of kernel 12 over a table of ``n_rows`` row tiles of
+def sum_rows_plan(n_rows, block_n, N, C=1):
+    """Ranges of kernels 12 and 8 over a table of ``n_rows`` row tiles of
     ``block_n`` points, ``N`` rows in all: ``S``. Block ``(I, h, q)`` takes
     the kept tiles ``floor(q c / S) .. floor((q + 1) c / S) - 1`` of row
     tile ``I``, ``c`` its count, so a launch holds about
     :data:`_SUM_BLOCKS` blocks where the rows are short of it and every
     row is cut into ``S`` ranges of about equal length. With ``S > 1``,
-    each range writes its rows' partial sums, ``4 S N`` bytes of scratch,
-    at most ``cuda_kernels.STEP_SCRATCH_BYTES``. Read from the shapes
-    alone, which a ``(cols, counts)`` table and its walk share: the host
-    never waits for the counts, and the two forms cut their rows alike."""
+    each range writes its rows' partials of ``C`` channels, ``4 S N C``
+    bytes of scratch, at most ``cuda_kernels.STEP_SCRATCH_BYTES``. Read
+    from the shapes alone, which a ``(cols, counts)`` table and its walk
+    share: the host never waits for the counts, and the two forms cut
+    their rows alike."""
     blocks = n_rows * _cdiv(block_n, _ROWS)
-    return max(1, min(_cdiv(_SUM_BLOCKS, max(blocks, 1)), ck._MAX_GRID_Y, ck.STEP_SCRATCH_BYTES // (4 * max(N, 1))))
+    scratch = ck.STEP_SCRATCH_BYTES // (4 * C * max(N, 1))
+    return max(1, min(_cdiv(_SUM_BLOCKS, max(blocks, 1)), ck._MAX_GRID_Y, scratch))
 
 
 def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):

@@ -950,6 +950,53 @@ def _long_row_table(n_tiles, m_tiles, seed):
     return cols, counts
 
 
+@pytest.mark.parametrize("C", [1, 4, 5])
+@pytest.mark.parametrize("block_n", [384, 1024])
+@pytest.mark.parametrize("p,kind", [(2, "gibbs"), (1, "gibbs_grad"), (1, "energy")])
+def test_gibbs_apply_sparse_splits_long_rows(cuda_device, p, kind, block_n, C, monkeypatch):
+    """Kernel 8 over a table with one long row among short ones: cut into
+    kernel 12's ranges (sum_rows_plan) and merged by a second kernel, and
+    in one range with no merge (the row tiles longest first), each within
+    the twin's tolerance, bitwise repeatable, bitwise equal to kernel 11 on
+    the unclipped walk of the same table, and, row tiles relabelled in
+    reverse, bitwise the same rows (block_n = 384: a slice of 128 rows)."""
+    n_tiles, m_tiles, block_m = 5, 9, 256
+    N, M = n_tiles * block_n, m_tiles * block_m
+    x, y, psi = problem(N, M, seed=block_n + C + p)
+    rng = np.random.RandomState(C)
+    phi = (-np.abs(rng.randn(N))).astype(np.float32)
+    V = rng.randn(M, C).astype(np.float32)
+    cols, counts = _long_row_table(n_tiles, m_tiles, seed=block_n + C)
+    eps = 0.5
+    tol = apply_tolerance(x, y, phi, psi, V, eps, p, kind)
+    pts = tensors(x, y, phi, psi, V, device=cuda_device)
+    table = tensors(cols, counts, device=cuda_device)
+    args = (*pts, eps, *table, p, kind, block_n, block_m)
+    wargs = (*pts, eps, cbs.walk_plan(*table, m_tiles), p, kind, block_n, block_m)
+    rev = np.arange(N).reshape(n_tiles, block_n)[::-1].reshape(-1)
+    rargs = (*tensors(x[rev], y, phi[rev], psi, V, device=cuda_device), eps,
+             *tensors(np.ascontiguousarray(cols[::-1]), np.ascontiguousarray(counts[::-1]), device=cuda_device),
+             p, kind, block_n, block_m)
+    back = torch.from_numpy(np.argsort(rev)).to(cuda_device)
+    ref = cbs.gibbs_apply_sparse_blocked(*args).cpu()
+    groups = -(-C // 4) if C > 1 else 1
+    for target, split in ((cbs._SUM_BLOCKS, True), (1, False)):
+        monkeypatch.setattr(cbs, "_SUM_BLOCKS", target)
+        assert (cbs.sum_rows_plan(n_tiles, block_n, N, 4 if C > 1 else 1) > 1) == split
+        # The profiler now and then misses a launch of the library's kernels
+        # (an empty capture, or one without them): take it again.
+        for _ in range(3):
+            kernels, got = _device_kernels(lambda: cbs.gibbs_apply_sparse(*args))
+            if _launches_of(kernels, "sparse_apply_kernel"):
+                break
+        assert _launches_of(kernels, "sparse_apply_kernel") == groups
+        assert _launches_of(kernels, "sum_merge_kernel") == (groups if split else 0)
+        assert_apply_close(got, ref, **tol)
+        assert torch.equal(got, cbs.gibbs_apply_sparse(*args))
+        assert torch.equal(got, cbs.gibbs_apply_walk(*wargs))
+        assert torch.equal(cbs.gibbs_apply_sparse(*rargs)[back], got)
+
+
 @pytest.mark.parametrize("D", [3, 13])
 @pytest.mark.parametrize("p", [1, 2])
 @pytest.mark.parametrize("block_m", [128, 256, 512, 1024])

@@ -214,7 +214,8 @@ def test_mid_path_truncated_extrapolation(monkeypatch):
     """N = M = 8192 with N_FINE_OK = 4096 (one mid iteration) and the mid
     cloud holding every point (_B_MID_OVERRIDE = 1: 64 source tiles of 128,
     the gate of the truncated extrapolations). The four extrapolations run
-    the twin of kernel 7 and visit every kept tile; the solve stays within
+    the twin of kernel 7 and visit every kept tile, on tables as wide as
+    their largest kept count; the solve stays within
     1e-2 of truncate=None, the bound of tests/test_multiscale_structure.py."""
     monkeypatch.setattr(tms, "N_FINE_OK", 4096)
     monkeypatch.setattr(tms, "_B_MID_OVERRIDE", 1)
@@ -222,15 +223,20 @@ def test_mid_path_truncated_extrapolation(monkeypatch):
     twin = cbs.lse_tiles_blocked
 
     def spy(x, y, h, eps, cols, cnt, block_n, block_m, p=2):
-        calls.append((x.shape[0], y.shape[0], block_n, block_m, tuple(cols.shape)))
+        calls.append((x.shape[0], y.shape[0], block_n, block_m, cols.shape[0]))
+        widths.append((cols.shape[1], int(cnt.max())))
         return twin(x, y, h, eps, cols, cnt, block_n, block_m, p)
 
+    widths = []
     monkeypatch.setattr(cbs, "lse_tiles_blocked", spy)
     a, x, b, y = _clouds(seed=5, n=8192)
     KW8 = dict(blur=0.05, diameter=2.0, scaling=0.5, tile=512, target_clusters=128)
     v, g = _port(a, x, b, y, p=2, **KW8)
-    # cap_e = max(8, min(64, ceil(64 / 4 / 8) * 8)) = 16:
-    assert calls == [(8192, 8192, 512, 128, (16, 16))] * 4
+    assert calls == [(8192, 8192, 512, 128, 16)] * 4
+    # The width's floor, extrap_cap(64) = max(8, min(64, ceil(64 / 4 / 8) * 8)) = 16,
+    # grows to the largest kept count rounded up to 8 (here 49-64 of the 64 source tiles):
+    assert all(w == max(16, -(-most // 8) * 8) for w, most in widths)
+    assert min(most for _, most in widths) > 16
     v_x, g_x = _port(a, x, b, y, p=2, truncate=None, **KW8)
     assert np.isfinite(v) and np.isfinite(g).all()
     assert abs(v - v_x) <= 1e-2 * abs(v_x)

@@ -5,7 +5,9 @@ Inputs are made with numpy from a seed and fed to both packages:
 
 * ``masks_from_geometry``: the same tables (kept columns and counts,
   both directions) exactly, on inputs where the JAX package's SMEM clamp
-  on the table width does not bind;
+  on the table width does not bind; with no ``cap``, the port's table
+  keeps every kept tile where the JAX package's default width keeps each
+  row's best 8, so it equals the JAX table built at the port's width;
 * the plain twin of kernel 8 (``gibbs_apply_sparse``) against the Pallas
   kernel it replaces, run in interpret mode (as the JAX package runs it off
   the TPU), for every weight kind and several channel counts, at the apply
@@ -69,7 +71,10 @@ def _jax_clamp(nI, nJ):
 def test_masks_from_geometry_match_jax(case, cap):
     """N = 2048 points in the unit cube in Hilbert order, tiles of
     128, a radius of 0.1: part of the tiles kept, and the JAX clamp (6,250
-    here) above the width."""
+    here) above the width. With ``cap=None`` the port's default width
+    grows past the JAX package's (8 here) to the largest kept count: the
+    JAX table is built at that width, and its counts are those of an
+    uncapped table."""
     rng = np.random.RandomState(len(case))
     N, M = 2048, (1536 if case == "ragged" else 2048)
     x = _sorted(rng.rand(N, 3))
@@ -79,15 +84,22 @@ def test_masks_from_geometry_match_jax(case, cap):
         w_x = np.where(np.arange(N) < N - 300, 1.0 / N, 0.0)
         w_y = np.where(np.arange(M) < M - 700, 1.0 / M, 0.0)
     kw = dict(cap=cap, sym=case == "sym")
-    ref = jbs.masks_from_geometry(
-        jnp.asarray(x), jnp.asarray(y), 0.1, BLOCK,
-        w_x=None if w_x is None else jnp.asarray(w_x), w_y=None if w_y is None else jnp.asarray(w_y), **kw,
-    )
     got = tbs.masks_from_geometry(
         torch.tensor(x), torch.tensor(y), 0.1, BLOCK,
         w_x=None if w_x is None else torch.tensor(w_x), w_y=None if w_y is None else torch.tensor(w_y), **kw,
     )
     nI, nJ = N // BLOCK, M // BLOCK
+
+    def jax_masks(cap):
+        return jbs.masks_from_geometry(
+            jnp.asarray(x), jnp.asarray(y), 0.1, BLOCK, cap=cap, sym=case == "sym",
+            w_x=None if w_x is None else jnp.asarray(w_x), w_y=None if w_y is None else jnp.asarray(w_y),
+        )
+
+    ref = jax_masks(cap if cap is not None else max(got.cols.shape[1], got.colsT.shape[1]))
+    if cap is None:
+        for f in ("counts", "countsT"):
+            np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(jax_masks(max(nI, nJ)), f)), err_msg=f)
     assert got.cols.shape[1] <= _jax_clamp(nI, nJ)
     for f in ("cols", "counts", "colsT", "countsT"):
         np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(ref, f)), err_msg=f)

@@ -1,6 +1,6 @@
-"""Host-side plan of kernel 12 (and kernel 10 on it): the ranges into which
-``sum_rows_plan`` cuts each row tile's kept tiles, and the split-and-merge
-of their partial row sums.
+"""Host-side plan of kernel 12 (and kernels 10, 8 and 11 on it): the ranges
+into which ``sum_rows_plan`` cuts each row tile's kept tiles, and the
+split-and-merge of their partial row sums.
 
 No JAX, no card: the plan is checked for coverage, order, fill and
 scratch, and for giving a ``(cols, counts)`` table and its walk the same
@@ -76,6 +76,22 @@ def test_sum_plan_under_a_small_budget(n_rows, block, monkeypatch):
     assert 1 <= _plan(n_rows, block, N) <= 3
     monkeypatch.setattr(ck, "STEP_SCRATCH_BYTES", 2 * 4 * N - 1)
     assert _plan(n_rows, block, N) == 1
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("n_rows, block", [(4, 256), (256, 512), (1024, 1024)])
+def test_apply_plan_holds_its_channels_under_the_budget(n_rows, block, C, monkeypatch):
+    """Kernel 8 takes kernel 12's ranges, each range's partials ``C``
+    channels wide: ``4 S N C`` bytes under the budget, the same cut as
+    kernel 12's where the budget does not bind, and one range (no scratch)
+    where it holds not two."""
+    N = n_rows * block
+    S = cbs.sum_rows_plan(n_rows, block, N, C)
+    assert S == 1 or 4 * S * N * C <= ck.STEP_SCRATCH_BYTES
+    if 4 * cbs.sum_rows_plan(n_rows, block, N) * N * C <= ck.STEP_SCRATCH_BYTES:
+        assert S == cbs.sum_rows_plan(n_rows, block, N)
+    monkeypatch.setattr(ck, "STEP_SCRATCH_BYTES", 2 * 4 * N * C - 1)
+    assert cbs.sum_rows_plan(n_rows, block, N, C) == 1
 
 
 def _sum_table(block, seed, n_tiles=6, m_tiles=7, cap=5):

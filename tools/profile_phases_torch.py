@@ -19,7 +19,8 @@ host clock on the CPU). Nothing in ``models/multiscale.py`` changes. Phases:
   tables               the truncation tables (_mid_tables on the mid path,
                        else _coarse_tables), with their kept tiles per row
   kept_stats_cap128    the mid path's xy table rebuilt at cap=128: kept
-                       tiles per row against mid_cap (rows clipped at it)
+                       tiles per row against mid_cap (the rows that keep
+                       as many or more, which widen the table past it)
   fine_tables          fine_tables: each fine temperature's slices and
                        re-thresholded counts of the three tables
   fine_steps           the truncated fine iterations (the last _iterate over
@@ -168,12 +169,14 @@ def profile(n, dev, card, emit):
             **kept(masks[0].counts, masks[0].cols.shape[1]))
         if mid:
             x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m = rec["_mid_tables"][0][0][:10]
+            if cap_m is None:
+                cap_m = ms.mid_cap(x_sd.shape[0], tile)
             wide, t, h = one_call(lambda: build_tile_masks(x_sd, y_sd, fine[0], fine[1], eps_b, p, truncate, tile,
                                                            cap=WIDE_CAP, w_x=a_w, w_y=b_w), dev)
             c = wide.counts
             row("kept_stats_cap128", t, h, mean=c.float().mean().item(),
                 p99=float(torch.quantile(c.float(), 0.99)), max=int(c.max()),
-                clipped_rows_at_cap=int((c >= cap_m).sum()), cap=int(cap_m))
+                rows_at_mid_cap=int((c >= cap_m).sum()), cap=int(cap_m))
 
     fargs = rec["_truncated_fine_phase"][0][0]
     masks, eps_m, x_s, y_s, a_log_f, b_log_f, eps_fine, p, truncate = fargs[:9]
