@@ -70,9 +70,12 @@ line each:
    kernels 5 and 6 on the first 64 row tiles of its first fine tables; its
    default tables (fine and extrapolation) against the tables of every
    column tile, and whether they kept their former widths (``mid_cap``,
-   ``extrap_cap``); for information, how many rows JAX's walk budget
-   would have clipped and the value against ``truncate=None`` (the exact
-   fine phase, kernels 2 and 3);
+   ``extrap_cap``); the fine tables' kept tiles a row beside the same
+   tables under the JAX package's keep rule (no radius subtracted); for
+   information, how many rows JAX's walk budget would have clipped and the
+   value against ``truncate=None`` (the exact fine phase, kernels 2 and
+   3); the largest gap of the potentials to the same solve whose fine
+   tables keep every tile, in eps (fails over ``MID_GAP_EPS``);
 9. the mid path forced at N = M = 1e5 (``N_FINE_OK`` lowered for the
    call), p in {1, 2}, and one custom-cost multiscale solve at 1e5, each
    against the same call through the float64 twins;
@@ -97,7 +100,8 @@ line each:
 11. the auto route at N = M = 4e6 (``[4m]``) and 1e7 (``[tile2048]``:
     pads to 2^24 and takes tile 2048, which the JAX banded kernels refuse):
     loss, loss + gradient time, peak memory, launches and the first fine
-    table's kept tiles per row; at 1e7 kernels 5 and 6 against their
+    table's kept tiles per row, each fine table's beside the JAX keep
+    rule's; at 1e7 kernels 5 and 6 against their
     float64 twins on the first 8 row tiles of its first fine tables
     (``truncate=None`` is not run there: an O(N^2) fine phase);
 12. the public sparse and walk Sinkhorn ops (``[sparse]``, run before
@@ -191,10 +195,14 @@ line each:
     accuracies, and
     its xy truncation table: width, kept tiles a row, and the rows that
     the tables' former widths (the build cap, ``fine_cap_schedule``)
-    would have clipped; then at 2,100,000 points (``n_fibers=35_000``:
-    the mid path), accuracy >= 0.99 and finite votes, and its default
-    tables (fine and extrapolation) against the tables of every column
-    tile, beside their former widths.
+    would have clipped, and its potentials' gap to the same call whose
+    coarse tables (``masks_from_coarse``) keep every tile (a suspect,
+    printed); then at 2,100,000 points (``n_fibers=35_000``: the mid
+    path), accuracy >= 0.99 and finite votes, its default tables (fine
+    and extrapolation) against the tables of every column tile, beside
+    their former widths, the fine table's kept tiles beside the JAX keep
+    rule's, and its potentials' gap to the same call whose fine tables
+    keep every tile (fails over ``MID_GAP_EPS``).
 18. ``[bench]`` (last): the benchmark twins, called as functions.
     ``bench_torch.headline`` (bench.py's call at N = M = 1e5) with the
     kernel launches counted from zero (kernels 1, 5 and 6 must run), every
@@ -956,6 +964,116 @@ def check_mid_tables(tag, label, tables, extraps):
     return same
 
 
+#: [mid], [gallery]: the largest gap of the mid path's potentials to the
+#: same solve whose fine tables keep every tile, in units of the last eps:
+#: ten times the CPU bound of tests/test_torch_mid_keep_rule.py (1e-2
+#: eps), for float32 sums taken in another order.
+MID_GAP_EPS = 0.1
+
+
+def pointwise_tiles(args, kwargs, rows, chunk_elems=1 << 26):
+    """The tile pairs ``(I, J)`` of row tiles ``rows`` that hold a point
+    pair the pointwise keep rule keeps, ``f_i + g_j - C_ij + truncate * eps
+    > 0`` between points of positive mass: a ``(len(rows), nJ)`` bool. Only
+    the tile pairs that ``build_tile_masks`` keeps with the full radii
+    (``eps_min=0``: a lower bound on every pointwise distance) can hold
+    one, so only those are evaluated."""
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    x, y, f, g, eps, p, truncate, tile = args[:8]
+    w_x, w_y = kwargs.get("w_x"), kwargs.get("w_y")
+    nJ, D = y.shape[0] // tile, y.shape[1]
+    if w_x is not None:
+        f = torch.where(w_x > 0, f, -math.inf)
+    if w_y is not None:
+        g = torch.where(w_y > 0, g, -math.inf)
+    cand = tbs.build_tile_masks(*args, **dict(kwargs, eps_min=0.0))
+    step = max(1, chunk_elems // (tile * tile))
+    out = torch.zeros(len(rows), nJ, dtype=torch.bool, device=x.device)
+    for k, I in enumerate(rows):
+        xi, fi = x[I * tile:(I + 1) * tile], f[I * tile:(I + 1) * tile]
+        js = cand.cols[I, :int(cand.counts[I])].long()
+        for j0 in range(0, js.numel(), step):
+            jc = js[j0:j0 + step]
+            yj, gj = y.view(nJ, tile, D)[jc].reshape(-1, D), g.view(nJ, tile)[jc].reshape(-1)
+            d = torch.cdist(xi, yj, compute_mode="donot_use_mm_for_euclid_dist")
+            q = fi[:, None] + gj[None, :] - (d * d / 2 if p == 2 else d) + truncate * eps
+            out[k, jc] = q.amax(dim=0).reshape(-1, tile).amax(dim=1) > 0
+    return out
+
+
+def kept_before_after(tag, label, tables, sample_rows=8):
+    """The kept tiles a row (mean, max) of the mid path's fine tables of one
+    solve (``build_tile_masks``' calls as ``(args, kwargs, result)``)
+    beside the same tables under the JAX package's rule (``eps_min=inf``:
+    no radius subtracted, the tables before the port's rule); on
+    ``sample_rows`` row tiles spread over the first table, the tile pairs
+    that hold a point pair the pointwise rule keeps and that each rule
+    drops."""
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    for k, (args, kwargs, mask) in enumerate(tables):
+        with torch.no_grad():
+            old = tbs.build_tile_masks(*args, **dict(kwargs, eps_min=math.inf))
+        c, o = mask.counts.double(), old.counts.double()
+        eps_min = kwargs.get("eps_min") or args[4]
+        dropped = ""
+        if k == 0:
+            rows = torch.linspace(0, c.numel() - 1, sample_rows).round().long().tolist()
+            with torch.no_grad():
+                need = pointwise_tiles(args, kwargs, rows)
+            missed = []
+            for table in (mask, old):
+                kept = torch.zeros_like(need)
+                for r, I in enumerate(rows):
+                    kept[r, table.cols[I, :int(table.counts[I])].long()] = True
+                missed.append(int((need & ~kept).sum()))
+            dropped = (f"; on {sample_rows} row tiles spread over the table, {int(need.sum())} tile pairs hold a "
+                       f"point pair the pointwise rule keeps: the port's rule drops {missed[0]}, the JAX rule "
+                       f"{missed[1]}")
+        print(f"[{tag}] {label} fine table {k}: kept tiles a row mean {c.mean().item():.2f} max {int(c.max())} "
+              f"(width {mask.cols.shape[1]}); under the JAX rule mean {o.mean().item():.2f} max {int(o.max())} "
+              f"(width {old.cols.shape[1]}): {c.mean().item() / o.mean().item():.3f}x the mean; slack "
+              f"{tbs.keep_slack(eps_min, args[5], args[6]):.5f} (eps_min {eps_min:.6g}), {c.numel()} row tiles"
+              f"{dropped}", flush=True)
+        del old
+
+
+def potential_gap(tag, label, solve, eps, card, module, name, tol=None):
+    """The largest gap, in units of ``eps``, of the potentials ``solve()``
+    returns to those of the same call whose ``module.<name>`` tables
+    (``build_tile_masks`` or ``masks_from_coarse``) keep every tile
+    (``tools/keep_rule_gaps_torch.py``), with both calls' seconds; fails
+    over ``tol`` (or on a non-finite potential)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    from keep_rule_gaps_torch import every_tile_gap
+
+    gap, secs, _, finite = every_tile_gap(solve, module, name, eps)
+    print(f"[{tag}] {label}: the potentials' largest gap to the every-tile solve {gap:.6g} eps"
+          + (f" (limit {tol:g})" if tol is not None else "") + f"; default {secs[0]:.3f} s, every tile {secs[1]:.3f} s "
+          f"(host clock); card {card}", flush=True)
+    if not finite or (tol is not None and not gap <= tol):
+        fail(f"{label}: potentials {'not finite' if not finite else f'{gap:.6g} eps off the every-tile solve'}")
+    return gap
+
+
+def keeping_transfer(calls):
+    """A ``gallery_script`` ``prepare`` that keeps each call of the label
+    transfer as ``(transfer, args, out)``."""
+
+    def prepare(mod):
+        transfer = mod.transfer
+
+        def kept(*args):
+            out = transfer(*args)
+            calls.append((transfer, args, out))
+            return out
+
+        mod.transfer = kept
+
+    return prepare
+
+
 def check_geometry_tables(label, calls, tabs):
     """Each ``masks_from_geometry`` table of an MMD solve (``calls``, the
     order of ``kernel_samples``: xy, xx, yy) against the table of every
@@ -1603,7 +1721,8 @@ def auto_route_phase(dev, card, n, tag, reps, blur=BLUR, tile=1024, parity_rows=
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with recording(cbs, tuple(MID_CALLS)) as rec, recording(
-            ms, ("sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")) as rec_ms:
+            ms, ("sinkhorn_step_walk_banded", "sinkhorn_step_walk_banded_sym")) as rec_ms, calls_of(
+            ms, "build_tile_masks") as tables:
         v, g = value_and_grad(lambda x: auto(x, y), x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1632,7 +1751,8 @@ def auto_route_phase(dev, card, n, tag, reps, blur=BLUR, tile=1024, parity_rows=
           f"{', '.join(f'{t:.3f}' for t in wall)} ms; peak device memory {peak_gb:.3f} GB; first fine table "
           f"{cols.shape[0]} row tiles x width {cols.shape[1]}, {kept} kept ({kept * tile * tile:.4g} pairs), per row "
           f"mean {mean:.2f} max {most}, {at_cap} rows at the width; card {card}", flush=True)
-    del x, y, rec_ms
+    kept_before_after(tag, f"N=M={n}", tables)
+    del x, y, rec_ms, tables
     torch.cuda.empty_cache()
     if parity_rows is not None:
         check_tile_kernels(state, f"N=M={n} first {parity_rows} row tiles, float64 twins", rows=parity_rows,
@@ -2696,8 +2816,10 @@ def gallery_phase(dev, card, clock):
         del calls, x, y, lab_y, got, ref
 
         # At 1e6 points, kernel 4's call and the truncation tables recorded:
+        transfers = []
         with recording(ck, ["gibbs_apply"]) as rec, recording(ms, ["_truncated_fine_phase"]) as rec_ms:
-            acc_1e6, launches = gallery_script(gallery, name, dev, card, n_fibers=GALLERY_FIBERS_1E6)
+            acc_1e6, launches = gallery_script(gallery, name, dev, card, prepare=keeping_transfer(transfers),
+                                               n_fibers=GALLERY_FIBERS_1E6)
         args = next(a for a, _ in rec["gibbs_apply"] if a[4].shape[1] == 3)  # the votes
         N, M, C = args[0].shape[0], args[1].shape[0], args[4].shape[1]
         print(f"[gallery] {name}: fiber-vote accuracy {acc_1e6:.6f} at {N:,} points, {acc:.6f} at {n_small:,} "
@@ -2736,24 +2858,22 @@ def gallery_phase(dev, card, clock):
               f"{b_ms:.3f} ms ({b_by}) (CUDA events); card {card}", flush=True)
         del rec, args, sub
         torch.cuda.empty_cache()
+        # The classic path's coarse tables (a suspect, not a gated fault):
+        # the label transfer against the same call whose masks_from_coarse
+        # keeps every tile.
+        transfer, t_args, _ = transfers[0]
+        potential_gap("gallery", f"{name} at {N:,} points (the classic path): masks_from_coarse keeping every tile",
+                      lambda: transfer(*t_args)[:2], mod.BLUR**2, card, ms, "masks_from_coarse")
+        del transfers, transfer, t_args
+        torch.cuda.empty_cache()
 
         # At 2.1e6 points, the mid path: its default tables and the votes.
-        votes = []
-
-        def keep_votes(mod):
-            transfer = mod.transfer
-
-            def kept(*args):
-                out = transfer(*args)
-                votes.append(out[2])
-                return out
-
-            mod.transfer = kept
-
+        transfers = []
         with calls_of(ms, "build_tile_masks") as mid_tables, calls_of(tbs, "extrap_cols") as extraps:
-            acc_mid, launches = gallery_script(gallery, name, dev, card, prepare=keep_votes,
+            acc_mid, launches = gallery_script(gallery, name, dev, card, prepare=keeping_transfer(transfers),
                                                n_fibers=GALLERY_FIBERS_MID)
-        n_mid, finite = votes[0].shape[0], bool(torch.isfinite(votes[0]).all())
+        votes = transfers[0][2][2]
+        n_mid, finite = votes.shape[0], bool(torch.isfinite(votes).all())
         print(f"[gallery] {name}: fiber-vote accuracy {acc_mid:.6f} at {n_mid:,} points (the mid path), votes finite: "
               f"{finite}; card {card}", flush=True)
         if not (finite and acc_mid >= 0.99):
@@ -2762,7 +2882,15 @@ def gallery_phase(dev, card, clock):
                 and launches.get("gibbs_apply")):
             fail(f"the label transfer at {n_mid:,} points did not take the mid path on kernels 4, 5 and 7: {launches}")
         check_mid_tables("gallery", f"{name} at {n_mid:,} points", mid_tables, extraps)
+        kept_before_after("gallery", f"{name} at {n_mid:,} points", mid_tables)
         del votes, mid_tables, extraps
+        torch.cuda.empty_cache()
+        # The fine keep rule: the potentials against the same call whose fine
+        # tables keep every tile (the 2,051 data column tiles of 4,096 dense).
+        transfer, t_args, _ = transfers[0]
+        potential_gap("gallery", f"{name} at {n_mid:,} points, the mid path's potentials",
+                      lambda: transfer(*t_args)[:2], mod.BLUR**2, card, ms, "build_tile_masks", tol=MID_GAP_EPS)
+        del transfers, transfer, t_args
         torch.cuda.empty_cache()
     phase_took("gallery", t_phase)
 
@@ -3200,6 +3328,7 @@ def main():
         print(f"[time]   {dev_ms:9.3f} ms {calls:5d} x {key[:90]}", flush=True)
     same = check_mid_tables("mid", f"N=M={N_MID}", mid_tables, extraps)
     print(f"[mid] the sphere tables at N=M={N_MID} kept the former widths (mid_cap, extrap_cap): {same}", flush=True)
+    kept_before_after("mid", f"N=M={N_MID}", mid_tables)
     del mid_tables, extraps
 
     # Kernel 7 on the four extrapolation tables of that run.
@@ -3265,6 +3394,11 @@ def main():
         ex_s = time.perf_counter() - t0
     print(f"[mid] for information, against truncate=None at N=M={N_MID} (exact fine phase, {ex_s:.2f} s): "
           f"loss {v_ex.item():.9e}, rel err {abs(v_2m.item() - v_ex.item()) / abs(v_ex.item()):.3e}", flush=True)
+    # The fine keep rule: the potentials against the same solve whose fine
+    # tables keep every tile (the 1,954 data column tiles of 2,048 dense).
+    potential_gap("mid", f"N=M={N_MID} spheres, the mid path's potentials",
+                  lambda: ms.sinkhorn_multiscale(w2, xm, w2, ym, potentials=True, **kw2), BLUR**2, card,
+                  ms, "build_tile_masks", tol=MID_GAP_EPS)
     del xm, ym, w2, g_2m
     torch.cuda.empty_cache()
 

@@ -476,6 +476,7 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
                     eps_m = eps_list[jump + 1]
                     masks = _mid_tables(
                         x_sd, y_sd, a_s.detach(), b_s.detach(), fine, eps_m, p, truncate, tile, cap, debias, verbose,
+                        eps_min=min(eps_fine),
                     )
                 else:
                     masks = _coarse_tables(
@@ -603,15 +604,15 @@ def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, d
     )
 
 
-def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, debias, verbose):
+def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, debias, verbose, eps_min=None):
     """Tables of the mid path: the keep rule on tile-pooled fine potentials
-    (:func:`build_tile_masks`) at the first fine temperature ``eps_b``, at
-    most ``cap_m`` wide, or with ``cap_m=None`` :func:`mid_cap` wide and
-    wider where a row keeps more. Under ``verbose``, prints how many rows
-    fill the table (with ``cap_m``, their overflow degrades to best-score
-    top-k)."""
+    (:func:`build_tile_masks`) at the first fine temperature ``eps_b``, its
+    slack set by ``eps_min``, the last fine temperature, at most ``cap_m``
+    wide, or with ``cap_m=None`` :func:`mid_cap` wide and wider where a row
+    keeps more. Under ``verbose``, prints how many rows fill the table
+    (with ``cap_m``, their overflow degrades to best-score top-k)."""
     f_ba, g_ab, f_aa, g_bb = fine
-    kw = dict(cap=cap_m, floor=mid_cap(x_sd.shape[0], tile))
+    kw = dict(cap=cap_m, floor=mid_cap(x_sd.shape[0], tile), eps_min=eps_min)
     mask_xy = build_tile_masks(x_sd, y_sd, f_ba, g_ab, eps_b, p, truncate, tile, w_x=a_w, w_y=b_w, **kw)
     mask_xx = mask_yy = None
     if debias:

@@ -39,6 +39,7 @@ The function names follow the JAX package's, ``walk_banded`` included, so
 that each counterpart can be found.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -59,6 +60,7 @@ __all__ = [
     "retighten_counts",
     "masks_from_coarse",
     "build_tile_masks",
+    "keep_slack",
     "extrap_cols",
     "extrap_cap",
     "kept_width",
@@ -248,17 +250,65 @@ def masks_from_coarse(
     )
 
 
-def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_y=None, sym=False, floor=None):
+def keep_slack(eps_min, p, truncate):
+    """Slack of :func:`build_tile_masks`' keep rule: half the keep radius
+    at ``eps_min``, the distance ``C^-1(truncate * eps_min)`` (``sqrt(2
+    truncate eps_min)`` at p = 2, ``truncate * eps_min`` at p = 1).
+    ``eps_min = math.inf`` gives an infinite slack."""
+    return 0.5 * (math.sqrt(2.0 * truncate * eps_min) if p == 2 else truncate * eps_min)
+
+
+def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_y=None, sym=False, floor=None,
+                     eps_min=None):
     """Both traversal directions of the truncation pattern of the mid path,
     from the fine potentials.
 
-    The keep score is the pointwise-centroid rule of
-    :func:`masks_from_coarse`, ``max f + max g - C(centroids) + truncate *
-    eps``, evaluated on sub-blocks (:func:`_stat_block`) and max-pooled to tiles of ``block`` points, the
-    same side for rows and columns. With point weights ``w_x`` / ``w_y``,
-    zero-weight (padding) points are left out of the potential maxima and
-    pure-padding tiles are never kept. ``sym``: the problem is symmetric
-    (``y is x``, ``g is f``), the transposed table is the same table.
+    The keep score of a pair of sub-blocks (:func:`_stat_block`) is ``max f
+    + max g - C(d) + truncate * eps``, max-pooled to tiles of ``block``
+    points, the same side for rows and columns. ``d`` is the distance of
+    the sub-blocks' centroids less the part of each sub-block's radius
+    beyond the slack ``s`` (:func:`keep_slack`: half the keep radius at
+    ``eps_min``), clipped at 0. Where neither radius passes ``s``, ``C(d)``
+    is the JAX package's centroid rule to the bit (the expansion form
+    :func:`_sq_centroids`), so those tables are the JAX package's.
+
+    Guarantee: every pair of points ``(i, j)`` of a dropped tile pair has
+    ``f_i + g_j - C(|x_i - y_j| + 2 s) <= -truncate * eps``, since
+    ``|x_i - y_j| >= d - 2 s``. At p = 1 the best pointwise score ``f_i +
+    g_j - C_ij`` thus lies at most ``2 s = truncate * eps_min`` above
+    ``-truncate * eps``; at p = 2 at most ``2 s (|x_i - y_j| + s)`` above
+    it (``2 s`` is one keep radius at ``eps_min``). No sub-block loses its
+    nearest tiles because its centroid lies away from its points: one that
+    straddles a jump of the sort order (a seam) has a large radius, and
+    the centroid rule alone scored its nearest tiles below zero at any
+    table width (445.6 eps off the solve that keeps every tile, on the
+    gallery's fiber bundles at 8,160 points and tile 32;
+    ``tools/mid_keep_rule_torch.py``).
+
+    The JAX package rejected the full radii (``s = 0``): they kept ~2.4x
+    the tiles, filled its fixed ``cap``, and its top-k then dropped true
+    neighbours. The port's widths grow to the largest kept count
+    (:func:`kept_width`), so a wider rule costs time, not accuracy, and the
+    slack keeps that cost small where the sub-blocks are narrower than the
+    keep radius: on an H100 (``chip_smoke.py``) the mean kept tiles a row
+    grew 1.21x at 2e6 points and 1.17x at 4e6 on two spheres (blur 0.05,
+    tile 1024), 1.10x on the gallery's fibers at 2.1e6 points, and the
+    potentials came within 1e-3 eps of the solve that keeps every tile
+    (0.71 and 4.75 eps before). At 1e7 points (blur 0.02) the sub-blocks
+    are whole tiles of 2,048 points, as wide as the keep radius: the mean
+    grew 2.55x, since there the centroid rule also drops the nearest tiles
+    of sub-blocks that straddle no jump (its loss was 102x the every-tile
+    solve's; this rule's is 1.0e-5 from it, ``tools/keep_rule_gaps_torch.py``).
+
+    ``eps_min`` (default ``eps``) is the finest temperature the table
+    serves: ``s`` depends on it alone, so :func:`retighten_counts`' shift
+    stays uniform across the temperatures, and ``s`` is at most half the
+    keep radius at each of them. ``eps_min = math.inf`` is the JAX
+    package's rule. With point weights ``w_x`` / ``w_y``, zero-weight
+    (padding) points are left out of the potential maxima, the centroids
+    and the radii, and pure-padding tiles are never kept. ``sym``: the
+    problem is symmetric (``y is x``, ``g is f``), the transposed table is
+    the same table.
 
     ``cap`` bounds the kept tiles per row tile, a row that keeps more
     keeping its best-scored ``cap``. With no ``cap``, the width is
@@ -276,19 +326,28 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
         nt = pts.shape[0] // sb
         pb = pts.reshape(nt, sb, -1)
         if w is None:
-            return pb.mean(dim=1), v.reshape(nt, sb).amax(dim=1), torch.ones(nt, dtype=torch.bool, device=pts.device)
+            cent = pb.mean(dim=1)
+            rad = torch.sqrt(((pb - cent[:, None, :]) ** 2).sum(-1)).amax(dim=1)
+            return cent, v.reshape(nt, sb).amax(dim=1), rad, torch.ones(nt, dtype=torch.bool, device=pts.device)
         wt = torch.clamp(w.reshape(nt, sb), min=0.0)
         wsum = wt.sum(dim=1)
         cent = (pb * wt[..., None]).sum(dim=1) / torch.clamp(wsum, min=1e-30)[:, None]
         # Pure-padding blocks: park at the plain mean (never kept anyway).
         cent = torch.where(wsum[:, None] > 0, cent, pb.mean(dim=1))
         vm = torch.where(wt > 0, v.reshape(nt, sb), NEG_INF).amax(dim=1)
-        return cent, vm, wsum > 0
+        rad = torch.where(wt > 0, torch.sqrt(((pb - cent[:, None, :]) ** 2).sum(-1)), 0.0).amax(dim=1)
+        return cent, vm, rad, wsum > 0
 
-    cx, f_max, x_mass = blk_stats(x, f, w_x)
-    cy, g_max, y_mass = blk_stats(y, g, w_y)
+    cx, f_max, rx, x_mass = blk_stats(x, f, w_x)
+    cy, g_max, ry, y_mass = blk_stats(y, g, w_y)
+    s = keep_slack(eps if eps_min is None else eps_min, p, truncate)
+    over_x, over_y = torch.clamp(rx - s, min=0.0), torch.clamp(ry - s, min=0.0)
     sq = torch.clamp(_sq_centroids(cx, cy), min=0.0)
     C_c = sq / 2 if p == 2 else torch.sqrt(torch.clamp(sq, min=1e-12))
+    d = torch.sqrt(torch.clamp(sq, min=1e-12)).sub_(over_x[:, None]).sub_(over_y[None, :]).clamp_(min=0.0)
+    del sq
+    C_c = torch.where((over_x > 0)[:, None] | (over_y > 0)[None, :], d * d / 2 if p == 2 else d, C_c)
+    del d
     score = f_max[:, None] + g_max[None, :] - C_c + truncate * eps
     score = torch.where(x_mass[:, None] & y_mass[None, :], score, NEG_INF)
     score = _tile_maxpool(score, bpt)

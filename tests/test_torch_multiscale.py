@@ -153,13 +153,19 @@ PROLOGUE_FLOATS = {
 def test_prologue_refactor_changes_no_float(monkeypatch, case):
     """SamplesLoss("sinkhorn", backend="multiscale"), classic and with the
     mid path forced (N_FINE_OK lowered), p = 2: bitwise the loss and the
-    gradient recorded on the tree before the refactor."""
+    gradient recorded on the tree before the refactor. The mid path's fine
+    tables are built with the keep rule of that tree, the JAX package's
+    (``build_tile_masks`` at an infinite slack; the port's default rule
+    keeps more tiles, tests/test_torch_mid_keep_rule.py)."""
     import hashlib
+    import math
 
     from geomloss_tpu_torch.models import multiscale as tms
 
     n_fine_ok, n, m, seed = case
     monkeypatch.setattr(tms, "N_FINE_OK", n_fine_ok)
+    build = tms.build_tile_masks
+    monkeypatch.setattr(tms, "build_tile_masks", lambda *a, **k: build(*a, **dict(k, eps_min=math.inf)))
     mid_runs = []
     run_mid = tms.run_mid_phase
     monkeypatch.setattr(tms, "run_mid_phase", lambda *a, **k: mid_runs.append(1) or run_mid(*a, **k))

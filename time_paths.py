@@ -1,21 +1,26 @@
 """Times bench.py's call through geomloss_tpu_torch on one GPU: the value and
 gradient in x of ``SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0,
-scaling=0.5)`` (``backend="auto"``, or ``--backend``: ``online`` for the
+scaling=0.5)`` (``--blur`` sets another blur; ``backend="auto"``, or
+``--backend``: ``online`` for the
 streaming route of kernels 1-4) between two unit-sphere clouds (seeds 0
 and 1), at each size given; with ``--loss gaussian``, the gaussian MMD's
 truncated route instead (``SamplesLoss("gaussian", blur=0.1, truncate=3,
 backend="multiscale")``, kernel 8).
 
     python3 time_paths.py --sizes 100000 2000000 [--reps 5] [--root DIR] [--loss gaussian]
-                          [--backend online]
+                          [--backend online] [--tiles] [--blur 0.02]
 
 ``--root`` imports the package from another checkout (for example the
 parent commit unpacked with ``git archive``), so that two versions can be
 compared on one card in one session: run parent, change, change, parent.
 Prints one JSON line per size: the host-clock time of each rep after a
 warm-up (around ``torch.cuda.synchronize()``), the peak device memory of
-one call, the loss, and the card's name and power limit. Needs a CUDA
-device.
+one call, the loss, and the card's name and power limit. With ``--tiles``,
+one more call after the reps times kernels 5 and 6 (``absorbed_sum_tiles``,
+``gibbs_apply_tiles``): CUDA events around each wrapper call, summed over
+the call (``k5_ms``, ``k6_ms``, with their call counts), and gives the first
+mid-path fine table's kept tiles a row (``kept_mean``, ``kept_max``, its
+``width``; null off the mid path). Needs a CUDA device.
 """
 
 import argparse
@@ -42,6 +47,8 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--loss", choices=("sinkhorn", "gaussian"), default="sinkhorn")
     ap.add_argument("--backend", default="auto", help="the Sinkhorn call's backend")
+    ap.add_argument("--tiles", action="store_true", help="also time kernels 5 and 6 and read the fine table")
+    ap.add_argument("--blur", type=float, default=0.05, help="the Sinkhorn call's blur")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -56,7 +63,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     if args.loss == "sinkhorn":
-        loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=2.0, scaling=0.5, backend=args.backend)
+        loss = SamplesLoss("sinkhorn", p=2, blur=args.blur, diameter=2.0, scaling=0.5, backend=args.backend)
     else:
         loss = SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")
     dev = torch.device("cuda")
@@ -83,10 +90,61 @@ def main():
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         backend = args.backend if args.loss == "sinkhorn" else "multiscale"
-        print(json.dumps({"root": args.root, "loss_fn": args.loss, "backend": backend, "n": n, "ms": ms,
-                          "peak_gb": peak / 1e9, "loss": v.item(), "card": card}), flush=True)
+        line = {"root": args.root, "loss_fn": args.loss, "backend": backend, "blur": args.blur, "n": n, "ms": ms,
+                "peak_gb": peak / 1e9, "loss": v.item(), "card": card}
+        if args.tiles:
+            line.update(tile_kernels(call))
+        print(json.dumps(line), flush=True)
         del x0, y0
         torch.cuda.empty_cache()
+
+
+def tile_kernels(call):
+    """One ``call()`` with kernels 5 and 6 timed (CUDA events around each
+    wrapper call) and the first mid-path fine table's kept tiles read."""
+    import torch
+
+    from geomloss_tpu_torch.models import multiscale
+    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
+
+    events = {"absorbed_sum_tiles": [], "gibbs_apply_tiles": []}
+    tables = []
+    saved = {name: getattr(cbs, name) for name in events}
+    build = multiscale.build_tile_masks
+
+    def timed(name):
+        def run(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved[name](*a, **k)
+            end.record()
+            events[name].append((start, end))
+            return out
+
+        return run
+
+    def recorded(*a, **k):
+        tables.append(build(*a, **k))
+        return tables[-1]
+
+    for name in events:
+        setattr(cbs, name, timed(name))
+    multiscale.build_tile_masks = recorded
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(cbs, name, fn)
+        multiscale.build_tile_masks = build
+    out = {}
+    for key, name in (("k5", "absorbed_sum_tiles"), ("k6", "gibbs_apply_tiles")):
+        out[f"{key}_ms"] = sum(s.elapsed_time(e) for s, e in events[name])
+        out[f"{key}_calls"] = len(events[name])
+    cnt = tables[0].counts.double() if tables else None
+    out.update(kept_mean=None if cnt is None else cnt.mean().item(), kept_max=None if cnt is None else int(cnt.max()),
+               width=None if cnt is None else tables[0].cols.shape[1])
+    return out
 
 
 if __name__ == "__main__":

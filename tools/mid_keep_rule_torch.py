@@ -1,23 +1,35 @@
-"""The mid path's fine keep rule on data along curves, on the CPU.
+"""The multiscale keep rules on data along curves, on the CPU.
 
 The gallery's fiber bundles (``examples_torch/transfer_labels_tractograms``)
 go through ``models/multiscale.py::sinkhorn_multiscale`` in float64 on the
-plain twins, on the mid path (``N_FINE_OK`` lowered to half the points,
-the truncated extrapolations' source tiles to 32 so that they run):
-once with the default truncation (``truncate=5``) and once with a margin
-that keeps every tile (``truncate=1e6``). The two differ only in what the
-keep rules drop, since the default tables keep every tile that their
-rules keep. Prints one JSON line per tile: the largest gap of the
-potentials in units of eps, the same with only the fine tables' rule
-at 1e6 (the truncated extrapolations at the default margin), and the
-largest extent of a row tile of the sorted cloud (a tile that spans a
-jump of the sort order, whose centroid lies far from its points).
+plain twins, once with the default truncation (``truncate=5``) and once
+with a margin that keeps every tile (``truncate=1e6``). The two differ only
+in what the keep rules drop, since the default tables keep every tile that
+their rules keep. Prints one JSON line per path and tile, the largest gaps
+of the potentials in units of eps:
+
+* ``"path": "mid"`` (``N_FINE_OK`` lowered to half the points, the
+  truncated extrapolations' source tiles to 32 so that they run):
+  ``gap_every_tile_kept``; ``gap_fine_tables_every_tile``, the same with
+  only the fine tables' rule (``build_tile_masks``) at 1e6 and the
+  truncated extrapolations at the default margin; ``gap_default_to_fine_
+  every_tile``, the default solve against that one (what the fine keep
+  rule drops); ``gap_jax_rule_to_fine_every_tile``, the same for the JAX
+  package's fine rule (``eps_min=inf``: no radius subtracted); and the
+  largest extent of a row tile of the sorted cloud (a tile that spans a
+  jump of the sort order, whose centroid lies far from its points);
+* ``"path": "classic"`` (``N_FINE_OK`` as it is: the coarse tables,
+  ``masks_from_coarse``): ``gap_every_tile_kept`` and
+  ``gap_coarse_tables_every_tile``, the same with only
+  ``masks_from_coarse`` at 1e6.
 
     python tools/mid_keep_rule_torch.py [--fibers 136] [--tiles 32 64]
 """
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import sys
 
@@ -44,28 +56,51 @@ def main():
     X, Y = torch.tensor(x, dtype=torch.float64), torch.tensor(y, dtype=torch.float64)
     w = torch.full((len(x),), 1.0 / len(x), dtype=torch.float64)
     eps = mod.BLUR**2
-    ms.N_FINE_OK = len(x) // 2
-    ms.EXTRAP_BM = 32
-    build = ms.build_tile_masks
+    solve = lambda **kw: ms.sinkhorn_multiscale(w, X, w, Y, **kw)  # noqa: E731
     for tile in args.tiles:
         kw = dict(p=2, blur=mod.BLUR, scaling=0.8, diameter=2.0, debias=False, potentials=True, tile=tile,
                   target_clusters=400, impl="blocked")
-        F, G = ms.sinkhorn_multiscale(w, X, w, Y, truncate=5, **kw)
-        F_all, G_all = ms.sinkhorn_multiscale(w, X, w, Y, truncate=1e6, **kw)
-        # Only the fine tables' rule at the wide margin:
-        ms.build_tile_masks = lambda *a, **k: build(*a[:6], 1e6, *a[7:], **k)
-        try:
-            F_fine, G_fine = ms.sinkhorn_multiscale(w, X, w, Y, truncate=5, **kw)
-        finally:
-            ms.build_tile_masks = build
-        xs = bs.tile_stats(_sorted(X, w, tile), tile)[1]
+        with patched(ms, N_FINE_OK=len(x) // 2, EXTRAP_BM=32):
+            default, every = solve(truncate=5, **kw), solve(truncate=1e6, **kw)
+            # Only the fine tables' rule at the wide margin, and the JAX rule:
+            with patched(ms, build_tile_masks=lambda *a, **k: bs.build_tile_masks(*a[:6], 1e6, *a[7:], **k)):
+                fine = solve(truncate=5, **kw)
+            with patched(ms, build_tile_masks=lambda *a, **k: bs.build_tile_masks(*a, **dict(k, eps_min=math.inf))):
+                jax_rule = solve(truncate=5, **kw)
+            xs = bs.tile_stats(_sorted(X, w, tile), tile)[1]
         print(json.dumps(dict(
-            points=len(x), tile=tile, eps=eps,
-            gap_every_tile_kept=max((F - F_all).abs().max().item(), (G - G_all).abs().max().item()) / eps,
-            gap_fine_tables_every_tile=max((F_fine - F_all).abs().max().item(),
-                                           (G_fine - G_all).abs().max().item()) / eps,
+            path="mid", points=len(x), tile=tile, eps=eps,
+            gap_every_tile_kept=_gap(default, every) / eps,
+            gap_fine_tables_every_tile=_gap(fine, every) / eps,
+            gap_default_to_fine_every_tile=_gap(default, fine) / eps,
+            gap_jax_rule_to_fine_every_tile=_gap(jax_rule, fine) / eps,
             largest_row_tile_extent=xs.max().item(),
         )), flush=True)
+        default, every = solve(truncate=5, **kw), solve(truncate=1e6, **kw)
+        with patched(ms, masks_from_coarse=lambda *a, **k: bs.masks_from_coarse(*a[:8], 1e6, *a[9:], **k)):
+            coarse = solve(truncate=5, **kw)
+        print(json.dumps(dict(
+            path="classic", points=len(x), tile=tile, eps=eps,
+            gap_every_tile_kept=_gap(default, every) / eps,
+            gap_coarse_tables_every_tile=_gap(coarse, every) / eps,
+        )), flush=True)
+
+
+def _gap(a, b):
+    """Largest gap of two ``(F, G)`` pairs."""
+    return max((u - v).abs().max().item() for u, v in zip(a, b))
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
 
 
 def _sorted(X, w, tile):

@@ -169,10 +169,11 @@ def profile(n, dev, card, emit):
             **kept(masks[0].counts, masks[0].cols.shape[1]))
         if mid:
             x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m = rec["_mid_tables"][0][0][:10]
+            eps_min = rec["_mid_tables"][0][1].get("eps_min")
             if cap_m is None:
                 cap_m = ms.mid_cap(x_sd.shape[0], tile)
             wide, t, h = one_call(lambda: build_tile_masks(x_sd, y_sd, fine[0], fine[1], eps_b, p, truncate, tile,
-                                                           cap=WIDE_CAP, w_x=a_w, w_y=b_w), dev)
+                                                           cap=WIDE_CAP, w_x=a_w, w_y=b_w, eps_min=eps_min), dev)
             c = wide.counts
             row("kept_stats_cap128", t, h, mean=c.float().mean().item(),
                 p99=float(torch.quantile(c.float(), 0.99)), max=int(c.max()),
