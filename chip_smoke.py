@@ -75,7 +75,8 @@ line each:
    information, how many rows JAX's walk budget would have clipped and the
    value against ``truncate=None`` (the exact fine phase, kernels 2 and
    3); the largest gap of the potentials to the same solve whose fine
-   tables keep every tile, in eps (fails over ``MID_GAP_EPS``);
+   and extrapolation tables keep every tile, in eps (fails over
+   ``MID_GAP_EPS``);
 9. the mid path forced at N = M = 1e5 (``N_FINE_OK`` lowered for the
    call), p in {1, 2}, and one custom-cost multiscale solve at 1e5, each
    against the same call through the float64 twins;
@@ -196,20 +197,23 @@ line each:
     its xy truncation table: width, kept tiles a row, and the rows that
     the tables' former widths (the build cap, ``fine_cap_schedule``)
     would have clipped, and its potentials' gap to the same call whose
-    coarse tables (``masks_from_coarse``) keep every tile (a suspect,
-    printed); then at 2,100,000 points (``n_fibers=35_000``: the mid
-    path), accuracy >= 0.99 and finite votes, its default tables (fine
+    coarse tables (``masks_from_coarse``) keep every tile (fails over
+    ``MID_GAP_EPS``); then at 2,100,000 points (``n_fibers=35_000``: the
+    mid path), accuracy >= 0.99 and finite votes, its default tables (fine
     and extrapolation) against the tables of every column tile, beside
     their former widths, the fine table's kept tiles beside the JAX keep
-    rule's, and its potentials' gap to the same call whose fine tables
-    keep every tile (fails over ``MID_GAP_EPS``).
+    rule's, and its potentials' gap to the same call whose fine and
+    extrapolation tables keep every tile (fails over ``MID_GAP_EPS``).
 18. ``[bench]`` (last): the benchmark twins, called as functions.
     ``bench_torch.headline`` (bench.py's call at N = M = 1e5) with the
     kernel launches counted from zero (kernels 1, 5 and 6 must run), every
     key of its line, and its loss within ``PATH_TOL`` of the same call
     through the float64 twins (the loss against the online
     ``truncate=None`` value is printed: on the multiscale route it measures
-    the gap between the two descents, not the kernels);
+    the gap between the two descents, not the kernels); the same call's
+    coarse xy table, its kept tiles a row beside the JAX package's keep
+    rule's, and its potentials' largest gap to the solve whose coarse
+    tables keep every tile (fails over ``MID_GAP_EPS``);
     ``bench_suite_torch.py``'s tensorized legs at 1e2 and 1e3 and its
     multiscale blur .05 leg at 1e4, each within its bound against float64;
     ``tools/profile_phases_torch.py`` at 1e6: every phase of the classic
@@ -940,7 +944,8 @@ def check_mid_tables(tag, label, tables, extraps):
     """The mid path's default tables of one solve (``build_tile_masks``'
     and ``extrap_cols``' calls as ``(args, kwargs, result)``) against the
     tables of every column tile, beside their former widths (``mid_cap``,
-    ``extrap_cap``). Returns whether every table kept its former width."""
+    ``extrap_cap``), the extrapolation tables' kept tiles beside the JAX
+    package's rule's. Returns whether every table kept its former width."""
     from geomloss_tpu_torch.models import multiscale as ms
     from geomloss_tpu_torch.ops import block_sparse as tbs
 
@@ -958,16 +963,23 @@ def check_mid_tables(tag, label, tables, extraps):
         n_src = y_src.shape[0] // bm
         with torch.no_grad():
             full = tbs.extrap_cols(x_rows, y_src, h, eps, truncate, bn, bm, n_src, **kwargs)[1]
+            old = tbs.extrap_cols(x_rows, y_src, h, eps, truncate, bn, bm, n_src, **dict(kwargs, radii=False))[1]
         check_unclipped(tag, f"{label} extrapolation table {k} ({n_src} source tiles of {bm}, width {cols.shape[1]})",
                         (counts,), (full,), tbs.extrap_cap(n_src))
+        c, o = counts.double(), old.double()
+        print(f"[{tag}] {label} extrapolation table {k}: kept source tiles a row mean {c.mean().item():.2f} max "
+              f"{int(c.max())}; under the JAX rule (no radius in the upper bound) mean {o.mean().item():.2f} max "
+              f"{int(o.max())}: {c.mean().item() / o.mean().item():.3f}x the mean", flush=True)
         same &= cols.shape[1] == tbs.extrap_cap(n_src)
     return same
 
 
-#: [mid], [gallery]: the largest gap of the mid path's potentials to the
-#: same solve whose fine tables keep every tile, in units of the last eps:
-#: ten times the CPU bound of tests/test_torch_mid_keep_rule.py (1e-2
-#: eps), for float32 sums taken in another order.
+#: [mid], [gallery]: the largest gap of the multiscale potentials to the
+#: same solve whose truncation tables keep every tile (the mid path's fine
+#: and extrapolation tables, the classic path's coarse tables), in units of
+#: the last eps: ten times the CPU bound of tests/test_torch_mid_keep_rule.py
+#: and tests/test_torch_coarse_keep_rule.py (1e-2 eps), for float32 sums
+#: taken in another order.
 MID_GAP_EPS = 0.1
 
 
@@ -1039,16 +1051,17 @@ def kept_before_after(tag, label, tables, sample_rows=8):
         del old
 
 
-def potential_gap(tag, label, solve, eps, card, module, name, tol=None):
+def potential_gap(tag, label, solve, eps, card, targets, tol=None):
     """The largest gap, in units of ``eps``, of the potentials ``solve()``
-    returns to those of the same call whose ``module.<name>`` tables
-    (``build_tile_masks`` or ``masks_from_coarse``) keep every tile
-    (``tools/keep_rule_gaps_torch.py``), with both calls' seconds; fails
-    over ``tol`` (or on a non-finite potential)."""
+    returns to those of the same call whose tables of ``targets`` (pairs
+    ``(module, name)``: ``masks_from_coarse``, or ``build_tile_masks`` and
+    ``extrap_cols``) keep every tile (``tools/keep_rule_gaps_torch.py``),
+    with both calls' seconds; fails over ``tol`` (or on a non-finite
+    potential)."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
     from keep_rule_gaps_torch import every_tile_gap
 
-    gap, secs, _, finite = every_tile_gap(solve, module, name, eps)
+    gap, secs, _, finite = every_tile_gap(solve, targets, eps)
     print(f"[{tag}] {label}: the potentials' largest gap to the every-tile solve {gap:.6g} eps"
           + (f" (limit {tol:g})" if tol is not None else "") + f"; default {secs[0]:.3f} s, every tile {secs[1]:.3f} s "
           f"(host clock); card {card}", flush=True)
@@ -2858,12 +2871,12 @@ def gallery_phase(dev, card, clock):
               f"{b_ms:.3f} ms ({b_by}) (CUDA events); card {card}", flush=True)
         del rec, args, sub
         torch.cuda.empty_cache()
-        # The classic path's coarse tables (a suspect, not a gated fault):
-        # the label transfer against the same call whose masks_from_coarse
-        # keeps every tile.
+        # The classic path's coarse keep rule: the label transfer against
+        # the same call whose masks_from_coarse keeps every tile.
         transfer, t_args, _ = transfers[0]
-        potential_gap("gallery", f"{name} at {N:,} points (the classic path): masks_from_coarse keeping every tile",
-                      lambda: transfer(*t_args)[:2], mod.BLUR**2, card, ms, "masks_from_coarse")
+        potential_gap("gallery", f"{name} at {N:,} points (the classic path, accuracy {acc_1e6:.6f}): "
+                      f"masks_from_coarse keeping every tile", lambda: transfer(*t_args)[:2], mod.BLUR**2, card,
+                      [(ms, "masks_from_coarse")], tol=MID_GAP_EPS)
         del transfers, transfer, t_args
         torch.cuda.empty_cache()
 
@@ -2885,11 +2898,13 @@ def gallery_phase(dev, card, clock):
         kept_before_after("gallery", f"{name} at {n_mid:,} points", mid_tables)
         del votes, mid_tables, extraps
         torch.cuda.empty_cache()
-        # The fine keep rule: the potentials against the same call whose fine
-        # tables keep every tile (the 2,051 data column tiles of 4,096 dense).
+        # The keep rules: the potentials against the same call whose fine
+        # tables (the 2,051 data column tiles of 4,096 dense) and
+        # extrapolation tables keep every tile.
         transfer, t_args, _ = transfers[0]
-        potential_gap("gallery", f"{name} at {n_mid:,} points, the mid path's potentials",
-                      lambda: transfer(*t_args)[:2], mod.BLUR**2, card, ms, "build_tile_masks", tol=MID_GAP_EPS)
+        potential_gap("gallery", f"{name} at {n_mid:,} points, the mid path's potentials (fine and extrapolation "
+                      f"tables)", lambda: transfer(*t_args)[:2], mod.BLUR**2, card,
+                      [(ms, "build_tile_masks"), (tbs, "extrap_cols")], tol=MID_GAP_EPS)
         del transfers, transfer, t_args
         torch.cuda.empty_cache()
     phase_took("gallery", t_phase)
@@ -2903,6 +2918,37 @@ BENCH_PROFILE_N = 1_000_000
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "events_ms", "busy_ms", "profiled_wall_ms", "idle_share",
               "launches", "peak_mem_gb", "loss_value", "loss_exact", "loss_rel_err_vs_exact", "loss_float64",
               "loss_rel_err_vs_float64", "device")
+
+
+def coarse_keep_rule(dev, card, n=N_POINTS):
+    """[bench]: the classic path's coarse keep rule at bench.py's size. The
+    coarse xy table's kept tiles a row beside the same table under the JAX
+    package's rule (the centroids alone), and the potentials' largest gap
+    to the same solve whose coarse tables keep every tile (fails over
+    ``MID_GAP_EPS``)."""
+    import bench_torch
+    from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+
+    x, y = (torch.from_numpy(bench_torch.sphere_cloud(n, seed)).to(dev) for seed in (0, 1))
+    w = torch.full((n,), 1.0 / n, device=dev)
+    kw = {k: v for k, v in bench_torch.CALL.items() if k != "loss"}
+
+    def solve():
+        return ms.sinkhorn_multiscale(w, x, w, y, potentials=True, **kw)
+
+    with calls_of(ms, "masks_from_coarse") as coarse, torch.no_grad():
+        solve()
+        args, kwargs, mask = coarse[0]
+        old = tbs.masks_from_coarse(*args, **dict(kwargs, eps_min=math.inf))
+    c, o = mask.counts.double(), old.counts.double()
+    print(f"[bench] bench.py's call at N=M={n}, the coarse xy table: kept tiles a row mean {c.mean().item():.2f} max "
+          f"{int(c.max())} (width {mask.cols.shape[1]}); under the JAX rule mean {o.mean().item():.2f} max "
+          f"{int(o.max())} (width {old.cols.shape[1]}): {c.mean().item() / o.mean().item():.3f}x the mean, "
+          f"{c.numel()} row tiles; card {card}", flush=True)
+    potential_gap("bench", f"bench.py's call at N=M={n} (the classic path): masks_from_coarse keeping every tile",
+                  solve, kw["blur"] ** kw["p"], card, [(ms, "masks_from_coarse")], tol=MID_GAP_EPS)
+    del x, y, w, coarse, mask, old
 
 
 def bench_phase(dev, card):
@@ -2927,7 +2973,8 @@ def bench_phase(dev, card):
     line = bench_torch.headline(N_POINTS, dev.type)
     launches = {k: n for k, n in {**ck.launch_counts, **cbs.launch_counts}.items() if n}
     print(f"[bench] bench_torch.py N={N_POINTS}: launches {json.dumps(launches)}; median {line['value']:.3f} ms, "
-          f"events {line['events_ms']:.3f} ms, idle share {100 * line['idle_share']:.1f} %; loss rel err against "
+          f"events {line['events_ms']:.3f} ms, idle share {100 * line['idle_share']:.1f} %; loss "
+          f"{line['loss_value']!r}, rel err against "
           f"the float64 twins {line['loss_rel_err_vs_float64']:.3e} (tol {PATH_TOL:g}), against the online "
           f"truncate=None value {line['loss_rel_err_vs_exact']:.3e} (the multiscale scheme's gap, for "
           f"information); card {card}", flush=True)
@@ -2938,6 +2985,7 @@ def bench_phase(dev, card):
         fail(f"a kernel of the multiscale path was never launched by bench_torch.py's call: {launches}")
     if not line["loss_rel_err_vs_float64"] <= PATH_TOL:
         fail("bench_torch.py's loss misses the float64 twins")
+    coarse_keep_rule(dev, card)
 
     results = {}
     for name, kw, _ in bench_suite_torch.CONFIGS:
@@ -3394,11 +3442,12 @@ def main():
         ex_s = time.perf_counter() - t0
     print(f"[mid] for information, against truncate=None at N=M={N_MID} (exact fine phase, {ex_s:.2f} s): "
           f"loss {v_ex.item():.9e}, rel err {abs(v_2m.item() - v_ex.item()) / abs(v_ex.item()):.3e}", flush=True)
-    # The fine keep rule: the potentials against the same solve whose fine
-    # tables keep every tile (the 1,954 data column tiles of 2,048 dense).
-    potential_gap("mid", f"N=M={N_MID} spheres, the mid path's potentials",
+    # The keep rules: the potentials against the same solve whose fine
+    # tables (the 1,954 data column tiles of 2,048 dense) and extrapolation
+    # tables keep every tile.
+    potential_gap("mid", f"N=M={N_MID} spheres, the mid path's potentials (fine and extrapolation tables)",
                   lambda: ms.sinkhorn_multiscale(w2, xm, w2, ym, potentials=True, **kw2), BLUR**2, card,
-                  ms, "build_tile_masks", tol=MID_GAP_EPS)
+                  [(ms, "build_tile_masks"), (tbs, "extrap_cols")], tol=MID_GAP_EPS)
     del xm, ym, w2, g_2m
     torch.cuda.empty_cache()
 

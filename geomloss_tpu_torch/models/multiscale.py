@@ -10,7 +10,8 @@ Counterpart of :mod:`geomloss_tpu.models.multiscale`:
    until ``eps < cluster_scale**p``, the jump rule of the reference;
 3. the jump extrapolates the potentials onto the fine cloud;
 4. kernel truncation: the coarse potentials give per-tile keep scores
-   (``masks_from_coarse``), and the remaining fine iterations and the
+   (``masks_from_coarse``, less the cluster blocks' seam radii,
+   ``block_radii``), and the remaining fine iterations and the
    differentiable last extrapolation visit only the kept tile pairs
    (``ops/block_sparse.py``, two CUDA kernels). ``truncate=None`` runs an
    exact fine phase through the online kernels instead;
@@ -479,8 +480,13 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
                         eps_min=min(eps_fine),
                     )
                 else:
+                    # The cluster blocks' radii (seams), from the sorted
+                    # clouds' points of positive weight:
                     masks = _coarse_tables(
                         x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, tile // block_size, cap, debias,
+                        radii=(block_radii(a_s.detach(), x_sd, x_c, block_size),
+                               block_radii(b_s.detach(), y_sd, y_c, block_size)),
+                        eps_min=min(eps_fine),
                     )
     return Prologue(
         a_s, x_s, perm_x, b_s, y_s, perm_y, a_log_f, b_log_f, eps, rho, eps_list, eps_fine, last_is_jump, tile,
@@ -588,19 +594,37 @@ def _desort(v, perm, n):
     return out
 
 
-def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, debias, cost=None):
+def block_radii(w, pts, cent, block):
+    """Radii of the coarse cluster blocks: per block of ``block``
+    consecutive sorted points, the largest distance of a point of positive
+    weight ``w`` to the block's centroid ``cent`` (0 for a block of
+    padding alone)."""
+    d = torch.linalg.vector_norm(pts.reshape(cent.shape[0], block, -1) - cent[:, None, :], dim=-1)
+    return torch.where(w.reshape(-1, block) > 0, d, 0.0).amax(dim=1)
+
+
+def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, debias, cost=None, radii=None,
+                   eps_min=None):
     """Tables of the classic path: the reference's pointwise keep rule on
     the coarse potentials and centroids at jump time
-    (``kernel_truncation``), pooled to kernel tiles. Returns ``(mask_xy,
-    mask_xx, mask_yy)``, the last two ``None`` without debiasing."""
+    (``kernel_truncation``), pooled to kernel tiles, less each cluster
+    block's radius beyond the slack at ``eps_min`` (:func:`masks_from_coarse`;
+    ``radii = (r_x, r_y)`` from :func:`block_radii`, ``eps_min`` the last
+    fine temperature, so that the retightened counts serve every fine
+    temperature). With no ``radii``, the JAX package's centroid rule: the
+    custom-cost fine phase takes it, since a user cost gives no bound in
+    the distance. Returns ``(mask_xy, mask_xx, mask_yy)``, the last two
+    ``None`` without debiasing."""
     f_ba, g_ab, f_aa, g_bb = coarse
-    mask_xy = masks_from_coarse(x_c, y_c, f_ba, g_ab, aw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, cost=cost)
+    r_x, r_y = (None, None) if radii is None else radii
+    kw = dict(cap=cap, cost=cost, eps_min=eps_min)
+    mask_xy = masks_from_coarse(x_c, y_c, f_ba, g_ab, aw_c, bw_c, eps_j, p, truncate, bpt, r_x=r_x, r_y=r_y, **kw)
     if not debias:
         return mask_xy, None, None
     return (
         mask_xy,
-        masks_from_coarse(x_c, x_c, f_aa, f_aa, aw_c, aw_c, eps_j, p, truncate, bpt, cap=cap, sym=True, cost=cost),
-        masks_from_coarse(y_c, y_c, g_bb, g_bb, bw_c, bw_c, eps_j, p, truncate, bpt, cap=cap, sym=True, cost=cost),
+        masks_from_coarse(x_c, x_c, f_aa, f_aa, aw_c, aw_c, eps_j, p, truncate, bpt, sym=True, r_x=r_x, r_y=r_x, **kw),
+        masks_from_coarse(y_c, y_c, g_bb, g_bb, bw_c, bw_c, eps_j, p, truncate, bpt, sym=True, r_x=r_y, r_y=r_y, **kw),
     )
 
 

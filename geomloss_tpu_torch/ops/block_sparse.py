@@ -204,17 +204,54 @@ def _pair_dist_lb(cx, rx, cy, ry):
     return torch.clamp(dist - rx[:, None] - ry[None, :], min=0.0)
 
 
+def _seam_cost(C, cx, rx, cy, ry, s, p):
+    """The keep rules' cost between two block partitions: ``C``, the cost
+    at the centroids' distance, where neither block's radius passes the
+    slack ``s``; elsewhere ``C(d)``, ``d`` the centroids' distance less the
+    part of each radius beyond ``s``, clipped at 0."""
+    over_x, over_y = torch.clamp(rx - s, min=0.0), torch.clamp(ry - s, min=0.0)
+    d = torch.sqrt(torch.clamp(_sq_centroids(cx, cy), min=1e-12))
+    d = d.sub_(over_x[:, None]).sub_(over_y[None, :]).clamp_(min=0.0)
+    return torch.where((over_x > 0)[:, None] | (over_y > 0)[None, :], d * d / 2 if p == 2 else d, C)
+
+
 def masks_from_coarse(
     cx, cy, f_c, g_c, w_x, w_y, eps, p, truncate, blocks_per_tile, cap=None, sym=False,
-    cost=None,
+    cost=None, r_x=None, r_y=None, eps_min=None,
 ):
-    """Tile masks from the reference's *pointwise* centroid keep rule.
+    """Tile masks of the classic path from the coarse state: the
+    reference's pointwise keep rule on the cluster blocks, less the seam
+    radii.
 
-    ``f_c[k] + g_c[l] > C(c_k, c_l) - truncate * eps`` on the cluster-block
-    centroids, max-pooled onto kernel tiles of ``blocks_per_tile``
-    consecutive blocks. A custom ``cost`` callable
-    (``(B, N, D), (B, M, D) -> (B, N, M)``) is evaluated between the
-    centroids, as the reference's custom-cost truncation does.
+    A pair of cluster blocks ``(k, l)`` scores ``f_c[k] + g_c[l] - C(d) +
+    truncate * eps``, max-pooled onto kernel tiles of ``blocks_per_tile``
+    consecutive blocks. ``d`` is the distance of the blocks' centroids less
+    the part of each block's radius (``r_x``, ``r_y``) beyond the slack
+    ``s`` (:func:`keep_slack` at ``eps_min``), clipped at 0. Where neither
+    radius passes ``s``, ``C(d)`` is the JAX package's centroid cost to the
+    bit; with no radii, or ``eps_min = math.inf``, the tables are the JAX
+    package's rule.
+
+    Guarantee: for every point pair ``(i, j)`` of a dropped tile pair,
+    ``i`` of block ``k`` and ``j`` of block ``l``, ``f_c[k] + g_c[l] -
+    C(|x_i - y_j| + 2 s) <= -truncate * eps``, since ``|x_i - y_j| >= d -
+    2 s`` (the radii bound every point of positive weight). So the coarse
+    potentials, read on the blocks' points, keep every point pair the
+    pointwise rule keeps, up to the slack: at p = 1 the best pointwise
+    score lies at most ``2 s = truncate * eps_min`` above ``-truncate *
+    eps``; at p = 2 at most ``2 s (|x_i - y_j| + s)`` above it, as in
+    :func:`build_tile_masks`. The cluster blocks are ``block_size``
+    consecutive points of the sort order, and one that straddles a jump of
+    it (a seam) has its centroid far from all its points: the centroid rule
+    alone scored its nearest tiles below zero at any table width (1.78 eps
+    off the solve that keeps every tile on the gallery's fiber bundles at
+    8,160 points and tile 32, ``tools/mid_keep_rule_torch.py``; 1.07 eps on
+    the label transfer at 1,000,020 points on an H100).
+
+    A custom ``cost`` callable (``(B, N, D), (B, M, D) -> (B, N, M)``) is
+    evaluated between the centroids, as the reference's custom-cost
+    truncation does, and keeps the centroid rule (the radii are not read):
+    a user cost gives no bound in the distance.
 
     Args:
         cx, cy: ``(K_x, D)`` / ``(K_y, D)`` block centroids (sorted order).
@@ -227,11 +264,20 @@ def masks_from_coarse(
             :func:`kept_width` to the largest kept count).
         sym: the problem is symmetric (``cy is cx``, ``g_c is f_c``): the
             transposed table is the same table.
+        r_x, r_y: ``(K_x,)`` / ``(K_y,)`` block radii, the largest distance
+            of a point of positive weight to its block's centroid
+            (``models/multiscale.py::block_radii``); ``None``: the JAX
+            package's centroid rule.
+        eps_min: the finest temperature the table serves (default
+            ``eps``): ``s`` depends on it alone, so that
+            :func:`retighten_counts`' shift stays uniform.
 
     Returns:
         :class:`TileMask`.
     """
     C = cost_routines[p](cx, cy) if cost is None else cost(cx[None], cy[None])[0]
+    if cost is None and r_x is not None:
+        C = _seam_cost(C, cx, r_x, cy, r_y, keep_slack(eps if eps_min is None else eps_min, p, truncate), p)
     score = f_c[:, None] + g_c[None, :] - C + truncate * eps
     valid = (w_x > 0)[:, None] & (w_y > 0)[None, :]
     score = torch.where(valid, score, torch.full_like(score, NEG_INF))
@@ -340,14 +386,10 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
 
     cx, f_max, rx, x_mass = blk_stats(x, f, w_x)
     cy, g_max, ry, y_mass = blk_stats(y, g, w_y)
-    s = keep_slack(eps if eps_min is None else eps_min, p, truncate)
-    over_x, over_y = torch.clamp(rx - s, min=0.0), torch.clamp(ry - s, min=0.0)
     sq = torch.clamp(_sq_centroids(cx, cy), min=0.0)
     C_c = sq / 2 if p == 2 else torch.sqrt(torch.clamp(sq, min=1e-12))
-    d = torch.sqrt(torch.clamp(sq, min=1e-12)).sub_(over_x[:, None]).sub_(over_y[None, :]).clamp_(min=0.0)
     del sq
-    C_c = torch.where((over_x > 0)[:, None] | (over_y > 0)[None, :], d * d / 2 if p == 2 else d, C_c)
-    del d
+    C_c = _seam_cost(C_c, cx, rx, cy, ry, keep_slack(eps if eps_min is None else eps_min, p, truncate), p)
     score = f_max[:, None] + g_max[None, :] - C_c + truncate * eps
     score = torch.where(x_mass[:, None] & y_mass[None, :], score, NEG_INF)
     score = _tile_maxpool(score, bpt)
@@ -370,17 +412,30 @@ def extrap_cap(n_src_tiles):
     return max(8, min(64, -(-(n_src_tiles // 4) // 8) * 8))
 
 
-def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap=None, p=2):
+def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap=None, p=2, radii=True):
     """Kept source tiles of a one-direction truncated softmin onto a fine
     cloud: ``S_i = -eps log sum_j exp(h_j - C_ij/eps)`` over a small source
     cloud (pooled mid blocks), for row tiles of ``block_n`` fine points and
     source tiles of ``block_m`` points.
 
-    Keep rule: a source tile ``J`` survives for row tile ``I`` when its best
-    score upper bound ``h_max[J] - C(sub-block centroids)/eps`` lies within
-    ``truncate`` nats of a rigorous lower bound on the row's best score
-    (any sub-block's best ``h`` at the worst-case distance, centroid
-    distance plus both radii; the weakest sub-block of the tile).
+    Keep rule: a source tile ``J`` survives for row tile ``I`` when an
+    upper bound ``U`` on its scores ``h_j - C_ij/eps`` lies within
+    ``truncate`` nats of a lower bound ``L`` on the row's best score. Both
+    are taken on sub-blocks (:func:`_stat_block` rows, 32 sources) from
+    their centroids' distance ``dist`` and radii ``r_x``, ``r_y``: ``U =
+    h_max - C(max(0, dist - r_x - r_y))/eps``, max-pooled over the tiles,
+    and ``L = max h_max - C(dist + r_x + r_y)/eps`` over the sources, the
+    weakest row sub-block of the tile.
+
+    Guarantee: for every row point ``i`` of ``I`` and source point ``j`` of
+    a dropped ``J``, ``h_j - C_ij/eps <= max_j' (h_j' - C_ij'/eps) -
+    truncate``: each dropped term is at most ``exp(-truncate)`` times the
+    row's largest. The JAX package's ``U`` takes the centroid distance with
+    no radius (``radii=False``, its tables bit for bit), which is no upper
+    bound for a sub-block that straddles a jump of the sort order (a seam,
+    whose centroid lies far from its points): on the gallery's fiber
+    bundles at 8,160 points it dropped tiles that put the mid path 0.745
+    eps off the solve that keeps every tile (``tools/mid_keep_rule_torch.py``).
 
     ``cap`` bounds the kept source tiles per row tile, a row that keeps
     more keeping its best-scored ``cap``; with no ``cap``, the width is
@@ -405,7 +460,7 @@ def extrap_cols(x_rows, y_src, h, eps, truncate, block_n, block_m, cap=None, p=2
     def C_of(d):
         return 0.5 * d**2 if p == 2 else d
 
-    U = h_smax[None, :] - C_of(dist) / eps
+    U = h_smax[None, :] - C_of(torch.clamp(dist - rr, min=0.0) if radii else dist) / eps
     L = h_smax[None, :] - C_of(dist + rr) / eps
     thr = L.amax(dim=1)
     if spt > 1:

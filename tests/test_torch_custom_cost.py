@@ -7,11 +7,15 @@ gather-based truncated LSE with plain autograd (``lse_sparse_custom``; no
 kernel, as in the JAX package). Both packages run the same solve at
 N = M = 2048 in float64 on the same clouds (numpy, from a seed), with two
 costs written once in each framework: ``|x-y|^2 / 2``, which must also
-give the built-in p = 2 solve, and ``|x-y|^1.5``, which is not built in.
+give the built-in p = 2 solve on the keep rule a custom cost takes (the
+cluster centroids alone; the built-in cost's default subtracts the
+blocks' seam radii), and ``|x-y|^1.5``, which is not built in.
 The JAX custom path is plain XLA in float64 here, so the two packages
 differ only by the order of float64 sums: value within 1e-10 relative,
 gradient within 1e-8 relative L2.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import jax.numpy as jnp
 
 from geomloss_tpu.models.multiscale import sinkhorn_multiscale as jax_multiscale
 from geomloss_tpu_torch import SamplesLoss
+from geomloss_tpu_torch.models import multiscale as tms
 from geomloss_tpu_torch.models.multiscale import sinkhorn_multiscale
 from geomloss_tpu_torch.ops import block_sparse as tbs
 
@@ -61,7 +66,7 @@ def _rel(got, ref):
 
 
 @pytest.mark.parametrize("name", list(COSTS))
-def test_custom_cost_matches_jax(name):
+def test_custom_cost_matches_jax(monkeypatch, name):
     jcost, tcost = COSTS[name]
     a, x, b, y = _clouds(seed=11)
     aj, bj, yj = map(jnp.asarray, (a, b, y))
@@ -70,7 +75,11 @@ def test_custom_cost_matches_jax(name):
     assert abs(v - float(jv)) <= 1e-10 * abs(float(jv))
     assert _rel(g, np.asarray(jg)) <= 1e-8
     if name == "half_sqdist":
-        # The built-in p = 2 cost, through the block-sparse twins:
+        # The built-in p = 2 cost, through the block-sparse twins, on the
+        # keep rule a custom cost takes (the centroids alone: the built-in
+        # cost's default also subtracts the cluster blocks' seam radii):
+        build = tms.masks_from_coarse
+        monkeypatch.setattr(tms, "masks_from_coarse", lambda *a_, **k: build(*a_, **dict(k, eps_min=math.inf)))
         v2, g2 = _port(a, x, b, y, impl="blocked", **KW)
         assert abs(v - v2) <= 1e-10 * abs(v2)
         assert _rel(g, g2) <= 1e-8
@@ -91,8 +100,6 @@ def test_custom_cost_untruncated_matches_jax():
 
 def test_custom_cost_never_takes_the_mid_phase(monkeypatch):
     """Above N_FINE_OK a custom cost still runs the two-scale descent."""
-    from geomloss_tpu_torch.models import multiscale as tms
-
     monkeypatch.setattr(tms, "N_FINE_OK", 512)
 
     def boom(*args, **kwargs):

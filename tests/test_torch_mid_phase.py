@@ -6,9 +6,11 @@ as its own tests run it on the CPU (Pallas in interpret mode):
 
 * the mid path's sizing rules (``mid_cap``, ``mid_delay``, the keep-score
   sub-blocks) equal the JAX package's;
-* ``extrap_cols`` gives the same tables (kept columns and counts) bit for
-  bit, and so does ``build_tile_masks`` where no sub-block passes its
-  slack, p in {1, 2}, symmetric or not, with zero-mass padding; the keep
+* ``extrap_cols`` in the JAX form of its rule (``radii=False``) gives the
+  same tables (kept columns and counts) bit for bit, and its default keeps
+  every tile they keep; ``build_tile_masks`` gives the same tables bit for
+  bit where no sub-block passes its slack, p in {1, 2}, symmetric or not,
+  with zero-mass padding; the keep
   scores agree to 1e-12 (the float64 centroid products round in another
   order); where sub-blocks pass it, the port's tables keep every tile the
   JAX package's keep;
@@ -148,15 +150,25 @@ def test_build_tile_masks_matches_jax(p, sym):
 
 @pytest.mark.parametrize("p", [1, 2])
 def test_extrap_cols_matches_jax(p):
-    """4096 rows in tiles of 256 against 8192 sources in tiles of 128."""
+    """4096 rows in tiles of 256 against 8192 sources in tiles of 128. The
+    JAX form of the keep rule (``radii=False``: the upper bound at the
+    centroid distance) gives the JAX package's table bit for bit at its cap
+    of 32; the port's default (the upper bound at the centroid distance less
+    both radii, a true bound) keeps every tile the JAX table keeps, and
+    more."""
     x, y = _sorted_cube(4096, 3), _sorted_cube(8192, 4, shift=0.05)
     h = 0.1 * np.random.RandomState(p).randn(8192)
     eps = 0.01 if p == 2 else 0.05
     jc, jn = jbs.extrap_cols(jnp.asarray(x), jnp.asarray(y), jnp.asarray(h), eps, 5, 256, 128, 32, p=p)
-    tc, tn = tbs.extrap_cols(torch.tensor(x), torch.tensor(y), torch.tensor(h), eps, 5, 256, 128, 32, p=p)
+    args = (torch.tensor(x), torch.tensor(y), torch.tensor(h), eps, 5, 256, 128)
+    tc, tn = tbs.extrap_cols(*args, 32, p=p, radii=False)
     np.testing.assert_array_equal(_np(tc), np.asarray(jc))
     np.testing.assert_array_equal(_np(tn), np.asarray(jn))
     assert tc.shape == (16, 32) and _np(tn).min() >= 1
+    dc, dn = tbs.extrap_cols(*args, p=p)
+    kept_j, kept_d = _kept_sets(jc, jn), _kept_sets(_np(dc), _np(dn))
+    assert all(j <= d for j, d in zip(kept_j, kept_d))
+    assert sum(len(d - j) for j, d in zip(kept_j, kept_d)) > 0
 
 
 def _strip(n, seed, z=0.0):

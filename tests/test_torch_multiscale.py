@@ -4,14 +4,18 @@
 seed) at N = M = 2048, with 128-point tiles and 128 coarse clusters so that
 the truncation prunes: the port in float64 through the plain twins of its
 kernels, the JAX package as its own tests run it on the CPU (the banded
-walk kernels in interpret mode). Both solves visit the same kept tile
-pairs; the JAX kernels compute in float32, which sets the tolerances.
+walk kernels in interpret mode). On the JAX package's coarse keep rule both
+solves visit the same kept tile pairs; the JAX kernels compute in float32,
+which sets the tolerances. The port's default rule (seam radii) is held to
+its own float64 solve on tables of every tile.
 
 The port-only checks hold the truncated solve against the exact fine
 phase (``truncate=None``) at the bounds of
 ``tests/test_samples_loss_golden.py``, and exercise the unbalanced,
 ``potentials=True``, labels and ``SamplesLoss`` routes.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ import jax.numpy as jnp
 
 from geomloss_tpu.models.multiscale import sinkhorn_multiscale as jax_multiscale
 from geomloss_tpu_torch import SamplesLoss
+from geomloss_tpu_torch.models import multiscale as tms
 from geomloss_tpu_torch.models import samples_loss
 from geomloss_tpu_torch.models.multiscale import sinkhorn_multiscale
 from torch_parity_utils import P1_FLOOR_SHIFT
@@ -63,10 +68,27 @@ def _rel(got, ref):
     return np.linalg.norm(np.asarray(got) - ref) / np.linalg.norm(ref)
 
 
+def _jax_coarse_rule(monkeypatch):
+    """The classic path's coarse tables on the JAX package's keep rule
+    (``masks_from_coarse`` at an infinite slack: the centroids alone)."""
+    build = tms.masks_from_coarse
+    monkeypatch.setattr(tms, "masks_from_coarse", lambda *a, **k: build(*a, **dict(k, eps_min=math.inf)))
+
+
 @pytest.mark.parametrize("p", [2, 1])
-def test_multiscale_matches_jax(jax_solves, p):
+def test_multiscale_matches_jax(jax_solves, monkeypatch, p):
+    """On the JAX package's coarse keep rule, the port's solve against
+    JAX's. The port's default rule subtracts the cluster blocks' seam radii
+    and keeps more tiles: its solve is held to the same float64 solve whose
+    coarse tables keep every tile (value 1e-5 relative, gradient 1e-3
+    relative L2; measured 1.8e-6 and 3.2e-4 at p = 2, 2.4e-7 and 2.6e-6 at
+    p = 1), which the JAX rule misses by 7.6e-6 and 1.33e-3 at p = 2."""
     jv, jg = jax_solves[p]
-    v, g = _port(*_clouds(seed=p), p=p, **KW)
+    clouds = _clouds(seed=p)
+    v_default, g_default = _port(*clouds, p=p, **KW)
+    build = tms.masks_from_coarse
+    _jax_coarse_rule(monkeypatch)
+    v, g = _port(*clouds, p=p, **KW)
     # The JAX fine phase and extrapolation run in float32 (its banded
     # kernels cast): values within 1e-5 relative, gradients within 1e-4
     # relative L2. For p=1 the JAX kernels' noise floor moves each debias
@@ -75,6 +97,10 @@ def test_multiscale_matches_jax(jax_solves, p):
     # bound of 1e-3.
     assert abs(v - jv) <= 1e-5 * abs(jv) + (2 * P1_FLOOR_SHIFT if p == 1 else 0.0)
     assert _rel(g, jg) <= (1e-4 if p == 2 else 1e-3)
+    monkeypatch.setattr(tms, "masks_from_coarse", lambda *a, **k: build(*a[:8], 1e6, *a[9:], **k))
+    v_all, g_all = _port(*clouds, p=p, **KW)
+    assert abs(v_default - v_all) <= 1e-5 * abs(v_all)
+    assert _rel(g_default, g_all) <= 1e-3
 
 
 @pytest.mark.parametrize("reach", [None, 0.5])
@@ -139,31 +165,36 @@ def test_samples_loss_routes_to_multiscale(monkeypatch, backend, n):
     assert v.ndim == 0 and torch.isfinite(v)
 
 
-#: (N_FINE_OK, N, M, seed) -> (loss as float.hex, the first 16 hex digits of
-#: the SHA-256 of the float64 gradient's bytes, the mid phase's runs),
-#: recorded before the prologue of sinkhorn_multiscale moved into
-#: multiscale_prologue (shared with the row-sharded solve).
+#: (N_FINE_OK, N, M, seed) -> (loss, the gradient's L2 norm, its projection
+#: on uniform(0.5, 1.5) weights from the seed, the mid phase's runs), on the
+#: JAX package's keep rules. The losses are those recorded bit for bit
+#: before the prologue of sinkhorn_multiscale moved into multiscale_prologue
+#: (shared with the row-sharded solve), 0x1.ef869a650aeacp-7 and
+#: 0x1.23fc6a108d58ap-6, to 5 and 3 ulps: CPUs of other vector units, or
+#: ATEN_CPU_CAPABILITY=default, sum in another order and move the last digits.
 PROLOGUE_FLOATS = {
-    (1 << 20, 1500, 1700, 0): ("0x1.ef869a650aeacp-7", "af535b13920e6f1b", 0),
-    (512, 2000, 1900, 2): ("0x1.23fc6a108d58ap-6", "9c35f9b31829ff85", 1),
+    (1 << 20, 1500, 1700, 0): (0.015122247112308558, 0.004483461143127144, -0.27726593377269426, 0),
+    (512, 2000, 1900, 2): (0.017821410731092825, 0.004283336154157108, -0.3092978078267792, 1),
 }
 
 
 @pytest.mark.parametrize("case", list(PROLOGUE_FLOATS))
 def test_prologue_refactor_changes_no_float(monkeypatch, case):
     """SamplesLoss("sinkhorn", backend="multiscale"), classic and with the
-    mid path forced (N_FINE_OK lowered), p = 2: bitwise the loss and the
-    gradient recorded on the tree before the refactor. The mid path's fine
-    tables are built with the keep rule of that tree, the JAX package's
-    (``build_tile_masks`` at an infinite slack; the port's default rule
-    keeps more tiles, tests/test_torch_mid_keep_rule.py)."""
-    import hashlib
-    import math
-
-    from geomloss_tpu_torch.models import multiscale as tms
-
+    mid path forced (N_FINE_OK lowered), p = 2, float64: the loss within
+    1e-12 relative, the gradient's norm and seeded projection within
+    1e-10 relative of the values recorded on the tree before the refactor.
+    The tables are built with the keep rules of that tree, the JAX
+    package's: the classic path's coarse tables by the centroids alone
+    (``masks_from_coarse`` at an infinite slack), the mid path's fine
+    tables by the sub-blocks' centroids (``build_tile_masks`` at an
+    infinite slack); the port's default rules keep more tiles
+    (tests/test_torch_coarse_keep_rule.py, tests/test_torch_mid_keep_rule.py).
+    The mid case's extrapolations run on whole clouds (too few source
+    points to truncate), so ``extrap_cols`` is not reached."""
     n_fine_ok, n, m, seed = case
     monkeypatch.setattr(tms, "N_FINE_OK", n_fine_ok)
+    _jax_coarse_rule(monkeypatch)
     build = tms.build_tile_masks
     monkeypatch.setattr(tms, "build_tile_masks", lambda *a, **k: build(*a, **dict(k, eps_min=math.inf)))
     mid_runs = []
@@ -176,6 +207,9 @@ def test_prologue_refactor_changes_no_float(monkeypatch, case):
     x.requires_grad_(True)
     v = SamplesLoss("sinkhorn", p=2, blur=0.05, scaling=0.5, backend="multiscale")(a, x, b, y)
     (g,) = torch.autograd.grad(v, x)
-    value, digest, mids = PROLOGUE_FLOATS[case]
-    assert (v.item().hex(), hashlib.sha256(g.numpy().tobytes()).hexdigest()[:16], len(mid_runs)) == (
-        value, digest, mids)
+    u = torch.tensor(np.random.RandomState(seed).uniform(0.5, 1.5, tuple(g.shape)))
+    value, norm, proj, mids = PROLOGUE_FLOATS[case]
+    assert len(mid_runs) == mids
+    np.testing.assert_allclose(v.item(), value, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(torch.linalg.vector_norm(g).item(), norm, rtol=1e-10, atol=0)
+    np.testing.assert_allclose((u * g).sum().item(), proj, rtol=1e-10, atol=0)

@@ -14,7 +14,8 @@ plain twins of the kernels), each rank calling ``backward``, against:
 * JAX's single-device ``sinkhorn_multiscale`` (float32 kernels, interpret
   mode, under ``jax.jit``) on the clouds and settings of ``tests/test_torch_multiscale.py``'s
   p = 2 case, at its bounds: value 1e-5 relative, gradient 1e-4 relative
-  L2;
+  L2, the port's coarse tables on the JAX package's keep rule as there
+  (the port's default subtracts the cluster blocks' seam radii);
 * JAX's ``sinkhorn_multiscale_sharded`` on two devices at its own tests'
   ``KW`` (1000 points in D = 2; value only: one interpret-mode solve),
   the port on the last two ranks while the first two run.
@@ -86,7 +87,7 @@ def runs(tmp_path_factory):
     cases += [sharded(name, 4) for name in CASES]
     ms_clouds = _clouds(2048, 2048, 2)
     cases.append(dict(id="jax_single", R=4, fn="sinkhorn_multiscale_sharded", inputs=ms_clouds,
-                      kw=dict(MS_KW, p=2), argnums=(1,)))
+                      kw=dict(MS_KW, p=2), argnums=(1,), jax_coarse_rule=True))
     ranks = Ranks(cases, world, tmp_path_factory.mktemp("sharded"))
 
     # Under jax.jit: 2-3x faster than the interpret-mode kernels eagerly.
@@ -124,7 +125,7 @@ def test_sharded_matches_single_device(runs, case, R):
 def test_sharded_matches_jax_single_device(runs):
     """The sharded solve on four ranks against JAX's single-device solve
     (the bounds of tests/test_torch_multiscale.py: its kernels compute in
-    float32)."""
+    float32), both on the JAX package's coarse keep rule."""
     jv, jg = runs[1]["jax_single"]
     assert sorted(runs[2]["jax_single"]) == [0, 1, 2, 3]
     for v, (g,) in runs[2]["jax_single"].values():

@@ -14,6 +14,7 @@ This module imports only torch and numpy (and the port): the spawned ranks
 import it, and none of them imports JAX.
 """
 
+import math
 import os
 import queue
 import time
@@ -116,7 +117,9 @@ def run_case(case, group):
     the row shards of the inputs; or ``"sgd"``: three steps of gradient
     descent on ``sinkhorn_ring``, or ``"single"``: the single-device
     ``sinkhorn_multiscale``) on the numpy ``case["inputs"]``
-    as float64 tensors, with ``case["kw"]``. Returns ``(outputs, grads)``:
+    as float64 tensors, with ``case["kw"]`` (``case["n_fine_ok"]`` sets
+    ``multiscale.N_FINE_OK``, a true ``case["jax_coarse_rule"]`` the JAX
+    package's coarse keep rule). Returns ``(outputs, grads)``:
     the outputs as numpy arrays, and the gradients of ``<cot, output>`` in
     the inputs ``case["argnums"]``."""
     from geomloss_tpu_torch import parallel
@@ -124,8 +127,12 @@ def run_case(case, group):
 
     mesh = parallel.points_mesh(group, backend="gloo")
     kw = dict(case.get("kw", {}))
-    saved = multiscale.N_FINE_OK
-    multiscale.N_FINE_OK = case.get("n_fine_ok", saved)
+    saved = multiscale.N_FINE_OK, multiscale.masks_from_coarse
+    multiscale.N_FINE_OK = case.get("n_fine_ok", saved[0])
+    if case.get("jax_coarse_rule"):
+        # The classic path's coarse tables on the JAX package's keep rule
+        # (the cluster centroids alone: an infinite slack).
+        multiscale.masks_from_coarse = lambda *a, **k: saved[1](*a, **dict(k, eps_min=math.inf))
     try:
         if case["fn"] == "sgd":
             a, x, b, y = (torch.tensor(v) for v in case["inputs"])
@@ -153,4 +160,4 @@ def run_case(case, group):
             return [o.detach().numpy() for o in out], []
         return out.detach().numpy(), _grads(out, leaves, argnums, case.get("cot", 1.0))
     finally:
-        multiscale.N_FINE_OK = saved
+        multiscale.N_FINE_OK, multiscale.masks_from_coarse = saved

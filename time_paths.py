@@ -8,7 +8,7 @@ truncated route instead (``SamplesLoss("gaussian", blur=0.1, truncate=3,
 backend="multiscale")``, kernel 8).
 
     python3 time_paths.py --sizes 100000 2000000 [--reps 5] [--root DIR] [--loss gaussian]
-                          [--backend online] [--tiles] [--blur 0.02]
+                          [--backend online] [--tiles] [--blur 0.02] [--scratch-mib 1024]
 
 ``--root`` imports the package from another checkout (for example the
 parent commit unpacked with ``git archive``), so that two versions can be
@@ -16,11 +16,15 @@ compared on one card in one session: run parent, change, change, parent.
 Prints one JSON line per size: the host-clock time of each rep after a
 warm-up (around ``torch.cuda.synchronize()``), the peak device memory of
 one call, the loss, and the card's name and power limit. With ``--tiles``,
-one more call after the reps times kernels 5 and 6 (``absorbed_sum_tiles``,
-``gibbs_apply_tiles``): CUDA events around each wrapper call, summed over
-the call (``k5_ms``, ``k6_ms``, with their call counts), and gives the first
-mid-path fine table's kept tiles a row (``kept_mean``, ``kept_max``, its
-``width``; null off the mid path). Needs a CUDA device.
+one more call after the reps times kernels 5, 6 and 7 (``absorbed_sum_tiles``,
+``gibbs_apply_tiles``, ``lse_tiles``): CUDA events around each wrapper
+call, summed over the call (``k5_ms``, ``k6_ms``, ``k7_ms``, with their call
+counts), and gives the first truncation table's kept tiles a row
+(``kept_mean``, ``kept_max``, its ``width``: the mid path's first fine
+table, else the classic path's coarse xy table). ``--scratch-mib`` sets
+the scratch budget of kernels 5 and 6 (``TILES_SCRATCH_BYTES``): a table
+whose slots pass it reads its live count on the host and launches in
+chunks. Needs a CUDA device.
 """
 
 import argparse
@@ -49,6 +53,7 @@ def main():
     ap.add_argument("--backend", default="auto", help="the Sinkhorn call's backend")
     ap.add_argument("--tiles", action="store_true", help="also time kernels 5 and 6 and read the fine table")
     ap.add_argument("--blur", type=float, default=0.05, help="the Sinkhorn call's blur")
+    ap.add_argument("--scratch-mib", type=int, help="kernels 5 and 6's scratch budget (TILES_SCRATCH_BYTES) in MiB")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -57,6 +62,10 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("time_paths.py needs a CUDA device")
     from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.ops import cuda_block_sparse
+
+    if args.scratch_mib is not None:
+        cuda_block_sparse.TILES_SCRATCH_BYTES = args.scratch_mib << 20
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -91,7 +100,8 @@ def main():
             ms.append((time.perf_counter() - t0) * 1e3)
         backend = args.backend if args.loss == "sinkhorn" else "multiscale"
         line = {"root": args.root, "loss_fn": args.loss, "backend": backend, "blur": args.blur, "n": n, "ms": ms,
-                "peak_gb": peak / 1e9, "loss": v.item(), "card": card}
+                "peak_gb": peak / 1e9, "loss": v.item(), "scratch_bytes": cuda_block_sparse.TILES_SCRATCH_BYTES,
+                "card": card}
         if args.tiles:
             line.update(tile_kernels(call))
         print(json.dumps(line), flush=True)
@@ -100,17 +110,18 @@ def main():
 
 
 def tile_kernels(call):
-    """One ``call()`` with kernels 5 and 6 timed (CUDA events around each
-    wrapper call) and the first mid-path fine table's kept tiles read."""
+    """One ``call()`` with kernels 5, 6 and 7 timed (CUDA events around each
+    wrapper call) and the first truncation table's kept tiles read (the
+    mid path's fine table, else the classic path's coarse table)."""
     import torch
 
     from geomloss_tpu_torch.models import multiscale
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
 
-    events = {"absorbed_sum_tiles": [], "gibbs_apply_tiles": []}
+    events = {"absorbed_sum_tiles": [], "gibbs_apply_tiles": [], "lse_tiles": []}
     tables = []
     saved = {name: getattr(cbs, name) for name in events}
-    build = multiscale.build_tile_masks
+    builds = {name: getattr(multiscale, name) for name in ("build_tile_masks", "masks_from_coarse")}
 
     def timed(name):
         def run(*a, **k):
@@ -123,22 +134,27 @@ def tile_kernels(call):
 
         return run
 
-    def recorded(*a, **k):
-        tables.append(build(*a, **k))
-        return tables[-1]
+    def recorded(name):
+        def build(*a, **k):
+            tables.append(builds[name](*a, **k))
+            return tables[-1]
+
+        return build
 
     for name in events:
         setattr(cbs, name, timed(name))
-    multiscale.build_tile_masks = recorded
+    for name in builds:
+        setattr(multiscale, name, recorded(name))
     try:
         call()
         torch.cuda.synchronize()
     finally:
         for name, fn in saved.items():
             setattr(cbs, name, fn)
-        multiscale.build_tile_masks = build
+        for name, fn in builds.items():
+            setattr(multiscale, name, fn)
     out = {}
-    for key, name in (("k5", "absorbed_sum_tiles"), ("k6", "gibbs_apply_tiles")):
+    for key, name in (("k5", "absorbed_sum_tiles"), ("k6", "gibbs_apply_tiles"), ("k7", "lse_tiles")):
         out[f"{key}_ms"] = sum(s.elapsed_time(e) for s, e in events[name])
         out[f"{key}_calls"] = len(events[name])
     cnt = tables[0].counts.double() if tables else None

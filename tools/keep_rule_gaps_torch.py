@@ -6,9 +6,13 @@ and the default tables' kept tiles a row. One JSON line per case:
 * ``spheres``: bench.py's call (``sinkhorn_multiscale``, p = 2, blur 0.05,
   scaling 0.5, debiased, ``potentials=True``) between two unit-sphere
   clouds of 2e6 points (seeds 0 and 1): the mid path, its fine tables
-  (``build_tile_masks``) keeping every tile; ``spheres_1e7``: the same at
+  (``build_tile_masks``) and its truncated extrapolations' tables
+  (``extrap_cols``) keeping every tile; ``spheres_1e7``: the same at
   1e7 points and blur 0.02 (tile 2048; the every-tile solve takes
   minutes), with the loss of both calls (``<a, F> + <b, G>``);
+  ``spheres_1e5``: the same at 1e5 points, bench.py's own size: the
+  classic path, its coarse tables (``masks_from_coarse``) keeping every
+  tile;
 * ``fibers``: the gallery's label transfer
   (``examples_torch/transfer_labels_tractograms.py::transfer``) at
   2,100,000 points (35,000 fibers a bundle): the mid path, the same;
@@ -16,7 +20,7 @@ and the default tables' kept tiles a row. One JSON line per case:
   bundle): the classic path, its coarse tables (``masks_from_coarse``)
   keeping every tile.
 
-    PYTHONPATH=. python3 tools/keep_rule_gaps_torch.py [--root DIR] [--cases spheres fibers classic spheres_1e7]
+    PYTHONPATH=. python3 tools/keep_rule_gaps_torch.py [--root DIR] [--cases spheres fibers classic spheres_1e7 spheres_1e5]
 
 ``--root`` imports the package and the gallery from another checkout (for
 example the parent commit unpacked with ``git archive``), so that two
@@ -34,40 +38,51 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: The sphere cases: points a cloud and blur.
+SPHERES = {"spheres": (2_000_000, 0.05), "spheres_1e7": (10_000_000, 0.02), "spheres_1e5": (100_000, 0.05)}
 #: The table functions and the position of their keep margin (``truncate``).
-MARGIN_AT = {"build_tile_masks": 6, "masks_from_coarse": 8}
+MARGIN_AT = {"build_tile_masks": 6, "masks_from_coarse": 8, "extrap_cols": 4}
 
 
 @contextlib.contextmanager
-def recorded_every_tile(module, name, every_tile):
-    """Records the tables ``module.<name>`` returns; with ``every_tile``,
-    builds them at a keep margin of 1e6 (every tile kept)."""
-    build, tables, pos = getattr(module, name), [], MARGIN_AT[name]
+def recorded_every_tile(targets, every_tile):
+    """Records the tables that each ``module.<name>`` of ``targets`` (pairs
+    ``(module, name)``) returns, as ``{name: [tables]}``; with
+    ``every_tile``, builds them at a keep margin of 1e6 (every tile kept)."""
+    saved = {name: getattr(module, name) for module, name in targets}
+    tables = {name: [] for name in saved}
 
-    def call(*a, **k):
-        if every_tile:
-            a = (*a[:pos], 1e6, *a[pos + 1:])
-        tables.append(build(*a, **k))
-        return tables[-1]
+    def wide(name):
+        build, pos = saved[name], MARGIN_AT[name]
 
-    setattr(module, name, call)
+        def call(*a, **k):
+            if every_tile:
+                a = (*a[:pos], 1e6, *a[pos + 1:])
+            tables[name].append(build(*a, **k))
+            return tables[name][-1]
+
+        return call
+
+    for module, name in targets:
+        setattr(module, name, wide(name))
     try:
         yield tables
     finally:
-        setattr(module, name, build)
+        for module, name in targets:
+            setattr(module, name, saved[name])
 
 
-def every_tile_gap(solve, module, name, eps):
+def every_tile_gap(solve, targets, eps):
     """The largest gap, in units of ``eps``, of the potentials ``solve()``
     returns (a tuple of tensors, on the card) to those of the same call
-    whose ``module.<name>`` tables keep every tile. Returns ``(gap,
-    (default seconds, every-tile seconds), the default call's tables,
-    whether every potential is finite)``."""
+    whose tables of ``targets`` (pairs ``(module, name)``) keep every tile.
+    Returns ``(gap, (default seconds, every-tile seconds), the default
+    call's tables by name, whether every potential is finite)``."""
     import torch
 
     out, secs, tables = [], [], []
     for every_tile in (False, True):
-        with recorded_every_tile(module, name, every_tile) as built, torch.no_grad():
+        with recorded_every_tile(targets, every_tile) as built, torch.no_grad():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out.append([t.double() for t in solve()])
@@ -79,12 +94,19 @@ def every_tile_gap(solve, module, name, eps):
     return gap, tuple(secs), tables[0], finite
 
 
-def gap_line(case, n, eps, solve, module, name, card, root, losses=None):
-    gap, secs, tables, finite = every_tile_gap(solve, module, name, eps)
-    kept = [dict(mean=m.counts.double().mean().item(), max=int(m.counts.max()), width=m.cols.shape[1])
-            for m in tables]
-    print(json.dumps(dict(case=case, n=n, eps=eps, table_fn=name, gap_eps=gap, default_s=secs[0], every_tile_s=secs[1],
-                          finite=finite, tables=kept, losses=losses, root=root, card=card)), flush=True)
+def kept_tiles(table):
+    """Kept tiles a row (mean, max) and width of a ``TileMask`` or an
+    ``extrap_cols`` table ``(cols, counts)``."""
+    cols, counts = (table.cols, table.counts) if hasattr(table, "counts") else table
+    return dict(mean=counts.double().mean().item(), max=int(counts.max()), width=cols.shape[1])
+
+
+def gap_line(case, n, eps, solve, targets, card, root, losses=None):
+    gap, secs, tables, finite = every_tile_gap(solve, targets, eps)
+    kept = {name: [kept_tiles(t) for t in built] for name, built in tables.items()}
+    print(json.dumps(dict(case=case, n=n, eps=eps, table_fns=list(tables), gap_eps=gap, default_s=secs[0],
+                          every_tile_s=secs[1], finite=finite, tables=kept, losses=losses, root=root, card=card)),
+          flush=True)
 
 
 def main():
@@ -101,6 +123,9 @@ def main():
         raise SystemExit("keep_rule_gaps_torch.py needs a CUDA device")
     import transfer_labels_tractograms as tlt
     from geomloss_tpu_torch.models import multiscale as ms
+    from geomloss_tpu_torch.ops import block_sparse as bs
+
+    mid_tables = [(ms, "build_tile_masks"), (bs, "extrap_cols")]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -109,7 +134,7 @@ def main():
     dev = torch.device("cuda")
     for case in args.cases:
         if case.startswith("spheres"):
-            n, blur = (2_000_000, 0.05) if case == "spheres" else (10_000_000, 0.02)
+            n, blur = SPHERES[case]
             x, y = (torch.from_numpy(_sphere(n, seed)).to(dev) for seed in (0, 1))
             w = torch.full((n,), 1.0 / n, device=dev)
             kw = dict(p=2, blur=blur, diameter=2.0, scaling=0.5)
@@ -120,15 +145,16 @@ def main():
                 losses.append(((w * F).sum() + (w * G).sum()).item())  # the debiased loss, <a, F> + <b, G>
                 return F, G
 
-            gap_line(case, n, blur**2, solve, ms, "build_tile_masks", card, root, losses=losses)
+            gap_line(case, n, blur**2, solve, mid_tables if n > ms.N_FINE_OK else [(ms, "masks_from_coarse")],
+                     card, root, losses=losses)
         else:
             n_fibers = 35_000 if case == "fibers" else 16_667
             yv, _, lab = tlt.tractogram(0, n_fibers)
             xv, _, _ = tlt.tractogram(1, n_fibers)
             x, y = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (xv, yv))
             lab = torch.as_tensor(lab, device=dev)
-            gap_line(case, len(xv), tlt.BLUR**2, lambda: tlt.transfer(x, y, lab)[:2], ms,
-                     "build_tile_masks" if case == "fibers" else "masks_from_coarse", card, root)
+            gap_line(case, len(xv), tlt.BLUR**2, lambda: tlt.transfer(x, y, lab)[:2],
+                     mid_tables if case == "fibers" else [(ms, "masks_from_coarse")], card, root)
         del x, y
         torch.cuda.empty_cache()
 
