@@ -138,7 +138,9 @@ def profile_busy_ms(fn, top=8):
         wall = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:  # the ops that launched them
+        # (the ops that launched them run on the host; the device rows of
+        # the program's spans, its record_function annotations, are ranges)
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:

@@ -11,8 +11,7 @@ points and the row-sharded multiscale solve at 2,000,000, on one rank
 and on ranks that share the card), the examples gallery
 (``examples_torch/``: every script at its full size, the label transfer
 at 1,000,000 points) and the benchmark twins (``bench_torch.py``, legs of
-``bench_suite_torch.py``, ``tools/profile_phases_torch.py``), and times
-them.
+``bench_suite_torch.py``), the program's own spans, and times them.
 
     python3 chip_smoke.py
 
@@ -216,8 +215,12 @@ line each:
     tables keep every tile (fails over ``MID_GAP_EPS``);
     ``bench_suite_torch.py``'s tensorized legs at 1e2 and 1e3 and its
     multiscale blur .05 leg at 1e4, each within its bound against float64;
-    ``tools/profile_phases_torch.py`` at 1e6: every phase of the classic
-    path once, finite, each re-run phase bitwise as in the solve.
+    the program's spans (``geomloss_tpu_torch.utils.profiling``) of one
+    call at 1e6 under ``torch.profiler``: every phase of the classic path
+    recorded, nested in its parent, the backward spans under the call's id,
+    with each span's device-idle ms; and a span around one kernel launch
+    and a synchronize holding that kernel's device event, the offsets of
+    the two clocks under ``CLOCK_TOL_US``.
 
 Each phase prints its seconds. Before the last lines the run fails if a
 process it started (nvcc, nvidia-smi, a [parallel] rank) is still there.
@@ -229,6 +232,7 @@ line before the last is the card's name and power limit as ``nvidia-smi``
 reports them; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -2911,9 +2915,18 @@ def gallery_phase(dev, card, clock):
 
 
 #: [bench]: the legs of bench_suite_torch.py it runs, and the size of its
-#: phase profile (tools/profile_phases_torch.py).
+#: profile by the program's spans.
 BENCH_SUITE_LEGS = {"sinkhorn_tensorized_blur.05": [100, 1_000], "sinkhorn_multiscale_blur.05": [10_000]}
 BENCH_PROFILE_N = 1_000_000
+#: The spans of one classic-path call at BENCH_PROFILE_N (at least these
+#: counts).
+BENCH_SPANS = {"loss": 1, "multiscale.prologue": 1, "multiscale.sort": 2, "multiscale.coarse": 1,
+               "multiscale.extrapolate": 1, "multiscale.tables": 1, "solver.eps_loop": 2, "solver.eps_step": 2,
+               "solver.last_extrapolation": 1, "backward.SoftminExtrapolationWalkBanded": 1,
+               "backward.SoftminExtrapolationWalkBandedSym": 1}
+#: Largest offset (us) between the host clock of the spans and the
+#: profiler's host events.
+CLOCK_TOL_US = 50.0
 #: Keys of bench_torch.py's line (bench.py's, and the CUDA timing fields).
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "events_ms", "busy_ms", "profiled_wall_ms", "idle_share",
               "launches", "peak_mem_gb", "loss_value", "loss_exact", "loss_rel_err_vs_exact", "loss_float64",
@@ -2951,17 +2964,127 @@ def coarse_keep_rule(dev, card, n=N_POINTS):
     del x, y, w, coarse, mask, old
 
 
+def span_profile(dev, card, n=BENCH_PROFILE_N):
+    """[bench]: one call of bench.py's (the classic multiscale path at
+    ``n``) under ``torch.profiler`` with the device's activity: the
+    program's spans, each of BENCH_SPANS recorded, every child inside its
+    parent, one call id (the backward spans' too), and each span's
+    device-idle ms (its length less the device events inside it)."""
+    import bench_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.utils import profiling
+
+    x, y = (torch.from_numpy(bench_torch.sphere_cloud(n, seed)).to(dev) for seed in (0, 1))
+    loss = SamplesLoss(**bench_torch.CALL, backend="multiscale")
+    bench_torch.loss_and_grad(loss, x, y)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        v, g = bench_torch.loss_and_grad(loss, x, y)
+        torch.cuda.synchronize()
+    busy = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+    spans = profiling.spans()
+    names = collections.Counter(s.name for s in spans)
+    idle = collections.Counter()
+    for s in spans:
+        covered, end = 0, s.start_ns
+        for b0, b1 in busy:
+            b0, b1 = max(b0, end), min(b1, s.end_ns)
+            if b1 > b0:
+                covered += b1 - b0
+                end = b1
+        idle[s.name] += (s.end_ns - s.start_ns - covered) / 1e6
+    print(f"[bench] spans of one call at N=M={n} (loss {v.item()!r}): "
+          + json.dumps({k: [names[k], round(idle[k], 3)] for k in sorted(names)})
+          + f" ([count, device-idle ms]); counts {json.dumps(profiling.counts())}; card {card}", flush=True)
+    missing = {k: names[k] for k, c in BENCH_SPANS.items() if names[k] < c}
+    if missing:
+        fail(f"the spans of one call at N={n} lack {missing}: {dict(names)}")
+    by_seq = {s.seq: s for s in spans}
+    outside = [s.name for s in spans if s.parent is not None and not (
+        by_seq[s.parent].start_ns <= s.start_ns and s.end_ns <= by_seq[s.parent].end_ns)]
+    if outside or len({s.call_id for s in spans}) != 1:
+        fail(f"spans outside their parents {outside} or calls {sorted({s.call_id for s in spans})}")
+    if not (math.isfinite(v.item()) and bool(torch.isfinite(g).all())):
+        fail("the profiled call is not finite")
+    profiling.reset()
+
+
+def span_clock(dev, card, n=N_POINTS, reps=5):
+    """[bench]: ``reps`` spans, each around one launch of kernel 1 and a
+    synchronize, under ``torch.profiler`` with host and device activity
+    (after a few launches of warm-up in the session: a session that follows
+    one of other activities can miss its first device events). Each span
+    must hold the device event of the kernel it launched, found by time.
+    The clocks: a ``record_function`` event opened between two
+    ``time.time_ns()`` reads must start between them (its offset, 0
+    inside), and each kernel must start after the start of the runtime
+    call that launched it (found by its correlation id), by the launch's
+    latency (printed: 6-59 us on an H100); fails where the offset reaches
+    ``CLOCK_TOL_US`` or a kernel starts before its launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+    from geomloss_tpu_torch.utils import profiling
+
+    x, y = (torch.from_numpy(sphere_cloud(n, seed)).to(dev) for seed in (0, 1))
+    h = torch.zeros(n, device=dev)
+    ck.lse(x, y, h, 0.1)
+    torch.cuda.synchronize()
+    profiling.reset()
+    brackets = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ck.lse(x, y, h, 0.1)
+            torch.cuda.synchronize()
+        for _ in range(reps):
+            with profiling.span("clock.probe"):
+                ck.lse(x, y, h, 0.1)
+                torch.cuda.synchronize()
+            t0 = time.time_ns()
+            with record_function("clock.mark"):
+                t1 = time.time_ns()
+            brackets.append((t0, t1))
+    events = list(prof.profiler.kineto_results.events())
+    probes = [s for s in profiling.spans() if s.name == "clock.probe"]
+    marks = sorted(e.start_ns() for e in events if e.name() == "clock.mark" and e.device_type() == DeviceType.CPU)
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA and "lse_kernel" in e.name()
+               and "merge" not in e.name()]
+    calls = {e.correlation_id(): e for e in events if e.device_type() == DeviceType.CPU and e.name().startswith("cuda")}
+    rows = []
+    for s, (t0, t1), mark in zip(probes, brackets, marks):
+        mine = [k for k in kernels if s.start_ns <= k.start_ns() <= s.end_ns]
+        call = calls.get(mine[0].correlation_id()) if len(mine) == 1 else None
+        rows.append({
+            "kernels": len(mine),
+            "inside": len(mine) == 1 and mine[0].start_ns() + mine[0].duration_ns() <= s.end_ns,
+            "span_to_kernel_us": mine[0].start_ns() / 1e3 - s.start_ns / 1e3 if mine else None,
+            "mark_offset_us": max(0, t0 - mark, mark - t1) / 1e3, "bracket_us": (t1 - t0) / 1e3,
+            "launch_to_kernel_us": None if call is None else (mine[0].start_ns() - call.start_ns()) / 1e3,
+        })
+    print(f"[bench] span clock (kernel 1 at N=M={n}, {reps} spans): {json.dumps(rows)}; card {card}", flush=True)
+    if len(rows) != reps or not all(r["inside"] for r in rows):
+        fail(f"a span does not hold the device event of the kernel it launched: {rows} ({len(probes)} spans, "
+             f"{len(marks)} marks, {len(kernels)} kernels of {len(events)} events)")
+    latency = [r["launch_to_kernel_us"] for r in rows if r["launch_to_kernel_us"] is not None]
+    if max(r["mark_offset_us"] for r in rows) >= CLOCK_TOL_US or (latency and min(latency) < 0):
+        fail(f"the clocks disagree: {rows} (tolerance {CLOCK_TOL_US} us)")
+    profiling.reset()
+
+
 def bench_phase(dev, card):
     """[bench]: the benchmark twins, as functions. bench_torch.py's call
     (bench.py's, at 1e5: the multiscale route) with its launches counted
     from zero, its line's keys, and its loss within PATH_TOL of the same
     call through the float64 twins (``loss_rel_err_vs_exact`` printed: it
     measures the multiscale scheme against the online one); the suite's
-    BENCH_SUITE_LEGS, each within its bound; the phase profile at
-    BENCH_PROFILE_N, every phase once, each re-run bitwise as in the
-    solve."""
-    import importlib.util
-
+    BENCH_SUITE_LEGS, each within its bound; the program's spans at
+    BENCH_PROFILE_N (:func:`span_profile`) and their clock
+    (:func:`span_clock`)."""
     import bench_suite_torch
     import bench_torch
     from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
@@ -2997,28 +3120,8 @@ def bench_phase(dev, card):
                          f"{leg['grad_bound_vs_float64']:.3e}) against float64 over its bound")
     print(f"[bench] suite legs within their bounds: {json.dumps(results)} (median ms)", flush=True)
 
-    spec = importlib.util.spec_from_file_location(
-        "profile_phases_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
-                                             "profile_phases_torch.py"))
-    profile_phases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(profile_phases)
-    rows = []
-
-    def emit(**row):
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-
-    profile_phases.profile(BENCH_PROFILE_N, dev, card, emit)
-    phases = [r["phase"] for r in rows]
-    # The classic path at this size (no mid scale):
-    expected = [p for p in profile_phases.PHASES if p not in profile_phases.MID_ONLY]
-    if phases != expected:
-        fail(f"the phase profile at N={BENCH_PROFILE_N} gave {phases}, not {expected}")
-    if not (math.isfinite(rows[0]["loss"]) and rows[0]["grad_finite"]):
-        fail("the phase profile's full call is not finite")
-    differ = [r["phase"] for r in rows if r.get("same_as_solve") is False]
-    if differ:
-        fail(f"re-run phases {differ} differ from the solve's own")
+    span_profile(dev, card)
+    span_clock(dev, card)
     phase_took("bench", t_phase)
 
 
@@ -3467,7 +3570,7 @@ def main():
                 lambda x: ms.sinkhorn_multiscale(w64, x, w64, y0.to(f64), impl="blocked", **kwp), x0.to(f64)
             )
             compare("mid", f"mid path forced (N_FINE_OK={N_FINE_FORCED}) N=M={N_POINTS} p={p}, "
-                    f"launches {json.dumps(cbs.launch_counts)}", v_f, g_f, v_fr, g_fr)
+                    f"launches {json.dumps(dict(cbs.launch_counts))}", v_f, g_f, v_fr, g_fr)
     finally:
         ms.N_FINE_OK = saved
 

@@ -38,6 +38,7 @@ from ..ops.block_sparse import CUSTOM_CHUNK_ELEMS, kernel_matvec_sparse, masks_f
 from ..ops.costs import distances, squared_distances
 from ..ops.softmin import gibbs_matvec
 from ..solvers.sinkhorn_loop import scal
+from ..utils import profiling
 from .multiscale import _desort, auto_tile, spatial_sort_blocks
 
 __all__ = [
@@ -135,14 +136,15 @@ def kernel_loss(
     else:
         matvec = partial(_kernel_matvec_streaming, name, blur, impl=impl)
 
-    # Self-interaction terms with detached partners and doubled gradients:
-    a_x = matvec(double_grad(x), x.detach(), a.detach())  # (B, N)
-    b_y = matvec(double_grad(y), y.detach(), b.detach())  # (B, M)
-    # Cross term, differentiable in everything:
-    b_x = matvec(x, y, b)  # (B, N)
+    with profiling.span("mmd.applies"):
+        # Self-interaction terms with detached partners and doubled gradients:
+        a_x = matvec(double_grad(x), x.detach(), a.detach())  # (B, N)
+        b_y = matvec(double_grad(y), y.detach(), b.detach())  # (B, M)
+        # Cross term, differentiable in everything:
+        b_x = matvec(x, y, b)  # (B, N)
+        a_y = matvec(y, x, a) if potentials else None  # (B, M): K_yx a = (K_xy)^T a by symmetry
 
     if potentials:
-        a_y = matvec(y, x, a)  # (B, M): K_yx a = (K_xy)^T a by symmetry
         return a_x - b_x, b_y - a_y
 
     batch = x.ndim > 2
@@ -271,12 +273,13 @@ def kernel_multiscale(
         def mv(xx, yy, vv, mask):
             return _kernel_matvec_sparse_custom(kernel, blur, xx, yy, vv, mask.cols, mask.counts, tile)
 
-    a_x = mv(double_grad(x_s), x_sd, aw, mask_xx)
-    b_y = mv(double_grad(y_s), y_sd, bw, mask_yy)
-    b_x = mv(x_s, y_s, b_s, mask_xy)
+    with profiling.span("mmd.applies"):
+        a_x = mv(double_grad(x_s), x_sd, aw, mask_xx)
+        b_y = mv(double_grad(y_s), y_sd, bw, mask_yy)
+        b_x = mv(x_s, y_s, b_s, mask_xy)
+        a_y = mv(y_s, x_s, a_s, mask_xy.transpose()) if potentials else None
 
     if potentials:
-        a_y = mv(y_s, x_s, a_s, mask_xy.transpose())
         return _desort(a_x - b_x, perm_x, N), _desort(b_y - a_y, perm_y, M)
 
     return 0.5 * scal(double_grad(a_s), a_x) + 0.5 * scal(double_grad(b_s), b_y) - scal(a_s, b_x)

@@ -57,6 +57,7 @@ from ..ops.softmin import (
 from ..ops.spatial import hilbert_key
 from ..solvers.annealing import dampening, scaling_parameters
 from ..solvers.sinkhorn_loop import log_weights, sinkhorn_cost
+from ..utils import profiling
 
 __all__ = [
     "sinkhorn_multiscale",
@@ -136,6 +137,7 @@ def kd_sort_perm(x, leaf_size):
     return idx
 
 
+@profiling.spanned("multiscale.sort")
 def spatial_sort_blocks(a, x, cluster_scale, diameter, block_size, pad_multiple=TILE, labels=None):
     """Sort a measure spatially and group it into fixed-size blocks.
 
@@ -240,16 +242,19 @@ def mid_delay(n_max, eps_list, jump, scaling, p):
 def _iterate(step, carry, eps_seg, rho, debias):
     """Symmetric averaged updates over ``eps_seg``: ``step(eps, f_ba, g_ab,
     f_aa, g_bb)`` returns the four raw softmins (the last two ``None``
-    without debiasing)."""
+    without debiasing). A ``solver.eps_loop`` span, one ``solver.eps_step``
+    a temperature."""
     f_ba, g_ab, f_aa, g_bb = carry
-    for eps in eps_seg:
-        damp = dampening(eps, rho)
-        S_xy, S_yx, S_xx, S_yy = step(eps, f_ba, g_ab, f_aa, g_bb)
-        f_ba = 0.5 * (f_ba + damp * S_xy)
-        g_ab = 0.5 * (g_ab + damp * S_yx)
-        if debias:
-            f_aa = 0.5 * (f_aa + damp * S_xx)
-            g_bb = 0.5 * (g_bb + damp * S_yy)
+    with profiling.span("solver.eps_loop"):
+        for eps in eps_seg:
+            with profiling.span("solver.eps_step"):
+                damp = dampening(eps, rho)
+                S_xy, S_yx, S_xx, S_yy = step(eps, f_ba, g_ab, f_aa, g_bb)
+                f_ba = 0.5 * (f_ba + damp * S_xy)
+                g_ab = 0.5 * (g_ab + damp * S_yx)
+                if debias:
+                    f_aa = 0.5 * (f_aa + damp * S_xx)
+                    g_bb = 0.5 * (g_bb + damp * S_yy)
     return f_ba, g_ab, f_aa, g_bb
 
 
@@ -278,6 +283,7 @@ def _extrapolate(ext, eps, damp, x_e, y_e, src_x, src_y, a_log, b_log, carry, de
     return f_new, g_new, damp * ext(x_e, src_x, a_log + f_aa / eps), damp * ext(y_e, src_y, b_log + g_bb / eps)
 
 
+@profiling.spanned("multiscale.mid")
 def run_mid_phase(sm, carry, x_c, y_c, a_log_c, b_log_c, a_s, b_s, x_sd, y_sd, eps_list, jump, n_delay,
                   rho, debias, block_size, scaling, verbose=False):
     """Pooled intermediate scale between the coarse and fine scales
@@ -363,6 +369,7 @@ class Prologue(NamedTuple):
     eps_m: float
 
 
+@profiling.spanned("multiscale.prologue")
 def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate, cost, cluster_scale, debias,
                         labels_x, labels_y, verbose, impl, block_size, cap, target_clusters, tile, shards=1):
     """Everything of :func:`sinkhorn_multiscale` before the fine iterations:
@@ -412,19 +419,20 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
 
     with torch.no_grad():
         # --- Coarse phase -------------------------------------------------------
-        eps0 = eps_list[0]
-        damp0 = dampening(eps0, rho)
-        g_ab = damp0 * sm(eps0, (y_c, x_c), a_log_c)
-        f_ba = damp0 * sm(eps0, (x_c, y_c), b_log_c)
-        if debias:
-            f_aa = damp0 * sm(eps0, (x_c, x_c), a_log_c)
-            g_bb = damp0 * sm(eps0, (y_c, y_c), b_log_c)
-        else:
-            f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
-        coarse = _iterate(
-            _dense_step(sm, x_c, y_c, a_log_c, b_log_c, debias), (f_ba, g_ab, f_aa, g_bb),
-            eps_list[: jump + 1], rho, debias,
-        )
+        with profiling.span("multiscale.coarse"):
+            eps0 = eps_list[0]
+            damp0 = dampening(eps0, rho)
+            g_ab = damp0 * sm(eps0, (y_c, x_c), a_log_c)
+            f_ba = damp0 * sm(eps0, (x_c, y_c), b_log_c)
+            if debias:
+                f_aa = damp0 * sm(eps0, (x_c, x_c), a_log_c)
+                g_bb = damp0 * sm(eps0, (y_c, y_c), b_log_c)
+            else:
+                f_aa, g_bb = torch.zeros_like(f_ba), torch.zeros_like(g_ab)
+            coarse = _iterate(
+                _dense_step(sm, x_c, y_c, a_log_c, b_log_c, debias), (f_ba, g_ab, f_aa, g_bb),
+                eps_list[: jump + 1], rho, debias,
+            )
 
         # --- Intermediate scale -------------------------------------------------
         src_x, src_y, src_la, src_lb = x_c, y_c, a_log_c, b_log_c
@@ -456,7 +464,7 @@ def multiscale_prologue(a, x, b, y, p, blur, reach, diameter, scaling, truncate,
             )
         return sm(eps_j, (rows, src), h)
 
-    with torch.set_grad_enabled(last_is_jump and torch.is_grad_enabled()):
+    with torch.set_grad_enabled(last_is_jump and torch.is_grad_enabled()), profiling.span("multiscale.extrapolate"):
         fine = _extrapolate(
             extrap, eps_j, damp_j, x_e, y_e, src_x, src_y, src_la, src_lb, coarse, debias
         )
@@ -562,7 +570,8 @@ def sinkhorn_multiscale(
         # --- Differentiable last extrapolation ----------------------------------
         eps_last = eps_list[-1]
         damp = dampening(eps_last, rho)
-        S_xy, S_yx, S_xx, S_yy = fused_extrap(eps_last, *fine)
+        with profiling.span("solver.last_extrapolation"):
+            S_xy, S_yx, S_xx, S_yy = fused_extrap(eps_last, *fine)
         fine = (damp * S_xy, damp * S_yx) + ((damp * S_xx, damp * S_yy) if debias else fine[2:])
 
     # Zero-mass (padding) slots can carry huge potentials (the -1e5
@@ -603,6 +612,7 @@ def block_radii(w, pts, cent, block):
     return torch.where(w.reshape(-1, block) > 0, d, 0.0).amax(dim=1)
 
 
+@profiling.spanned("multiscale.tables")
 def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, debias, cost=None, radii=None,
                    eps_min=None):
     """Tables of the classic path: the reference's pointwise keep rule on
@@ -628,6 +638,7 @@ def _coarse_tables(x_c, y_c, aw_c, bw_c, coarse, eps_j, p, truncate, bpt, cap, d
     )
 
 
+@profiling.spanned("multiscale.tables")
 def _mid_tables(x_sd, y_sd, a_w, b_w, fine, eps_b, p, truncate, tile, cap_m, debias, verbose, eps_min=None):
     """Tables of the mid path: the keep rule on tile-pooled fine potentials
     (:func:`build_tile_masks`) at the first fine temperature ``eps_b``, its
@@ -666,7 +677,9 @@ def fine_tables(mask_xy, eps_m, eps_fine, truncate):
     the potentials it gave made the label votes NaN
     (``examples_torch/transfer_labels_tractograms.py``). Where no row
     exceeds the schedule's width, the tables are the JAX package's. One
-    host read per table gives every temperature's largest count.
+    host read per table (counted as ``host.reads``) gives every
+    temperature's largest count; ``table`` runs in a ``multiscale.tables``
+    span.
     """
     ck_of = {e: ck for ck, es in fine_cap_schedule(eps_fine, eps_m, mask_xy.cols.shape[1]) for e in es}
     widths = {}
@@ -674,11 +687,13 @@ def fine_tables(mask_xy, eps_m, eps_fine, truncate):
     def width(mask, e):
         if id(mask) not in widths:
             need = torch.stack([retighten_counts(mask.vals, truncate * (f - eps_m)).max() for f in ck_of]).tolist()
+            profiling.count("host.reads")
             full = mask.cols.shape[1]
             # (the mask is kept beside its widths, so that its id stays its own)
             widths[id(mask)] = mask, {f: min(full, max(ck_of[f], -(-n // 8) * 8)) for f, n in zip(ck_of, need)}
         return widths[id(mask)][1][e]
 
+    @profiling.spanned("multiscale.tables")
     def table(mask, e):
         ck = width(mask, e)
         cnt = torch.clamp(retighten_counts(mask.vals, truncate * (e - eps_m)), max=ck)

@@ -16,6 +16,7 @@ from functools import partial
 
 import torch
 
+from ..utils import profiling
 from .kernel_samples import kernel_multiscale, kernel_online, kernel_tensorized
 from .multiscale import sinkhorn_multiscale
 from .sinkhorn_samples import sinkhorn_online, sinkhorn_tensorized
@@ -83,8 +84,10 @@ class SamplesLoss(torch.nn.Module):
         self.potentials = potentials
         self.verbose = verbose
 
+    @profiling.spanned("loss", new_call=True)
     def forward(self, *args):
-        """Compute the loss between two sampled measures."""
+        """Compute the loss between two sampled measures (the root span of a
+        call, :mod:`..utils.profiling`)."""
         l_x, a, x, l_y, b, y = self.process_args(*args)
         B, N, M, D, l_x, a, l_y, b = self.check_shapes(l_x, a, x, l_y, b, y)
 

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import profiling
 from . import cuda_block_sparse as cbs
 from .cuda_kernels import SUM_FLOOR, _absorbed_update
 from .costs import cost_routines
@@ -138,11 +139,25 @@ def _cols_from_score(score, cap):
     return cols, counts.to(torch.int32), vals
 
 
+def _tile_mask(score, cap, sym):
+    """The :class:`TileMask` of a tile keep score (``> 0``: kept), ``cap``
+    tiles wide in both directions; ``sym``: the transposed table is the same
+    table. Counted as one table built (``tables.row_tiles``,
+    ``tables.kept_tiles``: its row direction)."""
+    cols, counts, vals = _cols_from_score(score, cap)
+    if sym:
+        colsT, countsT, valsT = cols, counts, vals
+    else:
+        colsT, countsT, valsT = _cols_from_score(score.T, cap)
+    profiling.count_table(counts, cols.shape[1])
+    return TileMask(cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT)
+
+
 def kept_width(score, floor, transposed=True):
     """Default width of a table over the keep scores ``score`` (``> 0``:
     kept): ``floor``, or, where a row (or, with ``transposed``, a column)
     keeps more tiles, that count rounded up to a multiple of 8, so that no
-    kept tile is dropped. One host read.
+    kept tile is dropped. One host read (counted as ``host.reads``).
 
     The JAX package's default widths are the floors alone, and a row that
     keeps more keeps its best-scored tiles. Dropping the others gave wrong
@@ -156,6 +171,7 @@ def kept_width(score, floor, transposed=True):
     most = kept.sum(1).max()
     if transposed:
         most = torch.maximum(most, kept.sum(0).max())
+    profiling.count("host.reads")
     return max(floor, -(-int(most) // 8) * 8)
 
 
@@ -286,14 +302,7 @@ def masks_from_coarse(
     score_t = score.reshape(nI, blocks_per_tile, nJ, blocks_per_tile).amax(dim=(1, 3))
     if cap is None:
         cap = kept_width(score_t, max(32, min(nJ // 8, 128)))
-    cols, counts, vals = _cols_from_score(score_t, cap)
-    if sym:
-        colsT, countsT, valsT = cols, counts, vals
-    else:
-        colsT, countsT, valsT = _cols_from_score(score_t.T, cap)
-    return TileMask(
-        cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
-    )
+    return _tile_mask(score_t, cap, sym)
 
 
 def keep_slack(eps_min, p, truncate):
@@ -396,14 +405,7 @@ def build_tile_masks(x, y, f, g, eps, p, truncate, block, cap=None, w_x=None, w_
 
     if cap is None:
         cap = kept_width(score, floor if floor is not None else max(32, min(nJ // 8, 128)))
-    cols, counts, vals = _cols_from_score(score, cap)
-    if sym:
-        colsT, countsT, valsT = cols, counts, vals
-    else:
-        colsT, countsT, valsT = _cols_from_score(score.T, cap)
-    return TileMask(
-        cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
-    )
+    return _tile_mask(score, cap, sym)
 
 
 def extrap_cap(n_src_tiles):
@@ -600,6 +602,7 @@ def _dx(x, R, r, u):
     return u[:, None] * (x * R[:, :1] - R[:, 1:]) / r[:, None]
 
 
+@profiling.autograd_spans
 class _SoftminExtrapolationWalkBanded(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, f, g, loga, logb, eps, cols, cnt, p, tile, impl):
@@ -633,6 +636,7 @@ def softmin_extrapolation_walk_banded(x, y, f, g, loga, logb, eps, cols, cnt, p,
     )
 
 
+@profiling.autograd_spans
 class _SoftminExtrapolationWalkBandedSym(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, f, loga, eps, cols, cnt, p, tile, impl):
@@ -686,6 +690,7 @@ def lse_sparse(x, y, h, eps, cols, counts, p=2, block_n=256, block_m=512, impl="
     return cbs.lse_sparse(x, y, h, eps, cols, counts, p, block_n, block_m)
 
 
+@profiling.spanned("multiscale.tables")
 def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=False, stat_block=None):
     """Tile masks from a pure distance rule: keep the tile pairs whose
     smallest possible pointwise distance (centroid distance minus both
@@ -718,16 +723,10 @@ def masks_from_geometry(x, y, radius, block, cap=None, w_x=None, w_y=None, sym=F
     score = _tile_maxpool(torch.where(valid, score, NEG_INF), block // sb)
     if cap is None:
         cap = kept_width(score, max(8, min(nJ // 8, 128)))
-    cols, counts, vals = _cols_from_score(score, cap)
-    if sym:
-        colsT, countsT, valsT = cols, counts, vals
-    else:
-        colsT, countsT, valsT = _cols_from_score(score.T, cap)
-    return TileMask(
-        cols=cols, counts=counts, colsT=colsT, countsT=countsT, vals=vals, valsT=valsT
-    )
+    return _tile_mask(score, cap, sym)
 
 
+@profiling.autograd_spans
 class _LseSparseDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, h, eps, cols, counts, colsT, countsT, p, block, impl):
@@ -775,6 +774,7 @@ def softmin_sparse(eps, C_xy, h, p=2, block=256, impl="auto"):
     return -eps * out
 
 
+@profiling.autograd_spans
 class _KernelMatvecSparse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, v, eps, cols, counts, colsT, countsT, p, block, impl):
@@ -904,6 +904,7 @@ def _table_ops(table, eps, p, block, impl):
     return sums, apply
 
 
+@profiling.autograd_spans
 class _AbsorbedSoftminRows(torch.autograd.Function):
     """``S = f + eps (loga - log r)`` with ``r`` the absorbed row sums over
     a table; differentiable in x only (y gets zeros where asked)."""

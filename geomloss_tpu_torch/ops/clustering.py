@@ -10,11 +10,18 @@ and :func:`cluster_ranges_centroids` return NumPy arrays;
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 __all__ = ["grid_cluster", "cluster_ranges_centroids", "clusterize"]
 
 
 def _host(v):
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    """``v`` as a NumPy array; a tensor is read to the host (counted as
+    ``host.reads``)."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    profiling.count("host.reads")
+    return v.detach().cpu().numpy()
 
 
 def grid_cluster(x, scale) -> np.ndarray:

@@ -67,6 +67,7 @@ fixed order.
 
 import torch
 
+from ..utils import profiling
 from . import cuda_kernels as ck
 from .cuda_kernels import (
     LOG2E,
@@ -125,23 +126,16 @@ _LSE_TILES_BLOCKS = 4096
 #: into ranges (:func:`sum_rows_plan`).
 _SUM_BLOCKS = 4096
 
-#: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts = {
-    "absorbed_sum_tiles": 0,
-    "gibbs_apply_tiles": 0,
-    "lse_tiles": 0,
-    "lse_sparse": 0,
-    "gibbs_apply_sparse": 0,
-    "gibbs_apply_walk": 0,
-    "absorbed_sum_sparse": 0,
-    "absorbed_sum_walk": 0,
-    "walk_rows": 0,
-}
+#: Kernel launches per wrapper since the last :func:`reset_launch_counts`
+#: (a view of the counters ``kernels.launches.<wrapper>``).
+launch_counts = profiling.TotalsView(ck.LAUNCHES, (
+    "absorbed_sum_tiles", "gibbs_apply_tiles", "lse_tiles", "lse_sparse", "gibbs_apply_sparse", "gibbs_apply_walk",
+    "absorbed_sum_sparse", "absorbed_sum_walk", "walk_rows",
+))
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    launch_counts.reset()
 
 
 _P, _I, _F = ck._P, ck._I, ck._F
@@ -168,7 +162,6 @@ _LIB = ck.KernelLibrary(
         # parts, order, offsets, out, nseg, L, nsub, stream
         "gl_segment_sum": [_P] * 4 + [_I] * 3 + [_P],
     },
-    launch_counts,
 )
 
 
@@ -260,11 +253,12 @@ def _segment_sum(parts, index, out, L, nsub):
 
 def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes, row_offset=0):
     """The launches of kernel 5 or 6 over the slots of :func:`_live_slots`:
-    ``(R, chunks)``, ``R`` slots of scratch and, for each chunk, ``(q0, n,
-    row index, column index)``. The row index sums a chunk's row partials
-    into its row tiles (live slots are in row-major order), the column
-    index its column partials into its column tiles; both leave the dead
-    slots out.
+    ``(R, chunks, live)``, ``R`` slots of scratch, for each chunk ``(q0, n,
+    row index, column index)``, and whether the chunks hold live slots
+    only (the host read the live count). The row index sums a chunk's row
+    partials into its row tiles (live slots are in row-major order), the
+    column index its column partials into its column tiles; both leave the
+    dead slots out.
 
     A table whose slots all fit :data:`TILES_SCRATCH_BYTES` is one launch
     over every slot, the dead ones returning at once: the host never waits
@@ -273,8 +267,10 @@ def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes, row_offset=0):
     budget: there the device sets the pace, and dead slots cost no launch.
     """
     n = slot_i.shape[0]
-    if n * slot_bytes > TILES_SCRATCH_BYTES:
+    live = n * slot_bytes > TILES_SCRATCH_BYTES
+    if live:
         n = int((slot_j >= 0).sum())
+        profiling.count("host.reads")
     # Chunks of equal size up to one, at least one slot each:
     R = _even_chunks(max(n, 1), TILES_SCRATCH_BYTES // slot_bytes)
     ident = torch.arange(R, dtype=torch.int32, device=slot_i.device)
@@ -282,7 +278,19 @@ def _chunks(slot_i, slot_j, nI, nJ, tri, slot_bytes, row_offset=0):
     for q0 in range(0, n, R):
         si, sj = slot_i[q0 : min(q0 + R, n)], slot_j[q0 : min(q0 + R, n)]
         out.append((q0, si.shape[0], (ident, _offsets(si, nI)), _column_index(si, sj, nJ, tri, row_offset)))
-    return R, out
+    return R, out, live
+
+
+def _count_slot_pairs(n, live, cnt, slot_j, tri, row_offset, tile):
+    """Counts the point pairs of one launch of kernel 5 or 6 over ``n``
+    slots: ``n`` tile pairs where they are all live (the host read the live
+    count), else the table's live slots, a device sum once per table
+    (while recording)."""
+    if live:
+        profiling.count("kernels.pairs", n * tile * tile)
+    elif profiling.recording():
+        live_slots = profiling.table_sum(cnt, ("live", tri, row_offset), lambda: (slot_j >= 0).sum())
+        profiling.count("kernels.pairs", live_slots, tile * tile)
 
 
 # ==============================================================================
@@ -329,6 +337,7 @@ def walk_plan(cols, counts, t_mean):
     nc = _cdiv(nI, rows_c)
     nIp = nc * rows_c
     cols, counts = cols.to(torch.int32), counts.to(torch.int32)
+    profiling.count("host.reads")
     if rows_c > 1 << _WALK_BITS or int(cols.max()) > _WALK_MASK:
         raise ValueError(f"walk_plan: row and column tiles must fit in {_WALK_BITS} bits.")
     if nIp != nI:
@@ -626,7 +635,7 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False,
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, p)
     f32 = dict(dtype=torch.float32, device=x.device)
-    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub), row_offset)
+    R, chunks, live = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * tile * (1 + nsub), row_offset)
     # Partials of one chunk of live slots, added into r and c in slot order
     # before the next chunk (deterministic, bounded):
     rowpart = torch.empty((R, 1, tile), **f32)
@@ -641,6 +650,7 @@ def absorbed_sum_tiles(x, y, phi, psi, eps, cols, cnt, p=2, tile=512, tri=False,
                 rowpart.data_ptr(), colpart.data_ptr(), n, tile, kv, p, int(tri), row_offset, LOG2E / eps,
                 count="absorbed_sum_tiles",
             )
+            _count_slot_pairs(n, live, cnt, slot_j, tri, row_offset, tile)
             _segment_sum(rowpart, rows, r, tile, 1)
             _segment_sum(colpart, cols_ix, c, tile, nsub)
     return r.view(-1).to(phi.dtype), c.view(-1).to(psi.dtype)
@@ -681,7 +691,7 @@ def gibbs_apply_tiles(
     Vyp = torch.nn.functional.pad(_f32(Vy), (0, Cp - C))
     Vxp = torch.nn.functional.pad(_f32(Vx), (0, Cp - C))
     f32 = dict(dtype=torch.float32, device=x.device)
-    R, chunks = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub), row_offset)
+    R, chunks, live = _chunks(slot_i, slot_j, nI, nJ, tri, 4 * G * tile * (1 + nsub), row_offset)
     rowpart = torch.empty((R, 1, tile * G), **f32)
     colpart = torch.empty((R, nsub, G * tile), **f32)
     rows_out, cols_out = [], []
@@ -699,6 +709,7 @@ def gibbs_apply_tiles(
                     colpart.data_ptr(), n, tile, kv, mode, int(tri), row_offset, LOG2E / eps,
                     count="gibbs_apply_tiles",
                 )
+                _count_slot_pairs(n, live, cnt, slot_j, tri, row_offset, tile)
                 _segment_sum(rowpart, rows, r, tile * G, 1)
                 _segment_sum(colpart, cols_ix, c, G * tile, nsub)
             rows_out.append(r.view(-1, G))
@@ -745,6 +756,8 @@ def _lse_launch(x, y, h, eps, cols, cnt, block_n, block_m, p, count):
             out.data_ptr(), part.data_ptr(), n_rows, width, block_n, block_m, S, span, ld, x.shape[1], kv, p,
             LOG2E / eps, count=count,
         )
+    if profiling.recording():
+        profiling.count("kernels.pairs", profiling.kept_tiles(cnt, width), block_n * block_m)
     return out.to(x.dtype)
 
 
@@ -795,8 +808,9 @@ def gibbs_apply_sparse(
     if not x.is_cuda:
         return gibbs_apply_sparse_blocked(x, y, phi, psi, V, eps, cols, counts, p, kind, block_n, block_m)
     _check_cuda("gibbs_apply_sparse", x, y, phi, psi, V, cols, counts)
-    rows = _dense_rows(cols, counts)
-    return _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, "gibbs_apply_sparse")
+    kept = profiling.kept_tiles(counts, cols.shape[1]) if profiling.recording() else None
+    return _apply_rows(x, y, phi, psi, V, eps, _dense_rows(cols, counts), p, kind, block_n, block_m,
+                       "gibbs_apply_sparse", kept)
 
 
 def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512, block_m=512):
@@ -811,15 +825,24 @@ def gibbs_apply_walk(x, y, phi, psi, V, eps, tbl, p=2, kind="gibbs", block_n=512
     if not x.is_cuda:
         return gibbs_apply_walk_blocked(x, y, phi, psi, V, eps, tbl, p, kind, block_n, block_m)
     _check_cuda("gibbs_apply_walk", x, y, phi, psi, V, tbl)
-    return _apply_rows(x, y, phi, psi, V, eps, _walk_rows(tbl, nI), p, kind, block_n, block_m, "gibbs_apply_walk")
+    rows = _walk_rows(tbl, nI)
+    return _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, "gibbs_apply_walk",
+                       _walk_kept(tbl, rows))
 
 
-def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count, order=None):
+def _walk_kept(tbl, rows):
+    """The kept tiles of a decoded walk table, a device sum once per table
+    (while recording), else ``None``."""
+    return profiling.table_sum(tbl, "kept", lambda: rows[2].sum()) if profiling.recording() else None
+
+
+def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count, kept=None, order=None):
     """Kernel 8 over a CSR table, one launch per channel group
     (``cuda_kernels._group_channels``), each row's kept tiles cut into
     :func:`sum_rows_plan`'s ranges (merged in the launch), the row tiles in
     order of decreasing kept count (a sort on the device), or in
-    ``order``."""
+    ``order``. ``kept``, the table's kept tiles (a 0-d device tensor, while
+    recording), counts each launch's point pairs."""
     mode = ck._APPLY_MODES[(kind, p)]
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, 2 if mode == 0 else 1)
@@ -840,6 +863,8 @@ def _apply_rows(x, y, phi, psi, V, eps, rows, p, kind, block_n, block_m, count, 
                 v[g].data_ptr(), cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), order.data_ptr(),
                 out[g].data_ptr(), part.data_ptr(), n_rows, block_n, block_m, S, kv, G, mode, c2, count=count,
             )
+            if kept is not None:
+                profiling.count("kernels.pairs", kept, block_n * block_m)
     return _ungroup_channels(out, V.shape[1]).to(V.dtype)
 
 
@@ -860,10 +885,10 @@ def sum_rows_plan(n_rows, block_n, N, C=1):
     return max(1, min(_cdiv(_SUM_BLOCKS, max(blocks, 1)), ck._MAX_GRID_Y, scratch))
 
 
-def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):
+def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count, kept=None):
     """Kernel 12 over a CSR table: raw absorbed row sums, float32, one
     launch and, where :func:`sum_rows_plan` cuts the rows into ranges,
-    their merge."""
+    their merge; ``kept`` as :func:`_apply_rows`'."""
     eps = float(eps)
     xv, yv, rb, cb, kv = _pair_vectors(x, y, phi, psi, eps, p)
     cols, start, cnt = rows
@@ -877,6 +902,8 @@ def _sum_rows(x, y, phi, psi, eps, rows, p, block_n, block_m, count):
             cols.data_ptr(), start.data_ptr(), cnt.data_ptr(), out.data_ptr(), part.data_ptr(), n_rows,
             block_n, block_m, S, kv, p, LOG2E / eps, count=count,
         )
+    if kept is not None:
+        profiling.count("kernels.pairs", kept, block_n * block_m)
     return out.to(phi.dtype)
 
 
@@ -899,7 +926,8 @@ def absorbed_sum_sparse(x, y, phi, psi, eps, cols, counts, p=2, block=512):
     if not x.is_cuda:
         return absorbed_sum_sparse_blocked(x, y, phi, psi, eps, cols, counts, p, block)
     _check_cuda("absorbed_sum_sparse", x, y, phi, psi, cols, counts)
-    return _sum_rows(x, y, phi, psi, eps, _dense_rows(cols, counts), p, block, block, "absorbed_sum_sparse")
+    kept = profiling.kept_tiles(counts, cols.shape[1]) if profiling.recording() else None
+    return _sum_rows(x, y, phi, psi, eps, _dense_rows(cols, counts), p, block, block, "absorbed_sum_sparse", kept)
 
 
 def absorbed_sum_walk(x, y, phi, psi, eps, tbl, p=2, block=512):
@@ -913,4 +941,5 @@ def absorbed_sum_walk(x, y, phi, psi, eps, tbl, p=2, block=512):
     if not x.is_cuda:
         return absorbed_sum_walk_blocked(x, y, phi, psi, eps, tbl, p, block)
     _check_cuda("absorbed_sum_walk", x, y, phi, psi, tbl)
-    return _sum_rows(x, y, phi, psi, eps, _walk_rows(tbl, nI), p, block, block, "absorbed_sum_walk")
+    rows = _walk_rows(tbl, nI)
+    return _sum_rows(x, y, phi, psi, eps, rows, p, block, block, "absorbed_sum_walk", _walk_kept(tbl, rows))

@@ -34,7 +34,8 @@ PyTorch kernel, only its own and, where its columns are split
 (:func:`lse_plan`), their merge.
 
 Each wrapper adds one to its entry of :data:`launch_counts` where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else, and counts the point pairs the
+launch covers (``kernels.pairs``, :mod:`..utils.profiling`).
 
 The two step kernels write per-block partial sums that the wrappers add
 up in a fixed order (deterministic, no atomics), and so does the apply
@@ -59,6 +60,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
 from .costs import SQDIST_FLOOR
 
 __all__ = [
@@ -77,6 +79,7 @@ __all__ = [
     "lse_plan",
     "step_plan",
     "sym_step_plan",
+    "sym_step_pairs",
     "apply_plan",
     "step_scratch_bytes",
     "sym_step_scratch_bytes",
@@ -128,18 +131,16 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 #: Environment variable that names the build directory.
 BUILD_DIR_ENV = "GEOMLOSS_TPU_TORCH_BUILD_DIR"
 
-#: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts = {
-    "lse": 0,
-    "sinkhorn_step": 0,
-    "sinkhorn_step_sym": 0,
-    "gibbs_apply": 0,
-}
+#: Prefix of the launch counters in :data:`..utils.profiling.totals`.
+LAUNCHES = "kernels.launches."
+
+#: Kernel launches per wrapper since the last :func:`reset_launch_counts`
+#: (a view of the counters ``kernels.launches.<wrapper>``).
+launch_counts = profiling.TotalsView(LAUNCHES, ("lse", "sinkhorn_step", "sinkhorn_step_sym", "gibbs_apply"))
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    launch_counts.reset()
 
 
 # ==============================================================================
@@ -188,11 +189,10 @@ class KernelLibrary:
     is kept beside the library as ``*.log``.
     """
 
-    def __init__(self, stem, signatures, counts):
+    def __init__(self, stem, signatures):
         self.source = CSRC / f"{stem}.cu"
         self.stem = stem
         self.signatures = signatures
-        self.counts = counts
         self.path = None  # the built library, once loaded
         self._lib = None
 
@@ -230,14 +230,15 @@ class KernelLibrary:
     def launch(self, name, *args, count=None):
         """Launch ``gl_<name>`` on the current stream; raise on a CUDA error.
 
-        ``count`` names the entry of the launch counts to add one to.
+        ``count`` names the launch counter to add one to
+        (``kernels.launches.<count>``).
         """
         fn = getattr(self.build(), "gl_" + name)
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {name!r} failed: cudaError {err}")
         if count is not None:
-            self.counts[count] += 1
+            profiling.count(LAUNCHES + count)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -256,7 +257,6 @@ _LIB = KernelLibrary(
         # n_groups, out_rows, kv, ch, mode, c2, stream
         "gl_gibbs_apply": [_P] * 6 + [_I] * 11 + [_F, _P],
     },
-    launch_counts,
 )
 
 
@@ -438,6 +438,16 @@ def apply_plan(N, M, C=1):
         return nb, 1, width
     _, Cp = _channel_groups(C)
     return _even_chunks(nb, STEP_SCRATCH_BYTES // (4 * S * Cp * _CUDA_BLOCK)), S, width
+
+
+def sym_step_pairs(N, t0, n):
+    """Point pairs a launch of :func:`sinkhorn_step_sym` covers: the row
+    tiles ``t0 .. t0 + n - 1`` of 256 points, each against the points from
+    its own first one on (whole diagonal tiles included)."""
+    B = _CUDA_BLOCK
+    pairs = B * (n * N - B * (n * t0 + n * (n - 1) // 2))
+    last = N - B * (t0 + n - 1)  # the points from the last row tile's first on
+    return pairs - (B - last) * last if last < B else pairs
 
 
 def step_scratch_bytes(N, M):
@@ -643,6 +653,7 @@ def lse(x, y, h, eps, p=2):
             "lse", xf.data_ptr(), yf.data_ptr(), hf.data_ptr(), out.data_ptr(), part.data_ptr(),
             N, M, width, S, ld, x.shape[1], kv, p, LOG2E / eps,
         )
+    profiling.count("kernels.pairs", N * M)
     return out.to(x.dtype)
 
 
@@ -676,6 +687,7 @@ def _step_sums(x, y, f, g, loga, logb, eps, p=2):
                 cb.data_ptr(), rowpart.data_ptr(), colpart.data_ptr(), N, M, b0,
                 n, S, width, kv, p, LOG2E / eps,
             )
+            profiling.count("kernels.pairs", (min(N, (b0 + n) * _CUDA_BLOCK) - b0 * _CUDA_BLOCK) * M)
             rows[b0 * _CUDA_BLOCK : (b0 + n) * _CUDA_BLOCK] = (
                 rowpart[: S * n * _CUDA_BLOCK].view(S, -1).sum(0)
             )
@@ -727,6 +739,7 @@ def sinkhorn_step_sym(x, f, loga, eps, p=2):
                 "sinkhorn_step_sym", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(),
                 rowpart.data_ptr(), colpart.data_ptr(), N, t0, n, S, nb, kv, p, LOG2E / eps,
             )
+            profiling.count("kernels.pairs", sym_step_pairs(N, t0, n))
             r[t0 : t0 + n] += rowpart[: S * n * _CUDA_BLOCK].view(S, n, _CUDA_BLOCK).sum(0)
             r[t0:] += colpart[: n * (nb - t0) * _CUDA_BLOCK].view(n, nb - t0, _CUDA_BLOCK).sum(0)
     return _absorbed_update(_f32(f), _f32(loga), eps, r.view(-1)[:N]).to(f.dtype)
@@ -782,6 +795,7 @@ def gibbs_apply(x, y, phi, psi, V, eps, p=2, kind="gibbs"):
                 "gibbs_apply", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(), v.data_ptr(),
                 dst, N, M, b0, n, S, width, ng, out_rows, kv, ch, mode, c2,
             )
+            profiling.count("kernels.pairs", (min(N, (b0 + n) * _CUDA_BLOCK) - b0 * _CUDA_BLOCK) * M)
             if S > 1:
                 i0, i1 = b0 * _CUDA_BLOCK, min(N, (b0 + n) * _CUDA_BLOCK)
                 out[:, i0:i1] = part[:, :, : i1 - i0].sum(0)

@@ -25,6 +25,7 @@ forward pass, so gradients also run in ``O(N + M)`` memory.
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils import profiling
 from . import cuda_kernels as ck
 from .costs import SQDIST_FLOOR, cost_routines, squared_distances
 
@@ -143,6 +144,7 @@ def _extrap_dx(x, y, f, g, loga, logb, eps, S, u, p, impl):
     return u[:, None] * (x * R[:, :1] - R[:, 1:])
 
 
+@profiling.autograd_spans
 class _SoftminExtrapolation(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, f, g, loga, logb, eps, p, impl):
@@ -176,6 +178,7 @@ def softmin_extrapolation(x, y, f, g, loga, logb, eps, p, impl):
     return _SoftminExtrapolation.apply(x, y, f, g, loga, logb, eps, p, impl)
 
 
+@profiling.autograd_spans
 class _SoftminExtrapolationSym(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, f, loga, eps, p, impl):
@@ -259,6 +262,7 @@ def gibbs_apply(x, y, phi, psi, V, eps, p, kind="gibbs", impl="auto"):
 # ==============================================================================
 
 
+@profiling.autograd_spans
 class _LsePoints(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, h, eps, p, impl):
@@ -370,6 +374,7 @@ def softmin_points(eps, C_xy, h, p=2, impl="auto", cost=None):
 # ==============================================================================
 
 
+@profiling.autograd_spans
 class _GibbsMatvec(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, v, eps, p, kind, impl):

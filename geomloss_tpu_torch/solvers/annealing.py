@@ -10,6 +10,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.typing import DescentParameters
 
 __all__ = [
@@ -29,10 +30,12 @@ def dampening(eps, rho):
 def max_diameter(x, y) -> float:
     """Rough upper bound on the diameter of a pair of point clouds.
 
-    Reads the value back to the host (``.item()``).
+    Reads the value back to the host (``.item()``, counted as
+    ``host.reads``).
     """
     mins = torch.minimum(x.min(dim=0).values, y.min(dim=0).values)
     maxs = torch.maximum(x.max(dim=0).values, y.max(dim=0).values)
+    profiling.count("host.reads")
     return float(torch.linalg.norm(maxs - mins).item())
 
 

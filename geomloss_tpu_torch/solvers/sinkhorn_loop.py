@@ -13,6 +13,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..utils import profiling
 from .annealing import dampening
 
 __all__ = [
@@ -178,7 +179,7 @@ def sinkhorn_loop(
     Nits = len(eps_list)
     jumps = sorted(j for j in jumps if 0 <= j < Nits)
 
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("solver.eps_loop"):
         a_logs_d = [v.detach() for v in a_logs]
         b_logs_d = [v.detach() for v in b_logs]
         C_xys_d = [_detach(C) for C in C_xys]
@@ -224,29 +225,30 @@ def sinkhorn_loop(
         # --- Main descent: Jacobi-style updates, then averaging --------------
         for it, eps in enumerate(eps_list):
             damp = dampening(eps, rho)
-            if fused_step is not None:
-                S_xy, S_yx = fused_step(
-                    eps, C_xy_d, C_yx_d, a_log_d, b_log_d, f_ba, g_ab
-                )
-                ft_ba, gt_ab = damp * S_xy, damp * S_yx
+            with profiling.span("solver.eps_step"):
+                if fused_step is not None:
+                    S_xy, S_yx = fused_step(
+                        eps, C_xy_d, C_yx_d, a_log_d, b_log_d, f_ba, g_ab
+                    )
+                    ft_ba, gt_ab = damp * S_xy, damp * S_yx
+                    if debias:
+                        ft_aa = damp * fused_step(
+                            eps, C_xx_d, C_xx_d, a_log_d, a_log_d, f_aa, f_aa, sym=True
+                        )[0]
+                        gt_bb = damp * fused_step(
+                            eps, C_yy_d, C_yy_d, b_log_d, b_log_d, g_bb, g_bb, sym=True
+                        )[0]
+                else:
+                    ft_ba = damp * softmin(eps, C_xy_d, b_log_d + g_ab / eps)
+                    gt_ab = damp * softmin(eps, C_yx_d, a_log_d + f_ba / eps)
+                    if debias:
+                        ft_aa = damp * softmin(eps, C_xx_d, a_log_d + f_aa / eps)
+                        gt_bb = damp * softmin(eps, C_yy_d, b_log_d + g_bb / eps)
+                f_ba = 0.5 * (f_ba + ft_ba)
+                g_ab = 0.5 * (g_ab + gt_ab)
                 if debias:
-                    ft_aa = damp * fused_step(
-                        eps, C_xx_d, C_xx_d, a_log_d, a_log_d, f_aa, f_aa, sym=True
-                    )[0]
-                    gt_bb = damp * fused_step(
-                        eps, C_yy_d, C_yy_d, b_log_d, b_log_d, g_bb, g_bb, sym=True
-                    )[0]
-            else:
-                ft_ba = damp * softmin(eps, C_xy_d, b_log_d + g_ab / eps)
-                gt_ab = damp * softmin(eps, C_yx_d, a_log_d + f_ba / eps)
-                if debias:
-                    ft_aa = damp * softmin(eps, C_xx_d, a_log_d + f_aa / eps)
-                    gt_bb = damp * softmin(eps, C_yy_d, b_log_d + g_bb / eps)
-            f_ba = 0.5 * (f_ba + ft_ba)
-            g_ab = 0.5 * (g_ab + gt_ab)
-            if debias:
-                f_aa = 0.5 * (f_aa + ft_aa)
-                g_bb = 0.5 * (g_bb + gt_bb)
+                    f_aa = 0.5 * (f_aa + ft_aa)
+                    g_bb = 0.5 * (g_bb + gt_bb)
 
             if it not in jumps:
                 continue
@@ -293,22 +295,23 @@ def sinkhorn_loop(
 
     # --- Differentiable last extrapolation ----------------------------------
     if last_extrapolation:
-        a_log, b_log = a_logs[k], b_logs[k]
-        C_xy, C_yx = C_xys[k], C_yxs[k]
-        C_xx, C_yy = (C_xxs[k], C_yys[k]) if debias else (None, None)
-        if fused_last is not None:
-            f_ba, g_ab, f_aa, g_bb = fused_last(
-                eps, damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log,
-                f_ba, g_ab, f_aa, g_bb,
-            )
-        else:
-            f_ba, g_ab = (
-                damping * softmin(eps, C_xy, (b_log + g_ab / eps).detach()),
-                damping * softmin(eps, C_yx, (a_log + f_ba / eps).detach()),
-            )
-            if debias:
-                f_aa = damping * softmin(eps, C_xx, (a_log + f_aa / eps).detach())
-                g_bb = damping * softmin(eps, C_yy, (b_log + g_bb / eps).detach())
+        with profiling.span("solver.last_extrapolation"):
+            a_log, b_log = a_logs[k], b_logs[k]
+            C_xy, C_yx = C_xys[k], C_yxs[k]
+            C_xx, C_yy = (C_xxs[k], C_yys[k]) if debias else (None, None)
+            if fused_last is not None:
+                f_ba, g_ab, f_aa, g_bb = fused_last(
+                    eps, damping, C_xy, C_yx, C_xx, C_yy, a_log, b_log,
+                    f_ba, g_ab, f_aa, g_bb,
+                )
+            else:
+                f_ba, g_ab = (
+                    damping * softmin(eps, C_xy, (b_log + g_ab / eps).detach()),
+                    damping * softmin(eps, C_yx, (a_log + f_ba / eps).detach()),
+                )
+                if debias:
+                    f_aa = damping * softmin(eps, C_xx, (a_log + f_aa / eps).detach())
+                    g_bb = damping * softmin(eps, C_yy, (b_log + g_bb / eps).detach())
 
     if debias:
         return f_aa, g_bb, g_ab, f_ba

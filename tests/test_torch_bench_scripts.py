@@ -1,16 +1,15 @@
 """The benchmark twins (``bench_torch.py``, ``bench_suite_torch.py``,
-``bench_accuracy_torch.py``, ``tools/profile_phases_torch.py``) on the CPU.
+``bench_accuracy_torch.py``) on the CPU.
 
 The accuracy twin's error functions against ``bench_accuracy.py``'s on the
 same float64 inputs; the headline line's keys and accuracy, its values
 against the JAX package's ``SamplesLoss``; the suite's lines and bounds;
-the phase profile's coverage and its ``full`` loss against
-``SamplesLoss()``; and that no twin imports JAX, the JAX package or the
-JAX-side bench scripts, or runs without a card.
+and that no twin imports JAX, the JAX package or the JAX-side bench
+scripts, or runs without a card. (The multiscale call's phases are the
+program's own spans: ``tests/test_torch_profiling.py``.)
 """
 
 import ast
-import importlib.util
 import json
 import pathlib
 import sys
@@ -25,25 +24,14 @@ import bench_accuracy_torch
 import bench_suite_torch
 import bench_torch
 import geomloss_tpu
-from geomloss_tpu_torch import SamplesLoss
-from geomloss_tpu_torch.models import multiscale as ms
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-TWINS = ("bench_torch.py", "bench_suite_torch.py", "bench_accuracy_torch.py", "tools/profile_phases_torch.py")
+TWINS = ("bench_torch.py", "bench_suite_torch.py", "bench_accuracy_torch.py")
 #: bench.py's keys, and the CUDA timing fields that replace its marginal_ms.
 HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "events_ms", "busy_ms", "profiled_wall_ms", "idle_share",
                  "launches", "peak_mem_gb", "loss_value", "loss_exact", "loss_rel_err_vs_exact", "loss_float64",
                  "loss_rel_err_vs_float64", "device")
 DEVICE_METRICS = ("events_ms", "busy_ms", "profiled_wall_ms", "idle_share", "launches", "peak_mem_gb")
-PROFILE_PHASES = ("full", "sort_one_cloud", "prologue", "coarse_phase", "run_mid_phase", "extrap_to_fine", "tables",
-                  "kept_stats_cap128", "fine_tables", "fine_steps", "last_extrap_fwd", "last_extrap_fwd_bwd")
-
-
-def load_profiler():
-    spec = importlib.util.spec_from_file_location("profile_phases_torch", ROOT / "tools" / "profile_phases_torch.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def accuracy_problem(N, M, seed=0):
@@ -119,21 +107,6 @@ def test_suite_leg_line_holds_its_bound(name, n, monkeypatch, capsys):
     assert all(line[key] is None for key in DEVICE_METRICS)
 
 
-def test_phase_profile_emits_every_phase_once(monkeypatch):
-    # The mid path at a small size: one pooled mid iteration above 2048 points.
-    monkeypatch.setattr(ms, "N_FINE_OK", 2048)
-    profiler = load_profiler()
-    rows = []
-    profiler.profile(4096, torch.device("cpu"), "cpu", lambda **row: rows.append(row))
-    assert [r["phase"] for r in rows] == list(PROFILE_PHASES) == list(profiler.PHASES)
-    assert all(r["N"] == 4096 and r["ms"] >= 0 and r["clock"] == "host" for r in rows)
-    assert all(r["same_as_solve"] for r in rows if "same_as_solve" in r)
-    assert rows[4]["mid_points"] == 4096 and rows[7]["cap"] == ms.mid_cap(4096, 512)
-    x = torch.from_numpy(bench_torch.sphere_cloud(4096, 0))
-    y = torch.from_numpy(bench_torch.sphere_cloud(4096, 1))
-    assert rows[0]["loss"] == SamplesLoss("sinkhorn", **profiler.CALL, backend="multiscale")(x, y).item()
-
-
 def test_accuracy_protocol_rows(monkeypatch):
     x = torch.from_numpy(bench_torch.sphere_cloud(300, 0))
     y = torch.from_numpy(bench_torch.sphere_cloud(300, 1))
@@ -163,7 +136,7 @@ def test_twin_imports_no_jax_side_module(twin):
 @pytest.mark.parametrize("twin", TWINS)
 def test_twin_refuses_to_run_without_a_card(twin, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    module = load_profiler() if twin.startswith("tools/") else sys.modules[twin[:-3]]
+    module = sys.modules[twin[:-3]]
     monkeypatch.setattr(sys, "argv", [twin])  # no arguments: the card
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main()

@@ -1185,3 +1185,50 @@ def test_bench_torch_headline_at_1e4_on_the_card(cuda_device, capsys):
     assert line["events_ms"] > 0 and line["busy_ms"] > 0 and 0 <= line["idle_share"] < 1
     assert line["launches"] > 0 and line["peak_mem_gb"] > 0 and line["device"] not in ("", "cpu")
     assert ck.launch_counts["sinkhorn_step"] > 0 and ck.launch_counts["sinkhorn_step_sym"] > 0
+
+
+def test_the_recorder_counts_an_online_call_on_the_card(cuda_device):
+    """The program's spans and counters (``utils/profiling.py``) on the card:
+    the backward spans, run on autograd's device thread, carry the forward's
+    call id; the launches counted in the window are the launch counters'
+    rise; the pairs are the launches' rows times columns and the triangles
+    of the symmetric steps; and the device's events lie on the spans'
+    clock."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.utils import profiling
+
+    n = 10_000
+    x = torch.randn(n, 3, device=cuda_device).requires_grad_(True)
+    y = torch.randn(n, 3, device=cuda_device)
+    loss = SamplesLoss("sinkhorn", p=2, blur=0.05, diameter=8.0, backend="online")
+    torch.autograd.grad(loss(x, y), x)
+    before = {**ck.launch_counts}
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(loss(x, y), x)
+        torch.cuda.synchronize()
+    spans, counts = profiling.spans(), profiling.counts()
+    names = collections.Counter(s.name for s in spans)
+    assert names["loss"] == 1 and names["backward.SoftminExtrapolation"] == 1
+    assert len({s.call_id for s in spans}) == 1
+    main = next(s.thread for s in spans if s.name == "loss")
+    assert all(s.thread != main for s in spans if s.name.startswith("backward."))
+    rise = {k: ck.launch_counts[k] - before[k] for k in before}
+    assert {k[len(ck.LAUNCHES):]: v for k, v in counts.items() if k.startswith(ck.LAUNCHES)} == {
+        k: v for k, v in rise.items() if v}
+    # Each sweep: one step over N M pairs (kernel 2) and two symmetric steps
+    # over their triangles (kernel 3); the gradient: kernel 4 over N M and
+    # N N (C = 4, one launch each).
+    sweeps = names["solver.eps_step"] + 2
+    R, _ = ck.sym_step_plan(n)
+    tri = sum(ck.sym_step_pairs(n, t0, min(R, -(-n // 256) - t0)) for t0 in range(0, -(-n // 256), R))
+    assert counts["kernels.pairs"] == sweeps * (n * n + 2 * tri) + 2 * n * n
+    loss_span = next(s for s in spans if s.name == "loss")
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and "step_kernel" in e.name()]
+    assert kernels and all(e.start_ns() >= loss_span.start_ns for e in kernels)
+    profiling.reset()

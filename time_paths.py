@@ -8,23 +8,19 @@ truncated route instead (``SamplesLoss("gaussian", blur=0.1, truncate=3,
 backend="multiscale")``, kernel 8).
 
     python3 time_paths.py --sizes 100000 2000000 [--reps 5] [--root DIR] [--loss gaussian]
-                          [--backend online] [--tiles] [--blur 0.02] [--scratch-mib 1024]
+                          [--backend online] [--blur 0.02] [--scratch-mib 1024]
 
 ``--root`` imports the package from another checkout (for example the
 parent commit unpacked with ``git archive``), so that two versions can be
 compared on one card in one session: run parent, change, change, parent.
 Prints one JSON line per size: the host-clock time of each rep after a
 warm-up (around ``torch.cuda.synchronize()``), the peak device memory of
-one call, the loss, and the card's name and power limit. With ``--tiles``,
-one more call after the reps times kernels 5, 6 and 7 (``absorbed_sum_tiles``,
-``gibbs_apply_tiles``, ``lse_tiles``): CUDA events around each wrapper
-call, summed over the call (``k5_ms``, ``k6_ms``, ``k7_ms``, with their call
-counts), and gives the first truncation table's kept tiles a row
-(``kept_mean``, ``kept_max``, its ``width``: the mid path's first fine
-table, else the classic path's coarse xy table). ``--scratch-mib`` sets
-the scratch budget of kernels 5 and 6 (``TILES_SCRATCH_BYTES``): a table
-whose slots pass it reads its live count on the host and launches in
-chunks. Needs a CUDA device.
+one call, the loss, and the card's name and power limit (the program's
+phases, kernel launches and kept tiles come from its own spans and
+counters under ``torch.profiler``: ``geomloss_tpu_torch.utils.profiling``).
+``--scratch-mib`` sets the scratch budget of kernels 5 and 6
+(``TILES_SCRATCH_BYTES``): a table whose slots pass it reads its live
+count on the host and launches in chunks. Needs a CUDA device.
 """
 
 import argparse
@@ -51,7 +47,6 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--loss", choices=("sinkhorn", "gaussian"), default="sinkhorn")
     ap.add_argument("--backend", default="auto", help="the Sinkhorn call's backend")
-    ap.add_argument("--tiles", action="store_true", help="also time kernels 5 and 6 and read the fine table")
     ap.add_argument("--blur", type=float, default=0.05, help="the Sinkhorn call's blur")
     ap.add_argument("--scratch-mib", type=int, help="kernels 5 and 6's scratch budget (TILES_SCRATCH_BYTES) in MiB")
     args = ap.parse_args()
@@ -102,65 +97,9 @@ def main():
         line = {"root": args.root, "loss_fn": args.loss, "backend": backend, "blur": args.blur, "n": n, "ms": ms,
                 "peak_gb": peak / 1e9, "loss": v.item(), "scratch_bytes": cuda_block_sparse.TILES_SCRATCH_BYTES,
                 "card": card}
-        if args.tiles:
-            line.update(tile_kernels(call))
         print(json.dumps(line), flush=True)
         del x0, y0
         torch.cuda.empty_cache()
-
-
-def tile_kernels(call):
-    """One ``call()`` with kernels 5, 6 and 7 timed (CUDA events around each
-    wrapper call) and the first truncation table's kept tiles read (the
-    mid path's fine table, else the classic path's coarse table)."""
-    import torch
-
-    from geomloss_tpu_torch.models import multiscale
-    from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
-
-    events = {"absorbed_sum_tiles": [], "gibbs_apply_tiles": [], "lse_tiles": []}
-    tables = []
-    saved = {name: getattr(cbs, name) for name in events}
-    builds = {name: getattr(multiscale, name) for name in ("build_tile_masks", "masks_from_coarse")}
-
-    def timed(name):
-        def run(*a, **k):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = saved[name](*a, **k)
-            end.record()
-            events[name].append((start, end))
-            return out
-
-        return run
-
-    def recorded(name):
-        def build(*a, **k):
-            tables.append(builds[name](*a, **k))
-            return tables[-1]
-
-        return build
-
-    for name in events:
-        setattr(cbs, name, timed(name))
-    for name in builds:
-        setattr(multiscale, name, recorded(name))
-    try:
-        call()
-        torch.cuda.synchronize()
-    finally:
-        for name, fn in saved.items():
-            setattr(cbs, name, fn)
-        for name, fn in builds.items():
-            setattr(multiscale, name, fn)
-    out = {}
-    for key, name in (("k5", "absorbed_sum_tiles"), ("k6", "gibbs_apply_tiles"), ("k7", "lse_tiles")):
-        out[f"{key}_ms"] = sum(s.elapsed_time(e) for s, e in events[name])
-        out[f"{key}_calls"] = len(events[name])
-    cnt = tables[0].counts.double() if tables else None
-    out.update(kept_mean=None if cnt is None else cnt.mean().item(), kept_max=None if cnt is None else int(cnt.max()),
-               width=None if cnt is None else tables[0].cols.shape[1])
-    return out
 
 
 if __name__ == "__main__":
