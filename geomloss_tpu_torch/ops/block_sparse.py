@@ -672,7 +672,8 @@ def softmin_extrapolation_walk_banded_sym(x, f, loga, eps, cols, cnt, p, tile, i
 # ``cols[I, :]`` (tiles of ``block`` points too); the transposed direction
 # reads ``colsT/countsT``. Forward passes run kernel 7's CUDA kernel
 # (``lse_sparse``) or kernel 8 (``gibbs_apply_sparse``); backward passes
-# are kernel 8 applies, only those whose gradients autograd asks for.
+# are kernel 8 applies, only those whose gradients autograd asks for (the
+# gaussian matvec makes its dx apply in the forward instead).
 # ``impl``: ``"blocked"`` (or ``"dense"``) runs the plain twins.
 
 gibbs_apply_sparse = cbs.gibbs_apply_sparse
@@ -777,11 +778,19 @@ def softmin_sparse(eps, C_xy, h, p=2, block=256, impl="auto"):
 @profiling.autograd_spans
 class _KernelMatvecSparse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, y, v, eps, cols, counts, colsT, countsT, p, block, impl):
-        ctx.save_for_backward(x, y, v, cols, counts, colsT, countsT)
+    def forward(ctx, x, y, v, eps, cols, counts, colsT, countsT, p, block, impl, fold):
         ctx.eps, ctx.p, ctx.block, ctx.impl = eps, p, block, impl
+        apply = _sparse_apply(impl)
         zx, zy = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
-        return _sparse_apply(impl)(x, y, zx, zy, v[:, None], eps, cols, counts, p, "gibbs", block, block)[:, 0]
+        profiling.count("matvec.forwards")
+        if fold:
+            # The backward's dx apply (p = 2), whose channel 0 is the output:
+            profiling.count("matvec.grad_in_forward")
+            R = apply(x, y, zx, zy, v[:, None] * _ones(y), eps, cols, counts, p, "gibbs", block, block)
+            ctx.save_for_backward(x, y, v, cols, counts, colsT, countsT, R)
+            return R[:, 0]
+        ctx.save_for_backward(x, y, v, cols, counts, colsT, countsT, None)
+        return apply(x, y, zx, zy, v[:, None], eps, cols, counts, p, "gibbs", block, block)[:, 0]
 
     @staticmethod
     def backward(ctx, u):
@@ -790,8 +799,9 @@ class _KernelMatvecSparse(torch.autograd.Function):
         #   dx_i = -(u_i / eps) sum_j w'_ij v_j (x_i - y_j)
         #   dy_j = -(1 / eps) sum_i w'_ij u_i (y_j - x_i)
         # where w' = w for p=2 and w/d for p=1, in the ones-channel form
-        # x R_0 - R_1: (the JAX package's form too).
-        x, y, v, cols, counts, colsT, countsT = ctx.saved_tensors
+        # x R_0 - R_1: (the JAX package's form too). R is the forward's
+        # where it folded, None otherwise.
+        x, y, v, cols, counts, colsT, countsT, R = ctx.saved_tensors
         eps, p, b = ctx.eps, ctx.p, ctx.block
         need_x, need_y, need_v = ctx.needs_input_grad[:3]
         apply = _sparse_apply(ctx.impl)
@@ -799,7 +809,8 @@ class _KernelMatvecSparse(torch.autograd.Function):
         kind = "gibbs" if p == 2 else "gibbs_grad"
         dx = dy = dv = None
         if need_x:
-            R = apply(x, y, zx, zy, v[:, None] * _ones(y), eps, cols, counts, p, kind, b, b)
+            if R is None:
+                R = apply(x, y, zx, zy, v[:, None] * _ones(y), eps, cols, counts, p, kind, b, b)
             dx = (-(u / eps)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
         if need_y or (need_v and p == 2):
             T = apply(y, x, zy, zx, u[:, None] * _ones(x), eps, colsT, countsT, p, kind, b, b)
@@ -809,15 +820,25 @@ class _KernelMatvecSparse(torch.autograd.Function):
                 dv = T[:, 0].to(v.dtype)
         if need_v and p == 1:
             dv = apply(y, x, zy, zx, u[:, None], eps, colsT, countsT, p, "gibbs", b, b)[:, 0].to(v.dtype)
-        return (dx, dy, dv) + (None,) * 8
+        return (dx, dy, dv) + (None,) * 9
 
 
 def kernel_matvec_sparse(x, y, v, eps, mask, p=2, block=512, impl="auto"):
     """Differentiable truncated Gibbs-kernel matvec
     ``O_i = sum_j exp(-C_p(x_i, y_j)/eps) v_j`` over the kept tiles of
-    ``mask`` (gaussian: p=2, eps=blur^2; laplacian: p=1, eps=blur)."""
+    ``mask`` (gaussian: p=2, eps=blur^2; laplacian: p=1, eps=blur).
+
+    With p = 2, grad enabled and ``x`` requiring grad, the forward folds
+    in the gradient's channels: one apply of ``V = v [1, y]`` (four
+    channels) gives ``O`` in channel 0 and keeps the rest for ``dx``, so
+    the backward makes no apply for ``x``. A forward that no backward
+    follows then pays the four-channel apply instead of the one-channel
+    one; under ``torch.no_grad()`` it pays nothing more. p = 1 (whose
+    gradient weighs the pairs by ``w / d``) never folds.
+    """
+    fold = p == 2 and torch.is_grad_enabled() and x.requires_grad
     return _KernelMatvecSparse.apply(
-        x, y, v, eps, mask.cols, mask.counts, mask.colsT, mask.countsT, p, block, impl
+        x, y, v, eps, mask.cols, mask.counts, mask.colsT, mask.countsT, p, block, impl, fold
     )
 
 

@@ -1232,3 +1232,76 @@ def test_the_recorder_counts_an_online_call_on_the_card(cuda_device):
                if e.device_type() == torch.autograd.DeviceType.CUDA and "step_kernel" in e.name()]
     assert kernels and all(e.start_ns() >= loss_span.start_ns for e in kernels)
     profiling.reset()
+
+
+def test_gaussian_multiscale_folds_dx_into_the_forward(cuda_device, monkeypatch):
+    """The gaussian multiscale loss at 1e5 on the card: its two matvecs whose
+    x requires grad (K_xx a and K_xy b) make the gradient's four-channel
+    kernel 8 apply in their forward. Against the same loss with the matvec
+    unfolded (the one-channel forward, the four-channel apply in the
+    backward): each matvec's value within 1e-6 of the largest, the loss
+    within 1e-6, the gradient in x equal to the bit. On the xy table, the
+    folded dx is that of the four-channel apply called directly, to the
+    bit."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import kernel_samples as ks
+    from geomloss_tpu_torch.ops import block_sparse as tbs
+    from geomloss_tpu_torch.utils import profiling
+
+    n = 100_000
+    rng = np.random.RandomState(0)
+
+    def cloud(shift):
+        """Weights and points on a sphere of diameter 1, uneven."""
+        v = rng.randn(n, 3)
+        v[:, 0] += shift
+        v /= 2 * np.linalg.norm(v, axis=1, keepdims=True)
+        w = np.abs(rng.randn(n))
+        return (torch.tensor(t, dtype=torch.float32, device=cuda_device) for t in (w / w.sum(), v))
+
+    a, x = cloud(0.5)
+    b, y = cloud(-0.5)
+    loss = SamplesLoss("gaussian", blur=0.1, truncate=3, backend="multiscale")
+    real = ks.kernel_matvec_sparse
+
+    def unfolded(xx, yy, vv, eps, mask, p=2, block=512, impl="auto"):
+        return tbs._KernelMatvecSparse.apply(xx, yy, vv, eps, mask.cols, mask.counts, mask.colsT, mask.countsT,
+                                             p, block, impl, False)
+
+    def run(matvec):
+        calls = []
+
+        def recorded(*args, **kw):
+            out = matvec(*args, **kw)
+            calls.append((args, kw, out.detach()))
+            return out
+
+        monkeypatch.setattr(ks, "kernel_matvec_sparse", recorded)
+        xt = x.clone().requires_grad_(True)
+        before = profiling.totals.get("matvec.grad_in_forward", 0)
+        value = loss(a, xt, b, y)
+        folds = profiling.totals.get("matvec.grad_in_forward", 0) - before
+        grad = torch.autograd.grad(value, xt)[0]
+        torch.cuda.synchronize()
+        return value.detach(), grad, calls, folds
+
+    v1, g1, calls1, folds1 = run(real)
+    v0, g0, calls0, folds0 = run(unfolded)
+    assert (folds1, folds0) == (2, 0) and len(calls1) == len(calls0) == 3
+    for (_, _, o1), (_, _, o0) in zip(calls1, calls0):
+        assert (o1 - o0).abs().max().item() <= 1e-6 * o0.abs().max().item()
+    assert abs(v1 - v0).item() <= 1e-6 * abs(v0).item()
+    assert torch.equal(g1, g0)
+
+    # The xy matvec (the third) on its own table, against the apply:
+    (xs, ys, v, eps, mask), kw, _ = calls1[2]
+    xs = xs.detach().requires_grad_(True)
+    u = torch.randn(xs.shape[0], device=cuda_device)
+    out = real(xs, ys.detach(), v.detach(), eps, mask, **kw)
+    (dx,) = torch.autograd.grad(out, xs, u)
+    z_x, z_y = torch.zeros_like(xs[:, 0]), torch.zeros_like(ys[:, 0])
+    V = v.detach()[:, None] * torch.cat([torch.ones_like(ys[:, :1]), ys.detach()], 1)
+    R = cbs.gibbs_apply_sparse(xs.detach(), ys.detach(), z_x, z_y, V, eps, mask.cols, mask.counts, 2, "gibbs",
+                               kw["block"], kw["block"])
+    assert torch.equal(out.detach(), R[:, 0])
+    assert torch.equal(dx, (-(u / eps)[:, None] * (xs.detach() * R[:, :1] - R[:, 1:])))

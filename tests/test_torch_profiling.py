@@ -205,8 +205,11 @@ def test_gaussian_multiscale_route_spans():
     masks = [bs.masks_from_geometry(x_s, y_s, 0.3, tile, w_x=a_s, w_y=b_s),
              bs.masks_from_geometry(x_s, x_s, 0.3, tile, w_x=a_s, w_y=a_s, sym=True),
              bs.masks_from_geometry(y_s, y_s, 0.3, tile, w_x=b_s, w_y=b_s, sym=True)]
+    # Three matvecs, two of them (K_xx a and K_xy b, x requiring grad)
+    # with the gradient's channels in their forward:
     assert counts == {"host.reads": 3, "tables.row_tiles": sum(m.counts.shape[0] for m in masks),
-                      "tables.kept_tiles": sum(int(m.counts.sum()) for m in masks)}
+                      "tables.kept_tiles": sum(int(m.counts.sum()) for m in masks),
+                      "matvec.forwards": 3, "matvec.grad_in_forward": 2}
 
 
 def test_calls_take_new_ids_and_backward_keeps_its_call():

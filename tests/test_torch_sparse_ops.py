@@ -31,6 +31,7 @@ import geomloss_tpu.ops.block_sparse as jbs
 from geomloss_tpu_torch.ops import block_sparse as tbs
 from geomloss_tpu_torch.ops import cuda_block_sparse as cbs
 from geomloss_tpu_torch.ops.spatial import hilbert_key
+from geomloss_tpu_torch.utils import profiling as prof
 from geomloss_tpu_torch.utils import tile_mask_from_numpy
 from torch_parity_utils import (
     APPLY_KINDS,
@@ -208,15 +209,13 @@ def _p1_grad_bound(x, y, u, v, eps):
     return T.sum(1)[:, None], T.sum(0)[:, None]
 
 
-@pytest.mark.parametrize("sym", [False, True])
-@pytest.mark.parametrize("p", [1, 2])
-def test_kernel_matvec_sparse_matches_jax(p, sym):
-    """The MMD matvec over a geometry table, values and gradients in x, y
-    and v; ``sym`` is a self term (y is x), where p = 1 meets the Pallas
-    noise floor on the self pairs. A centred elongated box, 4 x 0.5 x 0.5,
-    sorted along its length, so that tiles of 128 out of 512 points keep
-    part of the others (and the floor, ``d <= sqrt(2e-6 (|x|^2 + |y|^2))``,
-    stays below 3e-3 away from the self pairs)."""
+def _matvec_case(p, sym):
+    """A centred elongated box, 4 x 0.5 x 0.5, sorted along its length, so
+    that tiles of 128 out of 512 points keep part of the others (and the
+    p = 1 floor, ``d <= sqrt(2e-6 (|x|^2 + |y|^2))``, stays below 3e-3
+    away from the self pairs): its geometry table at 3 blur (blur 0.1),
+    weights ``v`` and a linear read-out ``w``, as ``(x, y, v, eps,
+    jax_mask, w)``."""
     box = np.array([4.0, 0.5, 0.5], np.float32)
     x, y, _ = problem(512, 512 if sym else 768, seed=30 + p)
     x, y = (v[np.argsort(v[:, 0], kind="stable")] for v in (box * (x - 0.5), box * (y - 0.5)))
@@ -227,15 +226,29 @@ def test_kernel_matvec_sparse_matches_jax(p, sym):
     eps = blur**p
     jmask = jbs.masks_from_geometry(jnp.asarray(x), jnp.asarray(y), 3 * blur, BLOCK, sym=sym)
     assert int(jmask.counts.sum()) < (x.shape[0] // BLOCK) * (y.shape[0] // BLOCK)
-
     # A linear read-out: both backward passes get the same cotangent.
     w = np.random.RandomState(p + 7).randn(x.shape[0]).astype(np.float32)
+    return x, y, v, eps, jmask, w
+
+
+def _matvec_jax_grads(x, y, v, eps, jmask, w, p):
+    """The JAX package's gradients of ``sum(w * K v)`` in x, y and v."""
 
     def jfun(x, y, v):
         return (jbs.kernel_matvec_sparse(x, y, v, eps, jmask, p=p, block=BLOCK) * w).sum()
 
+    return jax.jit(jax.grad(jfun, argnums=(0, 1, 2)))(*map(jnp.asarray, (x, y, v)))
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("p", [1, 2])
+def test_kernel_matvec_sparse_matches_jax(p, sym):
+    """The MMD matvec over a geometry table (:func:`_matvec_case`), values
+    and gradients in x, y and v; ``sym`` is a self term (y is x), where
+    p = 1 meets the Pallas noise floor on the self pairs."""
+    x, y, v, eps, jmask, w = _matvec_case(p, sym)
     ref = jbs.kernel_matvec_sparse(*map(jnp.asarray, (x, y, v)), eps, jmask, p=p, block=BLOCK)
-    ref_g = jax.jit(jax.grad(jfun, argnums=(0, 1, 2)))(*map(jnp.asarray, (x, y, v)))
+    ref_g = _matvec_jax_grads(x, y, v, eps, jmask, w, p)
 
     mask = _mask(jmask)
     xt, yt, vt = (torch.tensor(a, requires_grad=True) for a in (x, y, v))
@@ -254,24 +267,76 @@ def test_kernel_matvec_sparse_matches_jax(p, sym):
         assert_apply_close(a, b, rtol=1e-3, atol=1e-3 * np.abs(b).max() + f)
 
 
+def _fold_counts():
+    return tuple(prof.totals.get(k, 0) for k in ("matvec.forwards", "matvec.grad_in_forward"))
+
+
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("wrt", ["x", "xyv"])
+def test_kernel_matvec_sparse_folded_forward(wrt, sym):
+    """p = 2 with x requiring grad: the forward's one four-channel apply
+    gives the value of the one-channel apply in its channel 0, and the
+    channels it keeps give the gradients in x (alone, or with y and v) of
+    the JAX package, on the plain twin."""
+    x, y, v, eps, jmask, w = _matvec_case(2, sym)
+    ref_g = _matvec_jax_grads(x, y, v, eps, jmask, w, 2)
+    mask = _mask(jmask)
+    xt, yt, vt = (torch.tensor(a, requires_grad=k in wrt) for k, a in zip("xyv", (x, y, v)))
+    before = _fold_counts()
+    got = tbs.kernel_matvec_sparse(xt, yt, vt, eps, mask, p=2, block=BLOCK)
+    assert np.subtract(_fold_counts(), before).tolist() == [1, 1]
+    zx, zy = torch.zeros(x.shape[0]), torch.zeros(y.shape[0])
+    plain = cbs.gibbs_apply_sparse_blocked(torch.tensor(x), torch.tensor(y), zx, zy, torch.tensor(v)[:, None], eps,
+                                           mask.cols, mask.counts, 2, "gibbs", BLOCK, BLOCK)[:, 0]
+    torch.testing.assert_close(got.detach(), plain, rtol=1e-6, atol=1e-6 * plain.abs().max().item())
+    inputs = [t for k, t in zip("xyv", (xt, yt, vt)) if k in wrt]
+    got_g = torch.autograd.grad((got * torch.tensor(w)).sum(), inputs)
+    for a, b in zip(got_g, [g for k, g in zip("xyv", ref_g) if k in wrt]):
+        b = _np(b)
+        assert_apply_close(a, b, rtol=1e-3, atol=1e-3 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("case", ["grad", "no_grad", "p1", "x_constant"])
+def test_kernel_matvec_sparse_fold_counters(case):
+    """``matvec.forwards`` counts every forward and
+    ``matvec.grad_in_forward`` the folded ones: p = 2, grad enabled and x
+    requiring grad."""
+    p = 1 if case == "p1" else 2
+    x, y, v, eps, jmask, _ = _matvec_case(p, False)
+    xt = torch.tensor(x, requires_grad=case != "x_constant")
+    before = _fold_counts()
+    with torch.set_grad_enabled(case != "no_grad"):
+        tbs.kernel_matvec_sparse(xt, torch.tensor(y), torch.tensor(v), eps, _mask(jmask), p=p, block=BLOCK)
+    assert np.subtract(_fold_counts(), before).tolist() == [1, int(case == "grad")]
+
+
+_BACKWARD_CASES = [
+    ("softmin", 2, "x", 1, True), ("softmin", 2, "h", 1, True), ("softmin", 1, "xh", 2, True),
+    ("softmin", 2, "xyh", 2, True),
+    ("matvec", 2, "x", 0, True), ("matvec", 2, "v", 1, True), ("matvec", 1, "xv", 2, True),
+    ("matvec", 1, "xyv", 3, True), ("matvec", 1, "x", 1, True), ("matvec", 2, "x", 0, False),
+]
+
+
 @pytest.mark.parametrize(
-    "op,p,wrt,applies",
-    [
-        ("softmin", 2, "x", 1), ("softmin", 2, "h", 1), ("softmin", 1, "xh", 2), ("softmin", 2, "xyh", 2),
-        ("matvec", 2, "x", 1), ("matvec", 2, "v", 1), ("matvec", 1, "xv", 2), ("matvec", 1, "xyv", 3),
-    ],
+    "op,p,wrt,applies,grad", _BACKWARD_CASES,
+    ids=[f"{op}-{p}-{wrt}-{n}" + ("" if grad else "-no_grad") for op, p, wrt, n, grad in _BACKWARD_CASES],
 )
-def test_sparse_backward_runs_only_the_needed_applies(monkeypatch, op, p, wrt, applies):
+def test_sparse_backward_runs_only_the_needed_applies(monkeypatch, op, p, wrt, applies, grad):
     """The MMD self terms detach y and v: their backward takes the one
-    apply that gives dx, not all three."""
-    calls = []
+    apply that gives dx, not all three. The gaussian matvec (p = 2) with
+    grad enabled and x requiring grad makes that apply in its forward, one
+    of four channels whose first is the output, and none in its backward;
+    under ``no_grad``, and for p = 1, its forward is the one-channel
+    apply."""
+    calls = []  # (kind, channels) of each apply
     real = tbs._sparse_apply
 
     def counting(impl):
         fn = real(impl)
 
         def apply(*args):
-            calls.append(args[-3])
+            calls.append((args[-3], args[4].shape[1]))
             return fn(*args)
 
         return apply
@@ -286,8 +351,14 @@ def test_sparse_backward_runs_only_the_needed_applies(monkeypatch, op, p, wrt, a
         out = tbs.softmin_sparse(0.3, (t["x"], t["y"], mask), t["h"], p=p, block=BLOCK)
     else:
         t["v"] = torch.tensor(np.abs(h), requires_grad="v" in wrt)
-        out = tbs.kernel_matvec_sparse(t["x"], t["y"], t["v"], 0.3, mask, p=p, block=BLOCK)
+        with torch.set_grad_enabled(grad):
+            out = tbs.kernel_matvec_sparse(t["x"], t["y"], t["v"], 0.3, mask, p=p, block=BLOCK)
+        fold = grad and p == 2 and "x" in wrt
+        assert calls == [("gibbs", 4 if fold else 1)]
         calls.clear()  # the forward pass's apply
+        if not grad:
+            assert out.grad_fn is None
+            return
     inputs = [t[k] for k in wrt]
     grads = torch.autograd.grad(out.sum(), inputs)
     assert all(g is not None and torch.isfinite(g).all() for g in grads)
