@@ -381,6 +381,8 @@ class _GibbsMatvec(torch.autograd.Function):
         ctx.save_for_backward(x, y, v)
         ctx.eps, ctx.p, ctx.kind, ctx.impl = eps, p, kind, impl
         z_n, z_m = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
+        profiling.count("matvec.forwards")
+        profiling.count("matvec.pairs", x.shape[0] * y.shape[0])
         return gibbs_apply(x, y, z_n, z_m, v[:, None], eps, p, kind=kind, impl=impl)[:, 0]
 
     @staticmethod
@@ -399,22 +401,28 @@ class _GibbsMatvec(torch.autograd.Function):
             wk, pp, scale, dvk = "inv_dist", 1, 1.0, "energy"
         else:
             raise NotImplementedError(kind)
+
+        def apply(rows, cols, phi, psi, V, weights):
+            profiling.count("matvec.backward_applies")
+            profiling.count("matvec.pairs", rows.shape[0] * cols.shape[0])
+            return gibbs_apply(rows, cols, phi, psi, V, eps, pp, kind=weights, impl=impl)
+
         dx = dy = dv = None
         if need_x:
             Vy = v[:, None] * torch.cat([torch.ones_like(y[:, :1]), y], -1)
-            R = gibbs_apply(x, y, z_n, z_m, Vy, eps, pp, kind=wk, impl=impl)
+            R = apply(x, y, z_n, z_m, Vy, wk)
             dx = (-(u * scale)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
         # For p=2 Gibbs weights, dv is the ones channel of the column apply.
         dv_from_T = kind == "gibbs" and p == 2
         if need_y or (need_v and dv_from_T):
             Ux = u[:, None] * torch.cat([torch.ones_like(x[:, :1]), x], -1)
-            T = gibbs_apply(y, x, z_m, z_n, Ux, eps, pp, kind=wk, impl=impl)
+            T = apply(y, x, z_m, z_n, Ux, wk)
             if need_y:
                 dy = (-(v * scale)[:, None] * (y * T[:, :1] - T[:, 1:])).to(y.dtype)
             if need_v and dv_from_T:
                 dv = T[:, 0].to(v.dtype)
         if need_v and not dv_from_T:
-            dv = gibbs_apply(y, x, z_m, z_n, u[:, None], eps, pp, kind=dvk, impl=impl)[:, 0].to(v.dtype)
+            dv = apply(y, x, z_m, z_n, u[:, None], dvk)[:, 0].to(v.dtype)
         return dx, dy, dv, None, None, None, None
 
 
