@@ -323,6 +323,9 @@ N_FINE_FORCED = 1 << 16
 #: Row tiles of the kernel 5 and 6 parity checks on the 2e6 tables (the
 #: twin's time grows with them).
 MID_PARITY_TILES = 64
+#: Rows of kernel 4's fused energy form held against its twin at
+#: N_MMD_LARGE (spread over the rows, with the last row block).
+ENERGY_GRAD_ROWS = 4096
 #: [parallel]: the ring calls and the sharded solve at 1e5 on R = 4 ranks,
 #: the sharded solve at 2e6 on R = 2; ranks of one card share it through
 #: gloo (NCCL refuses two ranks on one device), the run on one rank takes
@@ -373,7 +376,8 @@ REPLACES = {
 #: decode; kernels 2 and 3 at p = 2 for
 #: one, two, three staged float4s and the wide form, and kernels 4 and 8
 #: in mode 0 at one float4, with one and four channels, and wide (kernel 4
-#: also in modes 3 and 4).
+#: also in modes 3 and 4, and its fused energy form at one float4 for
+#: D <= 3 and D = 4, and wide).
 PTXAS_SHOWN = ("lse_kernel<2,1>", "lse_kernel<2,2>", "lse_kernel<2,3>", "lse_kernel<2,0>", "lse_kernel<1,1>",
                "tiles_lse_kernel<2,1>", "tiles_lse_kernel<2,0>", "tiles_lse_kernel<1,1>", "lse_merge_kernel",
                "sparse_sum_kernel<2,1>", "sparse_sum_kernel<2,0>", "sparse_sum_kernel<1,1>", "sum_merge_kernel",
@@ -381,7 +385,8 @@ PTXAS_SHOWN = ("lse_kernel<2,1>", "lse_kernel<2,2>", "lse_kernel<2,3>", "lse_ker
                "step_kernel<2,1>", "step_kernel<2,2>", "step_kernel<2,3>", "step_kernel<2,0>",
                "sym_step_kernel<2,1>", "sym_step_kernel<2,2>", "sym_step_kernel<2,3>", "sym_step_kernel<2,0>",
                "apply_kernel<0,1,1>", "apply_kernel<0,1,4>", "apply_kernel<0,0,4>", "apply_kernel<3,1,1>",
-               "apply_kernel<4,1,4>",
+               "apply_kernel<4,1,4>", "energy_grad_kernel<1,1>", "energy_grad_kernel<1,0>",
+               "energy_grad_kernel<0,0>",
                "sparse_apply_kernel<0,1,1>", "sparse_apply_kernel<0,1,4>", "sparse_apply_kernel<0,0,4>")
 #: Instructions per pair of the register-tiled kernels after the score and
 #: its MUFU: two adds (kernels 2, 3 and 5: both sums), one (kernels 12 and
@@ -398,16 +403,21 @@ PAIR_TAIL_SLOTS = {"sinkhorn_step": 2, "sinkhorn_step_sym": 2, "absorbed_sum_til
 APPLY_KERNELS = ("gibbs_apply", "gibbs_apply_sparse")
 
 
-def pair_slots(name, kv=1, ch=1, mode=0):
+def pair_slots(name, kv=1, ch=1, mode=0, d3=False):
     """Instructions per pair of a register-tiled kernel with kv packed
     float4s per point: at p = 2 (mode 0 of the apply kernels) 4 kv score
     FFMAs and the MUFU; in the apply kernels' modes 3 and 4 (p = 1) 8 kv
     (a subtraction and an FFMA per coordinate), the max with the floor, the
-    MUFU (rsqrt) and an FMUL (mode 3) or a compare and a select (mode 4);
-    then the tail (PAIR_TAIL_SLOTS; ``ch`` channels for the apply kernels).
-    Its issue floor is :func:`issue_ms` of these."""
-    head = {3: 8 * kv + 3, 4: 8 * kv + 4}.get(mode, 4 * kv + 1)
-    return head + (ch if name in APPLY_KERNELS else PAIR_TAIL_SLOTS[name])
+    MUFU (rsqrt) and an FMUL (mode 3) or a compare and a select (mode 4),
+    both in kernel 4's fused energy form (mode 5, whose value takes one
+    FFMA more than its ``ch`` channels, and whose instantiation for D <= 3,
+    ``d3``, leaves out the zero fourth coordinate's two); then the tail
+    (PAIR_TAIL_SLOTS; ``ch`` channels for the apply kernels). Its issue
+    floor is :func:`issue_ms` of these."""
+    head = {3: 8 * kv + 3, 4: 8 * kv + 4, 5: 8 * kv + 5 - 2 * d3}.get(mode, 4 * kv + 1)
+    return head + (ch + (mode == 5) if name in APPLY_KERNELS else PAIR_TAIL_SLOTS[name])
+
+
 SOURCES = {
     "online_kernels": "geomloss_tpu_torch/csrc/online_kernels.cu",
     "block_sparse_kernels": "geomloss_tpu_torch/csrc/block_sparse_kernels.cu",
@@ -866,6 +876,54 @@ def compare_mmd(label, v, g, ref):
         fail(f"{label} misses its tolerance")
 
 
+def check_energy_grad(x, y, v, clock, card, rows=None):
+    """Kernel 4's fused energy form (the energy MMD's value and gradient
+    channels from one pass) on ``x, y, v``: the value and R against the
+    twin (on ``rows`` rows spread over x and the last row block, against
+    every column, where ``rows`` is given), R against kernel 4's inv_dist
+    apply of ``v [1, y]`` to the bit, two calls bitwise equal; then timed
+    beside the energy (mode 3, C = 1) and inv_dist (mode 4) applies it
+    replaces, each with its issue floor."""
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    N, M, D = x.shape[0], y.shape[0], x.shape[1]
+    z_x, z_y = torch.zeros_like(x[:, 0]), torch.zeros_like(y[:, 0])
+    V = ck.ones_points(y, v)
+    args = (x, y, z_x, z_y, v, 1.0, 1, "energy_grad")
+    S = ck.apply_plan(N, M, D + 2)[1]
+    label = f"N={N} M={M} D={D} ({S} column slice{'s' * (S > 1)})"
+    val, R = ck.gibbs_apply(*args)
+    if rows is None:
+        idx = torch.arange(N, device=x.device)
+    else:
+        spread = torch.linspace(0, N - 1, rows, device=x.device).round().long()
+        idx = torch.cat([spread, torch.arange(max(0, N - ck._CUDA_BLOCK), N, device=x.device)]).unique()
+        label += f", {idx.numel()} rows held against the twin"
+    xs, zs = x[idx], z_x[idx]
+    ref_v, ref_R = ck.gibbs_apply_blocked(xs, y, zs, z_y, v, 1.0, 1, "energy_grad")
+    check_apply("gibbs_apply", f"{label} energy_grad value", val[idx, None], ref_v[:, None],
+                ck.gibbs_apply_blocked(xs, y, zs, z_y, v.abs()[:, None], 1.0, 1, "energy").abs().max().item())
+    check_apply("gibbs_apply", f"{label} energy_grad R", R[idx], ref_R,
+                ck.gibbs_apply_blocked(xs, y, zs, z_y, V.abs(), 1.0, 1, "inv_dist").abs().max().item())
+    if not torch.equal(R, ck.gibbs_apply(x, y, z_x, z_y, V, 1.0, 1, "inv_dist")):
+        fail(f"gibbs_apply {label}: the fused energy form's R differs from the inv_dist apply of v [1, y]")
+    again = ck.gibbs_apply(*args)
+    if not (torch.equal(val, again[0]) and torch.equal(R, again[1])):
+        fail(f"gibbs_apply {label} energy_grad: two calls differ")
+    kv, pairs = math.ceil(D / 4), N * M
+    for what, mode, ch, call in (
+        ("energy C=1", 3, 1, lambda: ck.gibbs_apply(x, y, z_x, z_y, v[:, None], 1.0, 1, "energy")),
+        (f"inv_dist C={D + 1}", 4, 4, lambda: ck.gibbs_apply(x, y, z_x, z_y, V, 1.0, 1, "inv_dist")),
+        (f"energy_grad C=1+{D + 1}", 5, 4, lambda: ck.gibbs_apply(*args)),
+    ):
+        groups = 1 if ch == 1 else math.ceil((D + 1) / 4)
+        slots = pair_slots("gibbs_apply", kv, ch, mode, d3=mode == 5 and D <= 3)
+        t = event_ms(call, 3)
+        print(f"[time] gibbs_apply        {label} {what} (mode {mode}, {groups} group(s) of {ch}): kernel {t:.3f} ms, "
+              f"issue floor {groups * issue_ms(slots, pairs, clock):.3f} ms ({slots} slots per pair and group) "
+              f"(CUDA events); card {card}", flush=True)
+
+
 def check_sparse_apply(label, args, clock, card, time_it=True):
     """Kernel 8 against its twin on one call's arguments; its time beside
     its bound (MUFU operations per kept pair of its mode)."""
@@ -1234,6 +1292,7 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
         print(f"[time] gibbs_apply        N=M={n_small} {kind} C={V.shape[1]}: kernel {t:.3f} ms, bound "
               f"{b_ms:.3f} ms ({b_by}: 1 MUFU op per pair), issue floor {issue_ms(slots, pairs, clock):.3f} ms "
               f"({slots} slots per pair) (CUDA events); card {card}", flush=True)
+    check_energy_grad(x0, y0, w, clock, card)
 
     # --- The configurations through SamplesLoss ----------------------------------
     configs = {
@@ -1375,7 +1434,14 @@ def mmd_phase(dev, card, clock, n_small=N_POINTS, n_large=N_MMD_LARGE, large_row
                       + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in ts)} ms" for k, ts in turns.items())
                       + f" (CUDA events); card {card}", flush=True)
             del clipped
-    del xl, yl, g_l, rec
+    del g_l, rec
+    torch.cuda.empty_cache()
+
+    # --- Kernel 4's fused energy form at n_large: the energy cell's shape ----------
+    # One column slice: the kernel writes the value and R in place.
+    check_energy_grad(xl, yl, torch.full((n_large,), 1.0 / n_large, dtype=f32, device=dev), clock, card,
+                      rows=ENERGY_GRAD_ROWS)
+    del xl, yl
     torch.cuda.empty_cache()
 
     # --- The kernels line: kernel 8 at the forward apply of the 1e5 route ----------
@@ -1864,6 +1930,7 @@ def wide_dim_phase(dev, card, clock, n=N_WIDE, d=D_WIDE):
         print(f"[time] {name:18s} N=M={n} D={d} p=2: kernel {event_ms(call, 5):.3f} ms, bound {b_ms:.3f} ms "
               f"({b_by}: {pairs:.4g} exp2, {2 * fma * pairs:.4g} FP32 flops of the {fma} FFMAs per pair) "
               f"(CUDA events); card {card}", flush=True)
+    check_energy_grad(x, y, la.exp(), clock, card)
     print(f"[wide-d] phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 

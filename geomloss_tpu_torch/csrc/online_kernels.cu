@@ -17,7 +17,8 @@
 // pair blocks of pair_common.cuh: kernel 1 its online log-sum-exp
 // (lse_stage, shared with kernel 7), kernels 2 and 3 its absorbed-sum
 // stage (step_stage, shared with kernel 5), kernel 4 its row contraction
-// (apply_stage, shared with kernel 8).
+// (apply_stage, shared with kernel 8; its fused energy form,
+// energy_grad_kernel, too).
 //
 // Each entry point returns cudaGetLastError() after its launches.
 
@@ -241,6 +242,76 @@ apply_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv,
         sum;
 }
 
+// -----------------------------------------------------------------------------
+// 4, fused energy form (apply_stage's MODE 5): the energy MMD matvec's
+//    value O_i = -sum_j d_ij v_j and the rows of its x-gradient, R_i =
+//    sum_j V_j / d_ij with V_j = v_j [1, y_j] (cut to 0 where d_ij^2 <=
+//    1e-6), in one pass over the pairs where modes 3 and 4 take two.
+//    Bound: the one rsqrt.approx a pair of modes 3 and 4, and about 16
+//    issue slots a pair at D = 3: mode 4's 16 at CH = 4, with one FMUL and
+//    one FFMA for the value, less the subtraction and the FFMA of the
+//    packed point's zero fourth coordinate, which the D <= 3 instantiation
+//    (D3) leaves out (and with it 8 registers: it runs two blocks an SM
+//    with no spill, where the four-coordinate form at one float4 runs one).
+//    Design: kernel 4's blocks at CH = 4 over the packed points of p = 1,
+//    V's group g (the grid's z axis) built from v (M,) and the packed
+//    columns as the stage loads them, so that no V is read from global
+//    memory. Group 0 also carries the value: a fifth accumulator and stage
+//    partial a row (v_j is its channel 0), whose rows go to val (gridDim.y,
+//    out_rows) beside out as kernel 4 lays it out, each entry written once.
+//    The gradient channels are summed as mode 4 sums them, to the bit.
+// -----------------------------------------------------------------------------
+template <int KV, bool D3>
+__global__ void __launch_bounds__(kThreads, D3 ? 2 : 1)
+energy_grad_kernel(const float4* __restrict__ xv, const float4* __restrict__ yv, const float* __restrict__ rb,
+                   const float* __restrict__ v, float4* __restrict__ out, float* __restrict__ val, int N, int M,
+                   int row_blk0, int width, int out_rows, int kv) {
+  constexpr bool WIDE = KV == 0;
+  constexpr int KS = WIDE ? 1 : KV;  // staged float4s per point
+  __shared__ ApplySmem<KS, 4, WIDE> sm;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t i0 = (int64_t)(row_blk0 + blockIdx.x) * kThreads;
+  const int64_t left = (int64_t)N - i0;
+  const int rows = left < kThreads ? (int)left : kThreads;
+  const int g = blockIdx.z;
+  float4 xr[kPairRows][KS];
+  float br[kPairRows];
+  load_pair_rows<1, KS, WIDE>(xr, br, xv, rb, i0, rows, lane);
+  float4 acc[kPairRows];
+  float accv[kPairRows];
+#pragma unroll
+  for (int r = 0; r < kPairRows; ++r) {
+    chan_zero(acc[r]);
+    accv[r] = 0.f;
+  }
+  const int j_end = min(M, (int)(blockIdx.y + 1) * width);
+  if (g == 0) {
+    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile)
+      apply_stage<5, KV, 4, true, D3>(sm, xr, br, acc, xv, i0, rows, kv, yv, nullptr, nullptr, j0,
+                                      min(kTile, j_end - j0), 0.f, v, g, accv);
+  } else {
+    for (int j0 = blockIdx.y * width; j0 < j_end; j0 += kTile)
+      apply_stage<5, KV, 4, false, D3>(sm, xr, br, acc, xv, i0, rows, kv, yv, nullptr, nullptr, j0,
+                                       min(kTile, j_end - j0), 0.f, v, g);
+  }
+  const float4 sum = block_apply_sum(sm, acc);
+  const int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (threadIdx.x < rows) out[((int64_t)blockIdx.y * gridDim.z + g) * out_rows + row] = sum;
+  if (g == 0) {
+    // The value's rows: the 8 warps' accumulators added in warp order.
+    float* rv = reinterpret_cast<float*>(sm.red);
+    __syncthreads();  // block_apply_sum's reads of red are done
+#pragma unroll
+    for (int r = 0; r < kPairRows; ++r) rv[warp * kThreads + lane + 32 * r] = accv[r];
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += rv[w * kThreads + threadIdx.x];
+    if (threadIdx.x < rows) val[(int64_t)blockIdx.y * out_rows + row] = s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,6 +449,38 @@ int gl_gibbs_apply(const float* xv, const float* yv, const float* rb, const floa
 #undef GL_APPLY_CH
 #undef GL_APPLY_KV
 #undef GL_APPLY
+  return (int)cudaGetLastError();
+}
+
+// Kernel 4's fused energy form: row blocks row_blk0 .. row_blk0 + n_blk
+// against all columns, in n_slices slices of `width` columns (a multiple of
+// 256), for the n_groups channel groups of v [1, y] (four channels each);
+// xv and yv the packed points of p = 1 (kv float4 each, D coordinates),
+// rb the row biases (read only where a row is valid), v (M,), out
+// (n_slices, n_groups, out_rows, 4) and val (n_slices, out_rows), row 0
+// being row block row_blk0's first row.
+int gl_energy_grad_apply(const float* xv, const float* yv, const float* rb, const float* v, float* out,
+                         float* val, int N, int M, int row_blk0, int n_blk, int n_slices, int width,
+                         int n_groups, int out_rows, int kv, int D, void* stream) {
+  if (kv < 1 || D < 1 || D > 4 * kv || width % kTile || n_blk < 1 || n_groups < 1 || n_groups > kv + 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_blk, n_slices, n_groups);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float4* x4 = reinterpret_cast<const float4*>(xv);
+  const float4* y4 = reinterpret_cast<const float4*>(yv);
+  float4* o4 = reinterpret_cast<float4*>(out);
+#define GL_EGRAD(KV, D3) \
+  energy_grad_kernel<KV, D3><<<grid, kThreads, 0, s>>>(x4, y4, rb, v, o4, val, N, M, row_blk0, width, out_rows, kv)
+  switch (kv) {
+    case 1:
+      if (D <= 3) GL_EGRAD(1, true);
+      else GL_EGRAD(1, false);
+      break;
+    case 2: GL_EGRAD(2, false); break;
+    case kStepStaged: GL_EGRAD(kStepStaged, false); break;
+    default: GL_EGRAD(0, false); break;
+  }
+#undef GL_EGRAD
   return (int)cudaGetLastError();
 }
 

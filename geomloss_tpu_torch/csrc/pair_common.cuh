@@ -79,6 +79,16 @@ __device__ __forceinline__ float sqdiff4(float4 a, float4 b, float s) {
   return fmaf(dw, dw, s);
 }
 
+// sqdiff4 of points of at most three coordinates (the fourth slot zero in
+// both): the same sum, to the bit (fmaf(0, 0, s) = s), two instructions
+// fewer.
+__device__ __forceinline__ float sqdiff3(float4 a, float4 b, float s) {
+  const float dx = a.x - b.x, dy = a.y - b.y, dz = a.z - b.z;
+  s = fmaf(dx, dx, s);
+  s = fmaf(dy, dy, s);
+  return fmaf(dz, dz, s);
+}
+
 // Score accumulator of one packed chunk: p = 2 a dot product, p = 1 a sum
 // of squared differences.
 template <int P>
@@ -316,7 +326,8 @@ __device__ __forceinline__ float block_row_sum(StepSmem<P, KS, WIDE>& sm, const 
 // -----------------------------------------------------------------------------
 // The row contraction of kernels 4 and 8: O_i += sum_j w_ij V_j for the
 // lane's 8 rows against a stage of n <= kTile columns, with CH = 1 or 4
-// channels and the weights of packed_weight's modes 0-4. A warp takes C
+// channels and the weights of packed_weight's modes 0-4 (or modes 3 and 4
+// together, MODE 5: kernel 4's energy value and gradient). A warp takes C
 // columns of each pass: 4 where a pass holds four channels or wide scores
 // in registers, else 8. The stage is padded to whole passes
 // with copies of its last column whose V is 0 (they add nothing, so a
@@ -340,6 +351,8 @@ __device__ __forceinline__ void chan_fma(float w, float4 v, float4& a) {
   a.z = fmaf(w, v.z, a.z);
   a.w = fmaf(w, v.w, a.w);
 }
+__device__ __forceinline__ float chan_first(float a) { return a; }
+__device__ __forceinline__ float chan_first(float4 a) { return a.x; }
 __device__ __forceinline__ void chan_add(float& a, float b) { a += b; }
 __device__ __forceinline__ void chan_add(float4& a, float4 b) {
   a.x += b.x;
@@ -364,7 +377,17 @@ union ApplySmem {
 // against the lane's rows (xr, br; WIDE: xv's `rows` rows from i0, kv
 // float4s each), added into acc. Every thread of the block calls it: it
 // synchronises.
-template <int MODE, int KV, int CH>
+//
+// MODE 5 (kernel 4's energy_grad, CH = 4) is modes 3 and 4 in one pass:
+// acc takes channel group g of the energy gradient's r V_j, V_j = v_j [1,
+// y_j] built from vcol (M,) and the packed columns as they are staged (no
+// V in global memory), with mode 4's weight r = rsqrt(max(s, 1e-8)), cut
+// to 0 where s <= 1e-6, in mode 4's order; with VAL, accv takes the value
+// sum_j -max(s, 1e-8) r v_j (mode 3's weight, v_j being channel 0 of group
+// 0) through a stage partial of its own. cb and v are not read. D3 (MODE
+// 5, KV = 1): the points have at most three coordinates, and the score
+// leaves out the packed float4's zero fourth slot (sqdiff3).
+template <int MODE, int KV, int CH, bool VAL = false, bool D3 = false>
 __device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV == 0>& sm,
                                             const float4 (&xr)[kPairRows][KV == 0 ? 1 : KV],
                                             const float (&br)[kPairRows],
@@ -372,8 +395,13 @@ __device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV =
                                             const float4* __restrict__ xv, int64_t i0, int rows, int kv,
                                             const float4* __restrict__ yv, const float* __restrict__ cb,
                                             const typename Chan<CH>::T* __restrict__ v, int64_t j0, int n,
-                                            float c2) {
+                                            float c2, const float* __restrict__ vcol = nullptr, int g = 0,
+                                            float* accv = nullptr) {
   using VT = typename Chan<CH>::T;
+  constexpr bool FUSED = MODE == 5;
+  static_assert(!FUSED || CH == 4, "the fused energy mode takes groups of four channels");
+  static_assert(FUSED || !VAL, "only the fused energy mode carries the value");
+  static_assert(!D3 || (FUSED && KV == 1), "three coordinates: the fused energy mode, one float4 a point");
   constexpr int P = MODE == 0 ? 2 : 1;
   constexpr int R = kPairRows;
   constexpr bool WIDE = KV == 0;
@@ -392,16 +420,31 @@ __device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV =
 #pragma unroll
       for (int q = 0; q < KS; ++q) sm.st.ys[q][kk] = yv[j * KS + q];
     }
-    if constexpr (P == 1) sm.st.ycb[kk] = cb[j];
-    VT vj;
-    chan_zero(vj);
-    if (kk < n) vj = v[j];
-    sm.st.vs[kk] = vj;
+    if constexpr (FUSED) {
+      // Channels 4 g .. 4 g + 3 of v_j [1, y_j]: the last coordinate of
+      // the packed point's float4 g - 1 (the 1 for g = 0) and the first
+      // three of float4 g (zeros past the point: the packed coordinates
+      // past D are zeros). The products are those of the unfused V.
+      const int kq = WIDE ? kv : KS;
+      const float4 cur = g < kq ? yv[j * kq + g] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float prev = g == 0 ? 1.f : yv[j * kq + g - 1].w;
+      const float vj = kk < n ? vcol[j] : 0.f;
+      sm.st.vs[kk] = make_float4(vj * prev, vj * cur.x, vj * cur.y, vj * cur.z);
+    } else {
+      if constexpr (P == 1) sm.st.ycb[kk] = cb[j];
+      VT vj;
+      chan_zero(vj);
+      if (kk < n) vj = v[j];
+      sm.st.vs[kk] = vj;
+    }
   }
   __syncthreads();
   VT part[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) chan_zero(part[r]);
+  float pval[VAL ? R : 1];
+#pragma unroll
+  for (int r = 0; r < (VAL ? R : 1); ++r) pval[r] = 0.f;
   for (int b = 0; b < n_pad; b += PASS) {
     const int cb0 = b + warp * C;
     float s[WIDE ? R : 1][C];
@@ -429,7 +472,7 @@ __device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV =
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const VT vc = sm.st.vs[cb0 + c];
-      const float bc = P == 1 ? sm.st.ycb[cb0 + c] : 0.f;
+      const float bc = (P == 1 && !FUSED) ? sm.st.ycb[cb0 + c] : 0.f;
       float4 y[KS];
       if constexpr (!WIDE) {
 #pragma unroll
@@ -442,15 +485,31 @@ __device__ __forceinline__ void apply_stage(ApplySmem<KV == 0 ? 1 : KV, CH, KV =
           sc = s[r][c];
         } else {
           sc = P == 2 ? br[r] : 0.f;
+          if constexpr (D3) {
+            sc = sqdiff3(xr[r][0], y[0], sc);
+          } else {
 #pragma unroll
-          for (int q = 0; q < KS; ++q) sc = packed_acc<P>(xr[r][q], y[q], sc);
+            for (int q = 0; q < KS; ++q) sc = packed_acc<P>(xr[r][q], y[q], sc);
+          }
         }
-        chan_fma(packed_weight<P, MODE>(sc, br[r] + bc, c2), vc, part[r]);
+        if constexpr (FUSED) {
+          // One MUFU for both weights: packed_weight's modes 4 and 3.
+          const float m = fmaxf(sc, kSqdistFloor);
+          const float rs = fast_rsqrt(m);
+          chan_fma(sc > kGradCut ? rs : 0.f, vc, part[r]);
+          if constexpr (VAL) pval[r] = fmaf(-m * rs, chan_first(vc), pval[r]);
+        } else {
+          chan_fma(packed_weight<P, MODE>(sc, br[r] + bc, c2), vc, part[r]);
+        }
       }
     }
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) chan_add(acc[r], part[r]);
+  if constexpr (VAL) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) accv[r] += pval[r];
+  }
 }
 
 // Rows of the block: the 8 warps' accumulators of each row, added in warp

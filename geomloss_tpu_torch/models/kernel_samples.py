@@ -16,7 +16,14 @@ Three routes:
 * ``kernel_tensorized`` (``use_streaming=False``): dense kernel matrices;
 * ``kernel_online`` (``use_streaming=True``): the streaming matvec
   :func:`geomloss_tpu_torch.ops.softmin.gibbs_matvec` (kernel 4 on the
-  card), never building the ``N x M`` matrix;
+  card), never building the ``N x M`` matrix. The energy kernel's ``K_xx
+  a`` and ``K_xy b``, whose x requires grad (with grad enabled), compute
+  the gradient's channels in their forward, one pass over the pairs for
+  the value and the gradient in x, so the backward makes no apply for x:
+  three passes a loss and gradient instead of five. A loss computed with
+  grad enabled and x requiring grad but never differentiated pays those
+  two fused passes (about 1.2x a value-only pass each at D = 3); under
+  ``torch.no_grad()`` it pays nothing more;
 * ``kernel_multiscale``: points spatially sorted into tiles, and only the
   tile pairs within the kernel's support radius visited
   (:func:`~geomloss_tpu_torch.ops.block_sparse.masks_from_geometry`,

@@ -46,10 +46,13 @@ keep it under :data:`STEP_SCRATCH_BYTES` plus ``O(N + M)``
 (:func:`step_plan`, :func:`sym_step_plan`, :func:`apply_plan`; the LSE's
 slices shrink to fit, :func:`lse_plan`). One :func:`gibbs_apply` call
 is one launch wherever its scratch fits the budget: its channel groups
-are the grid's third axis.
+are the grid's third axis. Its fused energy form (``kind="energy_grad"``,
+``energy_grad_kernel``) gives the energy MMD's value and its gradient's
+channels from one pass over the pairs.
 """
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -256,6 +259,9 @@ _LIB = KernelLibrary(
         # xv, yv, rb, cb, v, out, N, M, row_blk0, n_blk, n_slices, width,
         # n_groups, out_rows, kv, ch, mode, c2, stream
         "gl_gibbs_apply": [_P] * 6 + [_I] * 11 + [_F, _P],
+        # xv, yv, rb, v, out, val, N, M, row_blk0, n_blk, n_slices, width,
+        # n_groups, out_rows, kv, D, stream
+        "gl_energy_grad_apply": [_P] * 6 + [_I] * 10 + [_P],
     },
 )
 
@@ -599,9 +605,31 @@ def _check_kind(kind):
         raise ValueError(f"Unknown gibbs_apply kind: {kind!r}")
 
 
+#: The fused energy kind of :func:`gibbs_apply` (kernel 4 only): the energy
+#: value and the x-gradient's channels from one pass.
+ENERGY_GRAD = "energy_grad"
+
+
+def ones_points(y, v):
+    """``v [1, y]``: the points with a ones column in front, each row times
+    v; the channels whose apply gives a gradient in the other points
+    (:data:`ENERGY_GRAD`'s ``V``)."""
+    return v[:, None] * torch.cat([torch.ones_like(y[:, :1]), y], -1)
+
+
+def energy_grad_plain(apply, x, y, phi, psi, v, eps, p):
+    """:data:`ENERGY_GRAD` from two plain applies ``apply(x, y, phi, psi,
+    V, eps, p, kind)``: the energy kind's of v and the inv_dist kind's of
+    ``v [1, y]``."""
+    value = apply(x, y, phi, psi, v[:, None], eps, p, "energy")[:, 0]
+    return value, apply(x, y, phi, psi, ones_points(y, v), eps, p, "inv_dist")
+
+
 def gibbs_apply_blocked(x, y, phi, psi, V, eps, p=2, kind="gibbs", block_m=BLOCK_M):
     """Plain twin of :func:`gibbs_apply`: ``O_i = sum_j w_ij V_j`` over
-    column blocks."""
+    column blocks; :data:`ENERGY_GRAD` by :func:`energy_grad_plain`."""
+    if kind == ENERGY_GRAD:
+        return energy_grad_plain(functools.partial(gibbs_apply_blocked, block_m=block_m), x, y, phi, psi, V, eps, p)
     _check_kind(kind)
     dt = _acc(x, y, phi, psi, V)
     x, y, phi, psi, Va = (t.to(dt) for t in (x, y, phi, psi, V))
@@ -765,7 +793,16 @@ def gibbs_apply(x, y, phi, psi, V, eps, p=2, kind="gibbs"):
     V ``(M, C)`` -> ``(N, C)`` in V's dtype. One channel goes through the
     kernel alone, more in groups of four, all groups in one launch
     (:func:`_channel_groups`, :func:`apply_plan`).
+
+    ``kind=ENERGY_GRAD`` takes ``V`` the ``(M,)`` vector v and returns the
+    energy kind's ``(N,)`` value of v and the inv_dist kind's ``(N, 1 +
+    D)`` apply of ``v [1, y]``, from one pass over the pairs
+    (:func:`_energy_grad_apply`).
     """
+    if kind == ENERGY_GRAD:
+        if not x.is_cuda:
+            return gibbs_apply_blocked(x, y, phi, psi, V, eps, p, kind)
+        return _energy_grad_apply(x, y, phi, V)
     _check_kind(kind)
     if not x.is_cuda:
         return gibbs_apply_blocked(x, y, phi, psi, V, eps, p, kind)
@@ -776,27 +813,73 @@ def gibbs_apply(x, y, phi, psi, V, eps, p=2, kind="gibbs"):
     N, M, C = x.shape[0], y.shape[0], V.shape[1]
     v = _group_channels(V)
     ng, _, ch = v.shape
+    c2 = LOG2E / eps if mode <= 2 else 0.0
+
+    def launch(b0, n, S, width, dst, vdst, out_rows):
+        _launch(
+            "gibbs_apply", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(), v.data_ptr(),
+            dst, N, M, b0, n, S, width, ng, out_rows, kv, ch, mode, c2,
+        )
+
+    out, _ = _apply_launches(x.device, N, M, C, ng, ch, launch)
+    return _ungroup_channels(out, C).to(V.dtype)
+
+
+def _apply_launches(device, N, M, C, ng, ch, launch, value=False):
+    """Kernel 4's launches over the rows of one apply, for both of its
+    entries: ``out (ng, N, ch)`` and, with ``value``, the fused energy
+    form's ``(N,)`` value. Row blocks go in chunks of :func:`apply_plan`'s
+    ``R`` (``C`` the channels it plans for), one ``launch(b0, n, S, width,
+    dst, vdst, out_rows)`` a chunk. With one column slice the kernel writes
+    ``out`` (and the value) in place; with several, each slice's row
+    partials of the chunk, summed in a fixed order before the next chunk."""
     nb = _cdiv(N, _CUDA_BLOCK)
     R, S, width = apply_plan(N, M, C)
-    c2 = LOG2E / eps if mode <= 2 else 0.0
-    f32 = dict(dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=device)
     out = torch.empty((ng, N, ch), **f32)
-    # With several slices, each slice's row partials of one chunk of row
-    # blocks, summed in a fixed order before the next chunk:
-    part = torch.empty((S, ng, R * _CUDA_BLOCK, ch), **f32) if S > 1 else None
-    with torch.cuda.device(x.device):
+    val = torch.empty(N, **f32) if value else None
+    if S > 1:
+        part = torch.empty((S, ng, R * _CUDA_BLOCK, ch), **f32)
+        vpart = torch.empty((S, R * _CUDA_BLOCK), **f32) if value else None
+    with torch.cuda.device(device):
         for b0 in range(0, nb, R):
             n = min(R, nb - b0)
+            i0, i1 = b0 * _CUDA_BLOCK, min(N, (b0 + n) * _CUDA_BLOCK)
             if S == 1:
-                dst, out_rows = out.data_ptr() + 4 * ch * b0 * _CUDA_BLOCK, N
+                vdst = val.data_ptr() + 4 * i0 if value else 0
+                launch(b0, n, S, width, out.data_ptr() + 4 * ch * i0, vdst, N)
             else:
-                dst, out_rows = part.data_ptr(), R * _CUDA_BLOCK
-            _launch(
-                "gibbs_apply", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), cb.data_ptr(), v.data_ptr(),
-                dst, N, M, b0, n, S, width, ng, out_rows, kv, ch, mode, c2,
-            )
-            profiling.count("kernels.pairs", (min(N, (b0 + n) * _CUDA_BLOCK) - b0 * _CUDA_BLOCK) * M)
+                launch(b0, n, S, width, part.data_ptr(), vpart.data_ptr() if value else 0, R * _CUDA_BLOCK)
+            profiling.count("kernels.pairs", (i1 - i0) * M)
             if S > 1:
-                i0, i1 = b0 * _CUDA_BLOCK, min(N, (b0 + n) * _CUDA_BLOCK)
                 out[:, i0:i1] = part[:, :, : i1 - i0].sum(0)
-    return _ungroup_channels(out, C).to(V.dtype)
+                if value:
+                    val[i0:i1] = vpart[:, : i1 - i0].sum(0)
+    return out, val
+
+
+def _energy_grad_apply(x, y, phi, v):
+    """Kernel 4's fused energy form: ``(O, R)`` with ``O_i = -sum_j d_ij
+    v_j`` and ``R_i = sum_j V_j / d_ij``, ``V = v [1, y]`` (zero where
+    ``d_ij^2 <= GRAD_SQDIST_CUT``), in v's dtype. One launch a chunk of row
+    blocks: the groups of four channels of ``V`` are the grid's third axis,
+    each built in the kernel from v and the packed columns, and group 0
+    also sums the value. R is the inv_dist kind's apply of ``V`` to the
+    bit, O the energy kind's up to the order of its sums."""
+    _check_cuda("gibbs_apply", x, y, phi, v)
+    if tuple(v.shape) != (y.shape[0],):
+        raise ValueError("gibbs_apply: energy_grad takes v (M,).")
+    xv, yv, rb, _, kv = _pair_vectors(x, y, phi, torch.zeros_like(v), 1.0, 1)
+    vf = _f32(v)
+    N, M, C = x.shape[0], y.shape[0], 1 + x.shape[1]
+    ng = _channel_groups(C)[1] // _CHANNELS
+
+    def launch(b0, n, S, width, dst, vdst, out_rows):
+        _LIB.launch(
+            "energy_grad_apply", xv.data_ptr(), yv.data_ptr(), rb.data_ptr(), vf.data_ptr(), dst, vdst,
+            N, M, b0, n, S, width, ng, out_rows, kv, x.shape[1], count="gibbs_apply",
+        )
+
+    # The value's partials take one channel more than V's:
+    out, val = _apply_launches(x.device, N, M, C + 1, ng, _CHANNELS, launch, value=True)
+    return val.to(v.dtype), _ungroup_channels(out, C).to(v.dtype)

@@ -22,6 +22,8 @@ log-sum-exp is a softmax-weighted reduction with the same structure as the
 forward pass, so gradients also run in ``O(N + M)`` memory.
 """
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -240,16 +242,21 @@ def gibbs_apply(x, y, phi, psi, V, eps, p, kind="gibbs", impl="auto"):
     * ``kind='gibbs'``:      ``w_ij = exp(phi_i + psi_j - C_p(x_i,y_j)/eps)``
     * ``kind='gibbs_grad'``: same, divided by ``|x_i - y_j|`` when ``p == 1``,
     * ``kind='energy'``:     ``w_ij = -|x_i - y_j|``,
-    * ``kind='inv_dist'``:   ``w_ij = 1 / |x_i - y_j|``.
+    * ``kind='inv_dist'``:   ``w_ij = 1 / |x_i - y_j|``,
+    * ``kind='energy_grad'``: both of the last two from one pass, ``V``
+      being the ``(M,)`` vector v: the energy kind's ``(N,)`` apply of v
+      and the inv_dist kind's ``(N, 1 + D)`` apply of ``v [1, y]``.
 
     Args:
         x: ``(N, D)``; y: ``(M, D)``; phi: ``(N,)``; psi: ``(M,)``;
         V: ``(M, C)``; eps: scalar; p: 1 or 2; kind, impl: strings.
 
     Returns:
-        ``(N, C)`` tensor.
+        ``(N, C)`` tensor (for ``energy_grad`` the pair of tensors).
     """
     impl = _resolve_impl(impl, x, y)
+    if kind == ck.ENERGY_GRAD and impl != "cuda":
+        return ck.energy_grad_plain(functools.partial(gibbs_apply, impl=impl), x, y, phi, psi, V, eps, p)
     if impl == "dense":
         return _gibbs_apply_dense(x, y, phi, psi, V, eps, p, kind)
     if impl == "blocked":
@@ -377,19 +384,27 @@ def softmin_points(eps, C_xy, h, p=2, impl="auto", cost=None):
 @profiling.autograd_spans
 class _GibbsMatvec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, y, v, eps, p, kind, impl):
-        ctx.save_for_backward(x, y, v)
+    def forward(ctx, x, y, v, eps, p, kind, impl, fold):
         ctx.eps, ctx.p, ctx.kind, ctx.impl = eps, p, kind, impl
         z_n, z_m = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
         profiling.count("matvec.forwards")
         profiling.count("matvec.pairs", x.shape[0] * y.shape[0])
+        if fold:
+            # The energy value and the backward's dx apply from one pass; the
+            # backward needs x R_0 - R_1: of it.
+            profiling.count("matvec.grad_in_forward")
+            out, R = gibbs_apply(x, y, z_n, z_m, v, eps, p, kind=ck.ENERGY_GRAD, impl=impl)
+            ctx.save_for_backward(x, y, v, x * R[:, :1] - R[:, 1:])
+            return out
+        ctx.save_for_backward(x, y, v, None)
         return gibbs_apply(x, y, z_n, z_m, v[:, None], eps, p, kind=kind, impl=impl)[:, 0]
 
     @staticmethod
     def backward(ctx, u):
         # Only the applies whose gradients autograd asks for: the MMD self
-        # terms detach y and v, so they take one apply, not three.
-        x, y, v = ctx.saved_tensors
+        # terms detach y and v, so they take one apply, not three, and none
+        # where the forward folded dx's in (G = x R_0 - R_1:).
+        x, y, v, G = ctx.saved_tensors
         eps, p, kind, impl = ctx.eps, ctx.p, ctx.kind, ctx.impl
         need_x, need_y, need_v = ctx.needs_input_grad[:3]
         z_n, z_m = x.new_zeros(x.shape[0]), y.new_zeros(y.shape[0])
@@ -409,21 +424,21 @@ class _GibbsMatvec(torch.autograd.Function):
 
         dx = dy = dv = None
         if need_x:
-            Vy = v[:, None] * torch.cat([torch.ones_like(y[:, :1]), y], -1)
-            R = apply(x, y, z_n, z_m, Vy, wk)
-            dx = (-(u * scale)[:, None] * (x * R[:, :1] - R[:, 1:])).to(x.dtype)
+            if G is None:
+                R = apply(x, y, z_n, z_m, ck.ones_points(y, v), wk)
+                G = x * R[:, :1] - R[:, 1:]
+            dx = (-(u * scale)[:, None] * G).to(x.dtype)
         # For p=2 Gibbs weights, dv is the ones channel of the column apply.
         dv_from_T = kind == "gibbs" and p == 2
         if need_y or (need_v and dv_from_T):
-            Ux = u[:, None] * torch.cat([torch.ones_like(x[:, :1]), x], -1)
-            T = apply(y, x, z_m, z_n, Ux, wk)
+            T = apply(y, x, z_m, z_n, ck.ones_points(x, u), wk)
             if need_y:
                 dy = (-(v * scale)[:, None] * (y * T[:, :1] - T[:, 1:])).to(y.dtype)
             if need_v and dv_from_T:
                 dv = T[:, 0].to(v.dtype)
         if need_v and not dv_from_T:
             dv = apply(y, x, z_m, z_n, u[:, None], dvk)[:, 0].to(v.dtype)
-        return dx, dy, dv, None, None, None, None
+        return dx, dy, dv, None, None, None, None, None
 
 
 def gibbs_matvec(x, y, v, eps, p, kind, impl):
@@ -431,5 +446,15 @@ def gibbs_matvec(x, y, v, eps, p, kind, impl):
 
     ``kind='gibbs'``: :math:`k = \exp(-C_p/\varepsilon)`;
     ``kind='energy'``: :math:`k = -|x - y|`.
+
+    The energy kind with grad enabled and ``x`` requiring grad folds the
+    gradient in x into the forward: one pass over the pairs gives ``O``
+    and the channels of ``dx`` (kernel 4's fused energy form, the
+    ``energy_grad`` kind of :func:`gibbs_apply`), so the backward makes no
+    apply for ``x``. A forward that no backward follows then pays that
+    pass (about 1.2x the value's alone at D = 3) instead of the value's;
+    under ``torch.no_grad()`` it pays nothing more. The gibbs kinds never
+    fold.
     """
-    return _GibbsMatvec.apply(x, y, v, eps, p, kind, impl)
+    fold = kind == "energy" and torch.is_grad_enabled() and x.requires_grad
+    return _GibbsMatvec.apply(x, y, v, eps, p, kind, impl, fold)

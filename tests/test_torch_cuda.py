@@ -881,6 +881,79 @@ def test_energy_mmd_holds_its_tolerance(cuda_device):
     assert (g.double() - g64).norm().item() <= 1e-3 * max(g_self.norm().item(), g_cross.norm().item())
 
 
+@pytest.mark.parametrize("slices", [False, True])
+@pytest.mark.parametrize("D", [2, 3, 4, 8, 11, 17])
+@pytest.mark.parametrize("shape", [(1000, 1283), (257, 4099)])
+def test_energy_grad_apply_matches_twin(cuda_device, shape, D, slices, monkeypatch):
+    """Kernel 4's fused energy form (D = 2 and 3: one staged float4, the
+    three-coordinate instantiation; 4, 8 and 11: the staged forms with a
+    group past the point's last float4 or not; 17: the wide form), N != M
+    with ragged tails, one column slice or several:
+    one launch; the value within the twin's tolerance of the energy kind,
+    R within it of the inv_dist kind of v [1, y], and R equal to the bit to
+    kernel 4's own inv_dist apply of that V, the value to its energy apply
+    within 1e-6 of the largest entry."""
+    N, M = shape
+    x, y, psi = problem(N, M, D=D, seed=N + D)
+    rng = np.random.RandomState(D)
+    v = np.abs(rng.randn(M)).astype(np.float32)
+    V = v[:, None] * np.concatenate([np.ones((M, 1), np.float32), y], 1)
+    z_x, z_y = np.zeros(N, np.float32), np.zeros(M, np.float32)
+    t = tensors(x, y, z_x, z_y, v, V, device=cuda_device)
+    if not slices:
+        monkeypatch.setattr(ck, "_STEP_BLOCKS", 1)
+    assert (ck.apply_plan(N, M, D + 2)[1] > 1) == slices
+    before = ck.launch_counts["gibbs_apply"]
+    val, R = ck.gibbs_apply(*t[:5], 1.0, 1, "energy_grad")
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gibbs_apply"] - before == 1
+    assert val.shape == (N,) and R.shape == (N, D + 1)
+    ref_v, ref_R = ck.gibbs_apply_blocked(*(a.cpu() for a in t[:5]), 1.0, 1, "energy_grad")
+    assert_apply_close(val[:, None], ref_v[:, None], **apply_tolerance(x, y, z_x, z_y, v[:, None], 1.0, 1, "energy"))
+    assert_apply_close(R, ref_R, **apply_tolerance(x, y, z_x, z_y, V, 1.0, 1, "inv_dist"))
+    assert torch.equal(R, ck.gibbs_apply(*t[:4], t[5], 1.0, 1, "inv_dist"))
+    energy = ck.gibbs_apply(*t[:4], t[4][:, None], 1.0, 1, "energy")[:, 0]
+    assert (val - energy).abs().max().item() <= 1e-6 * energy.abs().max().item()
+    again = ck.gibbs_apply(*t[:5], 1.0, 1, "energy_grad")
+    assert torch.equal(val, again[0]) and torch.equal(R, again[1])
+
+
+def test_energy_mmd_folds_dx_into_the_forward(cuda_device, monkeypatch):
+    """The energy loss at 2e4 points on the card: its two matvecs whose x
+    requires grad (K_xx a and K_xy b) take kernel 4's fused energy form in
+    their forward. Against the same loss with the matvec unfolded (mode 3
+    forward, mode 4 backward): the gradient in x equal to the bit, the loss
+    within 1e-6 relative; three kernel 4 launches a call against five."""
+    from geomloss_tpu_torch import SamplesLoss
+    from geomloss_tpu_torch.models import kernel_samples as ks
+    from geomloss_tpu_torch.ops import softmin as tsm
+    from geomloss_tpu_torch.utils import profiling
+
+    n = 20_000
+    rng = np.random.RandomState(1)
+    x, y = (torch.tensor(v / (2 * np.linalg.norm(v, axis=1, keepdims=True)), dtype=torch.float32,
+                         device=cuda_device) for v in (rng.randn(n, 3), rng.randn(n, 3) + 0.3))
+    a, b = (torch.tensor(w / w.sum(), dtype=torch.float32, device=cuda_device)
+            for w in (np.abs(rng.randn(n)), np.abs(rng.randn(n))))
+    loss = SamplesLoss("energy")
+
+    def run():
+        xt = x.clone().requires_grad_(True)
+        before = (ck.launch_counts["gibbs_apply"], profiling.totals.get("matvec.grad_in_forward", 0))
+        value = loss(a, xt, b, y)
+        grad = torch.autograd.grad(value, xt)[0]
+        torch.cuda.synchronize()
+        after = (ck.launch_counts["gibbs_apply"], profiling.totals.get("matvec.grad_in_forward", 0))
+        return value.detach(), grad, np.subtract(after, before).tolist()
+
+    v1, g1, n1 = run()
+    monkeypatch.setattr(ks, "gibbs_matvec", lambda *args: tsm._GibbsMatvec.apply(*args, False))
+    v0, g0, n0 = run()
+    assert (n1, n0) == ([3, 2], [5, 0])
+    assert abs(v1 - v0).item() <= 1e-6 * abs(v0).item()
+    assert torch.equal(g1, g0)
+
+
 # ------------------------------------------------------------------------------
 #  Kernels 1 and 7 (and 9, on 7) on the register-tiled LSE stage: column
 #  slices and kept-tile ranges merged by a second kernel, ragged shapes,

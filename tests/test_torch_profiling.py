@@ -214,15 +214,16 @@ def test_gaussian_multiscale_route_spans():
 
 def test_energy_online_route_counts():
     """The energy loss above 5000^2 pairs (``auto``: the online route)
-    makes three streaming applies in its forward (xx, yy, xy) and two in
-    its backward (xx and xy, the rows of x), each over N M pairs."""
+    makes three streaming applies, all in its forward (xx, yy, xy), each
+    over N M pairs: the two whose x requires grad (xx and xy) carry the
+    gradient's channels, so the backward of either makes none."""
     n = 5008
     _, x, _, y, run = _call(dict(loss="energy"), n)
     _, spans, counts = _recorded(run)
     names = collections.Counter(s.name for s in spans)
     assert names == {"loss": 1, "mmd.applies": 1, "backward.GibbsMatvec": 2}
     _check_tree(spans)
-    assert counts == {"matvec.forwards": 3, "matvec.backward_applies": 2, "matvec.pairs": 5 * n * n}
+    assert counts == {"matvec.forwards": 3, "matvec.grad_in_forward": 2, "matvec.pairs": 3 * n * n}
 
 
 def test_calls_take_new_ids_and_backward_keeps_its_call():

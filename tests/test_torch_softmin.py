@@ -143,6 +143,83 @@ def test_gibbs_matvec_value_and_grad(p, kind):
             _close(t, j, GRAD_RTOL)
 
 
+def _fold_counts():
+    from geomloss_tpu_torch.utils import profiling
+
+    return [profiling.totals.get(k, 0) for k in ("matvec.forwards", "matvec.grad_in_forward")]
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("wrt", ["x", "xyv"])
+def test_gibbs_matvec_energy_folded_forward(wrt, impl):
+    """The energy matvec with x requiring grad makes the gradient's apply in
+    its forward (the energy_grad kind): its value within 1e-6 of the
+    unfolded matvec's, its gradients (in x alone, or with y and v) equal to
+    the unfolded ones and within GRAD_RTOL of the JAX package's."""
+    d = _data(seed=44)
+    u = torch.tensor(d["u"])
+
+    def jf(x, y, v):
+        return jnp.dot(jsm.gibbs_matvec(x, y, v, 1.0, 1, "energy", "dense"), d["u"])
+
+    jv, jg = jax.jit(jax.value_and_grad(jf, argnums=(0, 1, 2)))(d["x"], d["y"], d["v"])
+    runs = {}
+    for fold in (True, False):
+        leaves = [torch.tensor(d[k], requires_grad=k in wrt) for k in "xyv"]
+        before = _fold_counts()
+        out = tsm._GibbsMatvec.apply(*leaves, 1.0, 1, "energy", impl, fold)
+        assert np.subtract(_fold_counts(), before).tolist() == [1, int(fold)]
+        grads = torch.autograd.grad(torch.dot(out, u), [t for t in leaves if t.requires_grad])
+        runs[fold] = out.detach(), grads
+    (v1, g1), (v0, g0) = runs[True], runs[False]
+    torch.testing.assert_close(v1, v0, rtol=1e-6, atol=1e-6 * v0.abs().max().item())
+    _close(torch.dot(v1, u), jv, VAL_RTOL)
+    for a, b, j in zip(g1, g0, [g for k, g in zip("xyv", jg) if k in wrt]):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+        _close(a, j, GRAD_RTOL)
+
+
+def test_gibbs_apply_energy_grad_kind():
+    """The fused kind: the energy kind's value of v and the inv_dist kind's
+    apply of v [1, y], on the dense path, the plain twin and the wrapper
+    (its twin on the CPU); an unknown kind still raises."""
+    from geomloss_tpu_torch.ops import cuda_kernels as ck
+
+    d = _data(N=40, M=50, D=4, seed=45)
+    x, y, v = (torch.tensor(d[k]) for k in "xyv")
+    zx, zy = torch.zeros(40, dtype=x.dtype), torch.zeros(50, dtype=x.dtype)
+    value = tsm.gibbs_apply(x, y, zx, zy, v[:, None], 1.0, 1, kind="energy", impl="dense")[:, 0]
+    R = tsm.gibbs_apply(x, y, zx, zy, v[:, None] * torch.cat([torch.ones(50, 1, dtype=x.dtype), y], 1), 1.0, 1,
+                        kind="inv_dist", impl="dense")
+    for got in (tsm.gibbs_apply(x, y, zx, zy, v, 1.0, 1, kind="energy_grad", impl="dense"),
+                ck.gibbs_apply_blocked(x, y, zx, zy, v, 1.0, 1, "energy_grad", block_m=16),
+                ck.gibbs_apply(x, y, zx, zy, v, 1.0, 1, "energy_grad")):
+        assert got[0].shape == (40,) and got[1].shape == (40, 5)
+        _close(got[0], value, VAL_RTOL)
+        _close(got[1], R, VAL_RTOL)
+    with pytest.raises(ValueError, match="kind"):
+        ck.gibbs_apply(x, y, zx, zy, v[:, None], 1.0, 1, "energy_grad_2")
+
+
+_FOLD_CASES = {"grad": ("energy", 1, True, True), "no_grad": ("energy", 1, False, True),
+               "x_constant": ("energy", 1, True, False), "gibbs_p2": ("gibbs", 2, True, True),
+               "gibbs_p1": ("gibbs", 1, True, True)}
+
+
+@pytest.mark.parametrize("case", list(_FOLD_CASES))
+def test_gibbs_matvec_fold_counters(case):
+    """``matvec.forwards`` counts every forward of the streaming matvec and
+    ``matvec.grad_in_forward`` the folded ones: the energy kind with grad
+    enabled and x requiring grad, never a gibbs kind."""
+    kind, p, grad, x_grad = _FOLD_CASES[case]
+    d = _data(seed=46)
+    x = torch.tensor(d["x"], requires_grad=x_grad)
+    before = _fold_counts()
+    with torch.set_grad_enabled(grad):
+        tsm.gibbs_matvec(x, torch.tensor(d["y"]), torch.tensor(d["v"]), 0.4, p, kind, "blocked")
+    assert np.subtract(_fold_counts(), before).tolist() == [1, int(case == "grad")]
+
+
 def test_lse_points_custom_value_and_grad():
     """User cost callables: plain autograd over checkpointed blocks."""
     d = _data(seed=50)
